@@ -1,0 +1,191 @@
+"""Warm-started Jacobi-preconditioned block conjugate gradient (marker space).
+
+Port of the main-path part of ``gvamp_tpu/cg.py``: ``solve_block`` with its
+rider, the tracked and secant-extrapolated warm starts, the exit Gram
+identity, and the two-pass LMMSE operator.  The solver's ``lax.while_loop``
+is a Python loop: its exit test reads the per-column done flags on the host,
+one counted sync per CG iteration (``gvamp_tpu_torch.sync``); the
+``lax.cond`` of ``tracked_warm_start`` is one more sync per solve.  Column
+freezing and the exit semantics are those of ``cg.py:213-258``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from gvamp_tpu_torch.sync import host_bool
+
+
+class CGResult(NamedTuple):
+    mu: torch.Tensor
+    iters: torch.Tensor                    # int32 [B] per-column iterations
+    rel_err: torch.Tensor                  # [B]
+    r: torch.Tensor                        # final residual V - Q mu
+    rider_out: Optional[torch.Tensor] = None  # A @ rider (first iteration)
+
+
+def solve_block(
+    mult_block: Callable[[torch.Tensor], torch.Tensor],
+    V: torch.Tensor,          # [M, B] right-hand sides
+    mu_start: torch.Tensor,   # [M, B]
+    diag,                     # scalar or [M] Jacobi preconditioner
+    gam2,
+    max_iter: int,
+    modes: tuple,             # per column: 0 = residual exit, 1 = onsager exit
+    err_tol: float = 1e-5,
+    onsager_tol: float = 1e-8,
+    r0: Optional[torch.Tensor] = None,  # precomputed V - mult(mu_start)
+    rider: Optional[torch.Tensor] = None,  # [M, R] columns whose forward
+                                           # product rides iteration 1
+    rider_mult=None,          # (P, X) -> (Q P, A X); required with rider
+    plateau: int = 0,         # windowed stagnation exit (cg.py:136-152)
+) -> CGResult:
+    """Batched CG: each column runs its own recursion, every iteration costs
+    one wide pass; converged columns freeze (alpha = 0) while the rest keep
+    iterating, and the loop exits when all columns are done."""
+    dt, dev = V.dtype, V.device
+    B = V.shape[1]
+    modes_t = torch.as_tensor(list(modes), dtype=torch.int32, device=dev)
+    diag_c = torch.as_tensor(diag, dtype=dt, device=dev)
+    diag_c = diag_c[:, None] if diag_c.ndim == 1 else diag_c
+    gam2_b = torch.as_tensor(gam2, dtype=dt, device=dev) * torch.ones(
+        (B,), dtype=dt, device=dev)
+
+    def apply_m(r):
+        return r / diag_c
+
+    if r0 is None:
+        r0 = V - mult_block(mu_start)
+    z0 = apply_m(r0)
+    norm_v2 = torch.square(V).sum(dim=0)
+    norm_v = torch.sqrt(torch.where(norm_v2 == 0, 1.0, norm_v2))
+
+    # the loop state of cg.py's S tuple; win_best starts at inf so the first
+    # window boundary only records a baseline
+    s = dict(i=0, mu=mu_start, r=r0, z=z0, p=z0, rz=(r0 * z0).sum(dim=0),
+             prev_ons=torch.zeros((B,), dtype=dt, device=dev),
+             rel_err=torch.full((B,), float("inf"), dtype=dt, device=dev),
+             done=torch.zeros((B,), dtype=torch.bool, device=dev),
+             iters=torch.zeros((B,), dtype=torch.int32, device=dev),
+             best=torch.sqrt(torch.square(r0).sum(dim=0)) / norm_v,
+             win_best=torch.full((B,), float("inf"), dtype=dt, device=dev))
+
+    def body_with(s, d):
+        pd = (d * s["p"]).sum(dim=0)
+        alpha = torch.where(s["done"] | (pd == 0), 0.0,
+                            s["rz"] / torch.where(pd == 0, 1.0, pd))
+        mu = s["mu"] + alpha[None, :] * s["p"]
+        ons = gam2_b * (V * mu).sum(dim=0)
+        ons_rel = torch.where(ons != 0, torch.abs((ons - s["prev_ons"]) / ons),
+                              1.0)
+        r = s["r"] - alpha[None, :] * d
+        z = apply_m(r)
+        rz_new = (r * z).sum(dim=0)
+        beta = torch.where(s["done"] | (s["rz"] == 0), 0.0,
+                           rz_new / torch.where(s["rz"] == 0, 1.0, s["rz"]))
+        p = z + beta[None, :] * s["p"]
+        rel_err = torch.sqrt(torch.square(r).sum(dim=0)) / norm_v
+        done = s["done"] | torch.where(modes_t == 1, ons_rel < onsager_tol,
+                                       rel_err < err_tol)
+        best = torch.minimum(s["best"], rel_err)
+        win_best = s["win_best"]
+        if plateau > 0 and (s["i"] + 1) % plateau == 0:
+            done = done | (best > 0.7 * s["win_best"])
+            win_best = best
+        return dict(i=s["i"] + 1, mu=mu, r=r, z=z, p=p, rz=rz_new,
+                    prev_ons=ons, rel_err=rel_err, done=done,
+                    iters=s["iters"] + (~s["done"]).to(torch.int32),
+                    best=best, win_best=win_best)
+
+    ax_rider = None
+    if rider is not None:
+        # peel iteration 1: the same recursion, with the rider columns on the
+        # wide forward pass (frozen columns take alpha = 0 steps, so peeling
+        # is exact even when the warm start already meets every exit test)
+        d0, ax_rider = rider_mult(s["p"], rider)
+        s = body_with(s, d0)
+    while s["i"] < max_iter and not host_bool(s["done"].all()):
+        s = body_with(s, mult_block(s["p"]))
+    return CGResult(mu=s["mu"], iters=s["iters"], rel_err=s["rel_err"],
+                    r=s["r"], rider_out=ax_rider)
+
+
+def tracked_warm_start(V, mu0_raw, gmu_raw, tau_now, tau_ref, gam2_cols,
+                       it: int, refresh: int, multb):
+    """Safe CG warm start from a tracked Gram product: (mu0, r0).  The
+    guards of ``gvamp_tpu/cg.py:264-291``: a true init mult (warm start
+    kept) on refresh ticks, a cold or stale tracked product, or non-finite
+    carried state; an all-zero warm start never pays the mult."""
+    finite = torch.isfinite(mu0_raw).all() & torch.isfinite(gmu_raw).all()
+    mu0 = torch.where(finite, mu0_raw, torch.zeros_like(mu0_raw))
+    zero = (mu0 == 0).all()
+    gmu = torch.where(finite & ~zero, gmu_raw, torch.zeros_like(gmu_raw))
+    tau_now_t = torch.as_tensor(tau_now)
+    tau_ref_t = torch.as_tensor(tau_ref)
+    stale = ((tau_ref_t <= 0) | (tau_now_t > 4.0 * tau_ref_t)).any()
+    cold = (gmu == 0).all() & (mu0 != 0).any()
+    need_mult = ((it % refresh == 0) | cold | stale) & ~zero
+    if host_bool(need_mult):
+        return mu0, V - multb(mu0)
+    return mu0, V - (tau_now * gmu + gam2_cols * mu0)
+
+
+def extrapolate_pair(V, mu1, gmu1, mu2, gmu2, tau_now, gam2_cols,
+                     theta_max: float = 1.5):
+    """Least-squares secant extrapolation of the tracked warm start
+    (``gvamp_tpu/cg.py:323-364``): mu0 = mu1 + theta (mu1 - mu2) with the
+    per-column theta minimising the init residual, clamped to
+    [0, theta_max]; theta = 0 on a non-finite or all-zero previous pair or
+    a degenerate direction.  Returns (mu0, gmu0)."""
+    ok = (torch.isfinite(mu2).all() & torch.isfinite(gmu2).all()
+          & (mu2 != 0).any() & (gmu2 != 0).any())
+    dmu = mu1 - mu2
+    dg = gmu1 - gmu2
+    a = V - (tau_now * gmu1 + gam2_cols * mu1)
+    b = tau_now * dg + gam2_cols * dmu
+    ab = (a * b).sum(dim=0)
+    bb = (b * b).sum(dim=0)
+    tiny = torch.finfo(V.dtype).tiny
+    theta = torch.where(ok & (bb > tiny),
+                        torch.clamp(ab / torch.where(bb > tiny, bb, 1.0),
+                                    0.0, theta_max),
+                        0.0)
+    return mu1 + theta[None, :] * dmu, gmu1 + theta[None, :] * dg
+
+
+def gram_from_exit(V, sol: CGResult, tau_now, gam2_cols):
+    """Pure Gram product of ``sol.mu`` from the CG exit residual:
+    mult(mu) = V - r, so gram(mu) = (V - r - gam2 mu) / tau (guarded)."""
+    dt = V.dtype
+    tau_safe = torch.clamp(torch.as_tensor(tau_now, dtype=dt, device=V.device),
+                           min=torch.finfo(dt).tiny ** 0.5)
+    return (V - sol.r - gam2_cols * sol.mu) / tau_safe
+
+
+def make_lmmse_mult_block(axm_fn, atxm_fn, op, tau, gam2):
+    """P[M, B] -> tau A^T(A P) + gam2 P: two passes over the words."""
+
+    def mult(P):
+        return tau * atxm_fn(op, axm_fn(op, P)) + gam2 * P
+
+    return mult
+
+
+def make_lmmse_mult_block_rider(axm_fn, atxm_fn, op, tau, gam2):
+    """(P, X) -> (tau A^T(A P) + gam2 P, A X): the riders X share the
+    forward pass; the transpose pass reads the words for P alone."""
+
+    def mult(P, X):
+        B = P.shape[1]
+        Z = axm_fn(op, torch.cat([P, X], dim=1))
+        return tau * atxm_fn(op, Z[..., :B]) + gam2 * P, Z[..., B:]
+
+    return mult
+
+
+def jacobi_diag(tau, gam2, N):
+    """tau (N-1)/N + gam2: the LMMSE operator's diagonal under marker
+    standardisation (reference vamp.cpp:1137-1139)."""
+    return tau * (N - 1.0) / N + gam2

@@ -1,0 +1,136 @@
+"""Run-mode entry point of the PyTorch port: ``python -m gvamp_tpu_torch.cli``.
+
+The flags are those of the JAX package's CLI (parsed by
+``gvamp_tpu.options.Options``), plus ``--device`` (default ``cuda``) for
+the port.  This slice runs ``--run-mode infere --model linear`` on one
+device (``cli.py:61-80, 113-180, 400-402`` of the JAX package) and writes
+the reference-layout dumps per iteration:
+
+  {out}_it_{i}.bin  {out}_r1_it_{i}.bin  {out}_r2_it_{i}.bin
+  {out}_it_{i}_x2_hat.bin  {out}_z1_it_{i}.csv
+
+plus the ``_gam1s`` / ``_gam2s`` / ``_R2trains`` histories at the end.
+Every other run mode, model and option outside the slice raises
+``NotImplementedError`` naming its ROADMAP.md item.
+
+Example::
+
+    python -m gvamp_tpu_torch.cli --device cuda --run-mode infere \\
+        --model linear --bed-file demo.bed --phen-files demo.phen \\
+        --N 800 --Mt 240 --iterations 8 --probs 0.95,0.05 \\
+        --vars 0.0,0.0667 --out-dir out --out-name demo
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from gvamp_tpu.ckpt import write_scalar_history
+from gvamp_tpu.io import vecio
+from gvamp_tpu.options import Options
+from gvamp_tpu_torch import linear
+from gvamp_tpu_torch.data import GenoBed
+from gvamp_tpu_torch.prior import initialize_prior
+
+
+def _check_slice(opt: Options) -> None:
+    """Raise on every flag outside the ported slice."""
+    if opt.backend != "auto":
+        raise ValueError("--backend picks a JAX backend; the port routes by "
+                         "--dtype (float32: CUDA kernels, float64: CPU)")
+    for on, what, item in (
+            (opt.run_mode != "infere", f"--run-mode {opt.run_mode}", 11),
+            (opt.model != "linear", f"--model {opt.model}", 9),
+            (len(opt.phen_files) > 1, "multi-trait runs (several "
+                                      "--phen-files)", 10),
+            (opt.type_data != "bed", f"--type-data {opt.type_data}", 11),
+            (opt.store_pvals != 0, "--store-pvals", 7),
+            (opt.store_pip != 0, "--store-pip", 12),
+            (opt.state_evo != 0, "--state-evo", 11),
+            (bool(opt.checkpoint or opt.resume), "--checkpoint / --resume", 4),
+            (opt.devices > 1 or opt.distributed != 0, "a device mesh "
+                                                     "(--devices, "
+                                                     "--distributed)", 11),
+            (bool(opt.profile_dir), "--profile-dir", 12),
+            (bool(opt.cov_file) and opt.C > 0, "covariates (--cov-file)", 9)):
+        if on:
+            raise NotImplementedError(
+                f"{what} is not ported yet: ROADMAP.md Queue 1 item {item}")
+
+
+def _dumper(prefix: str, every: int):
+    """Per-iteration reference-layout dumps (``gvamp_tpu.ckpt.IterDumper``
+    for the linear model, written from one process)."""
+
+    def cb(it, state, metrics, geno):
+        if every == 0 or it % every:
+            return
+        scale = 1.0 / np.sqrt(geno.N)
+        for name, vec in ((f"_it_{it}.bin", state.x1),
+                          (f"_r1_it_{it}.bin", state.r1),
+                          (f"_r2_it_{it}.bin", state.r2),
+                          (f"_it_{it}_x2_hat.bin", state.x2)):
+            vecio.write_bin_shard(prefix + name,
+                                  vec[: geno.M].cpu().numpy() * scale, geno.S)
+        full = np.zeros(4 * geno.layout.mbytes)
+        full[: geno.N] = geno.deplanarize(state.z1)[: geno.N]
+        vecio.write_txt(f"{prefix}_z1_it_{it}.csv", full)
+
+    return cb
+
+
+def run_inference(opt: Options, geno: GenoBed):
+    """The linear branch of ``gvamp_tpu.cli.run_inference``."""
+    probs, vars_user = initialize_prior(opt.probs or None, opt.vars or None,
+                                        N=geno.N, Mt=geno.Mt)
+    ts = (vecio.read_estimate(opt.true_signal_files[0], geno.M, geno.S)
+          if opt.true_signal_files else None)
+    freeze = (vecio.read_estimate(opt.freeze_index_file, geno.M, geno.S)
+              if opt.use_freeze else None)
+    x1_init = (vecio.read_estimate(opt.estimate_file, geno.M, geno.S)
+               if opt.init_est and opt.estimate_file else None)
+    cfg = linear.VampConfig(
+        max_iter=opt.iterations, rho=opt.rho,
+        stop_criteria_thr=opt.stop_criteria_thr, em_max_iter=opt.EM_max_iter,
+        em_err_thr=opt.EM_err_thr, cg_max_iter=opt.CG_max_iter,
+        learn_vars=bool(opt.learn_vars), seed=opt.seed,
+        deflate_k=opt.deflate_k, deflate_iters=opt.deflate_iters,
+        cg_plateau=opt.cg_plateau, use_slq=bool(opt.use_slq),
+        slq_k=opt.slq_k, stab_gamma=opt.stab_gamma,
+        gam1_init=1e-6,
+        gamw_init=opt.gamw_default(),
+        use_lmmse_damp=bool(opt.use_lmmse_damp),
+        use_xxt=bool(opt.use_XXT_denoiser), gamma_damp=opt.gamma_damp,
+        red=bool(opt.red), use_cross_val=bool(opt.use_cross_val),
+        cg_extrapolate=opt.cg_extrapolate != 0)
+    x_est, state, hist = linear.infer(
+        geno, cfg, probs, vars_user, freeze=freeze, x1_init=x1_init,
+        true_signal=ts, sync_every=opt.sync_every,
+        phase_timers=bool(opt.phase_timers), verbose=opt.verbosity > 0,
+        callbacks=[_dumper(opt.out_prefix, opt.dump_every)])
+    if hist:
+        write_scalar_history(opt.out_prefix, hist)
+    return x_est, state, hist
+
+
+def main(argv=None):
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--device", default="cuda",
+                     help="torch device of the run (default: cuda)")
+    ns, rest = pre.parse_known_args(argv)
+    opt = Options.from_args(rest)
+    _check_slice(opt)
+    dtype = torch.float64 if opt.dtype == "float64" else torch.float32
+    geno = GenoBed.from_files(
+        opt.bed_file, opt.phen_files[0], N=opt.N, Mt=opt.Mt,
+        alpha_scale=opt.alpha_scale, dtype=dtype,
+        device=torch.device(ns.device), bim_path=opt.bim_file)
+    return run_inference(opt, geno)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

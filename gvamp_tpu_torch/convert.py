@@ -1,0 +1,54 @@
+"""State carried between the JAX package and the port, as numpy arrays.
+
+With these a test runs one JAX step and one port step from the same state,
+probe and operator and compares them, which is sharper than comparing whole
+trajectories (they amplify f32 noise).  Nothing here imports JAX: the
+caller converts JAX arrays with ``numpy.asarray``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gvamp_tpu_torch import linear
+from gvamp_tpu_torch.data import GenoBed, words_from_numpy
+
+
+def geno_from_numpy(words: np.ndarray, y_raw: np.ndarray, N: int,
+                    M: int | None = None, Mt: int | None = None, S: int = 0,
+                    mave=None, msig=None, standardize_phen: bool = True,
+                    alpha_scale: float = 1.0, device="cpu",
+                    dtype=torch.float32) -> GenoBed:
+    """A port container from the JAX container's words uint32[Nw, Mpad].
+    ``mave``/``msig`` given as arrays skip the statistics pass."""
+    return GenoBed.from_device_words(
+        words_from_numpy(words, device), y_raw, N=N, M=M, Mt=Mt, S=S,
+        standardize_phen=standardize_phen, alpha_scale=alpha_scale,
+        dtype=dtype, mave=mave, msig=msig)
+
+
+def state_from_numpy(d: dict, device="cpu",
+                     dtype=torch.float32) -> linear.LinState:
+    """``gvamp_tpu.linear.LinState`` fields (as arrays) -> port state.
+    The fields of the unported dual and cross-validation branches are
+    ignored."""
+    vals = {name: (int(np.asarray(d[name])) if name == "it"
+                   else torch.tensor(np.asarray(d[name]), dtype=dtype,
+                                     device=device))
+            for name in linear.LinState._fields}
+    return linear.LinState(**vals)
+
+
+def state_to_numpy(state: linear.LinState) -> dict:
+    """Port state -> the ``gvamp_tpu.linear.LinState`` fields it holds."""
+    return {name: (np.asarray(v) if name == "it"
+                   else v.detach().cpu().numpy())
+            for name, v in zip(state._fields, state)}
+
+
+def aux_from_numpy(geno: GenoBed, cfg: linear.VampConfig, bern: np.ndarray,
+                   freeze=None, true_signal=None) -> linear.Aux:
+    """The step's set-up with the given probe (e.g. JAX's make_bern_probe)."""
+    return linear.make_aux(geno, cfg, freeze=freeze, true_signal=true_signal,
+                           bern=np.asarray(bern))

@@ -1,0 +1,399 @@
+"""Genotype/phenotype container of the PyTorch port: the L2 data layer.
+
+Counterpart of ``gvamp_tpu/data.py``'s ``GenoBed`` for the main path: the
+packed 2-bit design matrix (word-major int32 words, planar N layout) on one
+device, the per-marker statistics, the standardised phenotype with its NA
+mask, and the products ``ax``/``atx``/``axm``/``atxm``.  Scaling follows the
+reference exactly as the JAX package does (``gvamp_tpu/data.py`` header):
+
+  * A[n,m] = (g - mave_m) * nonmiss * msig_m / sqrt(N)
+  * mave, msig over genotype-non-missing and phenotype-non-NA samples
+  * the phenotype is scaled, not centred; NA slots are zero
+
+Routing by dtype (the JAX package routes an f64 request to its XLA path,
+``gvamp_tpu/data.py:44-63``):
+
+  * float32 runs the digit products ``matvec.axm_i8a`` / ``atxm_i8a``:
+    the CUDA kernels on the card, their plain versions on the CPU;
+  * float64 runs the dense plain products (true f64) and exists on the CPU
+    only: float64 on CUDA raises, since no kernel takes it.
+
+The slice covers complete (imputed) genotypes.  A container over data with
+missing genotype calls loads and reports ``geno_complete == False``, but its
+products raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from gvamp_tpu import native
+from gvamp_tpu.io import plink
+from gvamp_tpu_torch.ops import matvec
+from gvamp_tpu_torch.ops.layout import PlanarLayout
+
+MISSING_PATH = "ROADMAP.md Queue 1 item 6 (the missing-genotype path)"
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _check_placement(device: torch.device, dtype: torch.dtype) -> None:
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype must be float32 or float64, got {dtype}")
+    if device.type == "cuda" and dtype == torch.float64:
+        raise NotImplementedError(
+            "float64 on CUDA: no kernel of the port takes float64 (the digit "
+            "kernels are float32); run float64 on the CPU (ROADMAP.md ground "
+            "rules)")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+
+
+def _standardize(y_raw: np.ndarray, standardize: bool):
+    """(scaled y with NA -> 0, NA indicator, nonas, intercept, scale)."""
+    y_raw = np.asarray(y_raw, np.float64)
+    isna = np.isnan(y_raw)
+    nonas = int((~isna).sum())
+    if standardize and nonas > 1:
+        avg = float(np.nanmean(y_raw))
+        sqn = float(np.sqrt((nonas - 1) / np.nansum((y_raw - avg) ** 2)))
+    else:
+        avg, sqn = 0.0, 1.0
+    return (np.where(isna, 0.0, y_raw * sqn), (~isna).astype(np.float64),
+            nonas, avg, sqn)
+
+
+def words_from_numpy(words: np.ndarray, device) -> torch.Tensor:
+    """uint32[Nw, Mpad] words -> int32 tensor with the same bits."""
+    arr = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
+    if not arr.flags.writeable:  # e.g. a view of a JAX array
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device)
+
+
+class BedOp(NamedTuple):
+    """The operator's tensors, passed to the product functions."""
+
+    words: torch.Tensor       # int32[Nw, Mpad]
+    mave: torch.Tensor        # [Mpad]
+    msig: torch.Tensor        # [Mpad]
+    na_planar: torch.Tensor   # [4, Nb]
+    m_mask: torch.Tensor      # [Mpad]
+
+
+def _marker_stats(words, na_planar, nonas, alpha_scale, block, dt):
+    """Blocked two-moment pass over the packed matrix -> (mave, msig).
+
+    Port of ``_marker_stats_kernel`` (``gvamp_tpu/data.py:84-151``): per
+    block of markers, the decoded sums S_a, S_b, S_aa over N-chunks combine
+    with compensated two-sum, then mave = S_a/S_b and
+    sumsqr = S_aa - mave*S_a with the lo corrections applied after the
+    cancelling hi subtraction.  Plain PyTorch: the JAX pass is XLA code, not
+    a Pallas kernel."""
+    nw, m = words.shape
+    na = na_planar.to(dt)
+    nb = na.shape[1]
+    nc = matvec.nb_chunk(nb)
+    C = nb // nc
+    sums = torch.zeros((6, m), dtype=dt, device=words.device)
+    for j in range(0, m, block):
+        a, b = matvec.decode_planar_dense(words[:, j:j + block], dt)
+        w = a.shape[2]
+        am = a * na[:, :, None]
+        pa = am.reshape(4, C, nc, w).sum(dim=(0, 2))
+        pb = (b * na[:, :, None]).reshape(4, C, nc, w).sum(dim=(0, 2))
+        pq = (a * am).reshape(4, C, nc, w).sum(dim=(0, 2))
+        z = torch.zeros((w,), dtype=dt, device=words.device)
+        ah = al = bh = bl = ch = cl = z
+        for c in range(C):
+            ah, al = matvec.two_sum(ah, al, pa[c])
+            bh, bl = matvec.two_sum(bh, bl, pb[c])
+            ch, cl = matvec.two_sum(ch, cl, pq[c])
+        sums[:, j:j + w] = torch.stack([ah, al, bh, bl, ch, cl])
+    sah, sal, sbh, sbl, qh, ql = sums
+    sa = sah + sal
+    sb = sbh + sbl
+    mave = torch.where(sb != 0, sa / torch.where(sb == 0, 1.0, sb), 0.0)
+    sumsqr = (qh - mave * sah) + (ql - mave * sal)
+    sd = torch.sqrt(sumsqr / (nonas - 1.0))
+    msig = torch.where(
+        sumsqr > 0,
+        1.0 / torch.pow(torch.where(sumsqr <= 0, 1.0, sd), alpha_scale), 1.0)
+    return mave, msig
+
+
+@dataclasses.dataclass
+class GenoBed:
+    """Packed .bed container + standardised operator on one device."""
+
+    layout: PlanarLayout
+    N: int          # individuals
+    Mt: int         # total markers
+    M: int          # markers owned by this container
+    S: int          # global offset of the first owned marker
+    Mpad: int       # padded marker count
+    words: torch.Tensor       # int32[Nw, Mpad]
+    mave: torch.Tensor        # [Mpad]
+    msig: torch.Tensor        # [Mpad]
+    na_planar: torch.Tensor   # [4, Nb] phenotype non-NA indicator
+    y_planar: torch.Tensor    # [4, Nb] standardised phenotype, NA slots zero
+    nonas: int
+    intercept: float
+    scale: float
+    alpha_scale: float = 1.0
+    bim_path: str = ""
+    dtype: torch.dtype = torch.float32
+    _complete: Optional[bool] = None   # no missing genotypes (lazy)
+
+    @property
+    def device(self) -> torch.device:
+        return self.words.device
+
+    # ---------------------------------------------------------------- build
+
+    @classmethod
+    def from_arrays(cls, bed_bytes: np.ndarray, y_raw: np.ndarray, N: int,
+                    Mt: int | None = None, S: int = 0,
+                    standardize_phen: bool = True, alpha_scale: float = 1.0,
+                    dtype=torch.float32, device="cpu", bim_path: str = "",
+                    word_align: int = 32, marker_align: int = 512) -> "GenoBed":
+        """From .bed rows uint8[M, mbytes] (host) onto ``device``."""
+        M = bed_bytes.shape[0]
+        lay = PlanarLayout.create(N, word_align=word_align)
+        Mpad = _round_up(max(M, 1), marker_align)
+        words_np = native.bed_to_words(bed_bytes, N, lay.n_words, Mpad)
+        if words_np is None:
+            words_np = np.full((lay.n_words, Mpad), 0x55555555, dtype=np.uint32)
+            words_np[:, :M] = lay.pack_words(bed_bytes).T
+        return cls.from_device_words(
+            words_from_numpy(words_np, device), y_raw, N=N, M=M, Mt=Mt, S=S,
+            standardize_phen=standardize_phen, alpha_scale=alpha_scale,
+            dtype=dtype, bim_path=bim_path)
+
+    @classmethod
+    def from_device_words(cls, words: torch.Tensor, y_raw: np.ndarray, N: int,
+                          M: int | None = None, Mt: int | None = None,
+                          S: int = 0, standardize_phen: bool = True,
+                          alpha_scale: float = 1.0, dtype=torch.float32,
+                          bim_path: str = "", mave=None,
+                          msig=None) -> "GenoBed":
+        """From an int32[Nw, Mpad] word tensor already on its device.
+
+        The caller pads correctly (0x55 words beyond the real markers and
+        samples).  ``mave``/``msig``, when given, replace the statistics
+        pass (``convert.geno_from_numpy`` uses this to separate the pass
+        from the products in tests)."""
+        if words.dtype != torch.int32 or words.ndim != 2:
+            raise ValueError(f"words must be int32[Nw, Mpad], got "
+                             f"{words.dtype}{list(words.shape)}")
+        _check_placement(words.device, dtype)
+        Nw, Mpad = words.shape
+        if PlanarLayout.create(N).n_words > Nw:
+            raise ValueError(f"{Nw} word rows cannot hold N={N} samples")
+        lay = PlanarLayout(N=N, n_words=Nw)
+        M = Mpad if M is None else M
+        y, na, nonas, avg, sqn = _standardize(y_raw, standardize_phen)
+        dev = words.device
+        obj = cls(
+            layout=lay, N=N, Mt=M if Mt is None else Mt, M=M, S=S, Mpad=Mpad,
+            words=words.contiguous(),
+            mave=torch.zeros((Mpad,), dtype=dtype, device=dev),
+            msig=torch.zeros((Mpad,), dtype=dtype, device=dev),
+            na_planar=torch.as_tensor(lay.planarize(na), dtype=dtype, device=dev),
+            y_planar=torch.as_tensor(lay.planarize(y), dtype=dtype, device=dev),
+            nonas=nonas, intercept=avg, scale=sqn, alpha_scale=alpha_scale,
+            bim_path=bim_path, dtype=dtype)
+        if mave is None:
+            obj.compute_marker_statistics()
+        else:
+            obj.mave = torch.tensor(np.asarray(mave), dtype=dtype, device=dev)
+            obj.msig = torch.tensor(np.asarray(msig), dtype=dtype, device=dev)
+        return obj
+
+    @classmethod
+    def from_files(cls, bed_path: str, phen_path: str | None, N: int, Mt: int,
+                   S: int = 0, M: int | None = None, dtype=torch.float32,
+                   device="cpu", standardize_phen: bool = True,
+                   alpha_scale: float = 1.0, bim_path: str = "",
+                   word_align: int = 32, marker_align: int = 512) -> "GenoBed":
+        M = Mt if M is None else M
+        if phen_path:
+            y, isna = plink.read_phen(phen_path)
+            y = np.where(isna, np.nan, y)
+            if y.shape[0] != N:
+                raise ValueError(f"{phen_path}: {y.shape[0]} phenotypes, "
+                                 f"expected N={N}")
+        else:
+            y = np.zeros(N)
+        kw = dict(standardize_phen=standardize_phen, alpha_scale=alpha_scale,
+                  dtype=dtype, bim_path=bim_path)
+        lay = PlanarLayout.create(N, word_align=word_align)
+        Mpad = _round_up(max(M, 1), marker_align)
+        # the native reader transposes straight from the file into the
+        # planar word layout
+        words = native.read_bed_words(bed_path, N, M, S, lay.n_words, Mpad)
+        if words is not None:
+            return cls.from_device_words(words_from_numpy(words, device), y,
+                                         N=N, M=M, Mt=Mt, S=S, **kw)
+        bed = plink.read_bed_slab(bed_path, N, M, S)
+        return cls.from_arrays(bed, y, N=N, Mt=Mt, S=S, device=device,
+                               word_align=word_align,
+                               marker_align=marker_align, **kw)
+
+    def set_phen(self, y: np.ndarray, standardize: bool = False) -> None:
+        """Replace the phenotype (simulation path; reference data.hpp:55).
+        Simulated phenotypes are used unstandardised (sim.cpp:219-221)."""
+        y = np.asarray(y, dtype=np.float64)
+        if y.size != self.N:
+            raise ValueError(f"set_phen: {y.size} values, expected N={self.N}")
+        yf, na, self.nonas, avg, sqn = _standardize(y, standardize)
+        if standardize:
+            self.intercept, self.scale = avg, sqn
+        self.na_planar = self.planarize(na)
+        self.y_planar = self.planarize(yf)
+        self.compute_marker_statistics()
+
+    # ---------------------------------------------------------------- stats
+
+    def marker_stats_for(self, na_planar, nonas):
+        """(mave, msig) over a phenotype-NA support."""
+        # decode temporaries are 2 arrays x [4, Nb, block] floats: cap them
+        # near 512 MB so biobank-scale N fits next to a >10 GB packed matrix
+        nb = self.layout.n_bytes
+        elt = 8 if self.dtype == torch.float64 else 4
+        cap = max(64, int(2 ** 29 // max(1, 2 * 4 * nb * elt)))
+        block = min(512, self.Mpad, ((cap + 63) // 64) * 64)
+        while self.Mpad % block:
+            block //= 2
+        mave, msig = _marker_stats(self.words, na_planar, float(nonas),
+                                   float(self.alpha_scale), block, self.dtype)
+        real = torch.arange(self.Mpad, device=self.device) < self.M
+        return torch.where(real, mave, 0.0), torch.where(real, msig, 0.0)
+
+    def compute_marker_statistics(self) -> None:
+        self.mave, self.msig = self.marker_stats_for(self.na_planar, self.nonas)
+
+    # ---------------------------------------------------------------- matvec
+
+    @property
+    def inv_sqrt_n(self) -> float:
+        return 1.0 / float(np.sqrt(self.N))
+
+    @property
+    def op(self) -> BedOp:
+        return BedOp(words=self.words, mave=self.mave, msig=self.msig,
+                     na_planar=self.na_planar, m_mask=self.m_mask)
+
+    @property
+    def geno_complete(self) -> bool:
+        """True when no genotype is missing among real samples x markers
+        (imputed data).  One ``atx`` pass: bv counts the non-missing real
+        samples per marker (exact: ``atx`` bounds N below 2**24)."""
+        if self._complete is None:
+            _, bv = matvec.atx(self.words, self.n_mask_planar.to(torch.float32))
+            real = torch.arange(self.Mpad, device=self.device) < self.M
+            n = float(self.N)
+            self._complete = bool(torch.all(torch.where(real, bv, n) == n))
+        return self._complete
+
+    def fns_multi(self):
+        """(axm_fn, atxm_fn): B right-hand sides per pass over the words,
+        signatures (op, X[Mpad, B]) -> z[4, Nb, B] and
+        (op, V[4, Nb, B]) -> [Mpad, B]."""
+        if not self.geno_complete:
+            raise NotImplementedError(
+                f"genotypes with missing calls: products on incomplete data "
+                f"come with {MISSING_PATH}")
+        dtype, scale = self.dtype, self.inv_sqrt_n
+
+        if dtype == torch.float64:
+            def axm_fn(op: BedOp, X):
+                W = op.msig[:, None] * X.to(dtype)
+                U = op.mave[:, None] * W
+                z = matvec.axm_ref(op.words, W, U, dtype)
+                return z * op.na_planar[:, :, None] * scale
+
+            def atxm_fn(op: BedOp, V):
+                v = V.to(dtype) * op.na_planar[:, :, None]
+                av, bv = matvec.atxm_ref(op.words, v, dtype)
+                return (av - op.mave[:, None] * bv) * op.msig[:, None] * scale
+
+            return axm_fn, atxm_fn
+
+        # complete genotypes: b == 1 on real samples, so its contractions
+        # collapse to the scalars colsum(U) and colsum(v) (data.py:589-617)
+        def axm_fn(op: BedOp, X):
+            W = op.msig[:, None] * X.to(dtype)
+            U = op.mave[:, None] * W
+            z = matvec.axm_i8a(op.words, W) - U.sum(dim=0)[None, None, :]
+            return z * op.na_planar[:, :, None] * scale
+
+        def atxm_fn(op: BedOp, V):
+            v = V.to(dtype) * op.na_planar[:, :, None]
+            av = matvec.atxm_i8a(op.words, v)
+            sv = v.sum(dim=(0, 1))
+            return (av - op.mave[:, None] * sv[None, :]) * op.msig[:, None] * scale
+
+        return axm_fn, atxm_fn
+
+    def fns(self):
+        """(ax_fn, atx_fn): the single-vector products, (op, x[Mpad]) ->
+        [4, Nb] and (op, v[4, Nb]) -> [Mpad], run at B=1 like the JAX
+        package's complete path (data.py:502-533)."""
+        axm_fn, atxm_fn = self.fns_multi()
+
+        def ax_fn(op: BedOp, x):
+            return axm_fn(op, x[:, None])[..., 0]
+
+        def atx_fn(op: BedOp, v_planar):
+            return atxm_fn(op, v_planar[:, :, None])[:, 0]
+
+        return ax_fn, atx_fn
+
+    def ax(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fns()[0](self.op, x)
+
+    def atx(self, v_planar: torch.Tensor) -> torch.Tensor:
+        return self.fns()[1](self.op, v_planar)
+
+    def axm(self, X: torch.Tensor) -> torch.Tensor:
+        return self.fns_multi()[0](self.op, X)
+
+    def atxm(self, V: torch.Tensor) -> torch.Tensor:
+        return self.fns_multi()[1](self.op, V)
+
+    # ---------------------------------------------------------------- misc
+
+    def filter_pheno(self) -> torch.Tensor:
+        """NA-zeroed standardised phenotype, planar (reference data.cpp:1065)."""
+        return self.y_planar * self.na_planar
+
+    def planarize(self, v: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(self.layout.planarize(np.asarray(v)),
+                               dtype=self.dtype, device=self.device)
+
+    def deplanarize(self, vp: torch.Tensor) -> np.ndarray:
+        return self.layout.deplanarize(vp.detach().cpu().numpy())
+
+    def pad_m(self, x, fill: float = 0.0) -> torch.Tensor:
+        out = np.full((self.Mpad,), fill, dtype=np.float64)
+        out[: self.M] = np.asarray(x)
+        return torch.as_tensor(out, dtype=self.dtype, device=self.device)
+
+    @property
+    def m_mask(self) -> torch.Tensor:
+        """[Mpad]: 1 on real markers, 0 on padding."""
+        return (torch.arange(self.Mpad, device=self.device) < self.M).to(
+            self.dtype)
+
+    @property
+    def n_mask_planar(self) -> torch.Tensor:
+        """[4, Nb]: 1 on real individuals (including phenotype-NA ones)."""
+        return torch.as_tensor(self.layout.planar_to_orig() >= 0,
+                               dtype=self.dtype, device=self.device)

@@ -1,0 +1,461 @@
+"""Linear-model EM-VAMP engine of the PyTorch port (the main path).
+
+Port of ``gvamp_tpu/linear.py`` for the configuration its defaults select:
+primal LMMSE block CG with the secant-extrapolated tracked warm start, SLQ
+Onsager traces and the noise-EM pass folded into the CG exit.  One iteration
+(reference ``infere_linear``, vamp.cpp:190-803):
+
+  denoising:  the re-estimation loop x1 = g1(r1, gam1), alpha1, eta1, gam1
+              and the EM prior update; damping of x1/alpha1; adaptive rho;
+              gam2 = eta1 - gam1, r2 = (eta1 x1 - gam1 r1) / gam2.
+  lmmse:      v = gamw A^T y + gam2 r2, warm-started Jacobi CG on
+              (gamw A^T A + gam2 I), z1 = A x1 riding the first forward
+              pass; alpha2 and the noise trace from the SLQ quadrature;
+              gam2 re-estimate, gam1 = eta2 - gam2, r1; gamw EM update from
+              the exit Gram identity.
+
+The JAX step is one jitted program; here it runs eagerly.  Each loop exit or
+branch on a device value is a counted host sync (``gvamp_tpu_torch.sync``),
+and ``infer`` records the count per iteration.  Options outside this path
+raise ``NotImplementedError`` naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from gvamp_tpu_torch import cg, probit, slq
+from gvamp_tpu_torch.prior import GAMMA_MAX, GAMMA_MIN, Prior, g1, g1d, update_prior
+from gvamp_tpu_torch.sync import SYNCS, host_bool, host_values
+
+
+def _clamp_gamma(x):
+    return torch.clamp(x, GAMMA_MIN, GAMMA_MAX)
+
+
+@dataclasses.dataclass(frozen=True)
+class VampConfig:
+    """Engine options, with the fields and defaults of
+    ``gvamp_tpu.linear.VampConfig`` (reference options.hpp:107-142 +
+    vamp.hpp); see that class for each field's meaning."""
+
+    max_iter: int = 10
+    rho: float = 0.15
+    stop_criteria_thr: float = 1e-4
+    em_max_iter: int = 2
+    em_err_thr: float = 1e-2
+    cg_max_iter: int = 60
+    learn_vars: bool = True
+    use_lmmse_damp: bool = False
+    use_xxt: bool = False
+    cg_err_tol_xxt: float = 1e-4
+    auto_var_max_iter: int = 5
+    revar_tol: float = 1e-3
+    seed: int = 1
+    gam1_init: float = 1e-6
+    gamw_init: float = 2.0
+    cg_err_tol: float = 1e-5
+    onsager_tol: float = 1e-6
+    n_probes: int = 1
+    gamma_damp: float = 1.0
+    use_cross_val: bool = False
+    cv_max_retry: int = 25
+    deflate_k: int = 0
+    deflate_iters: int = 8
+    gram_refresh: int = 8
+    red: bool = False
+    stab_gamma: float = 1.0
+    cg_plateau: int = 12
+    use_slq: bool = True
+    slq_k: int = 32
+    cg_extrapolate: bool = True
+    fold_noise: bool = True
+
+
+def check_slice(cfg: VampConfig) -> None:
+    """Raise on every option this port does not run yet."""
+    for on, what, item in (
+            (cfg.use_xxt, "use_xxt (the dual XXT solve)", 8),
+            (cfg.red, "red (reduced-subset solves)", 6),
+            (cfg.deflate_k > 0, "deflate_k > 0 (spectral deflation)", 9),
+            (cfg.use_cross_val, "use_cross_val (the damping tuner)", 11),
+            (not cfg.use_slq, "use_slq=False (probe-column traces)", 12),
+            (not cfg.fold_noise, "fold_noise=False (the explicit noise "
+                                 "pass)", 12)):
+        if on:
+            raise NotImplementedError(
+                f"VampConfig.{what} is not ported yet: ROADMAP.md Queue 1 "
+                f"item {item}")
+
+
+def probe_cols(cfg: VampConfig) -> int:
+    """Onsager probe columns riding the block CG: zero under SLQ."""
+    return 0 if (cfg.use_slq and not cfg.red) else cfg.n_probes
+
+
+class LinState(NamedTuple):
+    """The fields of ``gvamp_tpu.linear.LinState`` that the primal, SLQ
+    main path uses; ``it`` is a host int.  The dual-solve (``*_n``) and
+    cross-validation fields come with their branches (ROADMAP.md Queue 1
+    items 8 and 11)."""
+
+    it: int
+    x1: torch.Tensor
+    x2: torch.Tensor
+    r1: torch.Tensor
+    r2: torch.Tensor
+    z1: torch.Tensor          # [4, Nb] planar
+    mu_cg: torch.Tensor       # LMMSE CG warm start
+    mu_probe: torch.Tensor    # [Mpad, P] (P = 0 under SLQ)
+    gam1: torch.Tensor
+    gam2: torch.Tensor
+    gamw: torch.Tensor
+    eta1: torch.Tensor
+    eta2: torch.Tensor
+    alpha1: torch.Tensor
+    alpha2: torch.Tensor
+    rho: torch.Tensor
+    probs: torch.Tensor
+    vars: torch.Tensor
+    gmu: torch.Tensor         # A^T A [mu_cg | mu_probe], tracked
+    mu_prevb: torch.Tensor    # the previous exit block and its tracked
+    gmu_prev: torch.Tensor    # Gram product (the secant pair)
+
+
+def init_state(geno, cfg: VampConfig, probs, vars_user,
+               r1_init: Optional[np.ndarray] = None,
+               x1_init: Optional[np.ndarray] = None,
+               gam1: Optional[float] = None,
+               gamw: Optional[float] = None) -> LinState:
+    """Initial state; ``vars_user`` are user-scale (multiplied by N here,
+    vamp.cpp:153-155), ``r1_init``/``x1_init`` stored-scale (times sqrt(N),
+    vamp.cpp:226-258)."""
+    dt, dev, Mp = geno.dtype, geno.device, geno.Mpad
+    P = probe_cols(cfg)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def scalar(x):
+        return torch.as_tensor(x, dtype=dt, device=dev)
+
+    sqn = float(np.sqrt(geno.N))
+    r1 = zeros(Mp) if r1_init is None else geno.pad_m(np.asarray(r1_init) * sqn)
+    x1 = zeros(Mp) if x1_init is None else geno.pad_m(np.asarray(x1_init) * sqn)
+    if x1_init is not None:
+        r1 = x1
+    return LinState(
+        it=0, x1=x1, x2=zeros(Mp), r1=r1, r2=zeros(Mp),
+        z1=zeros(*geno.y_planar.shape), mu_cg=zeros(Mp),
+        mu_probe=zeros(Mp, P),
+        gam1=scalar(cfg.gam1_init if gam1 is None else gam1),
+        gam2=scalar(0.0),
+        gamw=scalar(cfg.gamw_init if gamw is None else gamw),
+        eta1=scalar(0.0), eta2=scalar(0.0), alpha1=scalar(0.0),
+        alpha2=scalar(0.0), rho=scalar(cfg.rho), probs=scalar(probs),
+        vars=scalar(np.asarray(vars_user) * geno.N),
+        gmu=zeros(Mp, 1 + P), mu_prevb=zeros(Mp, 1 + P), gmu_prev=zeros(Mp, 1 + P))
+
+
+def make_bern_probe(geno, seed: int, n_probes: int = 1) -> torch.Tensor:
+    """Deterministic Rademacher probes u_j ~ +-1/sqrt(Mt) as [Mpad, P]
+    (vamp.cpp:871-883).  Drawn from a CPU ``torch.Generator`` seeded by
+    (seed, S) and moved to the container's device, so the CPU and the card
+    see the same probe.  JAX's ``jax.random`` stream cannot be reproduced:
+    tests pass the JAX package's probe in through ``make_aux(bern=...)``."""
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(((seed & 0xFFFFFFFF) << 32) | (geno.S & 0xFFFFFFFF))
+    u = torch.randint(0, 2, (geno.Mpad, n_probes), generator=gen) * 2 - 1
+    return (u.to(device=geno.device, dtype=geno.dtype)
+            * geno.m_mask[:, None] / math.sqrt(geno.Mt))
+
+
+class Aux(NamedTuple):
+    """Per-run tensors of the step."""
+
+    op: object               # data.BedOp
+    y: torch.Tensor          # filtered planar phenotype [4, Nb]
+    bern: torch.Tensor       # Onsager probes [Mpad, P]
+    aty: torch.Tensor        # A^T y, iteration-invariant
+    z_bern: torch.Tensor     # A @ probes [4, Nb, P]
+    frz: torch.Tensor        # freeze mask [Mpad]
+    m_mask: torch.Tensor     # real-marker mask [Mpad]
+    ts: torch.Tensor         # true signal (zeros when absent) [Mpad]
+    slq: slq.SlqBasis        # quadrature of the fixed Gram A^T A
+
+
+def make_aux(geno, cfg: VampConfig, freeze=None, true_signal=None,
+             bern=None) -> Aux:
+    """Set-up: the probe, A @ probe, the SLQ basis (``cfg.slq_k`` Gram
+    passes) and A^T y.  ``bern`` replaces the drawn probe."""
+    check_slice(cfg)
+    m_mask = geno.m_mask
+    if bern is None:
+        bern = make_bern_probe(geno, cfg.seed, cfg.n_probes)
+    else:
+        bern = torch.tensor(np.asarray(bern), dtype=geno.dtype,
+                            device=geno.device)
+    y = geno.filter_pheno()
+    return Aux(
+        op=geno.op, y=y, bern=bern, aty=geno.atx(y), z_bern=geno.axm(bern),
+        frz=(geno.pad_m(freeze) if freeze is not None
+             else torch.zeros_like(m_mask)),
+        m_mask=m_mask,
+        ts=(geno.pad_m(true_signal) if true_signal is not None
+            else torch.zeros_like(m_mask)),
+        slq=probit.make_slq_basis(geno, cfg, bern))
+
+
+def make_step(geno, cfg: VampConfig, init_est: bool = False,
+              with_truth: bool = False):
+    """The per-iteration step: (state, aux) -> (state, metrics)."""
+    check_slice(cfg)
+    Mt = float(geno.Mt)
+    N = float(geno.N)
+    axm_fn, atxm_fn = geno.fns_multi()
+    P_cg = probe_cols(cfg)
+
+    def denoise(state: LinState, aux: Aux, it: int):
+        """The re-estimation loop (vamp.cpp:289-338) and damping
+        (vamp.cpp:348-414); its while-loop test reads gam1 on the host."""
+        m_mask, frz = aux.m_mask, aux.frz
+        live = m_mask * (1.0 - frz)
+        x1, gam1, alpha1, eta1 = state.x1, state.gam1, state.alpha1, state.eta1
+        probs, vars_ = state.probs, state.vars
+        prev_gam1 = None
+        i = 0
+        while i < cfg.auto_var_max_iter:
+            if i > 0 and not (it > 1 and host_bool(
+                    torch.abs(gam1 - prev_gam1) >= cfg.revar_tol)):
+                break
+            pr = Prior(probs=probs, vars=vars_)
+            x1 = g1(state.r1, gam1, pr) * m_mask
+            d = g1d(state.r1, gam1, pr)
+            alpha1 = (d * live).sum() / Mt
+            eta1 = gam1 / alpha1
+            l2diff = torch.square((x1 - state.r1) * m_mask).sum()
+            prev_gam1 = gam1
+            if it > 1:
+                gam1 = _clamp_gamma(1.0 / (1.0 / eta1 + l2diff / Mt))
+                p2 = update_prior(state.r1, gam1, pr, m_mask, Mt,
+                                  em_max_iter=cfg.em_max_iter,
+                                  em_err_thr=cfg.em_err_thr,
+                                  learn_vars=cfg.learn_vars)
+                probs, vars_ = p2.probs, p2.vars
+            i += 1
+        rho = state.rho
+        if it > 1:  # damping; frozen coordinates keep the raw g1 output
+            x1 = torch.where(frz == 0, rho * x1 + (1 - rho) * state.x1, x1)
+            alpha1 = rho * alpha1 + (1 - rho) * state.alpha1
+        return x1, gam1, alpha1, eta1, probs, vars_
+
+    def phase_denoise(state: LinState, aux: Aux):
+        it = state.it + 1
+        x1, gam1, alpha1, eta1, probs, vars_ = denoise(state, aux, it)
+        if init_est and it == 1:
+            x1 = state.r1  # first iteration keeps the injected estimate
+        return {"it": it, "x1_prev": state.x1, "x1": x1, "gam1": gam1,
+                "alpha1": alpha1, "eta1": eta1, "probs": probs,
+                "vars": vars_}
+
+    def phase_project(w, state: LinState, aux: Aux):
+        it, x1 = w["it"], w["x1"]
+        gam1, alpha1, eta1 = w["gam1"], w["alpha1"], w["eta1"]
+        probs, vars_ = w["probs"], w["vars"]
+        gam2 = _clamp_gamma(eta1 - gam1)
+        r2 = ((eta1 * x1 - gam1 * state.r1) / gam2) * aux.m_mask
+        if cfg.use_lmmse_damp and it > 1:
+            xi = torch.clamp(2.0 * state.rho, max=1.0)
+            gam_before = state.gam2
+            gam2 = torch.where(
+                gam_before > 0,
+                1.0 / torch.square(xi / torch.sqrt(gam2)
+                                   + (1 - xi) / torch.sqrt(gam_before)),
+                gam2)
+        # adaptive rho (vamp.cpp:501-502); alpha2 from the previous iteration
+        xi = torch.clamp(2.0 * torch.minimum(alpha1, state.alpha2), max=1.0)
+        rho = torch.maximum(state.rho, xi)
+        if cfg.auto_var_max_iter == 0 or it <= 1:
+            p2 = update_prior(state.r1, gam1, Prior(probs, vars_), aux.m_mask,
+                              Mt, em_max_iter=cfg.em_max_iter,
+                              em_err_thr=cfg.em_err_thr,
+                              learn_vars=cfg.learn_vars)
+            probs, vars_ = p2.probs, p2.vars
+        w.update(gam2=gam2, r2=r2, rho=rho, probs=probs, vars=vars_,
+                 l2y=torch.square(aux.y).sum())
+        return w
+
+    def phase_lmmse(w, state: LinState, aux: Aux):
+        op, m_mask = aux.op, aux.m_mask
+        it, gam2, r2 = w["it"], w["gam2"], w["r2"]
+        gamw = state.gamw
+        gam2_eff = gam2 * cfg.gamma_damp
+        diag = cg.jacobi_diag(gamw, gam2_eff, N)
+        v = gamw * aux.aty + gam2_eff * r2
+        multb = cg.make_lmmse_mult_block(axm_fn, atxm_fn, op, gamw, gam2_eff)
+        # z1 = A x1 rides the first CG iteration's forward pass
+        rider_mult = cg.make_lmmse_mult_block_rider(axm_fn, atxm_fn, op,
+                                                    gamw, gam2_eff)
+        V = torch.cat([v[:, None], aux.bern[:, :P_cg]], dim=1)
+        mu_start = torch.cat([state.mu_cg[:, None], state.mu_probe], dim=1)
+        mu0, r0 = mu_start, None
+        if cfg.gram_refresh > 1:
+            gmu_c = state.gmu
+            if cfg.cg_extrapolate:
+                mu0, gmu_c = cg.extrapolate_pair(
+                    V, mu0, state.gmu, state.mu_prevb, state.gmu_prev,
+                    gamw, gam2_eff)
+            mu0, r0 = cg.tracked_warm_start(V, mu0, gmu_c, gamw, gamw,
+                                            gam2_eff, it, cfg.gram_refresh,
+                                            multb)
+        sol = cg.solve_block(multb, V, mu0, diag, gam2_eff, cfg.cg_max_iter,
+                             modes=(0,) + (1,) * P_cg, err_tol=cfg.cg_err_tol,
+                             onsager_tol=cfg.onsager_tol,
+                             plateau=cfg.cg_plateau, r0=r0,
+                             rider=w["x1"][:, None], rider_mult=rider_mult)
+        # exit Gram identity: gamw A^T A mu = V - r - gam2 mu, exact for any
+        # mu, gives the noise-EM residual with no extra pass
+        mu = sol.mu[:, 0]
+        quad = ((mu * V[:, 0]).sum() - (mu * sol.r[:, 0]).sum()
+                - gam2_eff * torch.square(mu).sum()) / gamw
+        resid2 = torch.clamp(quad - 2.0 * (mu * aux.aty).sum() + w["l2y"],
+                             min=0.0)
+        x2 = mu * m_mask
+        alpha2 = gam2_eff * slq.quad_inv(aux.slq, gamw, gam2_eff).mean()
+        eta2 = gam2 / alpha2
+        if cfg.auto_var_max_iter >= 1 and it > 2:  # vamp.cpp:691-693
+            l2_x2r2 = torch.square((x2 - r2) * m_mask).sum()
+            gam2 = _clamp_gamma(1.0 / (1.0 / eta2 + l2_x2r2 / Mt))
+        gam1_new = _clamp_gamma(eta2 - gam2)
+        w.update(
+            x2=x2, invq=sol.mu[:, 1:], alpha2=alpha2, eta2=eta2, gam2=gam2,
+            gam1_new=gam1_new, r1=((eta2 * x2 - gam2 * r2) / gam1_new) * m_mask,
+            mu_cg=mu, cg_iters=sol.iters[0], cg_rel_err=sol.rel_err[0],
+            z1=sol.rider_out[..., 0], resid2=resid2,
+            trace_corr=Mt * slq.quad_ratio(aux.slq, gamw, gam2_eff).mean(),
+            gmu=cg.gram_from_exit(V, sol, gamw, gam2_eff))
+        if cfg.cg_extrapolate:
+            # this iteration's start pair becomes the one-older member
+            w.update(mu_prevb=mu_start, gmu_prev=state.gmu)
+        return w
+
+    def phase_finish(w, state: LinState, aux: Aux):
+        it, x1, x1_prev = w["it"], w["x1"], w["x1_prev"]
+        y, l2y = aux.y, w["l2y"]
+        # noise precision EM update (updateNoisePrec, vamp.cpp:892-927),
+        # everything from the CG exit: no pass over the words here
+        gamw_new = N / (w["resid2"] + w["trace_corr"])
+        metrics = {
+            "it": it, "gam1": w["gam1"], "gam2": w["gam2"],
+            "gamw": gamw_new, "eta1": w["eta1"], "eta2": w["eta2"],
+            "alpha1": w["alpha1"], "alpha2": w["alpha2"], "rho": w["rho"],
+            "R2_train_1": 1.0 - torch.square(y - w["z1"]).sum() / l2y,
+            "R2_train_2": 1.0 - w["resid2"] / l2y,
+            # stopping criterion (vamp.cpp:741-749)
+            "rel_change": torch.sqrt(
+                torch.square(x1_prev - x1).sum()
+                / torch.clamp(torch.square(x1_prev).sum(), min=1e-300)),
+            "cg_iters": w["cg_iters"], "cg_rel_err": w["cg_rel_err"],
+            "probe_iters": 0,  # no probe columns under SLQ
+            "probs": w["probs"], "vars": w["vars"],
+        }
+        if with_truth:
+            ts, sqn = aux.ts, math.sqrt(N)
+
+            def diag_for(xh, rv):
+                corr = (xh * ts).sum() / torch.sqrt(
+                    torch.square(xh).sum() * torch.square(ts).sum())
+                l2sig = torch.sqrt(torch.square(xh / sqn - ts).sum()
+                                   / torch.square(ts).sum())
+                return corr, l2sig, Mt / torch.square(rv - sqn * ts).sum()
+
+            (metrics["corr_x1"], metrics["l2_sig_err1"],
+             metrics["true_gam2"]) = diag_for(x1, w["r2"])
+            (metrics["corr_x2"], metrics["l2_sig_err2"],
+             metrics["true_gam1"]) = diag_for(w["x2"], w["r1"])
+        new_state = state._replace(
+            it=it, x1=x1, x2=w["x2"], r1=w["r1"], r2=w["r2"], z1=w["z1"],
+            mu_cg=w["mu_cg"], mu_probe=w["invq"], gam1=w["gam1_new"],
+            gam2=w["gam2"], gamw=gamw_new, eta1=w["eta1"], eta2=w["eta2"],
+            alpha1=w["alpha1"], alpha2=w["alpha2"], rho=w["rho"],
+            probs=w["probs"], vars=w["vars"], gmu=w["gmu"],
+            mu_prevb=w.get("mu_prevb", state.mu_prevb),
+            gmu_prev=w.get("gmu_prev", state.gmu_prev))
+        return new_state, metrics
+
+    def step(state: LinState, aux: Aux):
+        w = phase_denoise(state, aux)
+        w = phase_project(w, state, aux)
+        w = phase_lmmse(w, state, aux)
+        return phase_finish(w, state, aux)
+
+    return step
+
+
+def fetch_metrics(metrics: dict) -> dict:
+    """All tensor metrics to the host in one transfer (one counted sync)."""
+    keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
+    out = dict(metrics)
+    for k, v in zip(keys, host_values([metrics[k] for k in keys])):
+        out[k] = int(v) if k == "cg_iters" else v
+    return out
+
+
+def infer(geno, cfg: VampConfig, probs, vars_user, true_signal=None,
+          freeze=None, callbacks=None, r1_init=None, x1_init=None, gam1=None,
+          gamw=None, verbose: bool = True, sync_every: int = 1,
+          phase_timers: bool = False, resume_state: LinState = None,
+          bern=None):
+    """Run the linear VAMP loop; returns (x1_hat_stored, state, history).
+
+    ``x1_hat_stored`` is the /sqrt(N)-scaled estimate of the reference's
+    per-iteration .bin dumps (vamp.cpp:802).  Each history entry also holds
+    ``wall_ms`` (host clock from the step's start to its metrics on the
+    host, which waits for the device) and ``host_syncs`` (device values read
+    on the host during the iteration, the metrics fetch included)."""
+    if sync_every != 1:
+        raise NotImplementedError(
+            "sync_every > 1 (several iterations per dispatch): ROADMAP.md "
+            "Queue 1 item 12")
+    if phase_timers:
+        raise NotImplementedError(
+            "phase_timers (per-phase wall clock): ROADMAP.md Queue 1 item 12")
+    state = resume_state if resume_state is not None else init_state(
+        geno, cfg, probs, vars_user, r1_init=r1_init, x1_init=x1_init,
+        gam1=gam1, gamw=gamw)
+    aux = make_aux(geno, cfg, freeze=freeze, true_signal=true_signal,
+                   bern=bern)
+    step = make_step(geno, cfg, init_est=x1_init is not None,
+                     with_truth=true_signal is not None)
+    history = []
+    it = state.it
+    while it < cfg.max_iter:
+        syncs0 = SYNCS["count"]
+        t0 = time.perf_counter()
+        state, metrics = step(state, aux)
+        m = fetch_metrics(metrics)
+        m["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        m["host_syncs"] = SYNCS["count"] - syncs0
+        it = state.it
+        history.append(m)
+        if verbose:
+            print(f"[it {it}] gam1={m['gam1']:.6g} gam2={m['gam2']:.6g} "
+                  f"gamw={m['gamw']:.6g} alpha1={m['alpha1']:.4g} "
+                  f"alpha2={m['alpha2']:.4g} R2={m['R2_train_1']:.4f} "
+                  f"rel={m['rel_change']:.3e} cg={int(m['cg_iters'])}",
+                  flush=True)
+        for cb in callbacks or ():
+            cb(it, state, m, geno)
+        if it > 1 and float(m["rel_change"]) < cfg.stop_criteria_thr:
+            if verbose:
+                print(f"VAMP stopping criterion met "
+                      f"(thr={cfg.stop_criteria_thr})")
+            break
+    sqn = float(np.sqrt(geno.N))
+    return state.x1[: geno.M].cpu().numpy() / sqn, state, history

@@ -1,0 +1,100 @@
+"""Build and bind the port's CUDA kernels: ``nvcc`` into a shared library
+with a plain C interface, loaded with ``ctypes``.
+
+The kernels (``gvamp_tpu_torch/csrc/*.cu``) compile on first use into
+``build/gvamp_tpu_torch/`` beside the package, under a file name keyed by a
+hash of the sources and flags, so an edit rebuilds and an unchanged tree
+reuses the library.  One ``nvcc`` call over a file that includes no PyTorch
+header takes seconds.
+
+Import this module only where a kernel is launched: the CPU tests import
+every other module of the port and must never reach a CUDA toolchain.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "gvamp_tpu_torch")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# what the last build printed (ptxas register / shared-memory report) and
+# how long it took; empty when the library came from an earlier build
+BUILD_INFO: dict = {}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def find_nvcc() -> str:
+    """nvcc from CUDA_HOME / CUDA_PATH, else PATH, else the toolkit's default
+    install location; raises if there is none."""
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        home = os.environ.get(var)
+        if home and os.path.isfile(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.isfile(default):
+        return default
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the gvamp_tpu_torch CUDA kernels")
+
+
+def build() -> str:
+    """Compile the sources if no library for their hash exists; return its
+    path."""
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    if not sources:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    lib = os.path.join(BUILD_DIR, f"libgvamp_tpu_torch_{h.hexdigest()[:16]}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, command=" ".join(cmd),
+                      log=proc.stdout + proc.stderr)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            vp, i64 = ctypes.c_void_p, ctypes.c_int64
+            for name in ("gvamp_axm_i8a", "gvamp_atxm_i8a"):
+                fn = getattr(lib, name)
+                fn.argtypes = [vp, vp, vp, i64, i64, i64, vp]
+                fn.restype = ctypes.c_int
+            lib.gvamp_atx.argtypes = [vp, vp, vp, i64, i64, vp]
+            lib.gvamp_atx.restype = ctypes.c_int
+            lib.gvamp_atx_parts.argtypes = [i64, i64]
+            lib.gvamp_atx_parts.restype = i64
+            _lib = lib
+        return _lib

@@ -1,0 +1,172 @@
+"""Spike-and-slab Gaussian-mixture prior: denoisers + EM adaptation.
+
+Port of ``gvamp_tpu/prior.py``: the responsibility-form denoisers ``g1`` /
+``g1d`` (reference vamp.cpp:805-869), the posterior inclusion probability,
+and the EM prior update with component merging in fixed-size slots
+(vamp.cpp:929-1072).  The EM ``while_loop`` becomes a Python loop whose exit
+test reads one device value (a counted host sync, ``gvamp_tpu_torch.sync``).
+
+Scale convention: ``vars`` are in the internal scale (already multiplied by
+N, mirroring vamp.cpp:153-155).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from gvamp_tpu_torch.sync import host_bool
+
+GAMMA_MIN = 1e-11  # reference vamp.hpp:31
+GAMMA_MAX = 1e11   # reference vamp.hpp:32
+_SQRT_2PI = 2.5066282746310002
+
+
+@dataclasses.dataclass
+class Prior:
+    probs: torch.Tensor  # [L]; slot 0 = spike; merged slots have prob 0
+    vars: torch.Tensor   # [L]; slot 0 = 0; merged slots duplicate survivor var
+
+    @property
+    def L(self) -> int:
+        return self.probs.shape[0]
+
+
+def _resp_terms(r, gam1, prior: Prior):
+    """Responsibilities and shrinkages of the mixture denoiser in the
+    cancellation-free form of ``gvamp_tpu/prior.py:_resp_terms``."""
+    sigma = 1.0 / gam1
+    vmax = prior.vars.max()
+    v = prior.vars[None, :]
+    p = prior.probs[None, :]
+    r2 = torch.square(r)[:, None]
+    vps = v + sigma
+    c = p / torch.sqrt(vps) * torch.exp(
+        -0.5 * r2 * (vmax - v) / (vps * (vmax + sigma)))
+    w = c / c.sum(dim=1, keepdim=True)
+    s = v / vps
+    m = (w * s).sum(dim=1)
+    q = (w / vps).sum(dim=1)
+    t = (w * s / vps).sum(dim=1)
+    return sigma, m, q, t
+
+
+def g1(r: torch.Tensor, gam1, prior: Prior) -> torch.Tensor:
+    """Posterior mean E[x | r, gam1] under the mixture prior (vamp.cpp:805)."""
+    sigma, m, q, t = _resp_terms(r, gam1, prior)
+    return torch.where(torch.abs(torch.as_tensor(sigma)) < 1e-10, r, r * m)
+
+
+def g1d(r: torch.Tensor, gam1, prior: Prior) -> torch.Tensor:
+    """d g1 / d r (reference vamp.cpp:836), responsibility form."""
+    sigma, m, q, t = _resp_terms(r, gam1, prior)
+    val = m + torch.square(r) * (m * q - t)
+    return torch.where(torch.abs(torch.as_tensor(sigma)) < 1e-10,
+                       torch.ones_like(r), val)
+
+
+def pip(r: torch.Tensor, gam1, prior: Prior) -> torch.Tensor:
+    """Posterior inclusion probability P(x != 0 | r, gam1) per marker."""
+    sigma = 1.0 / gam1
+    vmax = prior.vars.max()
+    v = prior.vars[None, :]
+    p = prior.probs[None, :]
+    r2 = torch.square(r)[:, None]
+    vps = v + sigma
+    c = p / torch.sqrt(vps) * torch.exp(
+        -0.5 * r2 * (vmax - v) / (vps * (vmax + sigma)))
+    return 1.0 - c[:, 0] / c.sum(dim=1)
+
+
+def update_prior(r1: torch.Tensor, gam1, prior: Prior, m_mask: torch.Tensor,
+                 mt, em_max_iter: int = 2, em_err_thr: float = 1e-2,
+                 learn_vars: bool = True, merge_thr: float = 5e-1) -> Prior:
+    """One call of the reference's updatePrior (vamp.cpp:929-1072): EM over
+    (lambda, omegas, vars) with an early stop on the relative change of
+    probs and vars, then the close-variance merge pass."""
+    dt = prior.probs.dtype
+    noise_var = 1.0 / gam1
+    r2 = torch.square(r1)
+    probs, vars_ = prior.probs, prior.vars
+
+    def em_body(probs, vars_):
+        lam = 1.0 - probs[0]
+        omegas = probs / torch.where(lam == 0, 1.0, lam)
+        vmax = vars_.max()
+        vs = vars_[None, 1:]
+        num = (lam * omegas[None, 1:]
+               * torch.exp(-0.5 * r2[:, None] * (vmax - vs)
+                           / ((vs + noise_var) * (vmax + noise_var)))
+               / torch.sqrt(vs + noise_var) / _SQRT_2PI)
+        sum_num = num.sum(dim=1)
+        sum_safe = torch.where(sum_num == 0, 1.0, sum_num)
+        beta = num / sum_safe[:, None]
+        gammas = (gam1 * r1)[:, None] / (1.0 / vs + gam1)
+        v_post = 1.0 / (1.0 / vs + gam1)
+        pin = 1.0 / (1.0 + (1.0 - lam) / torch.sqrt(2.0 * math.pi * noise_var)
+                     * torch.exp(-0.5 * r2 * vmax
+                                 / (noise_var * (noise_var + vmax)))
+                     / sum_safe)
+        pin = pin * m_mask
+        sum_pin = pin.sum()
+        lam_new = sum_pin / mt
+        res = (beta * pin[:, None]).sum(dim=0)
+        res_g = (beta * (torch.square(gammas) + v_post) * pin[:, None]).sum(dim=0)
+        new_slab = torch.where(res > 0, res_g / torch.where(res == 0, 1.0, res),
+                               vars_[1:])
+        vars_new = torch.cat([vars_[:1], new_slab]) if learn_vars else vars_
+        omg = res / torch.where(sum_pin == 0, 1.0, sum_pin)
+        probs_new = torch.cat([(1.0 - lam_new)[None], lam_new * omg]).to(dt)
+        vars_new = vars_new.to(dt)
+        dist_p = torch.sqrt(torch.square(probs_new - probs).sum()
+                            / torch.square(probs_new).sum())
+        dist_v = torch.sqrt(torch.square(vars_new - vars_).sum()
+                            / torch.square(vars_new).sum())
+        return probs_new, vars_new, torch.maximum(dist_p, dist_v)
+
+    # lax.while_loop(it < em_max_iter & dist >= thr): the first test passes
+    # on the host (dist starts at inf), each later one reads the device
+    it = 0
+    while it < em_max_iter:
+        probs, vars_, dist = em_body(probs, vars_)
+        it += 1
+        if it < em_max_iter and not host_bool(dist >= em_err_thr):
+            break
+
+    # merge close variances: merging k into j moves k's probability onto j
+    # and duplicates j's variance into slot k (fixed-slot form)
+    probs, vars_ = probs.clone(), vars_.clone()
+    L = probs.shape[0]
+    for j in range(L):
+        for k in range(j + 1, L):
+            both_alive = (probs[j] > 0) & (probs[k] > 0)
+            denom = torch.where(vars_[j] != 0,
+                                torch.minimum(vars_[j], vars_[k]),
+                                torch.as_tensor(1e-7, dtype=dt,
+                                                device=vars_.device))
+            do = both_alive & (torch.abs(vars_[j] - vars_[k]) / denom < merge_thr)
+            pj = torch.where(do, probs[j] + probs[k], probs[j])
+            pk = torch.where(do, 0.0, probs[k])
+            vk = torch.where(do, vars_[j], vars_[k])
+            probs[j], probs[k], vars_[k] = pj, pk, vk
+    return Prior(probs=probs, vars=vars_)
+
+
+def initialize_prior(probs, vars_, N, Mt):
+    """Default 23-component prior when none given (utilities.cpp:91-140);
+    returns user-scale numpy arrays like ``gvamp_tpu.prior.initialize_prior``."""
+    if probs is not None and len(probs) > 0:
+        return np.asarray(probs, np.float64), np.asarray(vars_, np.float64)
+    if Mt <= 50000:
+        raise ValueError("No probs/vars specified and Mt <= 50000 "
+                         "(reference utilities.cpp:96-99)")
+    num_mix = 23
+    p1 = min(50000.0 / Mt, 1.0) / (2.0 - 1.0 / 2.0**21)
+    probs_out = [1.0 - 50000.0 / Mt] + [p1 / 2.0**i for i in range(num_mix - 1)]
+    ratio = 10.0 ** (np.log10(1e2 / 1e-5) / (num_mix - 2))
+    vars_out = [0.0] + [1e-5 * ratio**i for i in range(num_mix - 1)]
+    return (np.asarray(probs_out, np.float64),
+            np.asarray(vars_out, np.float64) / N)

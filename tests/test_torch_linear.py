@@ -1,0 +1,220 @@
+"""The port's linear VAMP main path (gvamp_tpu_torch.linear / cli) against
+the JAX package: one step from the same converted state, the 6-iteration
+recipe of tests/test_linear_vamp.py, the CLI dumps, and an import with JAX
+blocked.  JAX runs f32 through the Pallas kernels in interpret mode and f64
+through XLA; both sides get JAX's probe (jax.random cannot be reproduced
+in torch)."""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gvamp_tpu import linear as jlinear
+from gvamp_tpu import sim as jsim
+from gvamp_tpu.data import GenoBed as JGenoBed
+from gvamp_tpu.io import plink, vecio
+from gvamp_tpu_torch import cli as tcli
+from gvamp_tpu_torch import convert
+from gvamp_tpu_torch import linear as tlinear
+from gvamp_tpu_torch.data import GenoBed as TGenoBed
+from test_data_layer import make_bed
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_DTYPE = {torch.float32: jnp.float32, torch.float64: jnp.float64}
+JAX_BACKEND = {torch.float32: "pallas", torch.float64: "xla"}
+SCALARS = ("gam1", "gam2", "gamw", "alpha1", "alpha2")
+
+# The recipe of tests/test_linear_vamp.py:203-238 (complete genotypes).
+SEED, N, M, CV, H2 = 31, 500, 320, 20, 0.6
+CFG = dict(rho=0.3, gam1_init=1e-8, gamw_init=2.0, seed=5)
+
+
+@pytest.fixture(scope="module")
+def problem():
+    rng = np.random.default_rng(SEED)
+    codes = jsim.random_genotypes(rng, M, N, miss_rate=0.0)
+    vars_t, probs_t = jsim.two_group_prior(M, CV, H2)
+    beta = jsim.simulate_mixture(rng, M, vars_t, probs_t)
+    g = JGenoBed.from_arrays(make_bed(codes), np.zeros(N), N=N,
+                             standardize_phen=False, dtype=jnp.float64,
+                             backend="xla")
+    y = jsim.simulate_linear_phenotype(g, beta, 1 / (1 - H2), rng)
+    return codes, y, beta, vars_t, probs_t
+
+
+def _genos(problem, dt):
+    codes, y = problem[:2]
+    j = JGenoBed.from_arrays(make_bed(codes), np.zeros(N), N=N,
+                             standardize_phen=False, dtype=JAX_DTYPE[dt],
+                             backend=JAX_BACKEND[dt])
+    j.set_phen(y)
+    t = TGenoBed.from_arrays(make_bed(codes), np.zeros(N), N=N,
+                             standardize_phen=False, dtype=dt)
+    t.set_phen(y)
+    return j, t
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / (np.abs(want).max() + 1e-300))
+
+
+# One step from the same state, operator and probe: f64 agrees to 1e-9
+# (two true-f64 engines, rounding order only); f32 to 1e-4 (the digit
+# products agree to ~1e-7 and the CG solve amplifies that by its
+# conditioning).
+STEP_TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_one_step_from_converted_state(problem, dt):
+    vars_t, probs_t = problem[3:5]
+    j, t = _genos(problem, dt)
+    cfg_j = jlinear.VampConfig(max_iter=4, **CFG)
+    aux_j = jlinear.make_aux(j, cfg_j)
+    step_j = jlinear.make_step(j, cfg_j)
+    # three JAX iterations arm the tracked Gram product and the secant pair
+    state0 = jlinear.init_state(j, cfg_j, probs_t, vars_t)
+    for _ in range(3):
+        state0, _ = step_j(state0, aux_j)
+    state_j, m_j = step_j(state0, aux_j)
+
+    # the port steps from the same 3-iteration state with JAX's probe and
+    # JAX's statistics, so the step itself is the only difference
+    t = convert.geno_from_numpy(np.asarray(j.words), np.asarray(problem[1]),
+                                N=N, M=M, standardize_phen=False,
+                                mave=np.asarray(j.mave),
+                                msig=np.asarray(j.msig), dtype=dt)
+    cfg_t = tlinear.VampConfig(max_iter=4, **CFG)
+    aux_t = convert.aux_from_numpy(t, cfg_t, np.asarray(aux_j.bern))
+    st = convert.state_from_numpy(
+        {k: np.asarray(v) for k, v in state0._asdict().items()}, dtype=dt)
+    state_t, m_t = tlinear.make_step(t, cfg_t)(st, aux_t)
+
+    assert state_t.it == int(state_j.it) == 4
+    for k in SCALARS:
+        assert _rel(m_t[k].detach(), m_j[k]) < STEP_TOL[dt], k
+    assert _rel(state_t.x1, state_j.x1) < STEP_TOL[dt]
+    # the port's state is JAX's without the dual-solve and cross-validation
+    # fields, whose branches are not ported
+    back = convert.state_to_numpy(state_t)
+    assert set(jlinear.LinState._fields) - set(back) == {
+        "mu_cg_n", "mu_probe_n", "gmu_n", "cv_r2"}
+    assert set(back) <= set(jlinear.LinState._fields)
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_six_iteration_recipe_matches_jax(problem, dt):
+    """f64: cg_iters equal and x1 within 1e-8 of max|x1|.  f32: x1 within
+    5e-5 of max|x1| and gam1/gam2/gamw/alpha2 within rtol 2e-4, the
+    thresholds tests/test_linear_vamp.py holds the fused-Gram f32 run to."""
+    beta, vars_t, probs_t = problem[2:5]
+    j, t = _genos(problem, dt)
+    cfg_j = jlinear.VampConfig(max_iter=6, **CFG)
+    cfg_t = tlinear.VampConfig(max_iter=6, **CFG)
+    bern = np.asarray(jlinear.make_bern_probe(j, cfg_j.seed, cfg_j.n_probes))
+    x_j, _, h_j = jlinear.infer(j, cfg_j, probs_t, vars_t, verbose=False)
+    x_t, _, h_t = tlinear.infer(t, cfg_t, probs_t, vars_t, verbose=False,
+                                bern=bern)
+    assert len(h_t) == len(h_j) == 6
+    if dt == torch.float64:
+        assert [h["cg_iters"] for h in h_t] == [int(h["cg_iters"]) for h in h_j]
+        assert _rel(x_t, x_j) < 1e-8
+    else:
+        assert _rel(x_t, x_j) < 5e-5
+        for k in ("gam1", "gam2", "gamw", "alpha2"):
+            np.testing.assert_allclose(float(h_t[-1][k]), float(h_j[-1][k]),
+                                       rtol=2e-4, err_msg=k)
+    assert np.corrcoef(x_t, beta)[0, 1] > 0.9
+    assert all(h["host_syncs"] > 0 and h["wall_ms"] > 0 for h in h_t)
+
+
+def test_cli_infere_dumps_match_library(problem, tmp_path):
+    codes, y, _, vars_t, probs_t = problem
+    bed, phen = str(tmp_path / "d.bed"), str(tmp_path / "d.phen")
+    plink.write_bed(bed, codes)
+    plink.write_phen(phen, y)
+    n_it = 3
+    tcli.main(["--device", "cpu", "--run-mode", "infere", "--model", "linear",
+               "--bed-file", bed, "--phen-files", phen, "--N", str(N),
+               "--Mt", str(M), "--iterations", str(n_it), "--rho", "0.3",
+               "--probs", ",".join(map(str, probs_t)),
+               "--vars", ",".join(map(str, vars_t)), "--verbosity", "0",
+               "--out-dir", str(tmp_path / "out"), "--out-name", "run"])
+    pre = str(tmp_path / "out" / "run")
+    g = TGenoBed.from_files(bed, phen, N=N, Mt=M)
+    cfg = tlinear.VampConfig(max_iter=n_it, rho=0.3)
+    x_lib, state, _ = tlinear.infer(g, cfg, probs_t, vars_t, verbose=False)
+    dump = vecio.read_bin_shard(f"{pre}_it_{n_it}.bin", M, 0)
+    # the dump scales the f32 x1 by 1/sqrt(N) in f64, as IterDumper does;
+    # infer's f32 estimate is one f32 rounding away from it
+    np.testing.assert_array_equal(dump, state.x1[:M].numpy() * (1 / np.sqrt(N)))
+    np.testing.assert_allclose(dump, x_lib, rtol=2.0 ** -23)
+    for it in range(1, n_it + 1):
+        for name in (f"_r1_it_{it}.bin", f"_r2_it_{it}.bin",
+                     f"_it_{it}_x2_hat.bin", f"_z1_it_{it}.csv"):
+            assert os.path.getsize(pre + name) > 0
+    for name in ("_gam1s.csv", "_gam2s.csv", "_R2trains.csv"):
+        assert os.path.exists(pre + name)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
+        tcli.main(["--device", "cpu", "--bed-file", bed, "--phen-files", phen,
+                   "--N", str(N), "--Mt", str(M), "--use-XXT-denoiser", "1",
+                   "--probs", "0.9,0.1", "--vars", "0.0,0.01"])
+
+
+def test_out_of_slice_options_raise(problem):
+    vars_t, probs_t = problem[3:5]
+    _, t = _genos(problem, torch.float64)
+    for kw in (dict(use_xxt=True), dict(red=True), dict(deflate_k=4),
+               dict(use_cross_val=True), dict(use_slq=False),
+               dict(fold_noise=False)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tlinear.infer(t, tlinear.VampConfig(**kw), probs_t, vars_t,
+                          verbose=False)
+    for kw in (dict(sync_every=2), dict(phase_timers=True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tlinear.infer(t, tlinear.VampConfig(), probs_t, vars_t,
+                          verbose=False, **kw)
+
+
+def test_port_imports_and_runs_without_jax():
+    """In a fresh interpreter with JAX blocked, every module of the port
+    imports and a tiny CPU inference runs."""
+    code = """
+import sys
+sys.modules["jax"] = None
+import os, tempfile
+import numpy as np
+import gvamp_tpu_torch
+from gvamp_tpu_torch import cg, cli, convert, data, linear, prior, probit, sim, slq, sync
+from gvamp_tpu_torch.ops import _build, layout, matvec
+from gvamp_tpu import sim as npsim
+from gvamp_tpu.io import plink
+rng = np.random.default_rng(0)
+N, M = 200, 96
+with tempfile.TemporaryDirectory() as tmp:
+    bed = os.path.join(tmp, "d.bed")
+    plink.write_bed(bed, npsim.random_genotypes(rng, M, N))
+    g = data.GenoBed.from_files(bed, None, N=N, Mt=M, standardize_phen=False)
+vars_t, probs_t = npsim.two_group_prior(M, 10, 0.5)
+beta = npsim.simulate_mixture(rng, M, vars_t, probs_t)
+g.set_phen(sim.simulate_linear_phenotype(g, beta, 2.0, rng))
+x, state, hist = linear.infer(g, linear.VampConfig(max_iter=3), probs_t,
+                              vars_t, verbose=False)
+assert np.isfinite(x).all() and len(hist) == 3
+assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
+               if sys.modules[m] is not None)
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

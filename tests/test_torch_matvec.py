@@ -1,0 +1,216 @@
+"""The port's packed products (gvamp_tpu_torch/ops/matvec.py) against the
+JAX package's: the Pallas kernels in interpret mode for f32, the XLA
+functions for f64.  On the CPU every wrapper runs its plain version; the
+CUDA kernels are held against those plain versions on the card by
+chip_smoke.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from gvamp_tpu.ops import matvec as jmv
+from gvamp_tpu_torch.ops import matvec as tmv
+from helpers import CODE_A, CODE_B
+
+torch.set_num_threads(1)
+
+# (Nw, Mpad, B): B=17 takes JAX's wide (D > 64) kernel, B=70 its column
+# chunking; the port runs one kernel for every B
+CASES = [(32, 512, 1), (64, 1024, 2), (32, 1024, 5), (64, 512, 17),
+         (32, 512, 70)]
+
+# Folded f32 outputs: both sides fold the same exact integer products with
+# the same scales, in another summation order -> a few f32 ulps of the
+# largest entry.
+FOLD_TOL = 1e-6
+
+
+def _words(rng, nw, m):
+    return rng.integers(0, 2**32, size=(nw, m), dtype=np.uint64).astype(np.uint32)
+
+
+def _t(words_np):
+    return torch.from_numpy(words_np.view(np.int32).copy())
+
+
+def _close(got, want, tol):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = np.abs(want).max() + 1e-30
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * scale)
+
+
+def _jax_axm_int(words, w8t):
+    """JAX's forward digit products: the _axm_i8a_kernel body, interpret
+    mode, at the tile sizes its wrapper picks."""
+    nw, m = words.shape
+    D = w8t.shape[0]
+    tnw, tm = jmv._pick_tnw(nw, 256), jmv._pick_tm(m, 4096)
+    vmem = pltpu.VMEM
+    return pl.pallas_call(
+        jmv._axm_i8a_kernel, grid=(nw // tnw, m // tm),
+        in_specs=[pl.BlockSpec((tnw, tm), lambda i, j: (i, j), memory_space=vmem),
+                  pl.BlockSpec((D, tm), lambda i, j: (0, j), memory_space=vmem)],
+        out_specs=pl.BlockSpec((D, 4, 4 * tnw), lambda i, j: (0, 0, i),
+                               memory_space=vmem),
+        out_shape=jax.ShapeDtypeStruct((D, 4, 4 * nw), jnp.int32),
+        interpret=True)(jnp.asarray(words), jnp.asarray(w8t))
+
+
+def _jax_atxm_int(words, v8):
+    """JAX's transpose digit products: the _atxm_i8a_kernel body."""
+    nw, m = words.shape
+    D = v8.shape[1]
+    tnw, tm = jmv._pick_tnw(nw, 256), jmv._pick_tm(m, 512)
+    vmem = pltpu.VMEM
+    return pl.pallas_call(
+        jmv._atxm_i8a_kernel, grid=(m // tm, nw // tnw),
+        in_specs=[pl.BlockSpec((tnw, tm), lambda j, i: (i, j), memory_space=vmem),
+                  pl.BlockSpec((4, D, 4 * tnw), lambda j, i: (0, 0, i),
+                               memory_space=vmem)],
+        out_specs=pl.BlockSpec((D, tm), lambda j, i: (0, j), memory_space=vmem),
+        out_shape=jax.ShapeDtypeStruct((D, m), jnp.int32),
+        interpret=True)(jnp.asarray(words), jnp.asarray(v8))
+
+
+def test_swar_decode_matches_code_tables():
+    """Every byte value decodes to the reference LUT values, at the planar
+    position (k, 4i+b) of its bit pair k in byte b of word row i."""
+    words = np.arange(1024, dtype=np.uint32).astype(np.uint8).view(
+        np.uint32).reshape(16, 16)
+    a, b = tmv.decode_planar_dense(_t(words), torch.float64)
+    by = words.view(np.uint8).reshape(16, 16, 4)        # [i, m, byte]
+    for k in range(4):
+        code = (by >> (2 * k)) & 3                      # [i, m, b]
+        want_a = CODE_A[code].transpose(0, 2, 1).reshape(64, 16)
+        want_b = CODE_B[code].transpose(0, 2, 1).reshape(64, 16)
+        np.testing.assert_array_equal(a[k].numpy(), want_a)
+        np.testing.assert_array_equal(b[k].numpy(), want_b)
+
+
+def test_digits_equal_jax():
+    """_quant_digits / _quant_digits_t give JAX's digits and scales bit for
+    bit, in both orientations, including an all-zero column."""
+    rng = np.random.default_rng(1)
+    W = rng.standard_normal((512, 5)).astype(np.float32)
+    W[:, 3] = 0.0
+    for x, axis in ((W.T, 0), (W, 1)):
+        d_t, s_t = tmv._quant_digits(torch.from_numpy(np.ascontiguousarray(x)), axis)
+        d_j, s_j = jmv._quant_digits(jnp.asarray(x), axis)
+        np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
+        np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    V = rng.standard_normal((4, 128, 3)).astype(np.float32)
+    d_t, s_t = tmv._quant_digits_t(torch.from_numpy(V))
+    d_j, s_j = jmv._quant_digits_t(jnp.asarray(V))
+    np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_j))
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+
+
+def test_folds_match_jax():
+    rng = np.random.default_rng(2)
+    B = 3
+    s0 = rng.uniform(0.5, 2.0, B).astype(np.float32)
+    zt = rng.integers(-2**20, 2**20, (tmv._NDIG * B, 4, 32)).astype(np.int32)
+    _close(tmv._fold_digits_zt(torch.from_numpy(zt), torch.from_numpy(s0), B),
+           jmv._fold_digits_zt(jnp.asarray(zt), jnp.asarray(s0), B), FOLD_TOL)
+    za = rng.integers(-2**20, 2**20, (tmv._NDIG * B, 64)).astype(np.int32)
+    _close(tmv._fold_digits_t(torch.from_numpy(za), torch.from_numpy(s0), B),
+           jmv._fold_digits_t(jnp.asarray(za), jnp.asarray(s0), B), FOLD_TOL)
+    zw = rng.integers(-2**20, 2**20, (4, 32, tmv._NDIG * B)).astype(np.int32)
+    _close(tmv._fold_digits(torch.from_numpy(zw), torch.from_numpy(s0), B),
+           jmv._fold_digits(jnp.asarray(zw), jnp.asarray(s0), B), FOLD_TOL)
+
+
+@pytest.mark.parametrize("nw,m,B", CASES)
+def test_axm_i8a_matches_pallas(nw, m, B):
+    rng = np.random.default_rng(nw * 7 + m + B)
+    words = _words(rng, nw, m)
+    W = rng.standard_normal((m, B)).astype(np.float32)
+    w8t, _ = tmv._quant_digits(torch.from_numpy(W).T, 0)
+    j8t, _ = jmv._quant_digits(jnp.transpose(jnp.asarray(W)), 0)
+    np.testing.assert_array_equal(w8t.numpy(), np.asarray(j8t))
+    # the integer digit products are exact on both sides: equal
+    np.testing.assert_array_equal(tmv.axm_i8a_int_ref(_t(words), w8t).numpy(),
+                                  np.asarray(_jax_axm_int(words, j8t)))
+    _close(tmv.axm_i8a(_t(words), torch.from_numpy(W)),
+           jmv.axm_i8a_pallas(jnp.asarray(words), jnp.asarray(W)), FOLD_TOL)
+
+
+@pytest.mark.parametrize("nw,m,B", CASES)
+def test_atxm_i8a_matches_pallas(nw, m, B):
+    rng = np.random.default_rng(nw * 5 + m + B)
+    words = _words(rng, nw, m)
+    V = rng.standard_normal((4, 4 * nw, B)).astype(np.float32)
+    v8, _ = tmv._quant_digits_t(torch.from_numpy(V))
+    j8, _ = jmv._quant_digits_t(jnp.asarray(V))
+    np.testing.assert_array_equal(v8.numpy(), np.asarray(j8))
+    np.testing.assert_array_equal(tmv.atxm_i8a_int_ref(_t(words), v8).numpy(),
+                                  np.asarray(_jax_atxm_int(words, j8)))
+    _close(tmv.atxm_i8a(_t(words), torch.from_numpy(V)),
+           jmv.atxm_i8a_pallas(jnp.asarray(words), jnp.asarray(V)), FOLD_TOL)
+
+
+@pytest.mark.parametrize("nw,m", [(32, 512), (64, 1024)])
+def test_atx_matches_pallas(nw, m):
+    """f32 (A_a^T v, A_b^T v); v >= 0 keeps the sums free of cancellation,
+    so the two summation orders agree to a few ulps of the largest sum."""
+    rng = np.random.default_rng(nw + m)
+    words = _words(rng, nw, m)
+    v = rng.random((4, 4 * nw)).astype(np.float32)
+    av, bv = tmv.atx(_t(words), torch.from_numpy(v))
+    jav, jbv = jmv.atx_pallas(jnp.asarray(words), jnp.asarray(v))
+    _close(av, jav, FOLD_TOL)
+    _close(bv, jbv, FOLD_TOL)
+
+
+def test_dense_f64_matches_xla():
+    """The dense plain versions in f64 against ax_xla ... atxm_xla; both are
+    true f64 contractions of the same decode (1e-12 of the largest entry)."""
+    rng = np.random.default_rng(3)
+    nw, m, B = 32, 512, 3
+    words = _words(rng, nw, m)
+    tw, jw = _t(words), jnp.asarray(words)
+    w, u = rng.standard_normal(m), rng.standard_normal(m)
+    W, U = rng.standard_normal((m, B)), rng.standard_normal((m, B))
+    v = rng.standard_normal((4, 4 * nw))
+    V = rng.standard_normal((4, 4 * nw, B))
+    f64 = torch.float64
+    t = torch.from_numpy
+    _close(tmv.ax_ref(tw, t(w), t(u), f64),
+           jmv.ax_xla(jw, w, u, dtype=jnp.float64), 1e-12)
+    _close(tmv.axm_ref(tw, t(W), t(U), f64),
+           jmv.axm_xla(jw, W, U, dtype=jnp.float64), 1e-12)
+    for got, want in zip(tmv.atx_ref(tw, t(v), f64),
+                         jmv.atx_xla(jw, v, dtype=jnp.float64)):
+        _close(got, want, 1e-12)
+    for got, want in zip(tmv.atxm_ref(tw, t(V), f64),
+                         jmv.atxm_xla(jw, V, dtype=jnp.float64)):
+        _close(got, want, 1e-12)
+
+
+def test_cpu_wrappers_launch_nothing_and_non_cpu_raises():
+    """On the CPU the wrappers run their plain versions and count no launch;
+    a tensor on any other device takes the kernel route, which checks its
+    operands and raises rather than falling back."""
+    rng = np.random.default_rng(4)
+    words = _t(_words(rng, 32, 512))
+    tmv.reset_launches()
+    tmv.axm_i8a(words, torch.ones((512, 2)))
+    tmv.atxm_i8a(words, torch.ones((4, 128, 1)))
+    tmv.atx(words, torch.ones((4, 128)))
+    assert tmv.LAUNCHES == {"axm_i8a": 0, "atxm_i8a": 0, "atx": 0}
+    meta = words.to("meta")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tmv.axm_i8a(meta, torch.ones((512, 1), device="meta"))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tmv.atxm_i8a(meta, torch.ones((4, 128, 1), device="meta"))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tmv.atx(meta, torch.ones((4, 128), device="meta"))
+    # 2**24 samples: the f32 non-missing counts would no longer be exact
+    huge = torch.empty((2**20, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="below 2"):
+        tmv.atx(huge, torch.empty((4, 2**22), device="meta"))
+    assert tmv.LAUNCHES == {"axm_i8a": 0, "atxm_i8a": 0, "atx": 0}
