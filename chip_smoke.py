@@ -2,24 +2,33 @@
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
-    python3 chip_smoke.py                  # every phase, ~100 s on an H100
-    python3 chip_smoke.py --kernels-only   # phases 1-3: build and check
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --kernels-only   # phases 1-3a: build and check
 
 Phases, each of which raises on failure (exit code != 0):
 
 1. environment: torch / CUDA / nvcc / triton versions and the card's name
    and power limit; TF32 off for every float32 product;
-2. build the CUDA kernels (gvamp_tpu_torch/csrc/matvec.cu) with nvcc;
+2. build the CUDA kernels (gvamp_tpu_torch/csrc/matvec.cu) with nvcc; the
+   ptxas report must show no spill stores;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
-   at small shapes and on the whole config-B matrix at B = 1 and 2;
-   CUDA-event times of both;
+   with CUDA-event times of both: (a) all five at small shapes, (b) the
+   a-only kernels and atx on the whole config-B matrix at B = 1 and 2,
+   (c) the general kernels on the whole config-Bm matrix at B = 1 and 2,
+   and axm_i8 at B = 22;
 4. the linear VAMP main path at config B of bench.py (N=327,680 x
    M=131,072, complete genotypes, 10.74 GB of packed words on the card):
    load, phenotype simulation and 10 iterations of linear.infer, with the
-   kernels' launch counters proving the path ran through them;
+   launch counters proving that the path ran through the a-only kernels;
+   4m. the missing-genotype path at config Bm (the same shape, about 1.56%
+   of calls missing): 10 iterations, then LOO and LOCO p-values over 22
+   chromosomes, through the general kernels and not the a-only ones;
+   4n. the p-value moments at N=327,680 against a float64 oracle;
 5. the same small problem on the card and on the CPU (plain versions),
+   complete and with 2% missing calls (then with LOO and LOCO p-values),
    which must agree to the f32 tolerances of tests/test_torch_linear.py;
-6. the CLI (`--run-mode infere --model linear`) on a small .bed/.phen.
+6. the CLI (`--run-mode infere --model linear --store-pvals 1` with a
+   .bim) on the flagship recipe of the README's port section.
 
 The last two lines of standard output are one JSON object with the
 kernels' numbers and one with the device; before them, the nvidia-smi
@@ -30,6 +39,7 @@ exits non-zero and prints no result.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -47,16 +57,32 @@ CFG_B_ITERS = 10
 # the JAX package's kernel each CUDA kernel replaces (def line of the wrapper)
 REPLACES = {"axm_i8a": "gvamp_tpu/ops/matvec.py:797",
             "atxm_i8a": "gvamp_tpu/ops/matvec.py:1581",
+            "axm_i8": "gvamp_tpu/ops/matvec.py:539",
+            "atxm_i8": "gvamp_tpu/ops/matvec.py:704",
             "atx": "gvamp_tpu/ops/matvec.py:287"}
+KERNELS = tuple(REPLACES)
 SOURCE = "gvamp_tpu_torch/csrc/matvec.cu"
 SHAPES = [(32, 512, 1), (64, 1024, 2), (96, 1536, 5), (32, 2048, 17),
           (64, 512, 70)]
 SLICE_M = 2048
-# corr(x_hat, beta) and R2_train_1 after 10 iterations at config B; set from
-# the first H100 run of this script (0.99590 and 0.44236, PERF.md) with
-# room for f32 rounding and a different card, not for a different algorithm
+# corr(x_hat, beta) and R2_train_1 after 10 iterations at config B and at
+# config Bm; set from the first H100 runs of this script (config B 0.99590
+# and 0.44236, config Bm 0.99594 and 0.44155, PERF.md) with room for f32
+# rounding and a different card, not for a different algorithm
 CORR_MIN = 0.99
 R2_RANGE = (0.40, 0.50)
+# config Bm: LOCO over 22 chromosomes of contiguous marker blocks
+BM_CHROMS = 22
+# p-values at config Bm (LOO and LOCO): the median p of the ~1,000 causal
+# markers must lie far below the nulls' (first run: 4e-33 and 6e-85, null
+# median 0.50), and the share of the ~130,000 null markers below 0.05
+# near 0.05 (binomial sd 0.0006; first run 0.0506 and 0.0509)
+CAUSAL_MEDIAN_P_MAX = 1e-10
+NULL_SHARE_RANGE = (0.04, 0.06)
+# card vs CPU p-values on 2% missing calls: |dlog10 p| relative to
+# max(1, |log10 p|), as x1 itself differs by up to 5e-5 between them
+# (first run 1.9e-5)
+CARD_CPU_LOG10P_TOL = 2e-4
 
 
 def log(msg=""):
@@ -110,16 +136,43 @@ def phase_environment():
         f"cudnn {torch.backends.cudnn.allow_tf32}")
 
 
+def ptxas_report(text: str) -> dict:
+    """{mangled kernel name: (registers, spill-store bytes)} from the
+    ``nvcc -Xptxas -v`` log."""
+    out = {}
+    for part in text.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        out[name] = (int(regs.group(1)) if regs else -1,
+                     int(spill.group(1)) if spill else -1)
+    return out
+
+
 def phase_build():
+    """Build the kernels; every kernel of the library must compile with
+    no spill stores (ptxas report)."""
     log("== phase 2: build")
     from gvamp_tpu_torch.ops import _build
     t0 = time.perf_counter()
     path = _build.library()._name
     log(f"kernels: {path} ready in {time.perf_counter() - t0:.2f} s")
-    if _build.BUILD_INFO:
-        log(f"nvcc: {_build.BUILD_INFO['command']}")
-        log(f"nvcc build {_build.BUILD_INFO['seconds']:.2f} s; ptxas:")
-        log(_build.BUILD_INFO["log"].strip())
+    if not _build.BUILD_INFO:
+        log("library from an earlier build: no ptxas report in this run")
+        return
+    log(f"nvcc: {_build.BUILD_INFO['command']}")
+    log(f"nvcc build {_build.BUILD_INFO['seconds']:.2f} s; ptxas:")
+    log(_build.BUILD_INFO["log"].strip())
+    report = ptxas_report(_build.BUILD_INFO["log"])
+    for kernel in KERNELS:
+        hits = {n: r for n, r in report.items() if f"{kernel}_kernel" in n}
+        if not hits:
+            raise AssertionError(f"ptxas reported no entry for {kernel}")
+        for n, (regs, spill) in hits.items():
+            log(f"  {kernel:9s} {regs:3d} registers, {spill} bytes spill "
+                f"stores ({n})")
+            if spill != 0:
+                raise AssertionError(f"{n}: {spill} bytes of spill stores")
 
 
 def random_words(gen, nw, m, device="cuda"):
@@ -137,11 +190,12 @@ def compare(name, label, got, want) -> float:
     return err
 
 
-def check_kernels(words, B, gen, label, count=None, with_atx=True, reps=5):
-    """Each kernel against its plain version on ``words``; returns
-    {name: (max_abs_err, ms, plain_ms)}.
+def check_kernels(words, B, gen, label, names=KERNELS, count=None, reps=5,
+                  plain_reps=3):
+    """Each kernel of ``names`` against its plain version on ``words``;
+    returns {name: (max_abs_err, ms, plain_ms)}.
 
-    axm_i8a / atxm_i8a: both sides share the quantisation and the fold on
+    The digit kernels: both sides share the quantisation and the fold on
     this device and their integer products are exact, so they must be
     equal bit for bit.  atx: a dyadic v (multiples of 1/8) keeps every f32
     partial sum exact in any order, so it must be equal too.  With v = 1,
@@ -151,23 +205,31 @@ def check_kernels(words, B, gen, label, count=None, with_atx=True, reps=5):
     nw, m = words.shape
     dev = words.device
     W = torch.randn((m, B), generator=gen, device=dev)
+    U = torch.randn((m, B), generator=gen, device=dev) * 3
     V = torch.randn((4, 4 * nw, B), generator=gen, device=dev)
-    cases = [("axm_i8a", matvec.axm_i8a, matvec.axm_i8a_ref, W),
-             ("atxm_i8a", matvec.atxm_i8a, matvec.atxm_i8a_ref, V)]
-    if with_atx:
-        v = torch.randint(0, 9, (4, 4 * nw), generator=gen,
-                          device=dev).float() / 8
-        cases.append(("atx", matvec.atx, matvec.atx_ref, v))
+    v = torch.randint(0, 9, (4, 4 * nw), generator=gen,
+                      device=dev).float() / 8
+    cases = {
+        "axm_i8a": (lambda: matvec.axm_i8a(words, W),
+                    lambda: matvec.axm_i8a_ref(words, W)),
+        "atxm_i8a": (lambda: matvec.atxm_i8a(words, V),
+                     lambda: matvec.atxm_i8a_ref(words, V)),
+        "axm_i8": (lambda: matvec.axm_i8(words, W, U),
+                   lambda: matvec.axm_i8_ref(words, W, U)),
+        "atxm_i8": (lambda: matvec.atxm_i8(words, V),
+                    lambda: matvec.atxm_i8_ref(words, V)),
+        "atx": (lambda: matvec.atx(words, v),
+                lambda: matvec.atx_ref(words, v))}
     out = {}
-    for name, fn, ref, arg in cases:
-        got, want = fn(words, arg), ref(words, arg)
-        if name != "atx":
+    for name in names:
+        fn, ref = cases[name]
+        got, want = fn(), ref()
+        if isinstance(got, torch.Tensor):
             got, want = (got,), (want,)
         err = compare(name, f"{label} B={B}", got, want)
         del got, want
-        out[name] = (err, cuda_ms(lambda: fn(words, arg), reps),
-                     cuda_ms(lambda: ref(words, arg), min(reps, 3)))
-    if with_atx:
+        out[name] = (err, cuda_ms(fn, reps), cuda_ms(ref, plain_reps))
+    if "atx" in names:
         ones = torch.ones((4, 4 * nw), device=dev)
         bv1, rbv1 = matvec.atx(words, ones)[1], matvec.atx_ref(words, ones)[1]
         if not torch.equal(bv1, rbv1) or (
@@ -188,11 +250,12 @@ def phase_kernels_small(gen):
         check_kernels(random_words(gen, nw, m), B, gen, f"Nw={nw} Mpad={m}")
 
 
-def synth_config_b(gen):
-    """Config-B words on the card, in column chunks (a single randint of
-    10.74 GB would need 8x that in int64 temporaries).  Every "01"
-    (missing) code is remapped to "11", as bench.py:70-79 does, so the
-    genotypes are complete."""
+def synth_words(gen, miss: bool):
+    """Config-B-sized words on the card with the recipe of bench.py:45-86, in
+    column chunks (a single randint of 10.74 GB would need 8x that in int64
+    temporaries).  Every "01" (missing) code is remapped to "11", except
+    that with ``miss`` the AND of four more random bit-streams keeps one in
+    sixteen of them: about 1.56% of the calls stay missing (config Bm)."""
     from gvamp_tpu_torch.ops.layout import PlanarLayout
     nw = PlanarLayout.create(CFG_B_N).n_words
     words = torch.empty((nw, CFG_B_M), dtype=torch.int32, device="cuda")
@@ -201,7 +264,13 @@ def synth_config_b(gen):
         raw = random_words(gen, nw, chunk)
         lo = raw & 0x55555555
         hi = (raw >> 1) & 0x55555555
-        words[:, c:c + chunk] = raw | ((lo & ~hi) << 1)
+        is01 = lo & ~hi
+        if miss:
+            keep = torch.full_like(raw, 0x55555555)
+            for _ in range(4):
+                keep &= random_words(gen, nw, chunk)
+            is01 &= ~keep
+        words[:, c:c + chunk] = raw | (is01 << 1)
     torch.cuda.synchronize()
     return words
 
@@ -219,29 +288,49 @@ def phase_kernels_config_b(words, gen):
     del sl
     nw, m = words.shape
     # complete genotypes: every marker has 16 * Nw non-missing calls
+    a_only = ("axm_i8a", "atxm_i8a")
     full = {B: check_kernels(words, B, gen, f"config B full {nw}x{m}",
-                             count=16 * nw, with_atx=B == 1, reps=3)
+                             names=a_only + ("atx",) * (B == 1),
+                             count=16 * nw, reps=3)
             for B in (1, 2)}
     torch.cuda.empty_cache()
     return full
 
 
-def phase_main_path(words):
-    log("== phase 4: linear VAMP main path at config B")
+def phase_kernels_config_bm(words, gen):
+    """The general kernels on the whole config-Bm matrix at B = 1 and 2
+    (the linear path's widths) and axm_i8 at B = 22 (LOCO's forward
+    product over 22 chromosomes, the widest call of the path).  Returns
+    {B: check_kernels result}."""
+    log("== phase 3c: general kernels vs plain versions, config-Bm words")
+    nw, m = words.shape
+    general = ("axm_i8", "atxm_i8")
+    full = {B: check_kernels(words, B, gen, f"config Bm full {nw}x{m}",
+                             names=general, reps=3)
+            for B in (1, 2)}
+    full[BM_CHROMS] = check_kernels(words, BM_CHROMS, gen,
+                                    f"config Bm full {nw}x{m}",
+                                    names=("axm_i8",), reps=3, plain_reps=1)
+    torch.cuda.empty_cache()
+    return full
+
+
+def run_linear(words, label, complete, corr_min, r2_range):
+    """Load, phenotype simulation and CFG_B_ITERS iterations of linear.infer
+    at config-B settings on ``words``; returns (geno, state, beta).  The
+    caller resets and reads the launch counters around it."""
     from gvamp_tpu import sim as npsim
     from gvamp_tpu_torch import linear, sim
     from gvamp_tpu_torch.data import GenoBed
-    from gvamp_tpu_torch.ops import matvec
-    torch.cuda.reset_peak_memory_stats()
-    matvec.reset_launches()
     t0 = time.perf_counter()
     geno = GenoBed.from_device_words(words, np.zeros(CFG_B_N), N=CFG_B_N,
                                      M=CFG_B_M, standardize_phen=False)
     torch.cuda.synchronize()
     t_stats = time.perf_counter() - t0
     t0 = time.perf_counter()
-    if not geno.geno_complete:
-        raise AssertionError("config-B words are not complete")
+    if geno.geno_complete != complete:
+        raise AssertionError(f"{label}: geno_complete is "
+                             f"{geno.geno_complete}, expected {complete}")
     t_complete = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     vars_t, probs_t = npsim.two_group_prior(CFG_B_M, 1000, 0.5)
@@ -253,9 +342,8 @@ def phase_main_path(words):
     cfg = linear.VampConfig(max_iter=CFG_B_ITERS, rho=0.15, gam1_init=1e-8,
                             gamw_init=2.0)
     t0 = time.perf_counter()
-    x_hat, _, hist = linear.infer(geno, cfg, probs_t, vars_t)
+    x_hat, state, hist = linear.infer(geno, cfg, probs_t, vars_t)
     t_infer = time.perf_counter() - t0
-    launches = dict(matvec.LAUNCHES)
     t_iters = sum(h["wall_ms"] for h in hist) / 1e3
     log(f"  set-up: statistics {t_stats:.2f} s, completeness {t_complete:.3f} s, "
         f"phenotype simulation + statistics {t_sim:.2f} s, infer set-up "
@@ -270,60 +358,220 @@ def phase_main_path(words):
     steady = [h["wall_ms"] for h in hist[2:]]
     log(f"  steady-state (it 3-{len(hist)}) median {np.median(steady):.2f} ms/it;"
         f" peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"  launches on the main path: {launches}")
     corr = float(np.corrcoef(x_hat, beta)[0, 1])
     r2 = [float(h["R2_train_1"]) for h in hist]
     log(f"  corr(x_hat, beta) = {corr:.5f}; R2_train_1 {r2[1]:.4f} -> {r2[-1]:.4f}")
     keys = ("gam1", "gam2", "gamw", "alpha1", "alpha2", "R2_train_1")
     if not (np.isfinite(x_hat).all() and all(
             np.isfinite(float(h[k])) for h in hist for k in keys)):
-        raise AssertionError("non-finite values on the main path")
+        raise AssertionError(f"{label}: non-finite values on the main path")
     if len(hist) != CFG_B_ITERS:
         raise AssertionError(f"{len(hist)} iterations, expected {CFG_B_ITERS}")
     rising = all(b > a for a, b in zip(r2[1:], r2[2:]))
-    if not (rising and R2_RANGE[0] < r2[-1] < R2_RANGE[1]):
-        raise AssertionError(f"R2_train_1 {r2} does not rise toward h2 = 0.5")
-    if corr < CORR_MIN:
-        raise AssertionError(f"corr(x_hat, beta) {corr:.4f} < {CORR_MIN}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel never launched on the main path: "
+    if not (rising and r2_range[0] < r2[-1] < r2_range[1]):
+        raise AssertionError(f"{label}: R2_train_1 {r2} does not rise into "
+                             f"{r2_range}")
+    if corr < corr_min:
+        raise AssertionError(f"{label}: corr(x_hat, beta) {corr:.4f} < "
+                             f"{corr_min}")
+    return geno, state, beta
+
+
+def check_launches(label, launches, used, unused=()):
+    log(f"  launches on the {label} path: {launches}")
+    if min(launches[n] for n in used) <= 0:
+        raise AssertionError(f"{label}: a kernel of {used} never launched: "
                              f"{launches}")
+    if any(launches[n] for n in unused):
+        raise AssertionError(f"{label}: a kernel of {unused} launched: "
+                             f"{launches}")
+
+
+def phase_main_path(words):
+    log("== phase 4: linear VAMP main path at config B")
+    from gvamp_tpu_torch.ops import matvec
+    torch.cuda.reset_peak_memory_stats()
+    matvec.reset_launches()
+    run_linear(words, "config B", True, CORR_MIN, R2_RANGE)
+    launches = dict(matvec.LAUNCHES)
+    check_launches("config B", launches, ("axm_i8a", "atxm_i8a", "atx"),
+                   ("axm_i8", "atxm_i8"))
     return launches
 
 
-def small_problem(tmp, seed, N, M):
-    """A simulated complete-genotype .bed in ``tmp`` and its truth."""
+def pvals_in_range(p) -> bool:
+    """Finite p in [0, 1].  The float64 t-test, like the reference's,
+    underflows to exactly 0 below ~1e-308 (t above ~40 at N=327,680)."""
+    return bool(np.isfinite(p).all() and (p >= 0).all() and (p <= 1).all())
+
+
+def check_pvals(label, p, beta):
+    """Finite p in [0, 1]; causal markers far below the null ones; the
+    null markers' share below 0.05 near 0.05.  Returns the statistics."""
+    if not pvals_in_range(p):
+        raise AssertionError(f"{label}: p-values outside [0, 1]")
+    causal = beta != 0
+    med_causal = float(np.median(p[causal]))
+    med_null = float(np.median(p[~causal]))
+    share = float((p[~causal] < 0.05).mean())
+    log(f"  {label}: median p causal {med_causal:.3e} (limit "
+        f"{CAUSAL_MEDIAN_P_MAX:g}), null {med_null:.4f}; null share "
+        f"p < 0.05 = {share:.5f} (limits {NULL_SHARE_RANGE}); "
+        f"min p {float(p.min()):.3e}, {int((p == 0).sum())} underflowed to 0")
+    if not med_causal < CAUSAL_MEDIAN_P_MAX:
+        raise AssertionError(f"{label}: causal markers not below the nulls")
+    if not NULL_SHARE_RANGE[0] < share < NULL_SHARE_RANGE[1]:
+        raise AssertionError(f"{label}: null share {share} not near 0.05")
+    return med_causal, share
+
+
+def phase_config_bm(words):
+    """The missing-genotype path at config Bm, with its LOO and LOCO
+    p-values over 22 chromosomes; returns the launch counts."""
+    log("== phase 4m: linear VAMP and p-values at config Bm (missing calls)")
+    from gvamp_tpu.io import plink
+    from gvamp_tpu_torch.ops import matvec, pvals
+    nw, m = words.shape
+    ones = torch.ones((4, 4 * nw), device=words.device)
+    nonmiss = float(matvec.atx(words, ones)[1].sum())
+    log(f"  missing calls: {1 - nonmiss / (CFG_B_N * m):.5%} "
+        f"of {CFG_B_N} x {m}")
+    torch.cuda.reset_peak_memory_stats()
+    matvec.reset_launches()
+    geno, state, beta = run_linear(words, "config Bm", False, CORR_MIN,
+                                   R2_RANGE)
+    chroms = 1 + np.arange(CFG_B_M) * BM_CHROMS // CFG_B_M
+    with tempfile.TemporaryDirectory() as tmp:
+        geno.bim_path = os.path.join(tmp, "bm.bim")
+        plink.write_bim(geno.bim_path, chroms)
+        t0 = time.perf_counter()
+        p_loo = pvals.loo_pvals(geno, state.z1, state.x1)
+        t_loo = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p_loco = pvals.loco_pvals(geno, state.z1, state.x1,
+                                  geno.chromosomes())
+        t_loco = time.perf_counter() - t0
+    launches = dict(matvec.LAUNCHES)
+    log(f"  LOO p-values {t_loo:.2f} s, LOCO p-values ({BM_CHROMS} "
+        f"chromosomes) {t_loco:.2f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check_pvals("LOO", p_loo, beta)
+    check_pvals("LOCO", p_loco, beta)
+    check_launches("config Bm", launches, ("axm_i8", "atxm_i8", "atx"),
+                   ("axm_i8a", "atxm_i8a"))
+    return launches
+
+
+def bed_bytes(codes):
+    """PLINK .bed rows uint8[M, ceil(N/4)] of 2-bit codes [M, N]."""
+    M, N = codes.shape
+    by = np.zeros((M, (N + 3) // 4), dtype=np.uint8)
+    for k in range(4):
+        by[:, : (N - k + 3) // 4] |= codes[:, k::4] << (2 * k)
+    return by
+
+
+def phase_moments_biobank():
+    """Marker statistics and LOO p-values at N=327,680 against an
+    all-float64 numpy oracle: the recipe of tests/test_pvals.py:133-176
+    (near-constant markers, 1% missing calls, 2% NA phenotype)."""
+    log("== phase 4n: moments at biobank N (N=327,680 x M=64) vs float64")
+    from gvamp_tpu_torch.data import GenoBed
+    from gvamp_tpu_torch.ops import pvals
+    rng = np.random.default_rng(42)
+    N, M = 327_680, 64
+    f2 = np.concatenate([np.full(4, 0.999), rng.uniform(0.05, 0.95, M - 4)])
+    u = rng.random((M, N))
+    codes = np.where(u < f2[:, None], 0,
+                     np.where(u < (f2 + (1 - f2) / 2)[:, None], 2, 3)
+                     ).astype(np.uint8)
+    codes[rng.random((M, N)) < 0.01] = 1
+    y = rng.normal(2.0, 3.0, size=N)
+    y[rng.random(N) < 0.02] = np.nan
+    t0 = time.perf_counter()
+    geno = GenoBed.from_arrays(bed_bytes(codes), y, N=N, device="cuda")
+    p32 = pvals.loo_pvals(geno, torch.zeros_like(geno.y_planar),
+                          torch.zeros(geno.Mpad, device="cuda"))
+    t_dev = time.perf_counter() - t0
+    # float64 oracle (tests/helpers.py DenseOracle, data.cpp:446-483)
+    a = np.array([2.0, 0.0, 1.0, 0.0])[codes]
+    mask = np.array([1.0, 0.0, 1.0, 1.0])[codes] * (~np.isnan(y))[None, :]
+    nonas = int((~np.isnan(y)).sum())
+    avg = np.nanmean(y)
+    ys = np.where(np.isnan(y), 0.0, y * np.sqrt((nonas - 1)
+                                                / np.nansum((y - avg) ** 2)))
+    cnt = mask.sum(1)
+    mave = (a * mask).sum(1) / cnt
+    value = (a - mave[:, None]) * mask
+    sumsqr = (value**2).sum(1)
+    msig = 1.0 / np.sqrt(sumsqr / (nonas - 1))
+    value *= msig[:, None]
+    p64 = pvals._reg1d_pvals(value.sum(1), (value**2).sum(1), value @ ys,
+                             mask @ ys, mask @ ys**2, cnt)
+    gm = geno.mave.cpu().numpy()[:M].astype(np.float64)
+    gs = geno.msig.cpu().numpy()[:M].astype(np.float64)
+    checks = [("mave", gm, mave, 2e-6, 1e-7), ("msig[:4]", gs[:4], msig[:4],
+                                                 5e-4, 0.0),
+              ("msig[4:]", gs[4:], msig[4:], 2e-5, 0.0)]
+    for name, got, want, rtol, atol in checks:
+        err = float((np.abs(got - want) / np.abs(want)).max())
+        log(f"  {name}: max rel err {err:.3e} (limit rtol {rtol:g}, "
+            f"atol {atol:g})")
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol,
+                                   err_msg=name)
+    dlog = float(np.abs(np.log10(p32) - np.log10(p64)).max())
+    log(f"  LOO p at x1 = 0: max |dlog10 p| {dlog:.3e} (limit 2e-3); card "
+        f"load + statistics + p-values {t_dev:.2f} s")
+    if not dlog <= 2e-3:
+        raise AssertionError("biobank-N p-values differ from float64")
+
+
+def small_problem(tmp, seed, N, M, miss_rate=0.0):
+    """A simulated .bed in ``tmp`` and its truth."""
     from gvamp_tpu import sim as npsim
     from gvamp_tpu.io import plink
     rng = np.random.default_rng(seed)
     bed = os.path.join(tmp, "d.bed")
-    plink.write_bed(bed, npsim.random_genotypes(rng, M, N))
+    plink.write_bed(bed, npsim.random_genotypes(rng, M, N,
+                                                miss_rate=miss_rate))
     vars_t, probs_t = npsim.two_group_prior(M, 40, 0.5)
     beta = npsim.simulate_mixture(rng, M, vars_t, probs_t)
     return bed, beta, vars_t, probs_t, rng
 
 
-def phase_card_vs_cpu():
-    log("== phase 5: card vs CPU, N=2000 x M=4096, 6 iterations")
+def phase_card_vs_cpu(miss_rate):
+    label = "complete" if miss_rate == 0 else f"{miss_rate:.0%} missing"
+    log(f"== phase 5: card vs CPU, N=2000 x M=4096, 6 iterations, {label}")
     from gvamp_tpu_torch import linear, sim
     from gvamp_tpu_torch.data import GenoBed
+    from gvamp_tpu_torch.ops import pvals
     N, M = 2000, 4096
     cfg = linear.VampConfig(max_iter=6, rho=0.3, gam1_init=1e-8,
                             gamw_init=2.0, seed=5)
+    chroms = 1 + np.arange(M) * 4 // M
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        bed, beta, vars_t, probs_t, rng = small_problem(tmp, 3, N, M)
+        bed, beta, vars_t, probs_t, rng = small_problem(tmp, 3, N, M,
+                                                        miss_rate)
         y = None
         for dev in ("cuda", "cpu"):
             g = GenoBed.from_files(bed, None, N=N, Mt=M, device=dev,
                                    standardize_phen=False)
+            if g.geno_complete != (miss_rate == 0):
+                raise AssertionError(f"{dev}: geno_complete is wrong")
             if y is None:
                 y = sim.simulate_linear_phenotype(g, beta, 2.0, rng)
             g.set_phen(y)
             t0 = time.perf_counter()
-            out[dev] = linear.infer(g, cfg, probs_t, vars_t, verbose=False)
+            x, state, hist = linear.infer(g, cfg, probs_t, vars_t,
+                                          verbose=False)
+            p = None
+            if miss_rate:
+                p = (pvals.loo_pvals(g, state.z1, state.x1),
+                     pvals.loco_pvals(g, state.z1, state.x1, chroms))
+            out[dev] = x, hist, p
             log(f"  {dev}: {time.perf_counter() - t0:.2f} s")
-    (x_c, _, h_c), (x_p, _, h_p) = out["cuda"], out["cpu"]
+    (x_c, h_c, p_c), (x_p, h_p, p_p) = out["cuda"], out["cpu"]
     dx = float(np.abs(x_c - x_p).max() / np.abs(x_p).max())
     log(f"  max|x1 card - x1 cpu| / max|x1| = {dx:.3e} (limit 5e-5)")
     if not dx < 5e-5:
@@ -336,45 +584,87 @@ def phase_card_vs_cpu():
             raise AssertionError(f"card and CPU {k} disagree")
     log(f"  cg_iters card {[h['cg_iters'] for h in h_c]} "
         f"cpu {[h['cg_iters'] for h in h_p]}")
+    if miss_rate:
+        for name, pc, pp in zip(("LOO", "LOCO"), p_c, p_p):
+            lc, lp = np.log10(pc), np.log10(pp)
+            d = float((np.abs(lc - lp) / np.maximum(1.0, -lp)).max())
+            log(f"  {name}: max |dlog10 p| / max(1, |log10 p|) = {d:.3e} "
+                f"(limit {CARD_CPU_LOG10P_TOL:g}); min p {float(pp.min()):.3e}")
+            if not d <= CARD_CPU_LOG10P_TOL:
+                raise AssertionError(f"card and CPU {name} p-values disagree")
 
 
 def phase_cli():
-    log("== phase 6: CLI infere on a small .bed/.phen")
+    """The flagship flow of the README's port section on the card: 2%
+    missing calls, --store-pvals 1 and a .bim over 4 chromosomes."""
+    log("== phase 6: CLI infere with --store-pvals 1 and a .bim, 2% missing")
+    from gvamp_tpu import sim as npsim
     from gvamp_tpu.io import plink, vecio
     from gvamp_tpu_torch import cli, linear, sim
     from gvamp_tpu_torch.data import GenoBed
-    N, M = 1500, 2048
-    n_it = 4
+    from gvamp_tpu_torch.ops import pvals
+    N, M, n_it = 800, 240, 8
+    rng = np.random.default_rng(42)
     with tempfile.TemporaryDirectory() as tmp:
-        bed, beta, vars_t, probs_t, rng = small_problem(tmp, 4, N, M)
-        phen = os.path.join(tmp, "d.phen")
+        bed, phen, bim = (os.path.join(tmp, f"demo.{e}")
+                          for e in ("bed", "phen", "bim"))
+        plink.write_bed(bed, npsim.random_genotypes(rng, M, N,
+                                                    miss_rate=0.02))
+        plink.write_bim(bim, np.repeat(np.arange(1, 5), M // 4))
         g = GenoBed.from_files(bed, None, N=N, Mt=M, device="cuda",
                                standardize_phen=False)
-        plink.write_phen(phen, sim.simulate_linear_phenotype(g, beta, 2.0, rng))
+        vars_t, probs_t = npsim.two_group_prior(M, 12, 0.8)
+        beta = npsim.simulate_mixture(rng, M, vars_t, probs_t)
+        plink.write_phen(phen, sim.simulate_linear_phenotype(
+            g, beta, 1 / (1 - 0.8), rng))
         args = ["--device", "cuda", "--run-mode", "infere", "--model",
                 "linear", "--bed-file", bed, "--phen-files", phen,
-                "--N", str(N), "--Mt", str(M), "--iterations", str(n_it),
-                "--probs", ",".join(map(str, probs_t)),
-                "--vars", ",".join(map(str, vars_t)), "--verbosity", "0",
-                "--out-dir", os.path.join(tmp, "out"), "--out-name", "run"]
+                "--bim-file", bim, "--N", str(N), "--Mt", str(M),
+                "--iterations", str(n_it), "--rho", "0.3",
+                "--probs", "0.95,0.05", "--vars", "0.0,0.0667",
+                "--store-pvals", "1", "--verbosity", "0",
+                "--out-dir", os.path.join(tmp, "out"), "--out-name", "demo"]
         cli.main(args)
-        pre = os.path.join(tmp, "out", "run")
+        pre = os.path.join(tmp, "out", "demo")
         names = [f"{pre}{s}" for it in range(1, n_it + 1)
                  for s in (f"_it_{it}.bin", f"_r1_it_{it}.bin",
                            f"_r2_it_{it}.bin", f"_it_{it}_x2_hat.bin",
                            f"_z1_it_{it}.csv")]
+        names += [f"{pre}_pvals.bin", f"{pre}_pvals_LOCO.bin"]
+        names += [f"{pre}_LOCO_chr_{ch}.csv" for ch in range(1, 5)]
         missing = [n for n in names if not os.path.getsize(n)]
         if missing:
-            raise AssertionError(f"CLI dumps missing: {missing}")
-        g = GenoBed.from_files(bed, phen, N=N, Mt=M, device="cuda")
-        x_lib, _, _ = linear.infer(g, linear.VampConfig(max_iter=n_it),
-                                   probs_t, vars_t, verbose=False)
+            raise AssertionError(f"CLI outputs missing: {missing}")
+        g = GenoBed.from_files(bed, phen, N=N, Mt=M, device="cuda",
+                               bim_path=bim)
+        if g.geno_complete:
+            raise AssertionError("the flagship data has no missing calls")
+        x_lib, state, _ = linear.infer(
+            g, linear.VampConfig(max_iter=n_it, rho=0.3), [0.95, 0.05],
+            [0.0, 0.0667], verbose=False)
         dump = vecio.read_bin_shard(f"{pre}_it_{n_it}.bin", M, 0)
         d = float(np.abs(dump - x_lib).max() / np.abs(x_lib).max())
-        log(f"  {len(names)} dumps written; max|dump - library x1| / max|x1| "
-            f"= {d:.3e}")
-        if not d < 1e-6:
-            raise AssertionError("CLI dump differs from the library run")
+        p_file = vecio.read_bin_shard(f"{pre}_pvals.bin", M, 0)
+        p_lib = pvals.loo_pvals(g, state.z1, state.x1)
+        p_loco = vecio.read_bin_shard(f"{pre}_pvals_LOCO.bin", M, 0)
+        preds = [np.loadtxt(f"{pre}_LOCO_chr_{ch}.csv") for ch in range(1, 5)]
+    corr = float(np.corrcoef(dump, beta)[0, 1])
+    causal = beta != 0
+    med = float(np.median(p_file[causal]))
+    log(f"  {len(names)} files written; max|dump - library x1| / max|x1| "
+        f"= {d:.3e}; corr(x_hat, beta) {corr:.5f} (limit 0.95); median "
+        f"causal LOO p {med:.3e} (limit 1e-6); _pvals.bin equal to the "
+        f"library loo_pvals: {np.array_equal(p_file, p_lib)}")
+    if not d < 1e-6:
+        raise AssertionError("CLI dump differs from the library run")
+    if not (corr > 0.95 and med < 1e-6):
+        raise AssertionError("the flagship flow missed its expectations")
+    if not np.array_equal(p_file, p_lib):
+        raise AssertionError("_pvals.bin differs from a library loo_pvals")
+    if not (pvals_in_range(p_file) and pvals_in_range(p_loco)):
+        raise AssertionError("p-value files outside [0, 1]")
+    if not all(pr.shape[0] >= N and np.isfinite(pr).all() for pr in preds):
+        raise AssertionError("LOCO predictor files malformed")
 
 
 def main(argv=None):
@@ -382,6 +672,7 @@ def main(argv=None):
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks on small shapes")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     phase_environment()
     phase_build()
     gen = torch.Generator(device="cuda")
@@ -390,21 +681,35 @@ def main(argv=None):
     if args.kernels_only:
         log("kernels-only run: phases 1-3a passed")
         return
-    words = synth_config_b(gen)
+    words = synth_words(gen, miss=False)
     full = phase_kernels_config_b(words, gen)
-    nw, m = words.shape
     launches = phase_main_path(words)
     del words
     torch.cuda.empty_cache()
-    phase_card_vs_cpu()
+    words = synth_words(gen, miss=True)
+    nw, m = words.shape
+    full_m = phase_kernels_config_bm(words, gen)
+    launches_m = phase_config_bm(words)
+    del words
+    torch.cuda.empty_cache()
+    phase_moments_biobank()
+    phase_card_vs_cpu(0.0)
+    phase_card_vs_cpu(0.02)
     phase_cli()
-    # times of the whole config-B matrix at B = 1; the error is the largest
-    # over both widths
-    kernels = [{"name": n, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES[n], "launches": launches[n],
-                "max_abs_err": max(r[n][0] for r in full.values() if n in r),
-                "ms": full[1][n][1], "plain_ms": full[1][n][2],
-                "shape": f"Nw={nw} Mpad={m} B=1"} for n in REPLACES]
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
+    # times of the whole config-B (a-only, atx) or config-Bm (general)
+    # matrix at B = 1; the error is the largest over every width checked;
+    # launches are those of the path that runs the kernel
+    kernels = []
+    for n in KERNELS:
+        runs, counts = ((full_m, launches_m) if n in ("axm_i8", "atxm_i8")
+                        else (full, launches))
+        kernels.append({
+            "name": n, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[n], "launches": counts[n],
+            "max_abs_err": max(r[n][0] for r in runs.values() if n in r),
+            "ms": runs[1][n][1], "plain_ms": runs[1][n][2],
+            "shape": f"Nw={nw} Mpad={m} B=1"})
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

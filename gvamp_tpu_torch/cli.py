@@ -10,6 +10,12 @@ the reference-layout dumps per iteration:
   {out}_it_{i}_x2_hat.bin  {out}_z1_it_{i}.csv
 
 plus the ``_gam1s`` / ``_gam2s`` / ``_R2trains`` histories at the end.
+With ``--store-pvals`` 1 or 2 it then writes the LOO p-values
+``{out}_pvals.bin`` and, when a ``--bim-file`` is given, the LOCO
+p-values ``{out}_pvals_LOCO.bin`` and each chromosome's genetic predictor
+``{out}_LOCO_chr_{ch}.csv`` (``cli.py:176-177, 373-392`` of the JAX
+package, whose semantics are kept: at the default 0 no p-values are
+computed).  Genotypes with missing calls run through the general kernels.
 Every other run mode, model and option outside the slice raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 
@@ -17,8 +23,9 @@ Example::
 
     python -m gvamp_tpu_torch.cli --device cuda --run-mode infere \\
         --model linear --bed-file demo.bed --phen-files demo.phen \\
-        --N 800 --Mt 240 --iterations 8 --probs 0.95,0.05 \\
-        --vars 0.0,0.0667 --out-dir out --out-name demo
+        --bim-file demo.bim --N 800 --Mt 240 --iterations 8 \\
+        --probs 0.95,0.05 --vars 0.0,0.0667 --store-pvals 1 \\
+        --out-dir out --out-name demo
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from gvamp_tpu.io import vecio
 from gvamp_tpu.options import Options
 from gvamp_tpu_torch import linear
 from gvamp_tpu_torch.data import GenoBed
+from gvamp_tpu_torch.ops import pvals
 from gvamp_tpu_torch.prior import initialize_prior
 
 
@@ -48,7 +56,6 @@ def _check_slice(opt: Options) -> None:
             (len(opt.phen_files) > 1, "multi-trait runs (several "
                                       "--phen-files)", 10),
             (opt.type_data != "bed", f"--type-data {opt.type_data}", 11),
-            (opt.store_pvals != 0, "--store-pvals", 7),
             (opt.store_pip != 0, "--store-pip", 12),
             (opt.state_evo != 0, "--state-evo", 11),
             (bool(opt.checkpoint or opt.resume), "--checkpoint / --resume", 4),
@@ -114,7 +121,34 @@ def run_inference(opt: Options, geno: GenoBed):
         callbacks=[_dumper(opt.out_prefix, opt.dump_every)])
     if hist:
         write_scalar_history(opt.out_prefix, hist)
+    # the JAX CLI's test (cli.py:176): the default 0 computes no p-values
+    if opt.store_pvals:
+        _store_pvals_after_infer(opt, geno, state)
     return x_est, state, hist
+
+
+def _store_pvals_after_infer(opt: Options, geno: GenoBed, state) -> None:
+    """End-of-run LOO (+ LOCO with a .bim) p-values (vamp.cpp:761-776)."""
+    p = pvals.loo_pvals(geno, state.z1, state.x1)
+    vecio.write_bin_shard(opt.out_prefix + "_pvals.bin", p, geno.S)
+    print(f"pvals -> {opt.out_prefix}_pvals.bin")
+    if opt.bim_file:
+        ploco = pvals.loco_pvals(
+            geno, state.z1, state.x1, geno.chromosomes(),
+            predictor_cb=_loco_predictor_writer(opt, geno))
+        vecio.write_bin_shard(opt.out_prefix + "_pvals_LOCO.bin", ploco,
+                              geno.S)
+        print(f"LOCO pvals -> {opt.out_prefix}_pvals_LOCO.bin")
+
+
+def _loco_predictor_writer(opt: Options, geno: GenoBed):
+    """predictor_cb writing each chromosome's predictor as
+    ``{out}_LOCO_chr_{ch}.csv`` in the original sample order."""
+    def cb(ch, y_chrom):
+        full = np.zeros(4 * geno.layout.mbytes)
+        full[: geno.N] = geno.deplanarize(y_chrom)[: geno.N]
+        vecio.write_txt(f"{opt.out_prefix}_LOCO_chr_{ch}.csv", full)
+    return cb
 
 
 def main(argv=None):

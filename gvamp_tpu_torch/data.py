@@ -11,16 +11,16 @@ reference exactly as the JAX package does (``gvamp_tpu/data.py`` header):
   * the phenotype is scaled, not centred; NA slots are zero
 
 Routing by dtype (the JAX package routes an f64 request to its XLA path,
-``gvamp_tpu/data.py:44-63``):
+``gvamp_tpu/data.py:44-63``) and by completeness (``geno_complete``, one
+``atx`` pass at first use):
 
-  * float32 runs the digit products ``matvec.axm_i8a`` / ``atxm_i8a``:
-    the CUDA kernels on the card, their plain versions on the CPU;
+  * float32 runs the digit products: ``matvec.axm_i8a`` / ``atxm_i8a`` on
+    complete (imputed) genotypes, where the non-missing indicator's
+    contractions collapse to scalars, and ``matvec.axm_i8`` / ``atxm_i8``
+    on genotypes with missing calls; the CUDA kernels on the card, their
+    plain versions on the CPU;
   * float64 runs the dense plain products (true f64) and exists on the CPU
     only: float64 on CUDA raises, since no kernel takes it.
-
-The slice covers complete (imputed) genotypes.  A container over data with
-missing genotype calls loads and reports ``geno_complete == False``, but its
-products raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,8 +35,6 @@ from gvamp_tpu import native
 from gvamp_tpu.io import plink
 from gvamp_tpu_torch.ops import matvec
 from gvamp_tpu_torch.ops.layout import PlanarLayout
-
-MISSING_PATH = "ROADMAP.md Queue 1 item 6 (the missing-genotype path)"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -150,6 +148,7 @@ class GenoBed:
     bim_path: str = ""
     dtype: torch.dtype = torch.float32
     _complete: Optional[bool] = None   # no missing genotypes (lazy)
+    _chroms: Optional[np.ndarray] = None   # from the .bim (lazy)
 
     @property
     def device(self) -> torch.device:
@@ -306,46 +305,55 @@ class GenoBed:
         """(axm_fn, atxm_fn): B right-hand sides per pass over the words,
         signatures (op, X[Mpad, B]) -> z[4, Nb, B] and
         (op, V[4, Nb, B]) -> [Mpad, B]."""
-        if not self.geno_complete:
-            raise NotImplementedError(
-                f"genotypes with missing calls: products on incomplete data "
-                f"come with {MISSING_PATH}")
         dtype, scale = self.dtype, self.inv_sqrt_n
 
-        if dtype == torch.float64:
+        if dtype == torch.float32 and self.geno_complete:
+            # complete genotypes: b == 1 on real samples, so its
+            # contractions collapse to the scalars colsum(U) and colsum(v)
+            # (data.py:589-617)
             def axm_fn(op: BedOp, X):
                 W = op.msig[:, None] * X.to(dtype)
                 U = op.mave[:, None] * W
-                z = matvec.axm_ref(op.words, W, U, dtype)
+                z = matvec.axm_i8a(op.words, W) - U.sum(dim=0)[None, None, :]
                 return z * op.na_planar[:, :, None] * scale
 
             def atxm_fn(op: BedOp, V):
                 v = V.to(dtype) * op.na_planar[:, :, None]
-                av, bv = matvec.atxm_ref(op.words, v, dtype)
-                return (av - op.mave[:, None] * bv) * op.msig[:, None] * scale
+                av = matvec.atxm_i8a(op.words, v)
+                sv = v.sum(dim=(0, 1))
+                return ((av - op.mave[:, None] * sv[None, :])
+                        * op.msig[:, None] * scale)
 
             return axm_fn, atxm_fn
 
-        # complete genotypes: b == 1 on real samples, so its contractions
-        # collapse to the scalars colsum(U) and colsum(v) (data.py:589-617)
+        # both planes (data.py:619-652): the general kernels in float32, the
+        # dense plain products in float64
+        if dtype == torch.float64:
+            def axm_raw(words, W, U):
+                return matvec.axm_ref(words, W, U, dtype)
+
+            def atxm_raw(words, V):
+                return matvec.atxm_ref(words, V, dtype)
+        else:
+            axm_raw, atxm_raw = matvec.axm_i8, matvec.atxm_i8
+
         def axm_fn(op: BedOp, X):
             W = op.msig[:, None] * X.to(dtype)
             U = op.mave[:, None] * W
-            z = matvec.axm_i8a(op.words, W) - U.sum(dim=0)[None, None, :]
+            z = axm_raw(op.words, W, U)
             return z * op.na_planar[:, :, None] * scale
 
         def atxm_fn(op: BedOp, V):
             v = V.to(dtype) * op.na_planar[:, :, None]
-            av = matvec.atxm_i8a(op.words, v)
-            sv = v.sum(dim=(0, 1))
-            return (av - op.mave[:, None] * sv[None, :]) * op.msig[:, None] * scale
+            av, bv = atxm_raw(op.words, v)
+            return (av - op.mave[:, None] * bv) * op.msig[:, None] * scale
 
         return axm_fn, atxm_fn
 
     def fns(self):
         """(ax_fn, atx_fn): the single-vector products, (op, x[Mpad]) ->
         [4, Nb] and (op, v[4, Nb]) -> [Mpad], run at B=1 like the JAX
-        package's complete path (data.py:502-533)."""
+        package's Pallas paths (data.py:502-544)."""
         axm_fn, atxm_fn = self.fns_multi()
 
         def ax_fn(op: BedOp, x):
@@ -369,6 +377,16 @@ class GenoBed:
         return self.fns_multi()[1](self.op, V)
 
     # ---------------------------------------------------------------- misc
+
+    def chromosomes(self) -> np.ndarray:
+        """int32[M] chromosome of each owned marker ('X' read as 23), from
+        the ``.bim`` file the container was loaded with."""
+        if self._chroms is None:
+            if not self.bim_path:
+                raise ValueError("no .bim file given")
+            self._chroms = plink.read_chromosomes(self.bim_path, self.M,
+                                                  self.S)
+        return self._chroms
 
     def filter_pheno(self) -> torch.Tensor:
         """NA-zeroed standardised phenotype, planar (reference data.cpp:1065)."""

@@ -82,7 +82,7 @@ def check_slice(cfg: VampConfig) -> None:
     """Raise on every option this port does not run yet."""
     for on, what, item in (
             (cfg.use_xxt, "use_xxt (the dual XXT solve)", 8),
-            (cfg.red, "red (reduced-subset solves)", 6),
+            (cfg.red, "red (reduced-subset solves with probe columns)", 12),
             (cfg.deflate_k > 0, "deflate_k > 0 (spectral deflation)", 9),
             (cfg.use_cross_val, "use_cross_val (the damping tuner)", 11),
             (not cfg.use_slq, "use_slq=False (probe-column traces)", 12),

@@ -92,6 +92,11 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [vp, vp, vp, i64, i64, i64, vp]
                 fn.restype = ctypes.c_int
+            lib.gvamp_atxm_i8.argtypes = [vp, vp, vp, vp, i64, i64, i64, vp]
+            lib.gvamp_atxm_i8.restype = ctypes.c_int
+            lib.gvamp_axm_i8.argtypes = [vp, vp, vp, vp, vp, i64, i64, i64,
+                                         vp]
+            lib.gvamp_axm_i8.restype = ctypes.c_int
             lib.gvamp_atx.argtypes = [vp, vp, vp, i64, i64, vp]
             lib.gvamp_atx.restype = ctypes.c_int
             lib.gvamp_atx_parts.argtypes = [i64, i64]

@@ -8,12 +8,19 @@ JAX ``uint32`` words: PyTorch's ``uint32`` supports few operations.  Right
 shifts on int32 are arithmetic, so every shift below is followed by a mask
 that clears the sign fill.
 
-Three kernels carry every packed-matrix read of the main path:
+Five kernels carry every packed-matrix read of the linear path:
 
 * ``axm_i8a``  z[4, Nb, B] = A_a @ W   (replaces ``axm_i8a_pallas``)
 * ``atxm_i8a`` av[Mpad, B] = A_a^T V   (replaces ``atxm_i8a_pallas``)
+* ``axm_i8``   z[4, Nb, B] = A_a @ W - A_b @ U (replaces ``axm_i8_pallas``)
+* ``atxm_i8``  (A_a^T V, A_b^T V) -> [Mpad, B] x2 (replaces
+  ``atxm_i8_pallas``)
 * ``atx``      (A_a^T v, A_b^T v) in f32 (replaces ``atx_pallas``, used once
   at load by the completeness check)
+
+The a-only pair serves complete (imputed) genotypes, where the
+non-missing indicator b is 1 on every real sample and its contractions
+collapse to scalars; the general pair serves genotypes with missing calls.
 
 The digit contract is the JAX package's: right-hand sides are quantised into
 ``_NDIG`` radix-127 int8 digits outside the kernel, the kernel contracts the
@@ -41,7 +48,8 @@ _NDIG = 4
 # kernel itself takes any width, the chunking keeps JAX's call structure
 _BMAX_AXM_A = 64
 
-LAUNCHES = {"axm_i8a": 0, "atxm_i8a": 0, "atx": 0}
+LAUNCHES = {"axm_i8a": 0, "atxm_i8a": 0, "axm_i8": 0, "atxm_i8": 0,
+            "atx": 0}
 
 
 def reset_launches() -> None:
@@ -74,9 +82,10 @@ def _bytes_to_rows(x: torch.Tensor) -> torch.Tensor:
                        dim=1).reshape(4 * nw, m)
 
 
-def _decode_a(words: torch.Tensor, dtype) -> torch.Tensor:
-    """Dosage planes [4, Nb, M] of a word block."""
-    return torch.stack([_bytes_to_rows(_swar(words, k)[0])
+def _decode_plane(words: torch.Tensor, dtype, plane: int) -> torch.Tensor:
+    """Dosage (``plane`` 0) or non-missing indicator (``plane`` 1) planes
+    [4, Nb, M] of a word block."""
+    return torch.stack([_bytes_to_rows(_swar(words, k)[plane])
                         for k in range(4)]).to(dtype)
 
 
@@ -217,43 +226,91 @@ def _fold_digits_t(av_i32, s0, B: int):
 # --------------------------------------------------------------------------
 
 
-def axm_i8a_int_ref(words, w8t):
-    """Exact digit products of A_a: int32[D, 4, Nb] from digits int8[D, M].
+def _axm_int(words, dig, plane: int):
+    """Exact digit products of one decoded plane: int32[D, 4, Nb] from
+    digits int8[D, M].
 
     Integer partial sums stay below 254*M < 2**31, so float64 holds them
     exactly whatever the summation order."""
     nw, m = words.shape
-    acc = torch.zeros((w8t.shape[0], 4, 4 * nw), dtype=torch.float64,
+    acc = torch.zeros((dig.shape[0], 4, 4 * nw), dtype=torch.float64,
                       device=words.device)
     for lo in range(0, m, _REF_BLOCK):
-        a = _decode_a(words[:, lo:lo + _REF_BLOCK], torch.float64)
-        acc += torch.einsum("knm,dm->dkn", a,
-                            w8t[:, lo:lo + _REF_BLOCK].to(torch.float64))
+        p = _decode_plane(words[:, lo:lo + _REF_BLOCK], torch.float64, plane)
+        acc += torch.einsum("knm,dm->dkn", p,
+                            dig[:, lo:lo + _REF_BLOCK].to(torch.float64))
     return acc.to(torch.int32)
 
 
-def atxm_i8a_int_ref(words, v8):
-    """Exact digit products of A_a^T: int32[D, M] from digits int8[4, D, Nb]."""
+def _atxm_int(words, v8, plane: int):
+    """Exact transpose digit products of one decoded plane: int32[D, M]
+    from digits int8[4, D, Nb]."""
     m = words.shape[1]
     out = torch.empty((v8.shape[1], m), dtype=torch.int32, device=words.device)
     v = v8.to(torch.float64)
     for lo in range(0, m, _REF_BLOCK):
-        a = _decode_a(words[:, lo:lo + _REF_BLOCK], torch.float64)
-        out[:, lo:lo + _REF_BLOCK] = torch.einsum("kdn,knm->dm", v, a).to(
+        p = _decode_plane(words[:, lo:lo + _REF_BLOCK], torch.float64, plane)
+        out[:, lo:lo + _REF_BLOCK] = torch.einsum("kdn,knm->dm", v, p).to(
             torch.int32)
     return out
 
 
+def axm_i8a_int_ref(words, w8t):
+    """Exact digit products of A_a: int32[D, 4, Nb] from digits int8[D, M]."""
+    return _axm_int(words, w8t, 0)
+
+
+def atxm_i8a_int_ref(words, v8):
+    """Exact digit products of A_a^T: int32[D, M] from digits int8[4, D, Nb]."""
+    return _atxm_int(words, v8, 0)
+
+
+def axm_i8_int_ref(words, w8t, u8t):
+    """Exact (za, zb) int32[D, 4, Nb]: A_a against the digits of W and A_b
+    against those of U (a = {2,0,1,0}[code], b = {1,0,1,1}[code])."""
+    return _axm_int(words, w8t, 0), _axm_int(words, u8t, 1)
+
+
+def atxm_i8_int_ref(words, v8):
+    """Exact (av, bv) int32[D, Mpad]: both planes against the same digits."""
+    return _atxm_int(words, v8, 0), _atxm_int(words, v8, 1)
+
+
+def _quant_rows(W):
+    """Digits of W^T, int8[NDIG*B, M], and the per-column scales [B]."""
+    w8t, ws = _quant_digits(W.T, 0)
+    return w8t.contiguous(), ws[:, 0]
+
+
 def axm_i8a_ref(words, W):
     """Plain version of ``axm_i8a``: A_a @ W -> f32[4, Nb, B]."""
-    w8t, ws = _quant_digits(W.T, 0)
-    return _fold_digits_zt(axm_i8a_int_ref(words, w8t), ws[:, 0], W.shape[1])
+    w8t, ws = _quant_rows(W)
+    return _fold_digits_zt(axm_i8a_int_ref(words, w8t), ws, W.shape[1])
 
 
 def atxm_i8a_ref(words, V):
     """Plain version of ``atxm_i8a``: A_a^T V -> f32[Mpad, B]."""
     v8, s0 = _quant_digits_t(V)
     return _fold_digits_t(atxm_i8a_int_ref(words, v8), s0, V.shape[2])
+
+
+def axm_i8_ref(words, W, U):
+    """Plain version of ``axm_i8``: A_a @ W - A_b @ U -> f32[4, Nb, B], with
+    W and U quantised separately (gvamp_tpu/ops/matvec.py:553-554)."""
+    w8t, ws = _quant_rows(W)
+    u8t, us = _quant_rows(U)
+    za, zb = axm_i8_int_ref(words, w8t, u8t)
+    B = W.shape[1]
+    return _fold_digits_zt(za, ws, B) - _fold_digits_zt(zb, us, B)
+
+
+def atxm_i8_ref(words, V):
+    """Plain version of ``atxm_i8``: (A_a^T V, A_b^T V) -> f32[Mpad, B] x2,
+    one quantisation of V shared by both planes (matvec.py:721, 741)."""
+    v8, s0 = _quant_digits_t(V)
+    av, bv = atxm_i8_int_ref(words, v8)
+    B = V.shape[2]
+    return _fold_digits_t(av, s0, B), _fold_digits_t(bv, s0, B)
 
 
 # --------------------------------------------------------------------------
@@ -317,15 +374,14 @@ def axm_i8a(words: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     if W.ndim != 2 or W.shape[0] != m:
         raise ValueError(f"axm_i8a: W must be [{m}, B], got {list(W.shape)}")
     _check_bound("axm_i8a", m)
-    w8t, ws = _quant_digits(W.T, 0)
-    w8t = w8t.contiguous()
+    w8t, ws = _quant_rows(W)
     zt = torch.zeros((w8t.shape[0], 4, 4 * nw), dtype=torch.int32,
                      device=words.device)
     from gvamp_tpu_torch.ops import _build
     _launch("axm_i8a", _build.library().gvamp_axm_i8a, words.device,
             words.data_ptr(), w8t.data_ptr(), zt.data_ptr(), nw, m,
             w8t.shape[0])
-    return _fold_digits_zt(zt, ws[:, 0], B)
+    return _fold_digits_zt(zt, ws, B)
 
 
 def atxm_i8a(words: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
@@ -345,6 +401,57 @@ def atxm_i8a(words: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     _launch("atxm_i8a", _build.library().gvamp_atxm_i8a, words.device,
             words.data_ptr(), v8.data_ptr(), av.data_ptr(), nw, m, v8.shape[1])
     return _fold_digits_t(av, s0, V.shape[2])
+
+
+def axm_i8(words: torch.Tensor, W: torch.Tensor,
+           U: torch.Tensor) -> torch.Tensor:
+    """A_a @ W - A_b @ U -> f32[4, Nb, B] on genotypes with missing calls.
+
+    One launch for any B: the kernel spreads digit groups over its grid, and
+    quantisation is per column, so the JAX wrapper's column chunking
+    (``_BMAX_AXM``) would not change a value."""
+    if words.device.type == "cpu":
+        return axm_i8_ref(words, W, U)
+    _check_cuda("axm_i8", words, W, torch.float32)
+    _check_cuda("axm_i8", words, U, torch.float32)
+    nw, m = words.shape
+    if W.ndim != 2 or W.shape[0] != m or U.shape != W.shape:
+        raise ValueError(f"axm_i8: W and U must be [{m}, B], got "
+                         f"{list(W.shape)} and {list(U.shape)}")
+    _check_bound("axm_i8", m)
+    w8t, ws = _quant_rows(W)
+    u8t, us = _quant_rows(U)
+    D = w8t.shape[0]
+    za = torch.zeros((D, 4, 4 * nw), dtype=torch.int32, device=words.device)
+    zb = torch.zeros_like(za)
+    from gvamp_tpu_torch.ops import _build
+    _launch("axm_i8", _build.library().gvamp_axm_i8, words.device,
+            words.data_ptr(), w8t.data_ptr(), u8t.data_ptr(), za.data_ptr(),
+            zb.data_ptr(), nw, m, D)
+    B = W.shape[1]
+    return _fold_digits_zt(za, ws, B) - _fold_digits_zt(zb, us, B)
+
+
+def atxm_i8(words: torch.Tensor, V: torch.Tensor):
+    """(A_a^T V, A_b^T V) -> f32[Mpad, B] x2 on genotypes with missing
+    calls; the caller forms av - mave * bv."""
+    if words.device.type == "cpu":
+        return atxm_i8_ref(words, V)
+    _check_cuda("atxm_i8", words, V, torch.float32)
+    nw, m = words.shape
+    if V.ndim != 3 or V.shape[:2] != (4, 4 * nw):
+        raise ValueError(f"atxm_i8: V must be [4, {4 * nw}, B], got "
+                         f"{list(V.shape)}")
+    _check_bound("atxm_i8", 16 * nw)
+    v8, s0 = _quant_digits_t(V)
+    av = torch.zeros((v8.shape[1], m), dtype=torch.int32, device=words.device)
+    bv = torch.zeros_like(av)
+    from gvamp_tpu_torch.ops import _build
+    _launch("atxm_i8", _build.library().gvamp_atxm_i8, words.device,
+            words.data_ptr(), v8.data_ptr(), av.data_ptr(), bv.data_ptr(), nw,
+            m, v8.shape[1])
+    B = V.shape[2]
+    return _fold_digits_t(av, s0, B), _fold_digits_t(bv, s0, B)
 
 
 def atx(words: torch.Tensor, v_planar: torch.Tensor):

@@ -123,17 +123,63 @@ def test_products_match_jax(dt):
     _close(t.atxm(T(V)), j.atxm(jnp.asarray(V, jd)), tol)
 
 
-def test_incomplete_genotypes_raise():
-    """Missing genotype calls load, but their products are out of the
-    slice and raise instead of running another path."""
-    rng = np.random.default_rng(5)
-    codes, y = random_dataset(rng, 130, 40, miss_geno=0.05)
-    t = TGenoBed.from_arrays(make_bed(codes), y, N=130)
-    assert not t.geno_complete
-    with pytest.raises(NotImplementedError, match="missing-genotype"):
-        t.ax(torch.zeros(t.Mpad))
-    with pytest.raises(NotImplementedError, match="missing-genotype"):
-        t.fns_multi()
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_products_match_jax_missing(dt):
+    """ax/atx/axm/atxm on genotypes with 5% missing calls (the general
+    branches: axm_i8/atxm_i8 in f32, the dense products in f64) against
+    the JAX container's; N = 131 is not a multiple of 16, so padding
+    samples (code 01) sit inside the last word row."""
+    rng = np.random.default_rng(31)
+    N, M, B = 131, 40, 3
+    codes, y = random_dataset(rng, N, M, miss_geno=0.05)
+    j, t = _pair(codes, y, N, dt)
+    assert not t.geno_complete and not j.geno_complete
+    m_mask = t.m_mask.numpy()
+    x = rng.normal(size=t.Mpad) * m_mask
+    X = rng.normal(size=(t.Mpad, B)) * m_mask[:, None]
+    v = t.layout.planarize(rng.normal(size=N))
+    V = np.stack([t.layout.planarize(rng.normal(size=N)) for _ in range(B)],
+                 axis=-1)
+    tol = PRODUCT_TOL[dt]
+    jd = JAX_DTYPE[dt]
+
+    def T(a):
+        return torch.as_tensor(a, dtype=dt)
+
+    _close(t.ax(T(x)), j.ax(jnp.asarray(x, jd)), tol)
+    _close(t.atx(T(v)), j.atx(jnp.asarray(v, jd)), tol)
+    _close(t.axm(T(X)), j.axm(jnp.asarray(X, jd)), tol)
+    _close(t.atxm(T(V)), j.atxm(jnp.asarray(V, jd)), tol)
+    # and the dense f64 oracle of the standardised operator
+    oracle = DenseOracle(codes, y)
+    want = oracle.A.T @ x[:M] * oracle.na
+    np.testing.assert_allclose(t.deplanarize(t.ax(T(x)))[:N], want, rtol=0,
+                               atol=tol * 10 * np.abs(want).max())
+
+
+def test_chromosomes_match_jax(tmp_path):
+    """chromosomes() reads the .bim ('X' as 23) for the owned marker range,
+    as the JAX container does; without a .bim it raises."""
+    rng = np.random.default_rng(8)
+    N, M = 64, 24
+    codes, y = random_dataset(rng, N, M)
+    bim = str(tmp_path / "d.bim")
+    chroms = np.repeat(np.arange(1, 7), M // 6)
+    plink.write_bim(bim, chroms)
+    with open(bim) as f:
+        lines = f.readlines()
+    lines[-1] = "X" + lines[-1][lines[-1].index(" "):]
+    with open(bim, "w") as f:
+        f.writelines(lines)
+    bed = make_bed(codes)
+    j = JGenoBed.from_arrays(bed[4:16], y, N=N, Mt=M, S=4, bim_path=bim)
+    t = TGenoBed.from_arrays(bed[4:16], y, N=N, Mt=M, S=4, bim_path=bim)
+    np.testing.assert_array_equal(t.chromosomes(), j.chromosomes())
+    assert list(t.chromosomes()) == list(chroms[4:16])
+    full = TGenoBed.from_arrays(bed, y, N=N, bim_path=bim)
+    assert full.chromosomes()[-1] == 23
+    with pytest.raises(ValueError, match="no .bim"):
+        TGenoBed.from_arrays(bed, y, N=N).chromosomes()
 
 
 def test_float64_on_cuda_raises():

@@ -1,9 +1,10 @@
-"""The port's linear VAMP main path (gvamp_tpu_torch.linear / cli) against
-the JAX package: one step from the same converted state, the 6-iteration
-recipe of tests/test_linear_vamp.py, the CLI dumps, and an import with JAX
-blocked.  JAX runs f32 through the Pallas kernels in interpret mode and f64
-through XLA; both sides get JAX's probe (jax.random cannot be reproduced
-in torch)."""
+"""The port's linear VAMP path (gvamp_tpu_torch.linear / cli) against the
+JAX package: one step from the same converted state, the 6-iteration
+recipe of tests/test_linear_vamp.py (on complete genotypes and on
+genotypes with 2% missing calls), the CLI dumps and p-value files, and an
+import with JAX blocked.  JAX runs f32 through the Pallas kernels in
+interpret mode and f64 through XLA; both sides get JAX's probe (jax.random
+cannot be reproduced in torch)."""
 
 import os
 import subprocess
@@ -16,12 +17,14 @@ import torch
 
 from gvamp_tpu import linear as jlinear
 from gvamp_tpu import sim as jsim
+from gvamp_tpu.ops import pvals as jpvals
 from gvamp_tpu.data import GenoBed as JGenoBed
 from gvamp_tpu.io import plink, vecio
 from gvamp_tpu_torch import cli as tcli
 from gvamp_tpu_torch import convert
 from gvamp_tpu_torch import linear as tlinear
 from gvamp_tpu_torch.data import GenoBed as TGenoBed
+from gvamp_tpu_torch.ops import pvals as tpvals
 from test_data_layer import make_bed
 
 torch.set_num_threads(1)
@@ -36,10 +39,9 @@ SEED, N, M, CV, H2 = 31, 500, 320, 20, 0.6
 CFG = dict(rho=0.3, gam1_init=1e-8, gamw_init=2.0, seed=5)
 
 
-@pytest.fixture(scope="module")
-def problem():
+def _make_problem(miss_rate):
     rng = np.random.default_rng(SEED)
-    codes = jsim.random_genotypes(rng, M, N, miss_rate=0.0)
+    codes = jsim.random_genotypes(rng, M, N, miss_rate=miss_rate)
     vars_t, probs_t = jsim.two_group_prior(M, CV, H2)
     beta = jsim.simulate_mixture(rng, M, vars_t, probs_t)
     g = JGenoBed.from_arrays(make_bed(codes), np.zeros(N), N=N,
@@ -47,6 +49,18 @@ def problem():
                              backend="xla")
     y = jsim.simulate_linear_phenotype(g, beta, 1 / (1 - H2), rng)
     return codes, y, beta, vars_t, probs_t
+
+
+@pytest.fixture(scope="module")
+def problem():
+    return _make_problem(0.0)
+
+
+@pytest.fixture(scope="module")
+def problem_miss():
+    """The same recipe with 2% missing calls (N = 500 is not a multiple of
+    16): the general products axm_i8 / atxm_i8 on both sides."""
+    return _make_problem(0.02)
 
 
 def _genos(problem, dt):
@@ -73,8 +87,7 @@ def _rel(got, want):
 STEP_TOL = {torch.float64: 1e-9, torch.float32: 1e-4}
 
 
-@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
-def test_one_step_from_converted_state(problem, dt):
+def _check_one_step(problem, dt):
     vars_t, probs_t = problem[3:5]
     j, t = _genos(problem, dt)
     cfg_j = jlinear.VampConfig(max_iter=4, **CFG)
@@ -108,10 +121,21 @@ def test_one_step_from_converted_state(problem, dt):
     assert set(jlinear.LinState._fields) - set(back) == {
         "mu_cg_n", "mu_probe_n", "gmu_n", "cv_r2"}
     assert set(back) <= set(jlinear.LinState._fields)
+    return t
 
 
 @pytest.mark.parametrize("dt", [torch.float64, torch.float32])
-def test_six_iteration_recipe_matches_jax(problem, dt):
+def test_one_step_from_converted_state(problem, dt):
+    assert _check_one_step(problem, dt).geno_complete
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_one_step_missing_genotypes(problem_miss, dt):
+    """The step on genotypes with missing calls, to the same limits."""
+    assert not _check_one_step(problem_miss, dt).geno_complete
+
+
+def _check_six_iterations(problem, dt):
     """f64: cg_iters equal and x1 within 1e-8 of max|x1|.  f32: x1 within
     5e-5 of max|x1| and gam1/gam2/gamw/alpha2 within rtol 2e-4, the
     thresholds tests/test_linear_vamp.py holds the fused-Gram f32 run to."""
@@ -134,6 +158,17 @@ def test_six_iteration_recipe_matches_jax(problem, dt):
                                        rtol=2e-4, err_msg=k)
     assert np.corrcoef(x_t, beta)[0, 1] > 0.9
     assert all(h["host_syncs"] > 0 and h["wall_ms"] > 0 for h in h_t)
+    return t
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_six_iteration_recipe_matches_jax(problem, dt):
+    assert _check_six_iterations(problem, dt).geno_complete
+
+
+@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
+def test_six_iteration_recipe_missing_genotypes(problem_miss, dt):
+    assert not _check_six_iterations(problem_miss, dt).geno_complete
 
 
 def test_cli_infere_dumps_match_library(problem, tmp_path):
@@ -169,6 +204,77 @@ def test_cli_infere_dumps_match_library(problem, tmp_path):
                    "--probs", "0.9,0.1", "--vars", "0.0,0.01"])
 
 
+# |log10 p| of the CLI's f32 p-values against JAX's loo_pvals on the same
+# z1 and x1: f32 moments and statistics in another order; the error grows
+# with the t statistic, so it is bounded relative to max(1, |log10 p|)
+CLI_LOG10P_TOL = 2e-6
+
+
+def test_cli_store_pvals_on_missing_genotypes(problem_miss, tmp_path):
+    """--store-pvals 1 with a .bim on 2% missing calls: the dumps, the LOO
+    and LOCO p-value files and one predictor .csv per chromosome; the LOO
+    file equals a library loo_pvals call on the same run and matches JAX's
+    loo_pvals on the port's z1 and x1.  At --store-pvals 0 no p-values are
+    written (the JAX CLI's own test, cli.py:176)."""
+    codes, y, beta, vars_t, probs_t = problem_miss
+    bed, phen, bim = (str(tmp_path / f"d.{e}") for e in ("bed", "phen", "bim"))
+    plink.write_bed(bed, codes)
+    plink.write_phen(phen, y)
+    plink.write_bim(bim, np.repeat(np.arange(1, 5), M // 4))
+    n_it = 3
+    args = ["--device", "cpu", "--run-mode", "infere", "--model", "linear",
+            "--bed-file", bed, "--phen-files", phen, "--bim-file", bim,
+            "--N", str(N), "--Mt", str(M), "--iterations", str(n_it),
+            "--rho", "0.3", "--probs", ",".join(map(str, probs_t)),
+            "--vars", ",".join(map(str, vars_t)), "--verbosity", "0",
+            "--out-dir", str(tmp_path / "out")]
+    tcli.main(args + ["--store-pvals", "1", "--out-name", "run"])
+    pre = str(tmp_path / "out" / "run")
+    for it in range(1, n_it + 1):
+        for name in (f"_it_{it}.bin", f"_r1_it_{it}.bin", f"_r2_it_{it}.bin",
+                     f"_it_{it}_x2_hat.bin", f"_z1_it_{it}.csv"):
+            assert os.path.getsize(pre + name) > 0
+    for ch in range(1, 5):
+        pred = np.loadtxt(f"{pre}_LOCO_chr_{ch}.csv")
+        assert pred.shape[0] >= N and np.isfinite(pred).all()
+    p_loo = vecio.read_bin_shard(pre + "_pvals.bin", M, 0)
+    p_loco = vecio.read_bin_shard(pre + "_pvals_LOCO.bin", M, 0)
+    assert np.all((p_loo > 0) & (p_loo <= 1) & (p_loco > 0) & (p_loco <= 1))
+
+    g = TGenoBed.from_files(bed, phen, N=N, Mt=M, bim_path=bim)
+    assert not g.geno_complete
+    _, state, _ = tlinear.infer(g, tlinear.VampConfig(max_iter=n_it, rho=0.3),
+                                probs_t, vars_t, verbose=False)
+    np.testing.assert_array_equal(p_loo,
+                                  tpvals.loo_pvals(g, state.z1, state.x1))
+    np.testing.assert_array_equal(
+        p_loco, tpvals.loco_pvals(g, state.z1, state.x1, g.chromosomes()))
+    j = JGenoBed.from_files(bed, phen, N=N, Mt=M, dtype=jnp.float32,
+                            backend="pallas")
+    want = jpvals.loo_pvals(j, jnp.asarray(state.z1.numpy()),
+                            jnp.asarray(state.x1.numpy()))
+    lg, lw = np.log10(p_loo), np.log10(np.asarray(want))
+    assert np.all(np.abs(lg - lw) <= CLI_LOG10P_TOL * np.maximum(1, -lw))
+    # the causal markers carry the smallest p-values
+    assert np.median(p_loo[beta != 0]) < np.median(p_loo[beta == 0])
+
+    tcli.main(args + ["--store-pvals", "0", "--out-name", "quiet"])
+    quiet = str(tmp_path / "out" / "quiet")
+    assert os.path.exists(quiet + f"_it_{n_it}.bin")
+    assert not os.path.exists(quiet + "_pvals.bin")
+    assert not os.path.exists(quiet + "_pvals_LOCO.bin")
+
+
+def test_red_raises_under_item_12(problem):
+    """--red keeps Onsager probe columns in the block CG, which come with
+    Queue 1 item 12 (use_slq=False): it raises naming that item."""
+    vars_t, probs_t = problem[3:5]
+    _, t = _genos(problem, torch.float64)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        tlinear.infer(t, tlinear.VampConfig(red=True), probs_t, vars_t,
+                      verbose=False)
+
+
 def test_out_of_slice_options_raise(problem):
     vars_t, probs_t = problem[3:5]
     _, t = _genos(problem, torch.float64)
@@ -194,7 +300,7 @@ import os, tempfile
 import numpy as np
 import gvamp_tpu_torch
 from gvamp_tpu_torch import cg, cli, convert, data, linear, prior, probit, sim, slq, sync
-from gvamp_tpu_torch.ops import _build, layout, matvec
+from gvamp_tpu_torch.ops import _build, layout, matvec, pvals
 from gvamp_tpu import sim as npsim
 from gvamp_tpu.io import plink
 rng = np.random.default_rng(0)

@@ -76,6 +76,43 @@ def _jax_atxm_int(words, v8):
         interpret=True)(jnp.asarray(words), jnp.asarray(v8))
 
 
+def _jax_axm_i8_int(words, w8t, u8t):
+    """JAX's general forward digit products (za, zb): the _axm_i8_kernel
+    body, interpret mode."""
+    nw, m = words.shape
+    D = w8t.shape[0]
+    tnw, tm = jmv._pick_tnw(nw, 256), jmv._pick_tm(m, 2048)
+    vmem = pltpu.VMEM
+    dig = pl.BlockSpec((D, tm), lambda i, j: (0, j), memory_space=vmem)
+    out = pl.BlockSpec((D, 4, 4 * tnw), lambda i, j: (0, 0, i),
+                       memory_space=vmem)
+    shape = jax.ShapeDtypeStruct((D, 4, 4 * nw), jnp.int32)
+    return pl.pallas_call(
+        jmv._axm_i8_kernel, grid=(nw // tnw, m // tm),
+        in_specs=[pl.BlockSpec((tnw, tm), lambda i, j: (i, j), memory_space=vmem),
+                  dig, dig],
+        out_specs=[out, out], out_shape=[shape, shape],
+        interpret=True)(jnp.asarray(words), jnp.asarray(w8t), jnp.asarray(u8t))
+
+
+def _jax_atxm_i8_int(words, v8):
+    """JAX's general transpose digit products (av, bv): the _atxm_i8_kernel
+    body, interpret mode."""
+    nw, m = words.shape
+    D = v8.shape[1]
+    tnw, tm = jmv._pick_tnw(nw, 256), jmv._pick_tm(m, 512)
+    vmem = pltpu.VMEM
+    out = pl.BlockSpec((D, tm), lambda j, i: (0, j), memory_space=vmem)
+    shape = jax.ShapeDtypeStruct((D, m), jnp.int32)
+    return pl.pallas_call(
+        jmv._atxm_i8_kernel, grid=(m // tm, nw // tnw),
+        in_specs=[pl.BlockSpec((tnw, tm), lambda j, i: (i, j), memory_space=vmem),
+                  pl.BlockSpec((4, D, 4 * tnw), lambda j, i: (0, 0, i),
+                               memory_space=vmem)],
+        out_specs=[out, out], out_shape=[shape, shape],
+        interpret=True)(jnp.asarray(words), jnp.asarray(v8))
+
+
 def test_swar_decode_matches_code_tables():
     """Every byte value decodes to the reference LUT values, at the planar
     position (k, 4i+b) of its bit pair k in byte b of word row i."""
@@ -153,6 +190,77 @@ def test_atxm_i8a_matches_pallas(nw, m, B):
            jmv.atxm_i8a_pallas(jnp.asarray(words), jnp.asarray(V)), FOLD_TOL)
 
 
+@pytest.mark.parametrize("nw,m,B", CASES)
+def test_axm_i8_matches_pallas(nw, m, B):
+    """A_a W - A_b U: both integer products equal JAX's kernel body exactly;
+    the folded f32 within FOLD_TOL of axm_i8_pallas, which chunks B=70 into
+    32-column calls where the port makes one (per-column quantisation)."""
+    rng = np.random.default_rng(nw * 3 + m + B)
+    words = _words(rng, nw, m)
+    W = rng.standard_normal((m, B)).astype(np.float32)
+    U = (rng.standard_normal((m, B)) * 3).astype(np.float32)
+    w8t, _ = tmv._quant_rows(torch.from_numpy(W))
+    u8t, _ = tmv._quant_rows(torch.from_numpy(U))
+    j8t, _ = jmv._quant_digits(jnp.transpose(jnp.asarray(W)), 0)
+    k8t, _ = jmv._quant_digits(jnp.transpose(jnp.asarray(U)), 0)
+    np.testing.assert_array_equal(u8t.numpy(), np.asarray(k8t))
+    za, zb = tmv.axm_i8_int_ref(_t(words), w8t, u8t)
+    ja, jb = _jax_axm_i8_int(words, j8t, k8t)
+    np.testing.assert_array_equal(za.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(zb.numpy(), np.asarray(jb))
+    _close(tmv.axm_i8(_t(words), torch.from_numpy(W), torch.from_numpy(U)),
+           jmv.axm_i8_pallas(jnp.asarray(words), jnp.asarray(W),
+                             jnp.asarray(U)), FOLD_TOL)
+
+
+@pytest.mark.parametrize("nw,m,B", CASES)
+def test_atxm_i8_matches_pallas(nw, m, B):
+    """(A_a^T V, A_b^T V): both integer products exact against JAX's kernel
+    body, each folded output within FOLD_TOL of atxm_i8_pallas."""
+    rng = np.random.default_rng(nw * 11 + m + B)
+    words = _words(rng, nw, m)
+    V = rng.standard_normal((4, 4 * nw, B)).astype(np.float32)
+    v8, _ = tmv._quant_digits_t(torch.from_numpy(V))
+    j8, _ = jmv._quant_digits_t(jnp.asarray(V))
+    av, bv = tmv.atxm_i8_int_ref(_t(words), v8)
+    jav, jbv = _jax_atxm_i8_int(words, j8)
+    np.testing.assert_array_equal(av.numpy(), np.asarray(jav))
+    np.testing.assert_array_equal(bv.numpy(), np.asarray(jbv))
+    got = tmv.atxm_i8(_t(words), torch.from_numpy(V))
+    want = jmv.atxm_i8_pallas(jnp.asarray(words), jnp.asarray(V))
+    for g, w in zip(got, want):
+        _close(g, w, FOLD_TOL)
+
+
+def test_general_products_on_padding():
+    """Padding samples and markers hold code 01 (the 0x55 fill): a = b = 0
+    there, so the general products are zero on padding rows and columns.
+    N = 16*Nw - 5 (not a multiple of 16) leaves padding samples inside the
+    last word row."""
+    from gvamp_tpu.ops.layout import PlanarLayout
+    rng = np.random.default_rng(12)
+    nw, m, M = 32, 512, 300
+    words = _words(rng, nw, m)
+    words[:, M:] = 0x55555555
+    orig = PlanarLayout(N=16 * nw - 5, n_words=nw).planar_to_orig()
+    pad_k, pad_p = np.nonzero(orig < 0)       # planar slots of padding
+    by = words.view(np.uint8).reshape(nw, m, 4)
+    for k, p in zip(pad_k, pad_p):
+        i, b = divmod(int(p), 4)
+        by[i, :, b] = (by[i, :, b] & np.uint8(~(3 << (2 * k)) & 0xFF)) \
+            | np.uint8(1 << (2 * k))
+    a, b = tmv.decode_planar_dense(_t(words), torch.float64)
+    assert not a[:, :, M:].any() and not b[:, :, M:].any()
+    assert not a[pad_k, pad_p].any() and not b[pad_k, pad_p].any()
+    assert b[:, :, :M].sum() > 0
+    W = rng.standard_normal((m, 3)).astype(np.float32)
+    V = rng.standard_normal((4, 4 * nw, 3)).astype(np.float32)
+    z = tmv.axm_i8(_t(words), torch.from_numpy(W), torch.from_numpy(W))
+    assert not z[pad_k, pad_p].any()
+    av, bv = tmv.atxm_i8(_t(words), torch.from_numpy(V))
+    assert not av[M:].any() and not bv[M:].any()
+
+
 @pytest.mark.parametrize("nw,m", [(32, 512), (64, 1024)])
 def test_atx_matches_pallas(nw, m):
     """f32 (A_a^T v, A_b^T v); v >= 0 keeps the sums free of cancellation,
@@ -198,19 +306,28 @@ def test_cpu_wrappers_launch_nothing_and_non_cpu_raises():
     rng = np.random.default_rng(4)
     words = _t(_words(rng, 32, 512))
     tmv.reset_launches()
+    assert set(tmv.LAUNCHES) == {"axm_i8a", "atxm_i8a", "axm_i8", "atxm_i8",
+                                 "atx"}
     tmv.axm_i8a(words, torch.ones((512, 2)))
     tmv.atxm_i8a(words, torch.ones((4, 128, 1)))
+    tmv.axm_i8(words, torch.ones((512, 2)), torch.ones((512, 2)))
+    tmv.atxm_i8(words, torch.ones((4, 128, 1)))
     tmv.atx(words, torch.ones((4, 128)))
-    assert tmv.LAUNCHES == {"axm_i8a": 0, "atxm_i8a": 0, "atx": 0}
+    assert set(tmv.LAUNCHES.values()) == {0}
     meta = words.to("meta")
     with pytest.raises(ValueError, match="CUDA tensors only"):
         tmv.axm_i8a(meta, torch.ones((512, 1), device="meta"))
     with pytest.raises(ValueError, match="CUDA tensors only"):
         tmv.atxm_i8a(meta, torch.ones((4, 128, 1), device="meta"))
     with pytest.raises(ValueError, match="CUDA tensors only"):
+        tmv.axm_i8(meta, torch.ones((512, 1), device="meta"),
+                   torch.ones((512, 1), device="meta"))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tmv.atxm_i8(meta, torch.ones((4, 128, 1), device="meta"))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
         tmv.atx(meta, torch.ones((4, 128), device="meta"))
     # 2**24 samples: the f32 non-missing counts would no longer be exact
     huge = torch.empty((2**20, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="below 2"):
         tmv.atx(huge, torch.empty((4, 2**22), device="meta"))
-    assert tmv.LAUNCHES == {"axm_i8a": 0, "atxm_i8a": 0, "atx": 0}
+    assert set(tmv.LAUNCHES.values()) == {0}
