@@ -12,10 +12,14 @@ Phases, each of which raises on failure (exit code != 0):
 2. build the CUDA kernels (gvamp_tpu_torch/csrc/matvec.cu) with nvcc; the
    ptxas report must show no spill stores;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
-   with CUDA-event times of both: (a) all five at small shapes, (b) the
+   with CUDA-event times of both: (a) all eight at small shapes, (b) the
    a-only kernels and atx on the whole config-B matrix at B = 1 and 2,
    (c) the general kernels on the whole config-Bm matrix at B = 1 and 2,
    and axm_i8 at B = 22;
+   (d) the fused dual Grams on the whole config-X matrix (gram_aat_i8a)
+   and config-Xm matrix (gram_aat_i8) at B = 1 and 2, timed beside their
+   two-pass composition, and ax there (dyadic inputs bit for bit, the
+   statistics' real inputs to a stated tolerance);
 4. the linear VAMP main path at config B of bench.py (N=327,680 x
    M=131,072, complete genotypes, 10.74 GB of packed words on the card):
    load, phenotype simulation and 10 iterations of linear.infer, with the
@@ -23,12 +27,18 @@ Phases, each of which raises on failure (exit code != 0):
    4m. the missing-genotype path at config Bm (the same shape, about 1.56%
    of calls missing): 10 iterations, then LOO and LOCO p-values over 22
    chromosomes, through the general kernels and not the a-only ones;
+   4x. the dual (XXT) path at config X (N=5,120 x M=524,288, 671 MB) and
+   Xm (1.56% missing), 10 iterations each through the fused dual Gram
+   (ax twice for the people statistics), the X problem again under
+   GVAMP_NO_FUSED_GRAM=1 (the same trajectory) and in primal mode;
    4n. the p-value moments at N=327,680 against a float64 oracle;
 5. the same small problem on the card and on the CPU (plain versions),
    complete and with 2% missing calls (then with LOO and LOCO p-values),
-   which must agree to the f32 tolerances of tests/test_torch_linear.py;
+   primal and dual, which must agree to the f32 tolerances of
+   tests/test_torch_linear.py;
 6. the CLI (`--run-mode infere --model linear --store-pvals 1` with a
-   .bim) on the flagship recipe of the README's port section.
+   .bim) on the flagship recipe of the README's port section, then with
+   `--use-XXT-denoiser 1`.
 
 The last two lines of standard output are one JSON object with the
 kernels' numbers and one with the device; before them, the nvidia-smi
@@ -54,13 +64,22 @@ import torch  # noqa: E402
 # M=131,072 markers -> 10.74 GB packed
 CFG_B_N, CFG_B_M = 327_680, 131_072
 CFG_B_ITERS = 10
+# config X of bench.py:282-299, the dual (N << M) regime: N=5,120 (320
+# words) x M=524,288 -> 671 MB packed; Xm the same with ~1.56% missing
+CFG_X_N, CFG_X_M = 5_120, 524_288
 # the JAX package's kernel each CUDA kernel replaces (def line of the wrapper)
 REPLACES = {"axm_i8a": "gvamp_tpu/ops/matvec.py:797",
             "atxm_i8a": "gvamp_tpu/ops/matvec.py:1581",
             "axm_i8": "gvamp_tpu/ops/matvec.py:539",
             "atxm_i8": "gvamp_tpu/ops/matvec.py:704",
-            "atx": "gvamp_tpu/ops/matvec.py:287"}
+            "atx": "gvamp_tpu/ops/matvec.py:287",
+            "ax": "gvamp_tpu/ops/matvec.py:241",
+            "gram_aat_i8a": "gvamp_tpu/ops/matvec.py:1400",
+            "gram_aat_i8": "gvamp_tpu/ops/matvec.py:1467"}
 KERNELS = tuple(REPLACES)
+# each kernel's entry in the ptxas report (mangled names contain these)
+PTXAS_ENTRY = {"gram_aat_i8a": "gram_aat_kernelILb0E",
+               "gram_aat_i8": "gram_aat_kernelILb1E"}
 SOURCE = "gvamp_tpu_torch/csrc/matvec.cu"
 SHAPES = [(32, 512, 1), (64, 1024, 2), (96, 1536, 5), (32, 2048, 17),
           (64, 512, 70)]
@@ -165,11 +184,12 @@ def phase_build():
     log(_build.BUILD_INFO["log"].strip())
     report = ptxas_report(_build.BUILD_INFO["log"])
     for kernel in KERNELS:
-        hits = {n: r for n, r in report.items() if f"{kernel}_kernel" in n}
+        entry = PTXAS_ENTRY.get(kernel, f"{kernel}_kernel")
+        hits = {n: r for n, r in report.items() if entry in n}
         if not hits:
             raise AssertionError(f"ptxas reported no entry for {kernel}")
         for n, (regs, spill) in hits.items():
-            log(f"  {kernel:9s} {regs:3d} registers, {spill} bytes spill "
+            log(f"  {kernel:12s} {regs:3d} registers, {spill} bytes spill "
                 f"stores ({n})")
             if spill != 0:
                 raise AssertionError(f"{n}: {spill} bytes of spill stores")
@@ -197,10 +217,13 @@ def check_kernels(words, B, gen, label, names=KERNELS, count=None, reps=5,
 
     The digit kernels: both sides share the quantisation and the fold on
     this device and their integer products are exact, so they must be
-    equal bit for bit.  atx: a dyadic v (multiples of 1/8) keeps every f32
-    partial sum exact in any order, so it must be equal too.  With v = 1,
-    atx's bv counts each marker's non-missing calls: it must equal the
-    plain version's count and, where given, ``count``."""
+    equal bit for bit.  The fused dual Grams fold and requantise each
+    stripe inside the kernel with the plain version's roundings and sum
+    the stripes with the same torch.sum: equal bit for bit too.  atx and
+    ax: dyadic v, w and u (multiples of 1/8) keep every f32 partial sum
+    exact in any order, so they must be equal too.  With v = 1, atx's bv
+    counts each marker's non-missing calls: it must equal the plain
+    version's count and, where given, ``count``."""
     from gvamp_tpu_torch.ops import matvec
     nw, m = words.shape
     dev = words.device
@@ -209,6 +232,10 @@ def check_kernels(words, B, gen, label, names=KERNELS, count=None, reps=5,
     V = torch.randn((4, 4 * nw, B), generator=gen, device=dev)
     v = torch.randint(0, 9, (4, 4 * nw), generator=gen,
                       device=dev).float() / 8
+    w8, u8 = (torch.randint(0, 9, (m,), generator=gen, device=dev).float() / 8
+              for _ in range(2))
+    mave = torch.rand((m,), generator=gen, device=dev) * 2
+    msig2 = torch.rand((m,), generator=gen, device=dev) * 1.5 + 0.5
     cases = {
         "axm_i8a": (lambda: matvec.axm_i8a(words, W),
                     lambda: matvec.axm_i8a_ref(words, W)),
@@ -219,7 +246,15 @@ def check_kernels(words, B, gen, label, names=KERNELS, count=None, reps=5,
         "atxm_i8": (lambda: matvec.atxm_i8(words, V),
                     lambda: matvec.atxm_i8_ref(words, V)),
         "atx": (lambda: matvec.atx(words, v),
-                lambda: matvec.atx_ref(words, v))}
+                lambda: matvec.atx_ref(words, v)),
+        "ax": (lambda: matvec.ax(words, w8, u8),
+               lambda: matvec.ax_ref(words, w8, u8)),
+        "gram_aat_i8a": (lambda: matvec.gram_aat_i8a(words, V, mave, msig2),
+                         lambda: matvec.gram_aat_i8a_ref(words, V, mave,
+                                                         msig2)),
+        "gram_aat_i8": (lambda: matvec.gram_aat_i8(words, V, mave, msig2),
+                        lambda: matvec.gram_aat_i8_ref(words, V, mave,
+                                                       msig2))}
     out = {}
     for name in names:
         fn, ref = cases[name]
@@ -239,7 +274,7 @@ def check_kernels(words, B, gen, label, names=KERNELS, count=None, reps=5,
     torch.cuda.synchronize()
     for name, (e, t, p) in out.items():
         gbs = 4 * nw * m / (t * 1e6)
-        log(f"  {label:>22s} B={B:<3d} {name:9s} equal  max|err|={e:.3e}  "
+        log(f"  {label:>22s} B={B:<3d} {name:12s} equal  max|err|={e:.3e}  "
             f"kernel {t:8.3f} ms ({gbs:7.1f} GB/s packed)  plain {p:8.3f} ms")
     return out
 
@@ -250,17 +285,18 @@ def phase_kernels_small(gen):
         check_kernels(random_words(gen, nw, m), B, gen, f"Nw={nw} Mpad={m}")
 
 
-def synth_words(gen, miss: bool):
-    """Config-B-sized words on the card with the recipe of bench.py:45-86, in
-    column chunks (a single randint of 10.74 GB would need 8x that in int64
-    temporaries).  Every "01" (missing) code is remapped to "11", except
-    that with ``miss`` the AND of four more random bit-streams keeps one in
-    sixteen of them: about 1.56% of the calls stay missing (config Bm)."""
+def synth_words(gen, miss: bool, n=CFG_B_N, m=CFG_B_M):
+    """Words of N=n x M=m (a multiple of 4,096) on the card with the recipe
+    of bench.py:45-86, in column chunks (a single randint of 10.74 GB would
+    need 8x that in int64 temporaries).  Every "01" (missing) code is
+    remapped to "11", except that with ``miss`` the AND of four more random
+    bit-streams keeps one in sixteen of them: about 1.56% of the calls stay
+    missing (configs Bm and Xm)."""
     from gvamp_tpu_torch.ops.layout import PlanarLayout
-    nw = PlanarLayout.create(CFG_B_N).n_words
-    words = torch.empty((nw, CFG_B_M), dtype=torch.int32, device="cuda")
+    nw = PlanarLayout.create(n).n_words
+    words = torch.empty((nw, m), dtype=torch.int32, device="cuda")
     chunk = 4096
-    for c in range(0, CFG_B_M, chunk):
+    for c in range(0, m, chunk):
         raw = random_words(gen, nw, chunk)
         lo = raw & 0x55555555
         hi = (raw >> 1) & 0x55555555
@@ -283,8 +319,11 @@ def phase_kernels_config_b(words, gen):
     Returns {B: check_kernels result} of the whole matrix."""
     log("== phase 3b: kernels vs plain versions, config-B words")
     sl = words[:, :SLICE_M].contiguous()
+    # the fused dual Grams refuse N=327,680: its stripe cache exceeds
+    # GRAM_AAT_SMEM_BUDGET, and fn_gram_aat takes the two-pass form there
+    names = tuple(n for n in KERNELS if not n.startswith("gram_aat"))
     for B in (1, 2):
-        check_kernels(sl, B, gen, f"config B, {SLICE_M} markers")
+        check_kernels(sl, B, gen, f"config B, {SLICE_M} markers", names=names)
     del sl
     nw, m = words.shape
     # complete genotypes: every marker has 16 * Nw non-missing calls
@@ -315,16 +354,16 @@ def phase_kernels_config_bm(words, gen):
     return full
 
 
-def run_linear(words, label, complete, corr_min, r2_range):
-    """Load, phenotype simulation and CFG_B_ITERS iterations of linear.infer
-    at config-B settings on ``words``; returns (geno, state, beta).  The
-    caller resets and reads the launch counters around it."""
+def make_problem(words, label, complete, n=CFG_B_N, m=CFG_B_M):
+    """Load and phenotype simulation (bench.py:89-111's recipe: two-group
+    prior, 1,000 causal markers, h2 = 0.5) on ``words``; returns (geno,
+    beta, vars_t, probs_t)."""
     from gvamp_tpu import sim as npsim
-    from gvamp_tpu_torch import linear, sim
+    from gvamp_tpu_torch import sim
     from gvamp_tpu_torch.data import GenoBed
     t0 = time.perf_counter()
-    geno = GenoBed.from_device_words(words, np.zeros(CFG_B_N), N=CFG_B_N,
-                                     M=CFG_B_M, standardize_phen=False)
+    geno = GenoBed.from_device_words(words, np.zeros(n), N=n, M=m,
+                                     standardize_phen=False)
     torch.cuda.synchronize()
     t_stats = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -333,21 +372,44 @@ def run_linear(words, label, complete, corr_min, r2_range):
                              f"{geno.geno_complete}, expected {complete}")
     t_complete = time.perf_counter() - t0
     rng = np.random.default_rng(0)
-    vars_t, probs_t = npsim.two_group_prior(CFG_B_M, 1000, 0.5)
-    beta = npsim.simulate_mixture(rng, CFG_B_M, vars_t, probs_t)
+    vars_t, probs_t = npsim.two_group_prior(m, 1000, 0.5)
+    beta = npsim.simulate_mixture(rng, m, vars_t, probs_t)
     t0 = time.perf_counter()
     geno.set_phen(sim.simulate_linear_phenotype(geno, beta, 2.0, rng))
     torch.cuda.synchronize()
     t_sim = time.perf_counter() - t0
+    log(f"  set-up: statistics {t_stats:.2f} s, completeness {t_complete:.3f} s, "
+        f"phenotype simulation + statistics {t_sim:.2f} s")
+    return geno, beta, vars_t, probs_t
+
+
+def run_linear(words, label, complete, corr_min, r2_range):
+    """Load, phenotype simulation and CFG_B_ITERS iterations of linear.infer
+    at config-B settings on ``words``; returns (geno, state, beta).  The
+    caller resets and reads the launch counters around it."""
+    geno, beta, vars_t, probs_t = make_problem(words, label, complete)
+    _, state, _ = run_infer(geno, beta, vars_t, probs_t, label, corr_min,
+                            r2_range)
+    return geno, state, beta
+
+
+def run_infer(geno, beta, vars_t, probs_t, label, corr_min, r2_range,
+              use_xxt=False):
+    """CFG_B_ITERS iterations of linear.infer at bench.py's settings
+    (VampConfig(rho=0.15, gam1_init=1e-8, gamw_init=2.0), dual with
+    ``use_xxt``); prints the trajectory and checks it: finite, R2_train_1
+    rising from iteration 2 into ``r2_range``, corr(x_hat, beta) >=
+    ``corr_min``.  Returns (x_hat, state, history)."""
+    from gvamp_tpu_torch import linear
     cfg = linear.VampConfig(max_iter=CFG_B_ITERS, rho=0.15, gam1_init=1e-8,
-                            gamw_init=2.0)
+                            gamw_init=2.0, use_xxt=use_xxt)
     t0 = time.perf_counter()
     x_hat, state, hist = linear.infer(geno, cfg, probs_t, vars_t)
     t_infer = time.perf_counter() - t0
     t_iters = sum(h["wall_ms"] for h in hist) / 1e3
-    log(f"  set-up: statistics {t_stats:.2f} s, completeness {t_complete:.3f} s, "
-        f"phenotype simulation + statistics {t_sim:.2f} s, infer set-up "
-        f"(SLQ basis, A^T y, A u) {t_infer - t_iters:.2f} s")
+    what = ("people statistics, dual SLQ basis, A^T y, A u" if use_xxt
+            else "SLQ basis, A^T y, A u")
+    log(f"  infer set-up ({what}) {t_infer - t_iters:.2f} s")
     log("  it      gam1        gam2        gamw     alpha1    alpha2   "
         "R2_train_1  cg   wall_ms  syncs")
     for h in hist:
@@ -374,7 +436,7 @@ def run_linear(words, label, complete, corr_min, r2_range):
     if corr < corr_min:
         raise AssertionError(f"{label}: corr(x_hat, beta) {corr:.4f} < "
                              f"{corr_min}")
-    return geno, state, beta
+    return x_hat, state, hist
 
 
 def check_launches(label, launches, used, unused=()):
@@ -462,6 +524,194 @@ def phase_config_bm(words):
     return launches
 
 
+# the fused dual Gram against its two-pass composition at config X: W is
+# quantised per 64-marker stripe in one and per column in the other, both
+# ~127^-4 fine, and the f32 sums run in other orders; a sanity bound on
+# max|fused - two-pass| / max|two-pass|, not a bit-equality check
+X_TWO_PASS_TOL = 1e-4
+# ax on the people statistics' real inputs (w = msig, u = mave msig) against
+# its plain version: f32 sums of the same products in other orders, within
+# a few ulps of the largest sum of |terms| (tests/test_torch_matvec.py)
+AX_REAL_TOL = 1e-6
+
+
+def two_pass(words, V, mave, msig2, complete):
+    """The dual Gram as the two-pass composition axm_i8[a](atxm_i8[a](.))
+    that fn_gram_aat replaces (GVAMP_NO_FUSED_GRAM=1)."""
+    from gvamp_tpu_torch.ops import matvec
+    if complete:
+        sv = V.sum(dim=(0, 1))
+        W = msig2[:, None] * (matvec.atxm_i8a(words, V) - mave[:, None] * sv)
+        return matvec.axm_i8a(words, W) - (mave[:, None] * W).sum(dim=0)
+    av, bv = matvec.atxm_i8(words, V)
+    W = msig2[:, None] * (av - mave[:, None] * bv)
+    return matvec.axm_i8(words, W, mave[:, None] * W)
+
+
+def phase_kernels_config_x(words, words_m, gen):
+    """The fused dual Grams on the whole config-X matrix (gram_aat_i8a,
+    complete) and config-Xm matrix (gram_aat_i8, 1.56% missing) at B = 1 and
+    2, each beside its two-pass composition at the same B; ax on config X
+    with dyadic inputs (bit for bit) and with the statistics' real inputs
+    (AX_REAL_TOL).  Returns {name: check_kernels numbers at B = 1}."""
+    log("== phase 3d: dual kernels vs plain versions, config-X words")
+    from gvamp_tpu_torch.ops import matvec
+    nw, m = words.shape
+    out = {}
+    for w, name, complete in ((words, "gram_aat_i8a", True),
+                              (words_m, "gram_aat_i8", False)):
+        label = f"config X{'' if complete else 'm'} full {nw}x{m}"
+        for B in (1, 2):
+            res = check_kernels(w, B, gen, label, names=(name,), reps=5,
+                                plain_reps=1)
+            if B == 1:
+                out.update(res)
+            V = torch.randn((4, 4 * nw, B), generator=gen, device="cuda")
+            mave = torch.rand((m,), generator=gen, device="cuda") * 2
+            msig2 = torch.rand((m,), generator=gen, device="cuda") * 1.5 + 0.5
+            fused = getattr(matvec, name)
+
+            def fn():
+                return fused(w, V, mave, msig2)
+
+            def comp():
+                return two_pass(w, V, mave, msig2, complete)
+
+            zf, zt = fn(), comp()
+            diff = float((zf - zt).abs().max() / zt.abs().max())
+            t_two = cuda_ms(comp)
+            t_fused = cuda_ms(fn)
+            log(f"  {label:>22s} B={B:<3d} {name} {t_fused:8.3f} ms against "
+                f"two-pass {t_two:8.3f} ms ({t_two / t_fused:.2f}x); "
+                f"max|fused - two-pass| / max = {diff:.2e} (limit "
+                f"{X_TWO_PASS_TOL:g})")
+            if not diff < X_TWO_PASS_TOL:
+                raise AssertionError(f"{name}: fused and two-pass differ")
+            out[f"{name} two-pass B={B}"] = t_two
+    out.update(check_kernels(words, 1, gen, f"config X full {nw}x{m}",
+                             names=("ax",), reps=5, plain_reps=1))
+    msig = torch.rand((m,), generator=gen, device="cuda") * 1.5 + 0.5
+    mave = torch.rand((m,), generator=gen, device="cuda") * 2
+    got = matvec.ax(words, msig, mave * msig)
+    want = matvec.ax_ref(words, msig, mave * msig)
+    terms = matvec.ax_ref(words, msig, -mave * msig, torch.float64)
+    err = float((got - want).abs().max() / terms.abs().max())
+    log(f"  ax on statistics-like inputs: max|kernel - plain| / max sum "
+        f"|terms| = {err:.2e} (limit {AX_REAL_TOL:g})")
+    if not err <= AX_REAL_TOL:
+        raise AssertionError("ax differs from its plain version")
+    torch.cuda.empty_cache()
+    return out
+
+
+# corr(x_hat, beta) and R2_train_1 after 10 dual iterations at config X and
+# at config Xm; set from the first H100 run of this phase (X 0.38174 and
+# 0.5568 in dual, dual two-pass and primal mode alike, Xm 0.35720 and
+# 0.5984, PERF.md) with CORR_MIN's room for f32 rounding and a different
+# card, not for a different algorithm.  N/M = 0.01 leaves the 1,000
+# effects poorly determined, hence the low correlation.
+X_CORR_MIN = 0.35
+X_R2_RANGE = (0.50, 0.65)
+# fused dual Gram against GVAMP_NO_FUSED_GRAM=1 at config X: the tolerances
+# of tests/test_xxt.py:95-99
+X_FUSED_XTOL, X_FUSED_RTOL = 5e-5, 2e-4
+
+
+def log_setup_split(geno, label):
+    """The dual set-up pieces timed apart (people statistics with its two
+    ax launches, the dual SLQ basis of slq_k fused Gram passes), outside
+    the launch-counted run."""
+    from gvamp_tpu_torch import linear, probit
+    cfg = linear.VampConfig(use_xxt=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    linear.xxt_diag_base(geno)
+    torch.cuda.synchronize()
+    t_people = time.perf_counter() - t0
+    z_bern = geno.axm(linear.make_bern_probe(geno, cfg.seed))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probit.make_slq_basis_dual(geno, cfg, z_bern)
+    torch.cuda.synchronize()
+    log(f"  {label} dual set-up apart: people statistics "
+        f"{t_people * 1e3:.2f} ms, dual SLQ basis ({cfg.slq_k} Gram passes) "
+        f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+
+
+def phase_dual_x(words, words_m):
+    """Dual mode (use_xxt) at config X (complete) and Xm (missing calls),
+    10 iterations each, through the fused dual Gram, with the launch
+    counters; the X problem again under GVAMP_NO_FUSED_GRAM=1 (the same
+    trajectory within X_FUSED_*) and in primal mode (iteration medians and
+    CG counts side by side).  Returns (launches at X, launches at Xm)."""
+    log("== phase 4x: dual (XXT) mode at config X and Xm, primal at X")
+    from gvamp_tpu_torch.ops import matvec
+    geno, beta, vars_t, probs_t = make_problem(words, "config X", True,
+                                               CFG_X_N, CFG_X_M)
+    log_setup_split(geno, "config X")
+    runs = {}
+    for name, xxt, env in (("dual", True, None), ("dual two-pass", True, "1"),
+                           ("primal", False, None)):
+        log(f"  -- config X {name}")
+        if env:
+            os.environ["GVAMP_NO_FUSED_GRAM"] = env
+        torch.cuda.reset_peak_memory_stats()
+        matvec.reset_launches()
+        try:
+            x_hat, _, hist = run_infer(geno, beta, vars_t, probs_t,
+                                       f"config X {name}", X_CORR_MIN,
+                                       X_R2_RANGE, use_xxt=xxt)
+        finally:
+            os.environ.pop("GVAMP_NO_FUSED_GRAM", None)
+        runs[name] = (x_hat, hist, dict(matvec.LAUNCHES))
+    launches = runs["dual"][2]
+    check_launches("config X dual", launches, ("gram_aat_i8a", "ax"),
+                   ("gram_aat_i8", "axm_i8", "atxm_i8"))
+    check_launches("config X dual two-pass", runs["dual two-pass"][2],
+                   ("axm_i8a", "atxm_i8a", "ax"),
+                   ("gram_aat_i8a", "gram_aat_i8"))
+    check_launches("config X primal", runs["primal"][2],
+                   ("axm_i8a", "atxm_i8a"), ("gram_aat_i8a", "ax"))
+    for n in ("dual", "dual two-pass"):
+        if runs[n][2]["ax"] != 2:
+            raise AssertionError(f"config X {n}: ax launched "
+                                 f"{runs[n][2]['ax']} times, expected 2")
+    (x_f, h_f, _), (x_t, h_t, _) = runs["dual"], runs["dual two-pass"]
+    dx = float(np.abs(x_f - x_t).max() / np.abs(x_t).max())
+    log(f"  fused vs two-pass: max|dx| / max|x| = {dx:.3e} (limit "
+        f"{X_FUSED_XTOL:g})")
+    if not dx < X_FUSED_XTOL:
+        raise AssertionError("config X: fused and two-pass x_hat differ")
+    for k in ("gam1", "gam2", "gamw", "alpha2"):
+        a, b = float(h_f[-1][k]), float(h_t[-1][k])
+        log(f"  {k}: fused {a:.7g} two-pass {b:.7g} rel "
+            f"{abs(a - b) / abs(b):.3e} (limit {X_FUSED_RTOL:g})")
+        if not abs(a - b) <= X_FUSED_RTOL * abs(b):
+            raise AssertionError(f"config X: fused and two-pass {k} differ")
+    for n, (_, h, _) in runs.items():
+        log(f"  config X {n}: steady-state median "
+            f"{np.median([x['wall_ms'] for x in h[2:]]):.2f} ms/it, CG "
+            f"{[x['cg_iters'] for x in h]}")
+    del geno
+    torch.cuda.empty_cache()
+
+    log("  -- config Xm dual (missing calls)")
+    geno, beta, vars_t, probs_t = make_problem(words_m, "config Xm", False,
+                                               CFG_X_N, CFG_X_M)
+    log_setup_split(geno, "config Xm")
+    torch.cuda.reset_peak_memory_stats()
+    matvec.reset_launches()
+    run_infer(geno, beta, vars_t, probs_t, "config Xm dual", X_CORR_MIN,
+              X_R2_RANGE, use_xxt=True)
+    launches_m = dict(matvec.LAUNCHES)
+    check_launches("config Xm dual", launches_m, ("gram_aat_i8", "ax"),
+                   ("gram_aat_i8a", "axm_i8a", "atxm_i8a"))
+    if launches_m["ax"] != 2:
+        raise AssertionError(f"config Xm: ax launched {launches_m['ax']} "
+                             f"times, expected 2")
+    return launches, launches_m
+
+
 def bed_bytes(codes):
     """PLINK .bed rows uint8[M, ceil(N/4)] of 2-bit codes [M, N]."""
     M, N = codes.shape
@@ -539,15 +789,17 @@ def small_problem(tmp, seed, N, M, miss_rate=0.0):
     return bed, beta, vars_t, probs_t, rng
 
 
-def phase_card_vs_cpu(miss_rate):
+def phase_card_vs_cpu(miss_rate, use_xxt=False):
     label = "complete" if miss_rate == 0 else f"{miss_rate:.0%} missing"
+    label += ", dual (XXT)" if use_xxt else ""
     log(f"== phase 5: card vs CPU, N=2000 x M=4096, 6 iterations, {label}")
     from gvamp_tpu_torch import linear, sim
     from gvamp_tpu_torch.data import GenoBed
-    from gvamp_tpu_torch.ops import pvals
+    from gvamp_tpu_torch.ops import matvec, pvals
     N, M = 2000, 4096
     cfg = linear.VampConfig(max_iter=6, rho=0.3, gam1_init=1e-8,
-                            gamw_init=2.0, seed=5)
+                            gamw_init=2.0, seed=5, use_xxt=use_xxt)
+    gram = "gram_aat_i8a" if miss_rate == 0 else "gram_aat_i8"
     chroms = 1 + np.arange(M) * 4 // M
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -563,10 +815,14 @@ def phase_card_vs_cpu(miss_rate):
                 y = sim.simulate_linear_phenotype(g, beta, 2.0, rng)
             g.set_phen(y)
             t0 = time.perf_counter()
+            matvec.reset_launches()
             x, state, hist = linear.infer(g, cfg, probs_t, vars_t,
                                           verbose=False)
+            if dev == "cuda" and use_xxt and not matvec.LAUNCHES[gram]:
+                raise AssertionError(f"the card's dual run did not launch "
+                                     f"{gram}: {matvec.LAUNCHES}")
             p = None
-            if miss_rate:
+            if miss_rate and not use_xxt:
                 p = (pvals.loo_pvals(g, state.z1, state.x1),
                      pvals.loco_pvals(g, state.z1, state.x1, chroms))
             out[dev] = x, hist, p
@@ -584,7 +840,7 @@ def phase_card_vs_cpu(miss_rate):
             raise AssertionError(f"card and CPU {k} disagree")
     log(f"  cg_iters card {[h['cg_iters'] for h in h_c]} "
         f"cpu {[h['cg_iters'] for h in h_p]}")
-    if miss_rate:
+    if miss_rate and not use_xxt:
         for name, pc, pp in zip(("LOO", "LOCO"), p_c, p_p):
             lc, lp = np.log10(pc), np.log10(pp)
             d = float((np.abs(lc - lp) / np.maximum(1.0, -lp)).max())
@@ -594,29 +850,39 @@ def phase_card_vs_cpu(miss_rate):
                 raise AssertionError(f"card and CPU {name} p-values disagree")
 
 
+def flagship_files(tmp, N, M):
+    """The flagship data of the README's port section in ``tmp``: N x M with
+    2% missing calls, a .bim over 4 chromosomes and a simulated phenotype;
+    returns (bed, phen, bim, beta)."""
+    from gvamp_tpu import sim as npsim
+    from gvamp_tpu.io import plink
+    from gvamp_tpu_torch import sim
+    from gvamp_tpu_torch.data import GenoBed
+    rng = np.random.default_rng(42)
+    bed, phen, bim = (os.path.join(tmp, f"demo.{e}")
+                      for e in ("bed", "phen", "bim"))
+    plink.write_bed(bed, npsim.random_genotypes(rng, M, N, miss_rate=0.02))
+    plink.write_bim(bim, np.repeat(np.arange(1, 5), M // 4))
+    g = GenoBed.from_files(bed, None, N=N, Mt=M, device="cuda",
+                           standardize_phen=False)
+    vars_t, probs_t = npsim.two_group_prior(M, 12, 0.8)
+    beta = npsim.simulate_mixture(rng, M, vars_t, probs_t)
+    plink.write_phen(phen, sim.simulate_linear_phenotype(
+        g, beta, 1 / (1 - 0.8), rng))
+    return bed, phen, bim, beta
+
+
 def phase_cli():
     """The flagship flow of the README's port section on the card: 2%
     missing calls, --store-pvals 1 and a .bim over 4 chromosomes."""
     log("== phase 6: CLI infere with --store-pvals 1 and a .bim, 2% missing")
-    from gvamp_tpu import sim as npsim
-    from gvamp_tpu.io import plink, vecio
-    from gvamp_tpu_torch import cli, linear, sim
+    from gvamp_tpu.io import vecio
+    from gvamp_tpu_torch import cli, linear
     from gvamp_tpu_torch.data import GenoBed
     from gvamp_tpu_torch.ops import pvals
     N, M, n_it = 800, 240, 8
-    rng = np.random.default_rng(42)
     with tempfile.TemporaryDirectory() as tmp:
-        bed, phen, bim = (os.path.join(tmp, f"demo.{e}")
-                          for e in ("bed", "phen", "bim"))
-        plink.write_bed(bed, npsim.random_genotypes(rng, M, N,
-                                                    miss_rate=0.02))
-        plink.write_bim(bim, np.repeat(np.arange(1, 5), M // 4))
-        g = GenoBed.from_files(bed, None, N=N, Mt=M, device="cuda",
-                               standardize_phen=False)
-        vars_t, probs_t = npsim.two_group_prior(M, 12, 0.8)
-        beta = npsim.simulate_mixture(rng, M, vars_t, probs_t)
-        plink.write_phen(phen, sim.simulate_linear_phenotype(
-            g, beta, 1 / (1 - 0.8), rng))
+        bed, phen, bim, beta = flagship_files(tmp, N, M)
         args = ["--device", "cuda", "--run-mode", "infere", "--model",
                 "linear", "--bed-file", bed, "--phen-files", phen,
                 "--bim-file", bim, "--N", str(N), "--Mt", str(M),
@@ -667,6 +933,42 @@ def phase_cli():
         raise AssertionError("LOCO predictor files malformed")
 
 
+def phase_cli_xxt():
+    """The flagship recipe with --use-XXT-denoiser 1: the dual solve through
+    the CLI on the card, its dump equal to a library dual run."""
+    log("== phase 6x: CLI infere with --use-XXT-denoiser 1, 2% missing")
+    from gvamp_tpu.io import vecio
+    from gvamp_tpu_torch import cli, linear
+    from gvamp_tpu_torch.data import GenoBed
+    from gvamp_tpu_torch.ops import matvec
+    N, M, n_it = 800, 240, 8
+    with tempfile.TemporaryDirectory() as tmp:
+        bed, phen, _, beta = flagship_files(tmp, N, M)
+        matvec.reset_launches()
+        cli.main(["--device", "cuda", "--run-mode", "infere", "--model",
+                  "linear", "--bed-file", bed, "--phen-files", phen,
+                  "--N", str(N), "--Mt", str(M), "--iterations", str(n_it),
+                  "--rho", "0.3", "--probs", "0.95,0.05", "--vars",
+                  "0.0,0.0667", "--use-XXT-denoiser", "1", "--verbosity",
+                  "0", "--out-dir", os.path.join(tmp, "out"), "--out-name",
+                  "dual"])
+        launches = dict(matvec.LAUNCHES)
+        pre = os.path.join(tmp, "out", "dual")
+        dump = vecio.read_bin_shard(f"{pre}_it_{n_it}.bin", M, 0)
+        g = GenoBed.from_files(bed, phen, N=N, Mt=M, device="cuda")
+        x_lib, _, _ = linear.infer(
+            g, linear.VampConfig(max_iter=n_it, rho=0.3, use_xxt=True),
+            [0.95, 0.05], [0.0, 0.0667], verbose=False)
+    d = float(np.abs(dump - x_lib).max() / np.abs(x_lib).max())
+    corr = float(np.corrcoef(dump, beta)[0, 1])
+    log(f"  launches {launches}; max|dump - library x1| / max|x1| = {d:.3e};"
+        f" corr(x_hat, beta) {corr:.5f} (limit 0.95)")
+    if not launches["gram_aat_i8"] or launches["gram_aat_i8a"]:
+        raise AssertionError("the dual CLI run did not take gram_aat_i8")
+    if not (d < 1e-6 and corr > 0.95):
+        raise AssertionError("the dual CLI flow missed its expectations")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -692,24 +994,43 @@ def main(argv=None):
     launches_m = phase_config_bm(words)
     del words
     torch.cuda.empty_cache()
+    words = synth_words(gen, miss=False, n=CFG_X_N, m=CFG_X_M)
+    words_m = synth_words(gen, miss=True, n=CFG_X_N, m=CFG_X_M)
+    nwx, mx = words.shape
+    full_x = phase_kernels_config_x(words, words_m, gen)
+    launches_x, launches_xm = phase_dual_x(words, words_m)
+    del words, words_m
+    torch.cuda.empty_cache()
     phase_moments_biobank()
-    phase_card_vs_cpu(0.0)
-    phase_card_vs_cpu(0.02)
+    for use_xxt in (False, True):
+        phase_card_vs_cpu(0.0, use_xxt)
+        phase_card_vs_cpu(0.02, use_xxt)
     phase_cli()
+    phase_cli_xxt()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
-    # times of the whole config-B (a-only, atx) or config-Bm (general)
-    # matrix at B = 1; the error is the largest over every width checked;
-    # launches are those of the path that runs the kernel
+    # times at B = 1 on the whole matrix of the path that runs the kernel:
+    # config B (a-only, atx), Bm (general), X (ax, gram_aat_i8a), Xm
+    # (gram_aat_i8); the error is the largest over every width checked
+    # there (each check raises unless it is 0); launches are those of
+    # that path's main run
     kernels = []
     for n in KERNELS:
-        runs, counts = ((full_m, launches_m) if n in ("axm_i8", "atxm_i8")
-                        else (full, launches))
+        if n in ("ax", "gram_aat_i8a", "gram_aat_i8"):
+            counts = launches_xm if n == "gram_aat_i8" else launches_x
+            err, ms, plain = full_x[n]
+            shape = f"Nw={nwx} Mpad={mx} B=1"
+        else:
+            runs, counts = ((full_m, launches_m)
+                            if n in ("axm_i8", "atxm_i8")
+                            else (full, launches))
+            err = max(r[n][0] for r in runs.values() if n in r)
+            ms, plain = runs[1][n][1], runs[1][n][2]
+            shape = f"Nw={nw} Mpad={m} B=1"
         kernels.append({
             "name": n, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[n], "launches": counts[n],
-            "max_abs_err": max(r[n][0] for r in runs.values() if n in r),
-            "ms": runs[1][n][1], "plain_ms": runs[1][n][2],
-            "shape": f"Nw={nw} Mpad={m} B=1"})
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "shape": shape})
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

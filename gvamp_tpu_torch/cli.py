@@ -15,9 +15,10 @@ With ``--store-pvals`` 1 or 2 it then writes the LOO p-values
 p-values ``{out}_pvals_LOCO.bin`` and each chromosome's genetic predictor
 ``{out}_LOCO_chr_{ch}.csv`` (``cli.py:176-177, 373-392`` of the JAX
 package, whose semantics are kept: at the default 0 no p-values are
-computed).  Genotypes with missing calls run through the general kernels.
-Every other run mode, model and option outside the slice raises
-``NotImplementedError`` naming its ROADMAP.md item.
+computed).  Genotypes with missing calls run through the general kernels;
+``--use-XXT-denoiser 1`` runs the dual (N-space) LMMSE solve through the
+fused dual Gram kernels.  Every other run mode, model and option outside
+the slice raises ``NotImplementedError`` naming its ROADMAP.md item.
 
 Example::
 

@@ -30,9 +30,9 @@ def geno_from_numpy(words: np.ndarray, y_raw: np.ndarray, N: int,
 
 def state_from_numpy(d: dict, device="cpu",
                      dtype=torch.float32) -> linear.LinState:
-    """``gvamp_tpu.linear.LinState`` fields (as arrays) -> port state.
-    The fields of the unported dual and cross-validation branches are
-    ignored."""
+    """``gvamp_tpu.linear.LinState`` fields (as arrays) -> port state,
+    primal and dual (``*_n``) fields alike; the cross-validation field
+    ``cv_r2`` (not ported) is ignored."""
     vals = {name: (int(np.asarray(d[name])) if name == "it"
                    else torch.tensor(np.asarray(d[name]), dtype=dtype,
                                      device=device))
@@ -48,7 +48,14 @@ def state_to_numpy(state: linear.LinState) -> dict:
 
 
 def aux_from_numpy(geno: GenoBed, cfg: linear.VampConfig, bern: np.ndarray,
-                   freeze=None, true_signal=None) -> linear.Aux:
-    """The step's set-up with the given probe (e.g. JAX's make_bern_probe)."""
-    return linear.make_aux(geno, cfg, freeze=freeze, true_signal=true_signal,
-                           bern=np.asarray(bern))
+                   freeze=None, true_signal=None,
+                   xxt_diag_base=None) -> linear.Aux:
+    """The step's set-up with the given probe (e.g. JAX's make_bern_probe)
+    and, where given, the dual Jacobi base (JAX's ``Aux.xxt_diag_base``)
+    in place of the port's own people statistics."""
+    aux = linear.make_aux(geno, cfg, freeze=freeze, true_signal=true_signal,
+                          bern=np.asarray(bern))
+    if xxt_diag_base is None:
+        return aux
+    return aux._replace(xxt_diag_base=torch.tensor(
+        np.asarray(xxt_diag_base), dtype=geno.dtype, device=geno.device))

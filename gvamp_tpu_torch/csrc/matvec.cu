@@ -483,6 +483,323 @@ int64_t atx_rows_per_band(int64_t nw, int64_t mpad) {
   return band_length(nw, cdiv(mpad, kThreads), kTileRows);
 }
 
+// --------------------------------------------------------------------------
+// ax: z[k][p] = sum_m a_k[m, p] * w[m] - b_k[m, p] * u[m] in f32
+//
+// Replaces ax_pallas / _ax_kernel (gvamp_tpu/ops/matvec.py:225-263).  It
+// runs twice at set-up, for the people statistics of the dual solve
+// (GenoBed.compute_people_statistics).  Bound on this card: one read of
+// the packed bytes and 32 float FMAs (with their byte-to-float
+// conversions) per word, so the conversions, not HBM, set its pace.
+// Design: axm_i8a's (one warp per word row, 16-byte loads of four marker
+// words, the __byte_perm transpose, lanes striding over the marker quads
+// of a band); each lane keeps one f32 sum per (plane k, byte b) and the
+// warp sums them with a fixed shuffle tree.  Marker bands spread over
+// gridDim.y and write their own partial rows; the wrapper sums the
+// partials in a fixed order, so the result does not depend on scheduling.
+// --------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+ax_kernel(const uint32_t* __restrict__ words,
+          const float4* __restrict__ w,  // [Mpad / 4]
+          const float4* __restrict__ u,  // [Mpad / 4]
+          float* __restrict__ out,       // [bands, 4, 4*Nw]
+          int64_t nw, int64_t mpad, int64_t quads_per_band) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * kWarps + warp;
+  if (row >= nw) return;  // the kernel has no __syncthreads
+  const int64_t q_begin = (int64_t)blockIdx.y * quads_per_band;
+  const int64_t q_end = imin(mpad / 4, q_begin + quads_per_band);
+  float acc[16];  // [k * 4 + b]
+#pragma unroll
+  for (int j = 0; j < 16; ++j) acc[j] = 0.f;
+  const uint4* wrow = reinterpret_cast<const uint4*>(words + row * mpad);
+  for (int64_t q = q_begin + lane; q < q_end; q += 32) {
+    uint32_t y[4];
+    transpose_quad(__ldg(wrow + q), y);
+    const float4 wv = __ldg(w + q);
+    const float4 uv = __ldg(u + q);
+    const float ww[4] = {wv.x, wv.y, wv.z, wv.w};
+    const float nu[4] = {-uv.x, -uv.y, -uv.z, -uv.w};
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t a = swar_a(y[b], k);
+        const uint32_t nm = swar_b(y[b], k);
+        float s = acc[k * 4 + b];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s = fmaf((float)((a >> (8 * j)) & 0xffu), ww[j], s);
+          s = fmaf((float)((nm >> (8 * j)) & 0xffu), nu[j], s);
+        }
+        acc[k * 4 + b] = s;
+      }
+  }
+  const int64_t nb = 4 * nw;
+  float* o = out + (int64_t)blockIdx.y * 4 * nb;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float v = acc[j];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) o[(j / 4) * nb + 4 * row + j % 4] = v;
+  }
+}
+
+int64_t ax_quads_per_band(int64_t nw, int64_t mpad) {
+  return band_length(mpad / 4, cdiv(nw, kWarps), 32);
+}
+
+// --------------------------------------------------------------------------
+// gram_aat_i8a / gram_aat_i8: the fused dual Gram of the XXT solve,
+//   a-only:  z = A_a W - colsum(mave W),  W = msig2 (A_a^T V - sv mave)
+//   general: z = A_a W - A_b (mave W),    W = msig2 (A_a^T V - mave A_b^T V)
+// in one read of the words.
+//
+// Replaces gram_aat_i8a_pallas / _gram_aat_i8a_kernel and
+// gram_aat_i8_pallas / _gram_aat_i8_kernel (gvamp_tpu/ops/matvec.py:
+// 1207-1381, 1400-1520), which walk the marker stripes in sequence and
+// cache one in VMEM.  Bound on this card: the integer pipe.  The words
+// are read from HBM once, but every word feeds 4 __dp4a per digit row on
+// each side (8 per side with the b-plane), plus the decodes and the
+// forward side's byte transposes.
+// Design: one block per stripe of kGramS markers, so stripes run in
+// parallel instead of in sequence.
+//   1. The stripe (Nw x kGramS words) goes into shared memory, each row
+//      padded by 16 bytes so that the forward side's 16-byte row reads
+//      hit distinct banks.
+//   2. Transpose side, per column b of V: thread (g, c) contracts marker c
+//      of the stripe against V's digits over the word rows i = g mod 4;
+//      the digits of a row and plane are one 16-byte load, the same for
+//      the whole warp.  The four groups meet in shared memory (int32,
+//      exact).
+//   3. Thread c folds t to f32 and forms W (and -mave W), the block takes
+//      the stripe's max |W|, and each thread computes the same 4 scales
+//      and its marker's 4 digits.  Every f32 step is a round-to-nearest
+//      intrinsic (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn, rintf): nvcc
+//      contracts no FMA across them, so they round as the plain version's
+//      separate torch ops do.
+//   4. Forward side: one thread per word row contracts the cached row
+//      against the stripe's digits (axm_i8a's __byte_perm transpose and
+//      __dp4a), folds with the stripe's scales and writes the stripe's
+//      f32 partial z_j.  Stripes carry their own scales, so they cannot
+//      meet in int32 atomics, and f32 atomics would make runs differ: the
+//      wrapper sums the partials [nJ, 4, Nb, B] with one torch.sum (168 MB
+//      at N=5,120 x M=524,288, S=64, B=1: a quarter of the words' bytes).
+// The a-only kernel also writes W, from which the wrapper forms
+// colsum(mave W) with the plain version's own torch op.
+// --------------------------------------------------------------------------
+constexpr int kGramS = 64;               // markers per stripe (numerics)
+constexpr int kGramSP = kGramS + 4;      // padded shared-memory row (words)
+constexpr int kGramQ = kGramS / 4;       // marker quads per stripe
+constexpr int kGramGroups = kThreads / kGramS;
+
+int64_t gram_smem_bytes(int64_t nw) {
+  return 4 * (nw * kGramSP + 8 * kThreads + 2 * kGramS + kWarps);
+}
+
+// t[0] s0 + t[1] s1 + t[2] s2 + t[3] s3, left to right, each step rounded
+__device__ __forceinline__ float fold4(const int32_t t[4], const float s[4]) {
+  float acc = __fmul_rn((float)t[0], s[0]);
+#pragma unroll
+  for (int d = 1; d < 4; ++d) acc = __fadd_rn(acc, __fmul_rn((float)t[d], s[d]));
+  return acc;
+}
+
+template <bool kGeneral>
+__global__ void __launch_bounds__(kThreads, 2)
+gram_aat_kernel(const uint32_t* __restrict__ words,
+                const int4* __restrict__ vdig,   // [B][Nw][4 planes] x 4 digits
+                const float* __restrict__ vsc,   // [4][B] scales of V's digits
+                const float* __restrict__ sv,    // [B] colsum(V) (a-only)
+                const float* __restrict__ mave,  // [Mpad]
+                const float* __restrict__ msig2, // [Mpad]
+                float* __restrict__ zpart,       // [nJ][4][4*Nw][B]
+                float* __restrict__ wout,        // [B][Mpad] (a-only)
+                int64_t nw, int64_t mpad, int64_t ncols) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* stripe = smem;                                          // [Nw][kGramSP]
+  int32_t* red = reinterpret_cast<int32_t*>(stripe + nw * kGramSP);  // [8][kThreads]
+  int32_t* wq = red + 8 * kThreads;                                 // [4][kGramQ]
+  int32_t* uq = wq + kGramS;                                        // [4][kGramQ]
+  float* wmax = reinterpret_cast<float*>(uq + kGramS);              // [kWarps]
+  int8_t* wq8 = reinterpret_cast<int8_t*>(wq);
+  int8_t* uq8 = reinterpret_cast<int8_t*>(uq);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int64_t j = blockIdx.x;
+  const int64_t m0 = j * kGramS;
+  const int64_t nb = 4 * nw;
+
+  // 1. the stripe into shared memory: its only read from HBM
+  for (int64_t idx = tid; idx < nw * kGramQ; idx += kThreads) {
+    const int64_t i = idx / kGramQ;
+    const int q = (int)(idx % kGramQ);
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(words + i * mpad + m0) + q);
+    *reinterpret_cast<uint4*>(stripe + i * kGramSP + 4 * q) = x;
+  }
+  __syncthreads();
+
+  const int c = tid % kGramS;
+  const int g = tid / kGramS;
+  for (int64_t b = 0; b < ncols; ++b) {
+    // 2. transpose side: marker c against V's digits, rows i = g mod 4
+    int32_t ta[4] = {0, 0, 0, 0}, tb[4] = {0, 0, 0, 0};
+    const int4* vb = vdig + b * nw * 4;
+    for (int64_t i = g; i < nw; i += kGramGroups) {
+      const uint32_t w = stripe[i * kGramSP + c];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int4 v = __ldg(vb + i * 4 + k);
+        const int a = (int)swar_a(w, k);
+        ta[0] = __dp4a(a, v.x, ta[0]);
+        ta[1] = __dp4a(a, v.y, ta[1]);
+        ta[2] = __dp4a(a, v.z, ta[2]);
+        ta[3] = __dp4a(a, v.w, ta[3]);
+        if (kGeneral) {
+          const int nm = (int)swar_b(w, k);
+          tb[0] = __dp4a(nm, v.x, tb[0]);
+          tb[1] = __dp4a(nm, v.y, tb[1]);
+          tb[2] = __dp4a(nm, v.z, tb[2]);
+          tb[3] = __dp4a(nm, v.w, tb[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      red[d * kThreads + tid] = ta[d];
+      if (kGeneral) red[(4 + d) * kThreads + tid] = tb[d];
+    }
+    __syncthreads();
+
+    // 3. marker c: fold t, form W, then the stripe's max |W|
+    float wv = 0.f, uv = 0.f;
+    if (tid < kGramS) {
+      const float s[4] = {vsc[b], vsc[ncols + b], vsc[2 * ncols + b],
+                          vsc[3 * ncols + b]};
+      int32_t t[4];
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        t[d] = 0;
+#pragma unroll
+        for (int gg = 0; gg < kGramGroups; ++gg)
+          t[d] += red[d * kThreads + gg * kGramS + tid];
+      }
+      const float av = fold4(t, s);
+      const int64_t m = m0 + tid;
+      if (kGeneral) {
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          t[d] = 0;
+#pragma unroll
+          for (int gg = 0; gg < kGramGroups; ++gg)
+            t[d] += red[(4 + d) * kThreads + gg * kGramS + tid];
+        }
+        const float bv = fold4(t, s);
+        wv = __fmul_rn(msig2[m], __fsub_rn(av, __fmul_rn(mave[m], bv)));
+        uv = __fmul_rn(-mave[m], wv);
+      } else {
+        wv = __fmul_rn(msig2[m], __fsub_rn(av, __fmul_rn(sv[b], mave[m])));
+        wout[b * mpad + m] = wv;
+      }
+    }
+    float mx = fmaxf(fabsf(wv), fabsf(uv));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (lane == 0) wmax[tid >> 5] = mx;
+    __syncthreads();
+    mx = wmax[0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, wmax[w]);
+    float sc[4];
+    sc[0] = __fdiv_rn(mx == 0.f ? 1.f : mx, 127.f);
+#pragma unroll
+    for (int d = 1; d < 4; ++d) sc[d] = __fdiv_rn(sc[d - 1], 127.f);
+    if (tid < kGramS) {
+      float r = wv, ru = uv;
+#pragma unroll
+      for (int d = 0; d < 4; ++d) {
+        const float dw = rintf(__fdiv_rn(r, sc[d]));
+        wq8[d * kGramS + tid] = (int8_t)(int)dw;
+        r = __fsub_rn(r, __fmul_rn(dw, sc[d]));
+        if (kGeneral) {
+          const float du = rintf(__fdiv_rn(ru, sc[d]));
+          uq8[d * kGramS + tid] = (int8_t)(int)du;
+          ru = __fsub_rn(ru, __fmul_rn(du, sc[d]));
+        }
+      }
+    }
+    __syncthreads();
+
+    // 4. forward side: word row i of the cached stripe against the digits
+    for (int64_t i = tid; i < nw; i += kThreads) {
+      int32_t acc[4][16];  // [d][k * 4 + byte]
+#pragma unroll
+      for (int d = 0; d < 4; ++d)
+#pragma unroll
+        for (int e = 0; e < 16; ++e) acc[d][e] = 0;
+      const uint4* row = reinterpret_cast<const uint4*>(stripe + i * kGramSP);
+      for (int q = 0; q < kGramQ; ++q) {
+        uint32_t y[4];
+        transpose_quad(row[q], y);
+        int32_t wd[4], ud[4];
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          wd[d] = wq[d * kGramQ + q];
+          if (kGeneral) ud[d] = uq[d * kGramQ + q];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int a = (int)swar_a(y[e], k);
+#pragma unroll
+            for (int d = 0; d < 4; ++d)
+              acc[d][k * 4 + e] = __dp4a(a, wd[d], acc[d][k * 4 + e]);
+            if (kGeneral) {
+              const int nm = (int)swar_b(y[e], k);
+#pragma unroll
+              for (int d = 0; d < 4; ++d)
+                acc[d][k * 4 + e] = __dp4a(nm, ud[d], acc[d][k * 4 + e]);
+            }
+          }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int32_t t[4] = {acc[0][k * 4 + e], acc[1][k * 4 + e],
+                                acc[2][k * 4 + e], acc[3][k * 4 + e]};
+          zpart[((j * 4 + k) * nb + 4 * i + e) * ncols + b] = fold4(t, sc);
+        }
+    }
+    // the next column's step 2 writes only red; its __syncthreads orders
+    // this step's reads of wq / uq / wmax before they are rewritten
+  }
+}
+
+template <bool kGeneral>
+int launch_gram_aat(const void* words, const void* vdig, const void* vsc,
+                    const void* sv, const void* mave, const void* msig2,
+                    void* zpart, void* wout, int64_t nw, int64_t mpad,
+                    int64_t ncols, void* stream) {
+  const int64_t smem = gram_smem_bytes(nw);
+  cudaError_t err = cudaFuncSetAttribute(
+      gram_aat_kernel<kGeneral>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gram_aat_kernel<kGeneral><<<(unsigned)(mpad / kGramS), kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), static_cast<const int4*>(vdig),
+      static_cast<const float*>(vsc), static_cast<const float*>(sv),
+      static_cast<const float*>(mave), static_cast<const float*>(msig2),
+      static_cast<float*>(zpart), static_cast<float*>(wout), nw, mpad, ncols);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -565,6 +882,43 @@ int gvamp_atx(const void* words, const void* v, void* out, int64_t nw,
       static_cast<const uint32_t*>(words), static_cast<const float*>(v),
       static_cast<float*>(out), nw, mpad, rows);
   return (int)cudaGetLastError();
+}
+
+// number of marker bands the ax launch uses: the wrapper sizes its partial
+// output [bands, 4, 4*Nw] with it
+int64_t gvamp_ax_parts(int64_t nw, int64_t mpad) {
+  return cdiv(mpad / 4, ax_quads_per_band(nw, mpad));
+}
+
+int gvamp_ax(const void* words, const void* w, const void* u, void* out,
+             int64_t nw, int64_t mpad, void* stream) {
+  const int64_t quads = ax_quads_per_band(nw, mpad);
+  const dim3 grid((unsigned)cdiv(nw, kWarps), (unsigned)cdiv(mpad / 4, quads), 1);
+  ax_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), static_cast<const float4*>(w),
+      static_cast<const float4*>(u), static_cast<float*>(out), nw, mpad, quads);
+  return (int)cudaGetLastError();
+}
+
+// the stripe width and the shared memory of one block, so that the
+// wrapper can check that it agrees with ops/matvec.py
+int gvamp_gram_aat_stripe() { return kGramS; }
+
+int64_t gvamp_gram_aat_smem(int64_t nw) { return gram_smem_bytes(nw); }
+
+int gvamp_gram_aat_i8a(const void* words, const void* vdig, const void* vsc,
+                       const void* sv, const void* mave, const void* msig2,
+                       void* zpart, void* wout, int64_t nw, int64_t mpad,
+                       int64_t ncols, void* stream) {
+  return launch_gram_aat<false>(words, vdig, vsc, sv, mave, msig2, zpart,
+                                wout, nw, mpad, ncols, stream);
+}
+
+int gvamp_gram_aat_i8(const void* words, const void* vdig, const void* vsc,
+                      const void* mave, const void* msig2, void* zpart,
+                      int64_t nw, int64_t mpad, int64_t ncols, void* stream) {
+  return launch_gram_aat<true>(words, vdig, vsc, nullptr, mave, msig2, zpart,
+                               nullptr, nw, mpad, ncols, stream);
 }
 
 }  // extern "C"

@@ -21,11 +21,16 @@ Routing by dtype (the JAX package routes an f64 request to its XLA path,
     plain versions on the CPU;
   * float64 runs the dense plain products (true f64) and exists on the CPU
     only: float64 on CUDA raises, since no kernel takes it.
+
+The dual (XXT) solve adds the people statistics (``ax``, its Jacobi
+diagonal) and ``fn_gram_aat``, the fused dual Gram A A^T in one read of the
+words (``gram_aat_i8a`` / ``gram_aat_i8``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -124,6 +129,27 @@ def _marker_stats(words, na_planar, nonas, alpha_scale, block, dt):
         sumsqr > 0,
         1.0 / torch.pow(torch.where(sumsqr <= 0, 1.0, sd), alpha_scale), 1.0)
     return mave, msig
+
+
+def _people_sumsq(words, mave, msig):
+    """sum_m ((a - mave_m) msig_m)^2 b per planar slot -> f32[4, Nb]
+    (``gvamp_tpu/data.py:943-965``, XLA code there, plain PyTorch here), in
+    f32 for every dtype as there.  Blocks of markers cap the two decoded
+    [4, Nb, block] f32 temporaries near 512 MB."""
+    nw, m = words.shape
+    cap = max(64, int(2 ** 29 // max(1, 2 * 16 * nw * 4)))
+    block = min(512, m, ((cap + 63) // 64) * 64)
+    while m % block:
+        block //= 2
+    mave = mave.to(torch.float32)
+    msig = msig.to(torch.float32)
+    acc = torch.zeros((4, 4 * nw), dtype=torch.float32, device=words.device)
+    for lo in range(0, m, block):
+        a, b = matvec.decode_planar_dense(words[:, lo:lo + block],
+                                          torch.float32)
+        v = (a - mave[lo:lo + block]) * msig[lo:lo + block] * b
+        acc = acc + (v * v).sum(dim=2)
+    return acc
 
 
 @dataclasses.dataclass
@@ -278,6 +304,37 @@ class GenoBed:
     def compute_marker_statistics(self) -> None:
         self.mave, self.msig = self.marker_stats_for(self.na_planar, self.nonas)
 
+    def _raw_ax_once(self, w, u):
+        """Unscaled, unmasked sum_m a w - b u: the ``ax`` kernel in float32,
+        the dense plain product in float64."""
+        if self.dtype == torch.float64:
+            return matvec.ax_ref(self.words, w, u, torch.float64)
+        return matvec.ax(self.words, w, u)
+
+    def compute_people_statistics(self):
+        """Per-individual statistics for the XXT preconditioner
+        (``gvamp_tpu/data.py:422-454``, reference data.cpp:558-716):
+        planar (mave_p, msig_p, numb_p), each [4, Nb], msig_p =
+        sqrt((n_i - 1) / (sum v^2 - n_i mean_i^2)) on non-NA slots, 0
+        elsewhere."""
+        # sum_m (a - mave) msig b = a @ msig - b @ (mave msig), exact since
+        # a = 0 wherever b = 0; the non-missing count is a @ 0 - b @ (-1)
+        sum_v = self._raw_ax_once(self.msig, self.mave * self.msig)
+        numb = self._raw_ax_once(torch.zeros_like(self.msig),
+                                 -torch.ones_like(self.mave))
+        sumsq = _people_sumsq(self.words, self.mave, self.msig)
+        na = self.na_planar
+        numb = numb * na
+        mave_p = torch.where(
+            numb > 0, sum_v * na / torch.where(numb == 0, 1.0, numb), 0.0)
+        denom = sumsq * na - numb * mave_p ** 2
+        prec = torch.where((na > 0) & (denom != 0),
+                           (numb - 1) / torch.where(denom == 0, 1.0, denom),
+                           0.0)
+        msig_p = torch.sqrt(torch.clamp(prec, min=0.0))
+        return (mave_p.to(self.dtype), msig_p.to(self.dtype),
+                numb.to(self.dtype))
+
     # ---------------------------------------------------------------- matvec
 
     @property
@@ -363,6 +420,41 @@ class GenoBed:
             return atxm_fn(op, v_planar[:, :, None])[:, 0]
 
         return ax_fn, atx_fn
+
+    def fn_gram_aat(self):
+        """The fused dual Gram ``gram_aat_fn(op, Up[4, Nb, B]) -> A A^T Up``
+        (standardisation, NA mask and 1/N included) in one read of the
+        words, or None, where the caller takes the two-pass form
+        axm(atxm(.)).  The routing of ``gvamp_tpu/data.py:714-769``: on by
+        default, and None
+
+          * under ``GVAMP_NO_FUSED_GRAM=1``;
+          * in float64, whose dense plain products run on the CPU;
+          * when the kernel's stripe cache does not fit
+            ``matvec.GRAM_AAT_SMEM_BUDGET`` (227 KB of shared memory, which
+            holds N up to 13,152; JAX's counterpart is the 80 MB VMEM
+            budget ``_GRAM_BAND_MAX_BYTES``) or Mpad is not a whole number
+            of ``matvec.GRAM_AAT_STRIPE``-marker stripes.
+
+        Complete genotypes run ``gram_aat_i8a``, the others
+        ``gram_aat_i8``."""
+        if os.environ.get("GVAMP_NO_FUSED_GRAM", "") == "1":
+            return None
+        if self.dtype == torch.float64:
+            return None
+        if not matvec.gram_aat_fits(self.layout.n_words, self.Mpad):
+            return None
+        dtype = self.dtype
+        scale2 = self.inv_sqrt_n * self.inv_sqrt_n
+        aat = (matvec.gram_aat_i8a if self.geno_complete
+               else matvec.gram_aat_i8)
+
+        def gram_aat_fn(op: BedOp, Up):
+            v = Up.to(op.msig.dtype) * op.na_planar[:, :, None]
+            z = aat(op.words, v, op.mave, torch.square(op.msig))
+            return z.to(dtype) * op.na_planar[:, :, None] * scale2
+
+        return gram_aat_fn
 
     def ax(self, x: torch.Tensor) -> torch.Tensor:
         return self.fns()[0](self.op, x)

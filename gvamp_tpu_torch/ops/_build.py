@@ -101,5 +101,17 @@ def library() -> ctypes.CDLL:
             lib.gvamp_atx.restype = ctypes.c_int
             lib.gvamp_atx_parts.argtypes = [i64, i64]
             lib.gvamp_atx_parts.restype = i64
+            lib.gvamp_ax.argtypes = [vp, vp, vp, vp, i64, i64, vp]
+            lib.gvamp_ax.restype = ctypes.c_int
+            lib.gvamp_ax_parts.argtypes = [i64, i64]
+            lib.gvamp_ax_parts.restype = i64
+            lib.gvamp_gram_aat_stripe.argtypes = []
+            lib.gvamp_gram_aat_stripe.restype = ctypes.c_int
+            lib.gvamp_gram_aat_smem.argtypes = [i64]
+            lib.gvamp_gram_aat_smem.restype = i64
+            lib.gvamp_gram_aat_i8a.argtypes = [vp] * 8 + [i64, i64, i64, vp]
+            lib.gvamp_gram_aat_i8a.restype = ctypes.c_int
+            lib.gvamp_gram_aat_i8.argtypes = [vp] * 6 + [i64, i64, i64, vp]
+            lib.gvamp_gram_aat_i8.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -8,7 +8,7 @@ JAX ``uint32`` words: PyTorch's ``uint32`` supports few operations.  Right
 shifts on int32 are arithmetic, so every shift below is followed by a mask
 that clears the sign fill.
 
-Five kernels carry every packed-matrix read of the linear path:
+Eight kernels carry every packed-matrix read of the linear path:
 
 * ``axm_i8a``  z[4, Nb, B] = A_a @ W   (replaces ``axm_i8a_pallas``)
 * ``atxm_i8a`` av[Mpad, B] = A_a^T V   (replaces ``atxm_i8a_pallas``)
@@ -17,17 +17,24 @@ Five kernels carry every packed-matrix read of the linear path:
   ``atxm_i8_pallas``)
 * ``atx``      (A_a^T v, A_b^T v) in f32 (replaces ``atx_pallas``, used once
   at load by the completeness check)
+* ``ax``       z[4, Nb] = A_a w - A_b u in f32 (replaces ``ax_pallas``, the
+  people statistics of the dual solve)
+* ``gram_aat_i8a`` / ``gram_aat_i8``  the fused dual Gram A (A^T V) of the
+  XXT solve in one read of the words (replace ``gram_aat_i8a_pallas`` /
+  ``gram_aat_i8_pallas``)
 
-The a-only pair serves complete (imputed) genotypes, where the
+The a-only kernels serve complete (imputed) genotypes, where the
 non-missing indicator b is 1 on every real sample and its contractions
-collapse to scalars; the general pair serves genotypes with missing calls.
+collapse to scalars; the general ones serve genotypes with missing calls.
 
 The digit contract is the JAX package's: right-hand sides are quantised into
 ``_NDIG`` radix-127 int8 digits outside the kernel, the kernel contracts the
 digits exactly in int32, and the fold back to f32 also runs outside the
 kernel.  The wrappers and the plain versions share the quantisation and the
 fold, so on one device a kernel's output equals its plain version's bit for
-bit.
+bit.  The fused dual Gram folds and requantises inside the kernel, per
+stripe of ``GRAM_AAT_STRIPE`` markers; its plain version repeats those
+steps with the same roundings (see ``gram_aat_i8a_ref``).
 
 A wrapper takes its plain version only for a tensor on the CPU.  For a CUDA
 tensor it launches its kernel or raises; it never falls back.
@@ -48,8 +55,17 @@ _NDIG = 4
 # kernel itself takes any width, the chunking keeps JAX's call structure
 _BMAX_AXM_A = 64
 
+# markers per stripe of the fused dual Gram: the kernel's work unit and its
+# quantisation boundary (W is requantised per stripe and column), shared by
+# the CUDA kernel (kGramS in csrc/matvec.cu) and the plain versions
+GRAM_AAT_STRIPE = 64
+# shared memory one block of the fused dual Gram may use on an H100 (227 KB,
+# the opt-in maximum); gram_aat_smem_bytes(Nw) must fit it, which holds up
+# to Nw = 822 word rows (N = 13,152)
+GRAM_AAT_SMEM_BUDGET = 232_448
+
 LAUNCHES = {"axm_i8a": 0, "atxm_i8a": 0, "axm_i8": 0, "atxm_i8": 0,
-            "atx": 0}
+            "atx": 0, "ax": 0, "gram_aat_i8a": 0, "gram_aat_i8": 0}
 
 
 def reset_launches() -> None:
@@ -124,10 +140,15 @@ _REF_BLOCK = 512  # markers decoded per step: bounds the dense temporaries
 
 
 def ax_ref(words, w, u, dtype=torch.float32):
-    """z[k, p] = sum_m a_k[m, p] w[m] - b_k[m, p] u[m]."""
-    a, b = decode_planar_dense(words, dtype)
-    return (torch.einsum("knm,m->kn", a, w.to(dtype))
-            - torch.einsum("knm,m->kn", b, u.to(dtype)))
+    """z[k, p] = sum_m a_k[m, p] w[m] - b_k[m, p] u[m]: the plain version of
+    the ``ax`` kernel at f32, decoded ``_REF_BLOCK`` markers at a time."""
+    w, u = w.to(dtype), u.to(dtype)
+    z = torch.zeros((4, 4 * words.shape[0]), dtype=dtype, device=words.device)
+    for lo in range(0, words.shape[1], _REF_BLOCK):
+        a, b = decode_planar_dense(words[:, lo:lo + _REF_BLOCK], dtype)
+        z += (torch.einsum("knm,m->kn", a, w[lo:lo + _REF_BLOCK])
+              - torch.einsum("knm,m->kn", b, u[lo:lo + _REF_BLOCK]))
+    return z
 
 
 def atx_ref(words, v_planar, dtype=torch.float32):
@@ -314,6 +335,142 @@ def atxm_i8_ref(words, V):
 
 
 # --------------------------------------------------------------------------
+# the fused dual Gram (gvamp_tpu/ops/matvec.py:1207-1381, 1400-1520)
+#
+# Per stripe of S = GRAM_AAT_STRIPE markers: the transpose digit products t
+# (exact int32), folded to f32; W = msig2 (A_a^T V - ...); W requantised
+# into _NDIG digits with one scale per stripe and column; the forward digit
+# products of those digits (exact int32), folded with the stripe's scales
+# into one f32 partial z_j[4, Nb, B].  The kernel does the same elementwise
+# f32 steps with round-to-nearest intrinsics and no FMA contraction, and
+# writes the partials; z = sum_j z_j is one torch.sum over the stripe axis
+# on both sides, so kernel and plain version agree bit for bit on a device.
+# Every scale division is a division by a tensor (true IEEE division on
+# the CPU and on CUDA, as the kernel's __fdiv_rn), never by a Python
+# scalar, which PyTorch's CUDA backend turns into a product with the
+# reciprocal.
+# --------------------------------------------------------------------------
+
+
+def _digit_scales(s0: torch.Tensor) -> torch.Tensor:
+    """[NDIG, B] scales of V's digits, with the ops of ``_fold_digits_t``."""
+    scales = [s0]
+    for _ in range(1, _NDIG):
+        scales.append(scales[-1] / 127.0)
+    return torch.stack(scales)
+
+
+def _quant_stripes(*xs: torch.Tensor):
+    """Shared-scale digits of each x[B, Mpad], per stripe and column:
+    ([int8[NDIG, B, Mpad]] per x, scales [NDIG, B, nJ])."""
+    B, m = xs[0].shape
+    S = GRAM_AAT_STRIPE
+    parts = [x.reshape(B, m // S, S) for x in xs]
+    mx = parts[0].abs().amax(dim=2)
+    for p in parts[1:]:
+        mx = torch.maximum(mx, p.abs().amax(dim=2))
+    r127 = torch.full_like(mx, 127.0)
+    s = torch.where(mx == 0, 1.0, mx) / r127
+    digits = [[] for _ in parts]
+    scales = []
+    for _ in range(_NDIG):
+        scales.append(s)
+        for i, r in enumerate(parts):
+            d = torch.round(r / s[..., None])
+            digits[i].append(d.to(torch.int8))
+            parts[i] = r - d * s[..., None]
+        s = s / r127
+    return ([torch.stack(d).reshape(_NDIG, B, m) for d in digits],
+            torch.stack(scales))
+
+
+def _gram_forward_ref(words, scales, w8, u8=None):
+    """Folded per-stripe forward products f32[nJ, 4, Nb, B]: the a-plane
+    against the digits w8 int8[NDIG, B, Mpad] (plus, with ``u8``, the
+    b-plane against u8, summed in int32 before the fold, as the general
+    kernel does), folded with the stripe scales [NDIG, B, nJ].  Integer
+    sums stay below 381*S, exact in float64."""
+    nw, m = words.shape
+    S = GRAM_AAT_STRIPE
+    B = w8.shape[1]
+    f64 = torch.float64
+    out = torch.empty((m // S, 4, 4 * nw, B), dtype=torch.float32,
+                      device=words.device)
+    for lo in range(0, m, _REF_BLOCK):
+        hi = min(m, lo + _REF_BLOCK)
+        j0, j1 = lo // S, hi // S
+        blk = words[:, lo:hi]
+
+        def contract(plane, dig):
+            p = _decode_plane(blk, f64, plane).reshape(4, 4 * nw, j1 - j0, S)
+            d = dig[:, :, lo:hi].to(f64).reshape(_NDIG, B, j1 - j0, S)
+            return torch.einsum("knjs,dbjs->jdbkn", p, d)
+
+        z = contract(0, w8)
+        if u8 is not None:
+            z = z + contract(1, u8)
+        zf = z.to(torch.int32).to(torch.float32)           # [j, d, b, k, n]
+        sc = scales[:, :, j0:j1].permute(2, 0, 1)[..., None, None]
+        acc = zf[:, 0] * sc[:, 0]
+        for d in range(1, _NDIG):
+            acc = acc + zf[:, d] * sc[:, d]
+        out[j0:j1] = acc.permute(0, 2, 3, 1)
+    return out
+
+
+def _check_stripes(name: str, m: int) -> None:
+    if m % GRAM_AAT_STRIPE:
+        raise ValueError(f"{name}: Mpad={m} must be a multiple of the "
+                         f"{GRAM_AAT_STRIPE}-marker stripe")
+
+
+def gram_aat_i8a_ref(words, V, mave, msig2):
+    """Plain version of ``gram_aat_i8a``: z[4, Nb, B] = A_a W - colsum(mave W)
+    with W = msig2 (A_a^T V - colsum(V) mave), quantised per stripe.  ``V``
+    is already NA-masked; the caller applies na * scale^2."""
+    _check_stripes("gram_aat_i8a_ref", words.shape[1])
+    B = V.shape[2]
+    v8, vs = _quant_digits_t(V)
+    sv = V.to(torch.float32).sum(dim=(0, 1))
+    av = _fold_digits_t(atxm_i8a_int_ref(words, v8), vs, B).T   # [B, Mpad]
+    W = msig2[None, :] * (av - sv[:, None] * mave[None, :])
+    (w8,), scales = _quant_stripes(W)
+    z = _gram_forward_ref(words, scales, w8).sum(dim=0)
+    return z - (W * mave[None, :]).sum(dim=1)[None, None, :]
+
+
+def gram_aat_i8_ref(words, V, mave, msig2):
+    """Plain version of ``gram_aat_i8``: z[4, Nb, B] = A_a W - A_b (mave W)
+    with W = msig2 (A_a^T V - mave A_b^T V); W and -mave W share each
+    stripe's digit scale (gvamp_tpu/ops/matvec.py:1242-1260)."""
+    _check_stripes("gram_aat_i8_ref", words.shape[1])
+    B = V.shape[2]
+    v8, vs = _quant_digits_t(V)
+    ai, bi = atxm_i8_int_ref(words, v8)
+    av = _fold_digits_t(ai, vs, B).T
+    bv = _fold_digits_t(bi, vs, B).T
+    W = msig2[None, :] * (av - mave[None, :] * bv)
+    mU = -mave[None, :] * W
+    (w8, u8), scales = _quant_stripes(W, mU)
+    return _gram_forward_ref(words, scales, w8, u8).sum(dim=0)
+
+
+def gram_aat_smem_bytes(nw: int) -> int:
+    """Shared memory of one fused-dual-Gram block (csrc/matvec.cu
+    gram_smem_bytes): the stripe cache Nw x (S + 4) words, the transpose
+    sums of 256 threads x 8, two digit tiles, the block's max."""
+    return 4 * (nw * (GRAM_AAT_STRIPE + 4) + 8 * 256 + 2 * GRAM_AAT_STRIPE
+                + 8)
+
+
+def gram_aat_fits(nw: int, m: int) -> bool:
+    """Whether the fused dual Gram takes these words: the stripe cache
+    within GRAM_AAT_SMEM_BUDGET and whole stripes."""
+    return (gram_aat_smem_bytes(nw) <= GRAM_AAT_SMEM_BUDGET
+            and m % GRAM_AAT_STRIPE == 0)
+
+
+# --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
 
@@ -479,3 +636,107 @@ def atx(words: torch.Tensor, v_planar: torch.Tensor):
     # the per-band partial sums meet here, in a fixed order: deterministic
     av, bv = out.sum(dim=1)
     return av, bv
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous float32 copy in fresh (16-byte aligned) memory: the
+    ax kernel reads w and u with 16-byte loads."""
+    return x.to(torch.float32).clone(memory_format=torch.contiguous_format)
+
+
+def ax(words: torch.Tensor, w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """z[4, Nb] = sum_m a_k[m, p] w[m] - b_k[m, p] u[m] in f32 (the raw
+    single-vector product of the people statistics)."""
+    if words.device.type == "cpu":
+        return ax_ref(words, w, u, torch.float32)
+    _check_cuda("ax", words, w, torch.float32)
+    _check_cuda("ax", words, u, torch.float32)
+    nw, m = words.shape
+    if tuple(w.shape) != (m,) or tuple(u.shape) != (m,):
+        raise ValueError(f"ax: w and u must be [{m}], got {list(w.shape)} "
+                         f"and {list(u.shape)}")
+    wc, uc = _aligned(w), _aligned(u)
+    from gvamp_tpu_torch.ops import _build
+    lib = _build.library()
+    out = torch.empty((lib.gvamp_ax_parts(nw, m), 4, 4 * nw),
+                      dtype=torch.float32, device=words.device)
+    _launch("ax", lib.gvamp_ax, words.device, words.data_ptr(),
+            wc.data_ptr(), uc.data_ptr(), out.data_ptr(), nw, m)
+    # the per-band partial rows meet here, in a fixed order: deterministic
+    return out.sum(dim=0)
+
+
+def _gram_aat_launch(name: str, words, V, mave, msig2):
+    """Checks, V's digits in the kernel's [B, Nw, 4, NDIG] int32 layout and
+    their scales; returns (B, digits, scales, mave, msig2, library) for the
+    launch."""
+    _check_cuda(name, words, V, torch.float32)
+    nw, m = words.shape
+    if V.ndim != 3 or V.shape[:2] != (4, 4 * nw):
+        raise ValueError(f"{name}: V must be [4, {4 * nw}, B], got "
+                         f"{list(V.shape)}")
+    for x in (mave, msig2):
+        _check_cuda(name, words, x, torch.float32)
+        if tuple(x.shape) != (m,):
+            raise ValueError(f"{name}: mave and msig2 must be [{m}]")
+    _check_stripes(name, m)
+    if not gram_aat_fits(nw, m):
+        raise ValueError(f"{name}: {gram_aat_smem_bytes(nw)} bytes of stripe "
+                         f"cache exceed GRAM_AAT_SMEM_BUDGET")
+    _check_bound(name, 16 * nw)
+    _check_bound(name, 2 * GRAM_AAT_STRIPE)
+    from gvamp_tpu_torch.ops import _build
+    lib = _build.library()
+    if lib.gvamp_gram_aat_stripe() != GRAM_AAT_STRIPE or \
+            lib.gvamp_gram_aat_smem(nw) != gram_aat_smem_bytes(nw):
+        raise RuntimeError(f"{name}: csrc/matvec.cu and ops/matvec.py "
+                           f"disagree on the stripe or its shared memory")
+    B = V.shape[2]
+    v8, vs = _quant_digits_t(V)
+    vdig = v8.view(torch.int32).reshape(4, _NDIG, B, nw).permute(
+        2, 3, 0, 1).contiguous()
+    return B, vdig, _digit_scales(vs).contiguous(), mave.contiguous(), \
+        msig2.contiguous(), lib
+
+
+def gram_aat_i8a(words: torch.Tensor, V: torch.Tensor, mave: torch.Tensor,
+                 msig2: torch.Tensor) -> torch.Tensor:
+    """Fused dual Gram on complete genotypes, one read of the words:
+    z[4, Nb, B] = A_a W - colsum(mave W), W = msig2 (A_a^T V - sv mave),
+    sv = colsum(V).  ``V`` is already NA-masked; the caller applies
+    na * scale^2.  The kernel writes one f32 partial per stripe and W
+    itself; the stripe sum and colsum(mave W) run here, as in the plain
+    version."""
+    if words.device.type == "cpu":
+        return gram_aat_i8a_ref(words, V, mave, msig2)
+    B, vdig, vsc, mv, ms2, lib = _gram_aat_launch("gram_aat_i8a", words, V,
+                                                  mave, msig2)
+    nw, m = words.shape
+    sv = V.to(torch.float32).sum(dim=(0, 1))
+    zpart = torch.empty((m // GRAM_AAT_STRIPE, 4, 4 * nw, B),
+                        dtype=torch.float32, device=words.device)
+    W = torch.empty((B, m), dtype=torch.float32, device=words.device)
+    _launch("gram_aat_i8a", lib.gvamp_gram_aat_i8a, words.device,
+            words.data_ptr(), vdig.data_ptr(), vsc.data_ptr(), sv.data_ptr(),
+            mv.data_ptr(), ms2.data_ptr(), zpart.data_ptr(), W.data_ptr(), nw,
+            m, B)
+    z = zpart.sum(dim=0)
+    return z - (W * mave[None, :]).sum(dim=1)[None, None, :]
+
+
+def gram_aat_i8(words: torch.Tensor, V: torch.Tensor, mave: torch.Tensor,
+                msig2: torch.Tensor) -> torch.Tensor:
+    """Fused dual Gram on genotypes with missing calls, one read of the
+    words: z[4, Nb, B] = A_a W - A_b (mave W) with
+    W = msig2 (A_a^T V - mave A_b^T V)."""
+    if words.device.type == "cpu":
+        return gram_aat_i8_ref(words, V, mave, msig2)
+    B, vdig, vsc, mv, ms2, lib = _gram_aat_launch("gram_aat_i8", words, V,
+                                                  mave, msig2)
+    nw, m = words.shape
+    zpart = torch.empty((m // GRAM_AAT_STRIPE, 4, 4 * nw, B),
+                        dtype=torch.float32, device=words.device)
+    _launch("gram_aat_i8", lib.gvamp_gram_aat_i8, words.device,
+            words.data_ptr(), vdig.data_ptr(), vsc.data_ptr(), mv.data_ptr(),
+            ms2.data_ptr(), zpart.data_ptr(), nw, m, B)
+    return zpart.sum(dim=0)

@@ -209,3 +209,104 @@ def test_set_phen_and_helpers_match_jax():
                                   j.deplanarize(j.planarize(y[:N] * 0 + 1.5)))
     np.testing.assert_array_equal(t.pad_m(np.arange(M)).numpy(),
                                   np.asarray(j.pad_m(np.arange(M))))
+
+
+# People statistics: sum_v and numb through ax (f32: ax's plain version
+# against ax_pallas, f32 sums of the same products in another order; f64:
+# true f64 on both sides) and sumsq in f32 on both sides for every dtype,
+# as JAX computes it.  mave_p sums centred values and msig_p's denominator
+# sumsq - n mave_p^2 cancels, so both carry f32 sum-order error: measured
+# up to 1.2e-6 (f32 mave_p) and 1e-7 (msig_p, either dtype) of the largest
+# entry at these sizes.  numb_p is an integer count, equal.
+PEOPLE_TOL = {torch.float32: 1e-5, torch.float64: 1e-5}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("miss", [0.0, 0.05])
+def test_people_statistics_match_jax(dt, miss):
+    """(mave_p, msig_p, numb_p) and the dual Jacobi base against the JAX
+    container's compute_people_statistics and make_aux, with phenotype
+    NAs; numb_p counts exactly."""
+    from gvamp_tpu import linear as jlinear
+    from gvamp_tpu_torch import linear as tlinear
+    rng = np.random.default_rng(17)
+    N, M = 131, 300
+    codes, y = random_dataset(rng, N, M, miss_geno=miss)
+    j, t = _pair(codes, y, N, dt)
+    assert t.geno_complete == (miss == 0.0)
+    got = t.compute_people_statistics()
+    want = j.compute_people_statistics()
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == dt
+        _close(g, w, PEOPLE_TOL[dt])
+    base = tlinear.xxt_diag_base(t)
+    want_base = jlinear.make_aux(j, jlinear.VampConfig(use_xxt=True, slq_k=2))
+    _close(base, want_base.xxt_diag_base, PEOPLE_TOL[dt])
+
+
+# The dual Gram: f32 quantises W per 64-marker stripe in the port and per
+# tm-marker tile in JAX (tm = 512 here), each ~127^-4 fine, and sums in
+# another order; f64 runs the dense two-pass form on both sides.
+GRAM_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("miss", [0.0, 0.05])
+def test_gram_aat_matches_jax(dt, miss):
+    """A A^T Up with NA phenotypes: the port's fn_gram_aat (f32: the fused
+    gram_aat_i8a / gram_aat_i8; f64: None, so the two-pass form) against
+    JAX's fn_gram_aat (pallas) or its two-pass form (xla)."""
+    rng = np.random.default_rng(23)
+    N, M, B = 131, 512, 2
+    codes, y = random_dataset(rng, N, M, miss_geno=miss)
+    j, t = _pair(codes, y, N, dt)
+    U = np.stack([t.layout.planarize(rng.normal(size=N)) for _ in range(B)],
+                 axis=-1)
+    jd = JAX_DTYPE[dt]
+    Uj = jnp.asarray(U, jd)
+    jg = j.fn_gram_aat()
+    if jg is not None:
+        want = jg(j.op, Uj)
+    else:
+        want = j.axm(j.atxm(Uj))
+    tg = t.fn_gram_aat()
+    assert (tg is None) == (dt == torch.float64)
+    Ut = torch.as_tensor(U, dtype=dt)
+    got = tg(t.op, Ut) if tg is not None else t.axm(t.atxm(Ut))
+    _close(got, want, GRAM_TOL[dt])
+    # the padding samples and NA slots are zero
+    na = t.na_planar.numpy()[:, :, None]
+    assert not np.any(got.numpy() * (1 - na))
+
+
+def test_fn_gram_aat_routing(monkeypatch):
+    """fn_gram_aat returns None under GVAMP_NO_FUSED_GRAM=1, in float64 and
+    above the shared-memory budget (Nw = 832 word rows, N = 13,312); else the
+    a-only kernel on complete genotypes and the general one otherwise."""
+    from gvamp_tpu_torch.ops import matvec
+    rng = np.random.default_rng(5)
+    codes, y = _complete_dataset(rng, 64, 40)
+    t = TGenoBed.from_arrays(make_bed(codes), y, N=64)
+    assert t.fn_gram_aat() is not None
+    monkeypatch.setenv("GVAMP_NO_FUSED_GRAM", "1")
+    assert t.fn_gram_aat() is None
+    monkeypatch.delenv("GVAMP_NO_FUSED_GRAM")
+    assert TGenoBed.from_arrays(make_bed(codes), y, N=64,
+                                dtype=torch.float64).fn_gram_aat() is None
+    calls = []
+    for name in ("gram_aat_i8a", "gram_aat_i8"):
+        monkeypatch.setattr(matvec, name,
+                            lambda *a, _n=name: calls.append(_n) or a[1])
+    U = torch.zeros((4, t.layout.n_bytes, 1))
+    t.fn_gram_aat()(t.op, U)
+    codes_m, y_m = random_dataset(rng, 64, 40, miss_geno=0.05)
+    tm = TGenoBed.from_arrays(make_bed(codes_m), y_m, N=64)
+    tm.fn_gram_aat()(tm.op, U)
+    assert calls == ["gram_aat_i8a", "gram_aat_i8"]
+    for nw, fits in ((800, True), (832, False)):
+        words = torch.full((nw, 512), 0x55555555, dtype=torch.int32)
+        g = TGenoBed.from_device_words(words, np.zeros(16 * nw), N=16 * nw,
+                                       standardize_phen=False,
+                                       mave=np.zeros(512), msig=np.ones(512))
+        assert (g.fn_gram_aat() is not None) == fits

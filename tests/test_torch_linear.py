@@ -115,11 +115,13 @@ def _check_one_step(problem, dt):
     for k in SCALARS:
         assert _rel(m_t[k].detach(), m_j[k]) < STEP_TOL[dt], k
     assert _rel(state_t.x1, state_j.x1) < STEP_TOL[dt]
-    # the port's state is JAX's without the dual-solve and cross-validation
-    # fields, whose branches are not ported
+    # the port's state is JAX's without the cross-validation field, whose
+    # branch is not ported; the dual (*_n) fields stay zero in primal mode
     back = convert.state_to_numpy(state_t)
-    assert set(jlinear.LinState._fields) - set(back) == {
-        "mu_cg_n", "mu_probe_n", "gmu_n", "cv_r2"}
+    assert set(jlinear.LinState._fields) - set(back) == {"cv_r2"}
+    for k in ("mu_cg_n", "mu_probe_n", "gmu_n"):
+        assert not back[k].any() and back[k].shape == np.asarray(
+            getattr(state_j, k)).shape
     assert set(back) <= set(jlinear.LinState._fields)
     return t
 
@@ -198,9 +200,11 @@ def test_cli_infere_dumps_match_library(problem, tmp_path):
             assert os.path.getsize(pre + name) > 0
     for name in ("_gam1s.csv", "_gam2s.csv", "_R2trains.csv"):
         assert os.path.exists(pre + name)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
+    # a model outside the slice raises naming its item (--use-XXT-denoiser
+    # runs since the dual path was ported: tests/test_torch_xxt.py)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
         tcli.main(["--device", "cpu", "--bed-file", bed, "--phen-files", phen,
-                   "--N", str(N), "--Mt", str(M), "--use-XXT-denoiser", "1",
+                   "--N", str(N), "--Mt", str(M), "--model", "bin_class",
                    "--probs", "0.9,0.1", "--vars", "0.0,0.01"])
 
 
@@ -278,9 +282,11 @@ def test_red_raises_under_item_12(problem):
 def test_out_of_slice_options_raise(problem):
     vars_t, probs_t = problem[3:5]
     _, t = _genos(problem, torch.float64)
-    for kw in (dict(use_xxt=True), dict(red=True), dict(deflate_k=4),
-               dict(use_cross_val=True), dict(use_slq=False),
-               dict(fold_noise=False)):
+    # use_xxt left this list when the dual path was ported; it still raises
+    # beside an option that is not (use_slq=False)
+    for kw in (dict(use_xxt=True, use_slq=False), dict(red=True),
+               dict(deflate_k=4), dict(use_cross_val=True),
+               dict(use_slq=False), dict(fold_noise=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tlinear.infer(t, tlinear.VampConfig(**kw), probs_t, vars_t,
                           verbose=False)
@@ -292,7 +298,8 @@ def test_out_of_slice_options_raise(problem):
 
 def test_port_imports_and_runs_without_jax():
     """In a fresh interpreter with JAX blocked, every module of the port
-    imports and a tiny CPU inference runs."""
+    imports and a tiny CPU inference runs, primal and dual (through the
+    fused dual Gram's plain version)."""
     code = """
 import sys
 sys.modules["jax"] = None
@@ -315,6 +322,10 @@ g.set_phen(sim.simulate_linear_phenotype(g, beta, 2.0, rng))
 x, state, hist = linear.infer(g, linear.VampConfig(max_iter=3), probs_t,
                               vars_t, verbose=False)
 assert np.isfinite(x).all() and len(hist) == 3
+assert g.fn_gram_aat() is not None
+x, state, hist = linear.infer(g, linear.VampConfig(max_iter=3, use_xxt=True),
+                              probs_t, vars_t, verbose=False)
+assert np.isfinite(x).all() and len(hist) == 3 and state.gmu_n.abs().max() > 0
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
 print("ok")

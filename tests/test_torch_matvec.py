@@ -27,6 +27,19 @@ CASES = [(32, 512, 1), (64, 1024, 2), (32, 1024, 5), (64, 512, 17),
 # the same scales, in another summation order -> a few f32 ulps of the
 # largest entry.
 FOLD_TOL = 1e-6
+# The fused dual Gram against gram_aat_i8[a]_pallas(tm=S): the same stripes
+# and exact integer products, but the port sums the per-stripe f32 partials
+# (and colsum(mave W)) with one torch.sum where JAX accumulates them stripe
+# after stripe.  The a-only form subtracts colsum(mave W), as large as the
+# largest entry, so the cancellation leaves several ulps on each side: at
+# these cases each side is within 2.6e-6 of a float64 evaluation of the
+# same formula, and they differ by up to 4.3e-6 of the largest entry.
+GRAM_TOL = 1e-5
+# The fused dual Gram against the two-pass composition axm(atxm(.)): W is
+# quantised per stripe in one and over the whole column in the other, and
+# both quantisations are ~127^-4 fine (the tolerance of
+# tests/test_data_layer.py:435-464).
+TWO_PASS_TOL = 5e-6
 
 
 def _words(rng, nw, m):
@@ -111,6 +124,126 @@ def _jax_atxm_i8_int(words, v8):
                                memory_space=vmem)],
         out_specs=[out, out], out_shape=[shape, shape],
         interpret=True)(jnp.asarray(words), jnp.asarray(v8))
+
+
+def _gram_words(rng, nw, m, complete, n_pad):
+    """Random words; ``complete`` remaps every missing code 01 to 11; the
+    last ``n_pad`` samples of the layout are padding (code 01)."""
+    from gvamp_tpu.ops.layout import PlanarLayout
+    words = _words(rng, nw, m)
+    if complete:
+        lo = words & 0x55555555
+        hi = (words >> 1) & 0x55555555
+        words = (words | ((lo & ~hi) << 1)).astype(np.uint32)
+    if n_pad:
+        orig = PlanarLayout(N=16 * nw - n_pad, n_words=nw).planar_to_orig()
+        by = words.view(np.uint8).reshape(nw, m, 4)
+        for k, p in zip(*np.nonzero(orig < 0)):
+            i, b = divmod(int(p), 4)
+            by[i, :, b] = (by[i, :, b] & np.uint8(~(3 << (2 * k)) & 0xFF)) \
+                | np.uint8(1 << (2 * k))
+    return words
+
+
+def _gram_inputs(rng, nw, m, B):
+    V = rng.standard_normal((4, 4 * nw, B)).astype(np.float32)
+    mave = rng.uniform(0, 2, m).astype(np.float32)
+    msig2 = rng.uniform(0.5, 2, m).astype(np.float32)
+    return V, mave, msig2
+
+
+# (Nw, Mpad, B, padding samples): 8 to 32 stripes, odd B, N = 16 Nw - pad
+GRAM_CASES = [(32, 512, 1, 0), (32, 1024, 3, 5), (64, 512, 2, 11),
+              (32, 2048, 5, 0)]
+
+
+@pytest.mark.parametrize("nw,m,B,pad", GRAM_CASES)
+@pytest.mark.parametrize("general", [False, True])
+def test_gram_aat_refs_match_pallas(nw, m, B, pad, general):
+    """gram_aat_i8[a]_ref against gram_aat_i8[a]_pallas(tm=S) in interpret
+    mode, which quantises W on the same stripes; the general kernel on
+    words with missing codes, the a-only one on complete words."""
+    rng = np.random.default_rng(nw * 13 + m + B + pad)
+    words = _gram_words(rng, nw, m, complete=not general, n_pad=pad)
+    V, mave, msig2 = _gram_inputs(rng, nw, m, B)
+    t = torch.from_numpy
+    if general:
+        got = tmv.gram_aat_i8(_t(words), t(V), t(mave), t(msig2))
+        want = jmv.gram_aat_i8_pallas(
+            jnp.asarray(words), jnp.asarray(V), jnp.asarray(mave),
+            jnp.asarray(msig2), tm=tmv.GRAM_AAT_STRIPE)
+    else:
+        got = tmv.gram_aat_i8a(_t(words), t(V), t(mave), t(msig2))
+        want = jmv.gram_aat_i8a_pallas(
+            jnp.asarray(words), jnp.asarray(V), jnp.asarray(mave),
+            jnp.asarray(msig2), tm=tmv.GRAM_AAT_STRIPE)
+    assert got.shape == (4, 4 * nw, B)
+    _close(got, want, GRAM_TOL)
+
+
+@pytest.mark.parametrize("nw,m,B,pad", GRAM_CASES[1:3])
+def test_gram_aat_refs_match_two_pass(nw, m, B, pad):
+    """The fused plain versions against the port's own two-pass forms:
+    axm_i8(W, mave W) after atxm_i8 on missing codes, axm_i8a(W) -
+    colsum(mave W) after atxm_i8a on complete words (tests/
+    test_data_layer.py:435-464)."""
+    rng = np.random.default_rng(nw + m + B + pad)
+    V, mave, msig2 = (torch.from_numpy(x) for x in _gram_inputs(rng, nw, m, B))
+    words = _t(_gram_words(rng, nw, m, complete=False, n_pad=pad))
+    av, bv = tmv.atxm_i8(words, V)
+    W = msig2[:, None] * (av - mave[:, None] * bv)
+    _close(tmv.gram_aat_i8(words, V, mave, msig2),
+           tmv.axm_i8(words, W, mave[:, None] * W), TWO_PASS_TOL)
+    words = _t(_gram_words(rng, nw, m, complete=True, n_pad=pad))
+    W = msig2[:, None] * (tmv.atxm_i8a(words, V)
+                          - mave[:, None] * V.sum(dim=(0, 1))[None, :])
+    want = tmv.axm_i8a(words, W) - (mave[:, None] * W).sum(dim=0)
+    _close(tmv.gram_aat_i8a(words, V, mave, msig2), want, TWO_PASS_TOL)
+
+
+def test_gram_aat_stripe_and_budget():
+    """The stripe width and the shared-memory formula agree with the CUDA
+    source; the budget admits Nw = 822 word rows and not 823; the plain
+    versions refuse a partial stripe, and gram_aat_fits says so."""
+    import os
+    src = open(os.path.join(os.path.dirname(tmv.__file__), os.pardir, "csrc",
+                            "matvec.cu")).read()
+    assert f"constexpr int kGramS = {tmv.GRAM_AAT_STRIPE};" in src
+    assert ("return 4 * (nw * kGramSP + 8 * kThreads + 2 * kGramS + kWarps);"
+            in src and "constexpr int kThreads = 256;" in src)
+    assert tmv.gram_aat_smem_bytes(822) <= tmv.GRAM_AAT_SMEM_BUDGET
+    assert tmv.gram_aat_smem_bytes(823) > tmv.GRAM_AAT_SMEM_BUDGET
+    assert tmv.gram_aat_fits(822, 512) and not tmv.gram_aat_fits(823, 512)
+    assert not tmv.gram_aat_fits(32, 544)
+    words = torch.zeros((32, 544), dtype=torch.int32)
+    V = torch.zeros((4, 128, 1))
+    with pytest.raises(ValueError, match="stripe"):
+        tmv.gram_aat_i8a_ref(words, V, torch.zeros(544), torch.ones(544))
+
+
+@pytest.mark.parametrize("nw,m", [(32, 512), (64, 1024)])
+def test_ax_matches_pallas(nw, m):
+    """f32 sum_m a w - b u against ax_pallas in interpret mode: the same
+    products summed in another order, so they agree to a few ulps of the
+    sum of |terms| (the people statistics' w = msig > 0 and u = mave msig
+    cancel to a result far smaller than that sum).  The count numb (w = 0,
+    u = -1) is an integer sum, exact on both sides."""
+    rng = np.random.default_rng(nw * 3 + m)
+    words = _words(rng, nw, m)
+    msig = rng.uniform(0.5, 2.0, m).astype(np.float32)
+    mave = rng.uniform(0.0, 2.0, m).astype(np.float32)
+    w, u = msig, (mave * msig).astype(np.float32)
+    got = tmv.ax(_t(words), torch.from_numpy(w), torch.from_numpy(u))
+    want = jmv.ax_pallas(jnp.asarray(words), jnp.asarray(w), jnp.asarray(u))
+    terms = tmv.ax_ref(_t(words), torch.from_numpy(w), -torch.from_numpy(u),
+                       torch.float64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=FOLD_TOL * float(terms.abs().max()))
+    zero, mone = np.zeros(m, np.float32), -np.ones(m, np.float32)
+    np.testing.assert_array_equal(
+        tmv.ax(_t(words), torch.from_numpy(zero), torch.from_numpy(mone)),
+        np.asarray(jmv.ax_pallas(jnp.asarray(words), jnp.asarray(zero),
+                                 jnp.asarray(mone))))
 
 
 def test_swar_decode_matches_code_tables():
@@ -307,12 +440,15 @@ def test_cpu_wrappers_launch_nothing_and_non_cpu_raises():
     words = _t(_words(rng, 32, 512))
     tmv.reset_launches()
     assert set(tmv.LAUNCHES) == {"axm_i8a", "atxm_i8a", "axm_i8", "atxm_i8",
-                                 "atx"}
+                                 "atx", "ax", "gram_aat_i8a", "gram_aat_i8"}
     tmv.axm_i8a(words, torch.ones((512, 2)))
     tmv.atxm_i8a(words, torch.ones((4, 128, 1)))
     tmv.axm_i8(words, torch.ones((512, 2)), torch.ones((512, 2)))
     tmv.atxm_i8(words, torch.ones((4, 128, 1)))
     tmv.atx(words, torch.ones((4, 128)))
+    tmv.ax(words, torch.ones(512), torch.ones(512))
+    for fn in (tmv.gram_aat_i8a, tmv.gram_aat_i8):
+        fn(words, torch.ones((4, 128, 1)), torch.ones(512), torch.ones(512))
     assert set(tmv.LAUNCHES.values()) == {0}
     meta = words.to("meta")
     with pytest.raises(ValueError, match="CUDA tensors only"):
@@ -326,6 +462,13 @@ def test_cpu_wrappers_launch_nothing_and_non_cpu_raises():
         tmv.atxm_i8(meta, torch.ones((4, 128, 1), device="meta"))
     with pytest.raises(ValueError, match="CUDA tensors only"):
         tmv.atx(meta, torch.ones((4, 128), device="meta"))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tmv.ax(meta, torch.ones(512, device="meta"),
+               torch.ones(512, device="meta"))
+    for fn in (tmv.gram_aat_i8a, tmv.gram_aat_i8):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            fn(meta, torch.ones((4, 128, 1), device="meta"),
+               torch.ones(512, device="meta"), torch.ones(512, device="meta"))
     # 2**24 samples: the f32 non-missing counts would no longer be exact
     huge = torch.empty((2**20, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="below 2"):
