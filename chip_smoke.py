@@ -12,21 +12,30 @@ Phases, each of which raises on failure (exit code != 0):
 2. build the CUDA kernels (gvamp_tpu_torch/csrc/matvec.cu) with nvcc; the
    ptxas report must show no spill stores;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
-   with CUDA-event times of both: (a) all eight at small shapes, (b) the
-   a-only kernels and atx on the whole config-B matrix at B = 1 and 2,
-   (c) the general kernels on the whole config-Bm matrix at B = 1 and 2,
-   and axm_i8 at B = 22;
+   with CUDA-event times of both: (a) all ten at small shapes (the fused
+   primal Grams with both mask forms and B above their column chunks),
+   (b) the a-only kernels and atx on the whole config-B matrix at B = 1
+   and 2, (c) the general kernels on the whole config-Bm matrix at B = 1
+   and 2, and axm_i8 at B = 22;
    (d) the fused dual Grams on the whole config-X matrix (gram_aat_i8a)
    and config-Xm matrix (gram_aat_i8) at B = 1 and 2, timed beside their
    two-pass composition, and ax there (dyadic inputs bit for bit, the
    statistics' real inputs to a stated tolerance);
+   (e) the fused primal Grams on the whole config-B matrix (gram_i8a) and
+   config-Bm matrix (gram_i8) at B = 1 and 2, timed beside their two-pass
+   composition, with packed GB/s and the bound;
 4. the linear VAMP main path at config B of bench.py (N=327,680 x
    M=131,072, complete genotypes, 10.74 GB of packed words on the card):
    load, phenotype simulation and 10 iterations of linear.infer, with the
    launch counters proving that the path ran through the a-only kernels;
+   4f. the same problem with GVAMP_FUSED_GRAM=1: every CG product through
+   gram_i8a and the explicit noise pass, against the two-pass run;
+   4p. probit at config B: a binary phenotype (probit_var = 1 - h2 = 0.5),
+   10 iterations two-pass and 10 through the fused Gram;
    4m. the missing-genotype path at config Bm (the same shape, about 1.56%
    of calls missing): 10 iterations, then LOO and LOCO p-values over 22
-   chromosomes, through the general kernels and not the a-only ones;
+   chromosomes, through the general kernels and not the a-only ones, then
+   4f there through gram_i8;
    4x. the dual (XXT) path at config X (N=5,120 x M=524,288, 671 MB) and
    Xm (1.56% missing), 10 iterations each through the fused dual Gram
    (ax twice for the people statistics), the X problem again under
@@ -34,19 +43,23 @@ Phases, each of which raises on failure (exit code != 0):
    4n. the p-value moments at N=327,680 against a float64 oracle;
 5. the same small problem on the card and on the CPU (plain versions),
    complete and with 2% missing calls (then with LOO and LOCO p-values),
-   primal and dual, which must agree to the f32 tolerances of
-   tests/test_torch_linear.py;
+   primal and dual, linear with the fused primal Gram, and probit
+   (complete; 2% missing with 2 covariates, two-pass and fused), which must
+   agree to the f32 tolerances of tests/test_torch_{linear,probit}.py;
 6. the CLI (`--run-mode infere --model linear --store-pvals 1` with a
    .bim) on the flagship recipe of the README's port section, then with
-   `--use-XXT-denoiser 1`.
+   `--use-XXT-denoiser 1` (6x) and as `--model bin_class --cov-file --C 2`
+   on a binary phenotype (6p).
 
 The last two lines of standard output are one JSON object with the
-kernels' numbers and one with the device; before them, the nvidia-smi
-name and power limit.  The script needs a CUDA device: without one it
-exits non-zero and prints no result.
+kernels' numbers (each with its bound on the card) and one with the
+device; before them, the nvidia-smi name and power limit.  The script
+needs a CUDA device: without one it exits non-zero and prints no result.
+It imports nothing of JAX or of the JAX package.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -75,11 +88,15 @@ REPLACES = {"axm_i8a": "gvamp_tpu/ops/matvec.py:797",
             "atx": "gvamp_tpu/ops/matvec.py:287",
             "ax": "gvamp_tpu/ops/matvec.py:241",
             "gram_aat_i8a": "gvamp_tpu/ops/matvec.py:1400",
-            "gram_aat_i8": "gvamp_tpu/ops/matvec.py:1467"}
+            "gram_aat_i8": "gvamp_tpu/ops/matvec.py:1467",
+            "gram_i8a": "gvamp_tpu/ops/matvec.py:963",
+            "gram_i8": "gvamp_tpu/ops/matvec.py:1133"}
 KERNELS = tuple(REPLACES)
 # each kernel's entry in the ptxas report (mangled names contain these)
 PTXAS_ENTRY = {"gram_aat_i8a": "gram_aat_kernelILb0E",
-               "gram_aat_i8": "gram_aat_kernelILb1E"}
+               "gram_aat_i8": "gram_aat_kernelILb1E",
+               "gram_i8a": "gram_prim_kernelILb0E",
+               "gram_i8": "gram_prim_kernelILb1E"}
 SOURCE = "gvamp_tpu_torch/csrc/matvec.cu"
 SHAPES = [(32, 512, 1), (64, 1024, 2), (96, 1536, 5), (32, 2048, 17),
           (64, 512, 70)]
@@ -128,6 +145,45 @@ def cuda_ms(fn, reps=5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
+# bytes/s, dense int8 tensor-core ops/s, float32 ops/s outside the tensor
+# cores
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1.979e15
+F32_OPS_PER_S = 67e12
+# digit contractions per kernel: (planes x sides); atx and ax are f32
+INT8_CONTRACTIONS = {"axm_i8a": 1, "atxm_i8a": 1, "axm_i8": 2, "atxm_i8": 2,
+                     "gram_aat_i8a": 2, "gram_aat_i8": 4, "gram_i8a": 2,
+                     "gram_i8": 4}
+
+
+def bound(name, nw, m, B):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for one call on Nw x Mpad words at width B, the larger of the bytes it
+    must move (the words, each input and each output once) over the HBM
+    rate and its operations over the peak rate of their type: 2 N M D int8
+    operations per digit contraction (D = 4 B digit rows), or 2 N M f32
+    operations per plane for atx / ax."""
+    n = 16 * nw
+    vec_n, vec_m = 4 * n, 4 * m  # f32 bytes of one column in N / in M
+    io = {"axm_i8a": (vec_m + vec_n) * B, "atxm_i8a": (vec_n + vec_m) * B,
+          "axm_i8": (2 * vec_m + vec_n) * B,
+          "atxm_i8": (vec_n + 2 * vec_m) * B,
+          "atx": vec_n + 2 * vec_m, "ax": 2 * vec_m + vec_n,
+          "gram_aat_i8a": 2 * vec_n * B + 2 * vec_m,
+          "gram_aat_i8": 2 * vec_n * B + 2 * vec_m,
+          "gram_i8a": 2 * vec_m * B + vec_n + 8 * B,
+          "gram_i8": 4 * vec_m * B + vec_n}[name]
+    t_bytes = (4 * nw * m + io) / HBM_BYTES_PER_S
+    if name in INT8_CONTRACTIONS:
+        t_ops = (2 * n * m * 4 * B * INT8_CONTRACTIONS[name]
+                 / INT8_OPS_PER_S)
+    else:
+        t_ops = 2 * 2 * n * m / F32_OPS_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_environment():
@@ -236,6 +292,13 @@ def check_kernels(words, B, gen, label, names=KERNELS, count=None, reps=5,
               for _ in range(2))
     mave = torch.rand((m,), generator=gen, device=dev) * 2
     msig2 = torch.rand((m,), generator=gen, device=dev) * 1.5 + 0.5
+    # the fused primal Grams take one mask for every column or one per
+    # column: odd B gives gram_i8a the first and gram_i8 the second
+    na_all = (torch.rand((4, 4 * nw), generator=gen, device=dev) > 0.1).float()
+    na_col = (torch.rand((4, 4 * nw, B), generator=gen, device=dev)
+              > 0.1).float()
+    na_a, na_g = (na_all, na_col) if B % 2 else (na_col, na_all)
+    cu = torch.randn((B,), generator=gen, device=dev)
     cases = {
         "axm_i8a": (lambda: matvec.axm_i8a(words, W),
                     lambda: matvec.axm_i8a_ref(words, W)),
@@ -254,7 +317,11 @@ def check_kernels(words, B, gen, label, names=KERNELS, count=None, reps=5,
                                                          msig2)),
         "gram_aat_i8": (lambda: matvec.gram_aat_i8(words, V, mave, msig2),
                         lambda: matvec.gram_aat_i8_ref(words, V, mave,
-                                                       msig2))}
+                                                       msig2)),
+        "gram_i8a": (lambda: matvec.gram_i8a(words, W, na_a, cu),
+                     lambda: matvec.gram_i8a_ref(words, W, na_a, cu)),
+        "gram_i8": (lambda: matvec.gram_i8(words, W, U, na_g),
+                    lambda: matvec.gram_i8_ref(words, W, U, na_g))}
     out = {}
     for name in names:
         fn, ref = cases[name]
@@ -358,7 +425,6 @@ def make_problem(words, label, complete, n=CFG_B_N, m=CFG_B_M):
     """Load and phenotype simulation (bench.py:89-111's recipe: two-group
     prior, 1,000 causal markers, h2 = 0.5) on ``words``; returns (geno,
     beta, vars_t, probs_t)."""
-    from gvamp_tpu import sim as npsim
     from gvamp_tpu_torch import sim
     from gvamp_tpu_torch.data import GenoBed
     t0 = time.perf_counter()
@@ -372,8 +438,8 @@ def make_problem(words, label, complete, n=CFG_B_N, m=CFG_B_M):
                              f"{geno.geno_complete}, expected {complete}")
     t_complete = time.perf_counter() - t0
     rng = np.random.default_rng(0)
-    vars_t, probs_t = npsim.two_group_prior(m, 1000, 0.5)
-    beta = npsim.simulate_mixture(rng, m, vars_t, probs_t)
+    vars_t, probs_t = sim.two_group_prior(m, 1000, 0.5)
+    beta = sim.simulate_mixture(rng, m, vars_t, probs_t)
     t0 = time.perf_counter()
     geno.set_phen(sim.simulate_linear_phenotype(geno, beta, 2.0, rng))
     torch.cuda.synchronize()
@@ -385,12 +451,13 @@ def make_problem(words, label, complete, n=CFG_B_N, m=CFG_B_M):
 
 def run_linear(words, label, complete, corr_min, r2_range):
     """Load, phenotype simulation and CFG_B_ITERS iterations of linear.infer
-    at config-B settings on ``words``; returns (geno, state, beta).  The
-    caller resets and reads the launch counters around it."""
+    at config-B settings on ``words``; returns (geno, state, problem) with
+    problem = (beta, vars_t, probs_t, x_hat, history).  The caller resets
+    and reads the launch counters around it."""
     geno, beta, vars_t, probs_t = make_problem(words, label, complete)
-    _, state, _ = run_infer(geno, beta, vars_t, probs_t, label, corr_min,
-                            r2_range)
-    return geno, state, beta
+    x_hat, state, hist = run_infer(geno, beta, vars_t, probs_t, label,
+                                   corr_min, r2_range)
+    return geno, state, (beta, vars_t, probs_t, x_hat, hist)
 
 
 def run_infer(geno, beta, vars_t, probs_t, label, corr_min, r2_range,
@@ -450,15 +517,165 @@ def check_launches(label, launches, used, unused=()):
 
 
 def phase_main_path(words):
+    """Returns (launches, geno, problem) of the two-pass run at config B."""
     log("== phase 4: linear VAMP main path at config B")
     from gvamp_tpu_torch.ops import matvec
     torch.cuda.reset_peak_memory_stats()
     matvec.reset_launches()
-    run_linear(words, "config B", True, CORR_MIN, R2_RANGE)
+    geno, _, problem = run_linear(words, "config B", True, CORR_MIN,
+                                  R2_RANGE)
     launches = dict(matvec.LAUNCHES)
     check_launches("config B", launches, ("axm_i8a", "atxm_i8a", "atx"),
-                   ("axm_i8", "atxm_i8"))
+                   ("axm_i8", "atxm_i8", "gram_i8a", "gram_i8"))
+    return launches, geno, problem
+
+
+# the fused primal Gram against the two-pass form over 10 iterations (the
+# same problem, probe and warm starts): z is quantised per 32-row band in
+# one and per column in the other, both ~127^-4 fine; the tolerances of
+# phase 4x (tests/test_xxt.py:95-99)
+FUSED_XTOL, FUSED_RTOL = 5e-5, 2e-4
+
+
+def compare_runs(label, run, ref, keys):
+    """x_hat within FUSED_XTOL of max|x_hat| and the last iteration's
+    ``keys`` within FUSED_RTOL between two runs (x_hat, history)."""
+    (x_f, h_f), (x_t, h_t) = run, ref
+    if len(h_f) != len(h_t):
+        raise AssertionError(f"{label}: {len(h_f)} against {len(h_t)} "
+                             f"iterations")
+    dx = float(np.abs(x_f - x_t).max() / np.abs(x_t).max())
+    log(f"  {label}: max|dx| / max|x| = {dx:.3e} (limit {FUSED_XTOL:g})")
+    if not dx < FUSED_XTOL:
+        raise AssertionError(f"{label}: x_hat differs")
+    for k in keys:
+        a, b = float(h_f[-1][k]), float(h_t[-1][k])
+        log(f"  {k}: {a:.7g} against {b:.7g} rel {abs(a - b) / abs(b):.3e} "
+            f"(limit {FUSED_RTOL:g})")
+        if not abs(a - b) <= FUSED_RTOL * abs(b):
+            raise AssertionError(f"{label}: {k} differs")
+
+
+@contextlib.contextmanager
+def fused_env(on=True):
+    """GVAMP_FUSED_GRAM=1 (when ``on``) for the duration of a ``with``
+    block; a failure inside still raises."""
+    if on:
+        os.environ["GVAMP_FUSED_GRAM"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("GVAMP_FUSED_GRAM", None)
+
+
+def phase_fused_linear(label, geno, problem, complete):
+    """The linear path of phase 4 / 4m again with GVAMP_FUSED_GRAM=1: every
+    CG product through the fused primal Gram (gram_i8a, or gram_i8 with
+    missing calls) and the explicit noise pass, against the two-pass run.
+    Returns the launch counts."""
+    log(f"== phase 4f: linear VAMP at {label} through the fused primal Gram")
+    from gvamp_tpu_torch.ops import matvec
+    beta, vars_t, probs_t, x_two, h_two = problem
+    torch.cuda.reset_peak_memory_stats()
+    matvec.reset_launches()
+    with fused_env():
+        if geno.fn_gram() is None:
+            raise AssertionError(f"{label}: fn_gram refused the words")
+        x_hat, _, hist = run_infer(geno, beta, vars_t, probs_t,
+                                   f"{label} fused", CORR_MIN, R2_RANGE)
+    launches = dict(matvec.LAUNCHES)
+    a_only = ("axm_i8a", "atxm_i8a", "gram_i8a")
+    general = ("axm_i8", "atxm_i8", "gram_i8")
+    check_launches(f"{label} fused", launches,
+                   a_only if complete else general,
+                   general if complete else a_only)
+    compare_runs(f"{label} fused against two-pass", (x_hat, hist),
+                 (x_two, h_two), ("gam1", "gam2", "gamw", "alpha2"))
+    for name, h in (("two-pass", h_two), ("fused", hist)):
+        log(f"  {label} {name}: steady-state median "
+            f"{np.median([x['wall_ms'] for x in h[2:]]):.2f} ms/it, CG "
+            f"{[x['cg_iters'] for x in h]}")
     return launches
+
+
+# corr(x_hat, beta) after the probit runs at config B (binary phenotype,
+# probit_var = 1 - h2 = 0.5): set from the first H100 run (0.99173 both
+# two-pass and fused, PERF.md) with CORR_MIN's room for f32 rounding and a
+# different card; the linear engine reads 0.9958 there with the
+# continuous phenotype
+PROBIT_CORR_MIN = 0.985
+
+
+def run_probit(geno, beta, vars_t, probs_t, label, cfg):
+    """probit.infer on ``geno`` (whose phenotype is binary); prints the
+    trajectory and checks it is finite.  Returns (x_hat, history)."""
+    from gvamp_tpu_torch import probit
+    t0 = time.perf_counter()
+    x_hat, _, hist = probit.infer(geno, cfg, probs_t, vars_t, verbose=False)
+    t_all = time.perf_counter() - t0
+    log(f"  {label}: infer set-up (SLQ basis, A^T y, A u) "
+        f"{t_all - sum(h['wall_ms'] for h in hist) / 1e3:.2f} s")
+    log("  it      gam1        tau1        tau2     alpha2     beta1   "
+        "cg   wall_ms  syncs")
+    for h in hist:
+        log(f"  {h['it']:2d} {float(h['gam1']):11.5g} {float(h['tau1']):11.5g} "
+            f"{float(h['tau2']):11.5g} {float(h['alpha2']):9.4g} "
+            f"{float(h['beta1']):9.4g} {h['cg_iters']:4d} "
+            f"{h['wall_ms']:9.2f} {h['host_syncs']:5d}")
+    corr = float(np.corrcoef(x_hat, beta)[0, 1])
+    log(f"  steady-state median "
+        f"{np.median([h['wall_ms'] for h in hist[2:]]):.2f} ms/it; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"corr(x_hat, beta) = {corr:.5f} (floor {PROBIT_CORR_MIN})")
+    keys = ("gam1", "gam2", "tau1", "tau2", "alpha2")
+    if not (np.isfinite(x_hat).all() and all(
+            np.isfinite(float(h[k])) for h in hist for k in keys)):
+        raise AssertionError(f"{label}: non-finite values")
+    if len(hist) < 5:
+        raise AssertionError(f"{label}: stopped after {len(hist)} "
+                             f"iterations")
+    if corr < PROBIT_CORR_MIN:
+        raise AssertionError(f"{label}: corr(x_hat, beta) {corr:.4f} < "
+                             f"{PROBIT_CORR_MIN}")
+    return x_hat, hist
+
+
+def phase_probit_b(geno, problem):
+    """Probit at config B: a binary phenotype from
+    simulate_probit_phenotype (probit_var = 1 - h2 = 0.5) on the config-B
+    container, 10 iterations two-pass (z2 tracked through the CG), then 10
+    through the fused primal Gram (z2 from one forward pass).  Returns the
+    launch counts of (two-pass, fused)."""
+    log("== phase 4p: probit VAMP at config B, two-pass and fused")
+    from gvamp_tpu_torch import probit, sim
+    from gvamp_tpu_torch.ops import matvec
+    beta, vars_t, probs_t = problem[:3]
+    rng = np.random.default_rng(1)
+    t0 = time.perf_counter()
+    y = sim.simulate_probit_phenotype(geno, beta, 0.5, rng)
+    geno.set_phen(y)
+    torch.cuda.synchronize()
+    log(f"  binary phenotype: {y.mean():.4f} cases; simulation + "
+        f"statistics {time.perf_counter() - t0:.2f} s")
+    cfg = probit.ProbitConfig(max_iter=CFG_B_ITERS, probit_var=0.5)
+    runs, counts = {}, {}
+    for name in ("two-pass", "fused"):
+        torch.cuda.reset_peak_memory_stats()
+        matvec.reset_launches()
+        with fused_env(name == "fused"):
+            runs[name] = run_probit(geno, beta, vars_t, probs_t,
+                                    f"config B probit {name}", cfg)
+        counts[name] = dict(matvec.LAUNCHES)
+    check_launches("config B probit two-pass", counts["two-pass"],
+                   ("axm_i8a", "atxm_i8a"), ("gram_i8a", "gram_i8",
+                                             "axm_i8", "atxm_i8"))
+    check_launches("config B probit fused", counts["fused"],
+                   ("gram_i8a", "axm_i8a", "atxm_i8a"),
+                   ("gram_i8", "axm_i8", "atxm_i8"))
+    compare_runs("config B probit fused against two-pass", runs["fused"],
+                 runs["two-pass"], ("gam1", "gam2", "tau1", "tau2",
+                                    "alpha2"))
+    return counts["two-pass"], counts["fused"]
 
 
 def pvals_in_range(p) -> bool:
@@ -489,9 +706,9 @@ def check_pvals(label, p, beta):
 
 def phase_config_bm(words):
     """The missing-genotype path at config Bm, with its LOO and LOCO
-    p-values over 22 chromosomes; returns the launch counts."""
+    p-values over 22 chromosomes; returns (launch counts, geno, problem)."""
     log("== phase 4m: linear VAMP and p-values at config Bm (missing calls)")
-    from gvamp_tpu.io import plink
+    from gvamp_tpu_torch.io import plink
     from gvamp_tpu_torch.ops import matvec, pvals
     nw, m = words.shape
     ones = torch.ones((4, 4 * nw), device=words.device)
@@ -500,8 +717,9 @@ def phase_config_bm(words):
         f"of {CFG_B_N} x {m}")
     torch.cuda.reset_peak_memory_stats()
     matvec.reset_launches()
-    geno, state, beta = run_linear(words, "config Bm", False, CORR_MIN,
-                                   R2_RANGE)
+    geno, state, problem = run_linear(words, "config Bm", False, CORR_MIN,
+                                      R2_RANGE)
+    beta = problem[0]
     chroms = 1 + np.arange(CFG_B_M) * BM_CHROMS // CFG_B_M
     with tempfile.TemporaryDirectory() as tmp:
         geno.bim_path = os.path.join(tmp, "bm.bim")
@@ -520,8 +738,78 @@ def phase_config_bm(words):
     check_pvals("LOO", p_loo, beta)
     check_pvals("LOCO", p_loco, beta)
     check_launches("config Bm", launches, ("axm_i8", "atxm_i8", "atx"),
-                   ("axm_i8a", "atxm_i8a"))
-    return launches
+                   ("axm_i8a", "atxm_i8a", "gram_i8a", "gram_i8"))
+    return launches, geno, problem
+
+
+# the fused primal Gram against its two-pass composition on the whole
+# config-B / Bm matrix: z is quantised per 32-row band in one and per column
+# in the other, both ~127^-4 fine, and the f32 sums run in other orders; a
+# sanity bound on max|fused - two-pass| / max|two-pass|, as for the dual
+B_TWO_PASS_TOL = 1e-4
+
+
+def two_pass_primal(words, W, U, na, cu, complete):
+    """The primal Gram as the two-pass composition atxm(na (axm(.))) that
+    fn_gram replaces (GVAMP_FUSED_GRAM unset)."""
+    from gvamp_tpu_torch.ops import matvec
+    mask = matvec._mask_cols(na, W.shape[1])
+    if complete:
+        z = (matvec.axm_i8a(words, W) - cu) * mask
+        return matvec.atxm_i8a(words, z), z.sum(dim=(0, 1))
+    return matvec.atxm_i8(words, matvec.axm_i8(words, W, U) * mask)
+
+
+def phase_kernels_gram(words, gen, complete):
+    """The fused primal Gram on the whole matrix at B = 1 and 2: gram_i8a on
+    config B, gram_i8 on config Bm, each bit-equal to its plain version and
+    timed beside its two-pass composition at the same B, with packed GB/s
+    and the bound.  Returns {name: check_kernels numbers at B = 1,
+    "name two-pass B=b": ms}."""
+    log(f"== phase 3e: fused primal Gram vs plain version, config "
+        f"B{'' if complete else 'm'} words")
+    from gvamp_tpu_torch.ops import matvec
+    nw, m = words.shape
+    name = "gram_i8a" if complete else "gram_i8"
+    label = f"config B{'' if complete else 'm'} full {nw}x{m}"
+    out = {}
+    for B in (1, 2):
+        res = check_kernels(words, B, gen, label, names=(name,), reps=3,
+                            plain_reps=1)
+        if B == 1:
+            out.update(res)
+        W = torch.randn((m, B), generator=gen, device="cuda")
+        U = torch.randn((m, B), generator=gen, device="cuda") * 3
+        na = (torch.rand((4, 4 * nw), generator=gen, device="cuda")
+              > 0.02).float()
+        cu = torch.randn((B,), generator=gen, device="cuda")
+        if complete:
+            def fn():
+                return matvec.gram_i8a(words, W, na, cu)
+        else:
+            def fn():
+                return matvec.gram_i8(words, W, U, na)
+
+        def comp():
+            return two_pass_primal(words, W, U, na, cu, complete)
+
+        got, want = fn(), comp()
+        diff = max(float((g - w).abs().max() / w.abs().max())
+                   for g, w in zip(got, want))
+        del got, want
+        t_two = cuda_ms(comp, 3)
+        t_fused = cuda_ms(fn, 3)
+        b_ms, b_by = bound(name, nw, m, B)
+        log(f"  {label:>22s} B={B:<3d} {name} {t_fused:8.3f} ms "
+            f"({4 * nw * m / (t_fused * 1e6):7.1f} GB/s packed, bound "
+            f"{b_ms:.3f} ms by {b_by}) against two-pass {t_two:8.3f} ms "
+            f"({t_two / t_fused:.2f}x); max|fused - two-pass| / max = "
+            f"{diff:.2e} (limit {B_TWO_PASS_TOL:g})")
+        if not diff < B_TWO_PASS_TOL:
+            raise AssertionError(f"{name}: fused and two-pass differ")
+        out[f"{name} two-pass B={B}"] = t_two
+    torch.cuda.empty_cache()
+    return out
 
 
 # the fused dual Gram against its two-pass composition at config X: W is
@@ -778,20 +1066,21 @@ def phase_moments_biobank():
 
 def small_problem(tmp, seed, N, M, miss_rate=0.0):
     """A simulated .bed in ``tmp`` and its truth."""
-    from gvamp_tpu import sim as npsim
-    from gvamp_tpu.io import plink
+    from gvamp_tpu_torch import sim
+    from gvamp_tpu_torch.io import plink
     rng = np.random.default_rng(seed)
     bed = os.path.join(tmp, "d.bed")
-    plink.write_bed(bed, npsim.random_genotypes(rng, M, N,
-                                                miss_rate=miss_rate))
-    vars_t, probs_t = npsim.two_group_prior(M, 40, 0.5)
-    beta = npsim.simulate_mixture(rng, M, vars_t, probs_t)
+    plink.write_bed(bed, sim.random_genotypes(rng, M, N,
+                                              miss_rate=miss_rate))
+    vars_t, probs_t = sim.two_group_prior(M, 40, 0.5)
+    beta = sim.simulate_mixture(rng, M, vars_t, probs_t)
     return bed, beta, vars_t, probs_t, rng
 
 
-def phase_card_vs_cpu(miss_rate, use_xxt=False):
+def phase_card_vs_cpu(miss_rate, use_xxt=False, fused=False):
     label = "complete" if miss_rate == 0 else f"{miss_rate:.0%} missing"
     label += ", dual (XXT)" if use_xxt else ""
+    label += ", fused primal Gram" if fused else ""
     log(f"== phase 5: card vs CPU, N=2000 x M=4096, 6 iterations, {label}")
     from gvamp_tpu_torch import linear, sim
     from gvamp_tpu_torch.data import GenoBed
@@ -799,10 +1088,13 @@ def phase_card_vs_cpu(miss_rate, use_xxt=False):
     N, M = 2000, 4096
     cfg = linear.VampConfig(max_iter=6, rho=0.3, gam1_init=1e-8,
                             gamw_init=2.0, seed=5, use_xxt=use_xxt)
-    gram = "gram_aat_i8a" if miss_rate == 0 else "gram_aat_i8"
+    if use_xxt:
+        gram = "gram_aat_i8a" if miss_rate == 0 else "gram_aat_i8"
+    else:
+        gram = "gram_i8a" if miss_rate == 0 else "gram_i8"
     chroms = 1 + np.arange(M) * 4 // M
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, fused_env(fused):
         bed, beta, vars_t, probs_t, rng = small_problem(tmp, 3, N, M,
                                                         miss_rate)
         y = None
@@ -818,11 +1110,12 @@ def phase_card_vs_cpu(miss_rate, use_xxt=False):
             matvec.reset_launches()
             x, state, hist = linear.infer(g, cfg, probs_t, vars_t,
                                           verbose=False)
-            if dev == "cuda" and use_xxt and not matvec.LAUNCHES[gram]:
-                raise AssertionError(f"the card's dual run did not launch "
+            if dev == "cuda" and (use_xxt or fused) and \
+                    not matvec.LAUNCHES[gram]:
+                raise AssertionError(f"the card's run did not launch "
                                      f"{gram}: {matvec.LAUNCHES}")
             p = None
-            if miss_rate and not use_xxt:
+            if miss_rate and not use_xxt and not fused:
                 p = (pvals.loo_pvals(g, state.z1, state.x1),
                      pvals.loco_pvals(g, state.z1, state.x1, chroms))
             out[dev] = x, hist, p
@@ -840,7 +1133,7 @@ def phase_card_vs_cpu(miss_rate, use_xxt=False):
             raise AssertionError(f"card and CPU {k} disagree")
     log(f"  cg_iters card {[h['cg_iters'] for h in h_c]} "
         f"cpu {[h['cg_iters'] for h in h_p]}")
-    if miss_rate and not use_xxt:
+    if p_c is not None:
         for name, pc, pp in zip(("LOO", "LOCO"), p_c, p_p):
             lc, lp = np.log10(pc), np.log10(pp)
             d = float((np.abs(lc - lp) / np.maximum(1.0, -lp)).max())
@@ -850,23 +1143,101 @@ def phase_card_vs_cpu(miss_rate, use_xxt=False):
                 raise AssertionError(f"card and CPU {name} p-values disagree")
 
 
+# probit card vs CPU, wider than the f32 tolerances of
+# tests/test_torch_probit.py (1e-4, 5e-4; port against JAX, both on the
+# CPU): iteration 1's Onsager term clips at 1 - 100 eps(f32) (alpha2 =
+# 0.9999881), and r1 = (x2 - alpha2 r2) / (1 - alpha2) multiplies the two
+# devices' f32 rounding differences (other summation orders, CUDA's libm)
+# by about 1e5; the trajectories then agree to 4e-6 at iteration 1 and
+# 3.8e-4 at iteration 2 (gam1), and x1 to 8.2e-5 (complete) and 1.2e-4
+# (2% missing, 2 covariates) of max|x1| after 6 (first H100 run)
+PROBIT_CARD_CPU_XTOL, PROBIT_CARD_CPU_RTOL = 5e-4, 1e-3
+
+
+def phase_card_vs_cpu_probit(miss_rate, n_cov, fused=False):
+    """The probit engine on the card and on the CPU (plain versions) from
+    the same data, probe and initial p1 (PROBIT_CARD_CPU_*).  N=6,000 x
+    M=2,048 (M/N 0.34): the probit solves are better conditioned than at
+    the linear phase's N=2,000 x M=4,096, where the two devices' rounding
+    noise grows to 5.1e-4 of max|x1| (first H100 run)."""
+    label = "complete" if miss_rate == 0 else f"{miss_rate:.0%} missing"
+    label += f", {n_cov} covariates" if n_cov else ""
+    label += ", fused primal Gram" if fused else ""
+    log(f"== phase 5: probit card vs CPU, N=6000 x M=2048, 6 iterations, "
+        f"{label}")
+    from gvamp_tpu_torch import probit, sim
+    from gvamp_tpu_torch.data import GenoBed
+    from gvamp_tpu_torch.ops import matvec
+    N, M = 6000, 2048
+    cfg = probit.ProbitConfig(max_iter=6, rho=0.3, probit_var=0.5, seed=5)
+    gram = "gram_i8a" if miss_rate == 0 else "gram_i8"
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, fused_env(fused):
+        bed, beta, vars_t, probs_t, rng = small_problem(tmp, 4, N, M,
+                                                        miss_rate)
+        covs = rng.normal(size=(N, n_cov)) if n_cov else None
+        eff = np.linspace(0.3, -0.3, n_cov) if n_cov else None
+        y = None
+        for dev in ("cuda", "cpu"):
+            g = GenoBed.from_files(bed, None, N=N, Mt=M, device=dev,
+                                   standardize_phen=False)
+            g.covs = covs
+            if y is None:
+                y = sim.simulate_probit_phenotype(g, beta, 0.5, rng, eff)
+            g.set_phen(y)
+            t0 = time.perf_counter()
+            matvec.reset_launches()
+            x, _, hist = probit.infer(g, cfg, probs_t, vars_t, verbose=False)
+            if dev == "cuda" and fused and not matvec.LAUNCHES[gram]:
+                raise AssertionError(f"the card's run did not launch "
+                                     f"{gram}: {matvec.LAUNCHES}")
+            out[dev] = x, hist
+            log(f"  {dev}: {time.perf_counter() - t0:.2f} s")
+    (x_c, h_c), (x_p, h_p) = out["cuda"], out["cpu"]
+    keys = ("gam1", "gam2", "tau1", "tau2", "alpha2")
+    for dev, h in (("card", h_c), ("cpu", h_p)):
+        for x in h:
+            log(f"  {dev} it {x['it']}: " + " ".join(
+                f"{k}={float(x[k]):.7g}" for k in keys)
+                + f" cg={x['cg_iters']}")
+    dx = float(np.abs(x_c - x_p).max() / np.abs(x_p).max())
+    log(f"  max|x1 card - x1 cpu| / max|x1| = {dx:.3e} (limit "
+        f"{PROBIT_CARD_CPU_XTOL:g}); corr(x_hat, beta) "
+        f"{float(np.corrcoef(x_c, beta)[0, 1]):.5f}")
+    if not dx < PROBIT_CARD_CPU_XTOL:
+        raise AssertionError("card and CPU probit x1 disagree")
+    for k in keys:
+        a, b = float(h_c[-1][k]), float(h_p[-1][k])
+        log(f"  {k}: card {a:.7g} cpu {b:.7g} rel {abs(a - b) / abs(b):.3e} "
+            f"(limit {PROBIT_CARD_CPU_RTOL:g})")
+        if not abs(a - b) <= PROBIT_CARD_CPU_RTOL * abs(b):
+            raise AssertionError(f"card and CPU probit {k} disagree")
+    if n_cov:
+        ec, ep = np.asarray(h_c[-1]["cov_eff"]), np.asarray(h_p[-1]["cov_eff"])
+        log(f"  cov_eff card {ec} cpu {ep} (truth {eff})")
+        if not np.allclose(ec, ep, rtol=PROBIT_CARD_CPU_RTOL,
+                           atol=PROBIT_CARD_CPU_RTOL):
+            raise AssertionError("card and CPU covariate effects disagree")
+    log(f"  cg_iters card {[h['cg_iters'] for h in h_c]} "
+        f"cpu {[h['cg_iters'] for h in h_p]}")
+
+
 def flagship_files(tmp, N, M):
     """The flagship data of the README's port section in ``tmp``: N x M with
     2% missing calls, a .bim over 4 chromosomes and a simulated phenotype;
     returns (bed, phen, bim, beta)."""
-    from gvamp_tpu import sim as npsim
-    from gvamp_tpu.io import plink
     from gvamp_tpu_torch import sim
     from gvamp_tpu_torch.data import GenoBed
+    from gvamp_tpu_torch.io import plink
     rng = np.random.default_rng(42)
     bed, phen, bim = (os.path.join(tmp, f"demo.{e}")
                       for e in ("bed", "phen", "bim"))
-    plink.write_bed(bed, npsim.random_genotypes(rng, M, N, miss_rate=0.02))
+    plink.write_bed(bed, sim.random_genotypes(rng, M, N, miss_rate=0.02))
     plink.write_bim(bim, np.repeat(np.arange(1, 5), M // 4))
     g = GenoBed.from_files(bed, None, N=N, Mt=M, device="cuda",
                            standardize_phen=False)
-    vars_t, probs_t = npsim.two_group_prior(M, 12, 0.8)
-    beta = npsim.simulate_mixture(rng, M, vars_t, probs_t)
+    vars_t, probs_t = sim.two_group_prior(M, 12, 0.8)
+    beta = sim.simulate_mixture(rng, M, vars_t, probs_t)
     plink.write_phen(phen, sim.simulate_linear_phenotype(
         g, beta, 1 / (1 - 0.8), rng))
     return bed, phen, bim, beta
@@ -876,7 +1247,7 @@ def phase_cli():
     """The flagship flow of the README's port section on the card: 2%
     missing calls, --store-pvals 1 and a .bim over 4 chromosomes."""
     log("== phase 6: CLI infere with --store-pvals 1 and a .bim, 2% missing")
-    from gvamp_tpu.io import vecio
+    from gvamp_tpu_torch.io import vecio
     from gvamp_tpu_torch import cli, linear
     from gvamp_tpu_torch.data import GenoBed
     from gvamp_tpu_torch.ops import pvals
@@ -937,7 +1308,7 @@ def phase_cli_xxt():
     """The flagship recipe with --use-XXT-denoiser 1: the dual solve through
     the CLI on the card, its dump equal to a library dual run."""
     log("== phase 6x: CLI infere with --use-XXT-denoiser 1, 2% missing")
-    from gvamp_tpu.io import vecio
+    from gvamp_tpu_torch.io import vecio
     from gvamp_tpu_torch import cli, linear
     from gvamp_tpu_torch.data import GenoBed
     from gvamp_tpu_torch.ops import matvec
@@ -969,6 +1340,86 @@ def phase_cli_xxt():
         raise AssertionError("the dual CLI flow missed its expectations")
 
 
+def phase_cli_probit():
+    """--model bin_class with --cov-file / --C 2 through the CLI on the card
+    (the flagship genotypes, 2% missing calls, a binary phenotype with two
+    covariates): the _probit_ dumps, the estimate equal to a library run."""
+    log("== phase 6p: CLI infere --model bin_class --cov-file --C 2, 2% "
+        "missing")
+    from gvamp_tpu_torch import cli, probit, sim
+    from gvamp_tpu_torch.data import GenoBed
+    from gvamp_tpu_torch.io import plink, vecio
+    from gvamp_tpu_torch.ops import matvec
+    N, M, n_it = 800, 240, 8
+    pv = 0.2
+    with tempfile.TemporaryDirectory() as tmp:
+        bed, _, _, beta = flagship_files(tmp, N, M)
+        phen, cov = os.path.join(tmp, "cc.phen"), os.path.join(tmp, "c.cov")
+        rng = np.random.default_rng(7)
+        covs = rng.normal(size=(N, 2))
+        plink.write_covariates(cov, covs)
+        g = GenoBed.from_files(bed, None, N=N, Mt=M, device="cuda",
+                               standardize_phen=False)
+        g.covs = covs
+        plink.write_phen(phen, sim.simulate_probit_phenotype(
+            g, beta, pv, rng, np.array([0.4, -0.4])))
+        matvec.reset_launches()
+        cli.main(["--device", "cuda", "--run-mode", "infere", "--model",
+                  "bin_class", "--bed-file", bed, "--phen-files", phen,
+                  "--cov-file", cov, "--C", "2", "--probit-var", str(pv),
+                  "--N", str(N), "--Mt", str(M), "--iterations", str(n_it),
+                  "--rho", "0.3", "--probs", "0.95,0.05", "--vars",
+                  "0.0,0.0667", "--verbosity", "0", "--out-dir",
+                  os.path.join(tmp, "out"), "--out-name", "cc"])
+        launches = dict(matvec.LAUNCHES)
+        pre = os.path.join(tmp, "out", "cc")
+        names = [f"{pre}{s}" for it in range(1, n_it + 1)
+                 for s in (f"_probit_it_{it}.bin", f"_probit_r1_it_{it}.bin",
+                           f"_probit_z1_it_{it}.csv",
+                           f"_probit_p1_it_{it}.csv")]
+        missing = [n for n in names if not os.path.getsize(n)]
+        if missing:
+            raise AssertionError(f"CLI outputs missing: {missing}")
+        dump = vecio.read_bin_shard(f"{pre}_probit_it_{n_it}.bin", M, 0)
+        g = GenoBed.from_files(bed, phen, N=N, Mt=M, device="cuda",
+                               standardize_phen=False)
+        g.read_covariates(cov, 2)
+        x_lib, state, _ = probit.infer(
+            g, probit.ProbitConfig(max_iter=n_it, rho=0.3, probit_var=pv),
+            [0.95, 0.05], [0.0, 0.0667], verbose=False)
+    d = float(np.abs(dump - x_lib).max() / np.abs(x_lib).max())
+    corr = float(np.corrcoef(dump, beta)[0, 1])
+    log(f"  {len(names)} files written; launches {launches}; max|dump - "
+        f"library x1| / max|x1| = {d:.3e}; corr(x_hat, beta) {corr:.5f} "
+        f"(limit 0.8); covariate effects {state.cov_eff.tolist()} (truth "
+        f"[0.4, -0.4])")
+    if not launches["axm_i8"] or launches["axm_i8a"]:
+        raise AssertionError("the probit CLI run did not take the general "
+                             "kernels")
+    if not (d < 1e-6 and corr > 0.8):
+        raise AssertionError("the probit CLI flow missed its expectations")
+
+
+def kernel_rows(numbers):
+    """The kernels line: one row per kernel from ``numbers`` = {name: (err,
+    ms, plain_ms, launches, (nw, m, B))}, with its bound on that shape."""
+    rows = []
+    for n in KERNELS:
+        err, ms, plain, launches, (nw, m, B) = numbers[n]
+        b_ms, b_by = bound(n, nw, m, B)
+        log(f"  {n:12s} Nw={nw} Mpad={m} B={B}: {ms:9.3f} ms, bound "
+            f"{b_ms:.3f} ms by {b_by} ({b_ms / ms:.1%} of it), plain "
+            f"{plain:9.2f} ms, {launches} launches on its path")
+        rows.append({
+            "name": n, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[n], "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by,
+            # no PyTorch call takes the packed 2-bit words
+            "library_ms": None, "shape": f"Nw={nw} Mpad={m} B={B}"})
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -983,16 +1434,24 @@ def main(argv=None):
     if args.kernels_only:
         log("kernels-only run: phases 1-3a passed")
         return
+    # config B: the a-only kernels, the fused a-only Gram, linear two-pass
+    # and fused, probit two-pass and fused
     words = synth_words(gen, miss=False)
-    full = phase_kernels_config_b(words, gen)
-    launches = phase_main_path(words)
-    del words
-    torch.cuda.empty_cache()
-    words = synth_words(gen, miss=True)
     nw, m = words.shape
+    full = phase_kernels_config_b(words, gen)
+    full_g = phase_kernels_gram(words, gen, True)
+    launches, geno, problem = phase_main_path(words)
+    launches_f = phase_fused_linear("config B", geno, problem, True)
+    launches_p, launches_pf = phase_probit_b(geno, problem)
+    del words, geno
+    torch.cuda.empty_cache()
+    # config Bm: the general kernels, the fused general Gram, p-values
+    words = synth_words(gen, miss=True)
     full_m = phase_kernels_config_bm(words, gen)
-    launches_m = phase_config_bm(words)
-    del words
+    full_gm = phase_kernels_gram(words, gen, False)
+    launches_m, geno, problem = phase_config_bm(words)
+    launches_mf = phase_fused_linear("config Bm", geno, problem, False)
+    del words, geno
     torch.cuda.empty_cache()
     words = synth_words(gen, miss=False, n=CFG_X_N, m=CFG_X_M)
     words_m = synth_words(gen, miss=True, n=CFG_X_N, m=CFG_X_M)
@@ -1005,32 +1464,41 @@ def main(argv=None):
     for use_xxt in (False, True):
         phase_card_vs_cpu(0.0, use_xxt)
         phase_card_vs_cpu(0.02, use_xxt)
+    phase_card_vs_cpu(0.0, fused=True)
+    phase_card_vs_cpu_probit(0.0, 0)
+    phase_card_vs_cpu_probit(0.02, 2)
+    phase_card_vs_cpu_probit(0.02, 2, fused=True)
     phase_cli()
     phase_cli_xxt()
+    phase_cli_probit()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # times at B = 1 on the whole matrix of the path that runs the kernel:
-    # config B (a-only, atx), Bm (general), X (ax, gram_aat_i8a), Xm
-    # (gram_aat_i8); the error is the largest over every width checked
-    # there (each check raises unless it is 0); launches are those of
-    # that path's main run
-    kernels = []
+    # config B (a-only, atx, gram_i8a), Bm (general, gram_i8), X (ax,
+    # gram_aat_i8a), Xm (gram_aat_i8); the error is the largest over every
+    # width checked there (each check raises unless it is 0); launches are
+    # those of that path's run: the linear runs of phases 4 / 4m (4f for
+    # the fused primal Grams) and the dual runs of phase 4x
+    numbers = {}
     for n in KERNELS:
         if n in ("ax", "gram_aat_i8a", "gram_aat_i8"):
             counts = launches_xm if n == "gram_aat_i8" else launches_x
-            err, ms, plain = full_x[n]
-            shape = f"Nw={nwx} Mpad={mx} B=1"
-        else:
-            runs, counts = ((full_m, launches_m)
-                            if n in ("axm_i8", "atxm_i8")
-                            else (full, launches))
-            err = max(r[n][0] for r in runs.values() if n in r)
-            ms, plain = runs[1][n][1], runs[1][n][2]
-            shape = f"Nw={nw} Mpad={m} B=1"
-        kernels.append({
-            "name": n, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[n], "launches": counts[n],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "shape": shape})
+            numbers[n] = (*full_x[n], counts[n], (nwx, mx, 1))
+            continue
+        if n in ("gram_i8a", "gram_i8"):
+            res, counts = ((full_g, launches_f) if n == "gram_i8a"
+                           else (full_gm, launches_mf))
+            numbers[n] = (*res[n], counts[n], (nw, m, 1))
+            continue
+        runs, counts = ((full_m, launches_m) if n in ("axm_i8", "atxm_i8")
+                        else (full, launches))
+        err = max(r[n][0] for r in runs.values() if n in r)
+        numbers[n] = (err, runs[1][n][1], runs[1][n][2], counts[n],
+                      (nw, m, 1))
+    log("kernels against their bounds (NVIDIA H100 SXM peaks: 3.35 TB/s "
+        "HBM, 1,979 TOP/s int8, 67 TFLOP/s f32):")
+    kernels = kernel_rows(numbers)
+    log(f"probit at config B: launches two-pass {launches_p}, fused "
+        f"{launches_pf}")
     log(smi_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,15 +1,19 @@
 """gvamp_tpu_torch: the PyTorch / CUDA port of gvamp_tpu for NVIDIA Hopper.
 
-A second package beside the JAX reference ``gvamp_tpu``.  It runs the
-linear VAMP path on one device, on complete (imputed) genotypes and on
-genotypes with missing calls: the primal LMMSE block CG with SLQ Onsager
-traces, the secant-extrapolated warm start and the folded noise pass,
-then the LOO and LOCO association p-values.  The packed-genotype products
-run in hand-written CUDA kernels on the card (``csrc/matvec.cu``) and in
-their plain PyTorch versions on the CPU.  The port imports ``torch`` and never
-``jax``; from ``gvamp_tpu`` it uses only the host modules that import no
-JAX (``io``, ``native``, ``options``, ``ckpt.write_scalar_history`` and the
-numpy helpers of ``sim``).
+A second package beside the JAX reference ``gvamp_tpu``.  It runs on one
+device the linear VAMP engine (primal, with the two-pass or the opt-in
+fused Gram, or dual) and the probit engine with fixed covariates, on
+complete (imputed) genotypes and on genotypes with missing calls, then the
+LOO and LOCO association p-values.  The packed-genotype products run in
+hand-written CUDA kernels on the card (``csrc/matvec.cu``) and in their
+plain PyTorch versions on the CPU.
+
+The package stands alone: it imports ``torch`` and never ``jax``, and
+nothing of ``gvamp_tpu``, not even its modules that import no JAX.  What
+it needs from them it keeps as its own copies (``io``, ``native``,
+``options``, ``ckpt.write_scalar_history``, the numpy helpers of ``sim``).
+Only the tests import both packages, to compare them.  Its entry points
+put the data on the card unless the caller names the CPU.
 """
 
 __version__ = "0.1.0"

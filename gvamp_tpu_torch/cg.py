@@ -1,8 +1,10 @@
 """Warm-started Jacobi-preconditioned block conjugate gradient (marker space).
 
-Port of the main-path part of ``gvamp_tpu/cg.py``: ``solve_block`` with its
-rider, the tracked and secant-extrapolated warm starts, the exit Gram
-identity, and the two-pass LMMSE operator.  The solver's ``lax.while_loop``
+Port of ``gvamp_tpu/cg.py`` but deflation: ``solve_block`` with its rider
+and its forward-product tracking (the z-model engines' z2 = A x2), the
+tracked and secant-extrapolated warm starts, the exit Gram identity, and
+the LMMSE operator (two passes, or the fused Gram where ``fn_gram`` gives
+one).  The solver's ``lax.while_loop``
 is a Python loop: its exit test reads the per-column done flags on the host,
 one counted sync per CG iteration (``gvamp_tpu_torch.sync``); the
 ``lax.cond`` of ``tracked_warm_start`` is one more sync per solve.  Column
@@ -24,6 +26,7 @@ class CGResult(NamedTuple):
     rel_err: torch.Tensor                  # [B]
     r: torch.Tensor                        # final residual V - Q mu
     rider_out: Optional[torch.Tensor] = None  # A @ rider (first iteration)
+    zmu: Optional[torch.Tensor] = None     # tracked A @ mu[:, 0] (fwd_mult)
 
 
 def solve_block(
@@ -41,10 +44,19 @@ def solve_block(
                                            # product rides iteration 1
     rider_mult=None,          # (P, X) -> (Q P, A X); required with rider
     plateau: int = 0,         # windowed stagnation exit (cg.py:136-152)
+    start_zero: bool = False,  # mu_start is 0: r0 = V, no init mult
+    fwd_mult=None,            # P -> (Q P, A P): replaces mult_block and
+                              # tracks zmu = A mu[:, 0] through the
+                              # recursion (zmu += alpha_0 A p_0)
+    zmu0: Optional[torch.Tensor] = None,  # A @ mu_start[:, 0] (fwd_mult)
 ) -> CGResult:
     """Batched CG: each column runs its own recursion, every iteration costs
     one wide pass; converged columns freeze (alpha = 0) while the rest keep
     iterating, and the loop exits when all columns are done."""
+    if rider is not None and fwd_mult is not None:
+        raise ValueError("rider and fwd_mult tracking are mutually exclusive")
+    if fwd_mult is not None and zmu0 is None:
+        raise ValueError("fwd_mult tracking requires zmu0 = A @ mu_start[:, 0]")
     dt, dev = V.dtype, V.device
     B = V.shape[1]
     modes_t = torch.as_tensor(list(modes), dtype=torch.int32, device=dev)
@@ -57,7 +69,7 @@ def solve_block(
         return r / diag_c
 
     if r0 is None:
-        r0 = V - mult_block(mu_start)
+        r0 = V if start_zero else V - mult_block(mu_start)
     z0 = apply_m(r0)
     norm_v2 = torch.square(V).sum(dim=0)
     norm_v = torch.sqrt(torch.where(norm_v2 == 0, 1.0, norm_v2))
@@ -70,9 +82,10 @@ def solve_block(
              done=torch.zeros((B,), dtype=torch.bool, device=dev),
              iters=torch.zeros((B,), dtype=torch.int32, device=dev),
              best=torch.sqrt(torch.square(r0).sum(dim=0)) / norm_v,
-             win_best=torch.full((B,), float("inf"), dtype=dt, device=dev))
+             win_best=torch.full((B,), float("inf"), dtype=dt, device=dev),
+             zmu=zmu0)
 
-    def body_with(s, d):
+    def body_with(s, d, ap=None):
         pd = (d * s["p"]).sum(dim=0)
         alpha = torch.where(s["done"] | (pd == 0), 0.0,
                             s["rz"] / torch.where(pd == 0, 1.0, pd))
@@ -94,10 +107,11 @@ def solve_block(
         if plateau > 0 and (s["i"] + 1) % plateau == 0:
             done = done | (best > 0.7 * s["win_best"])
             win_best = best
+        zmu = s["zmu"] if ap is None else s["zmu"] + alpha[0] * ap[..., 0]
         return dict(i=s["i"] + 1, mu=mu, r=r, z=z, p=p, rz=rz_new,
                     prev_ons=ons, rel_err=rel_err, done=done,
                     iters=s["iters"] + (~s["done"]).to(torch.int32),
-                    best=best, win_best=win_best)
+                    best=best, win_best=win_best, zmu=zmu)
 
     ax_rider = None
     if rider is not None:
@@ -107,9 +121,13 @@ def solve_block(
         d0, ax_rider = rider_mult(s["p"], rider)
         s = body_with(s, d0)
     while s["i"] < max_iter and not host_bool(s["done"].all()):
-        s = body_with(s, mult_block(s["p"]))
+        if fwd_mult is not None:
+            s = body_with(s, *fwd_mult(s["p"]))
+        else:
+            s = body_with(s, mult_block(s["p"]))
     return CGResult(mu=s["mu"], iters=s["iters"], rel_err=s["rel_err"],
-                    r=s["r"], rider_out=ax_rider)
+                    r=s["r"], rider_out=ax_rider,
+                    zmu=s["zmu"] if fwd_mult is not None else None)
 
 
 def tracked_warm_start(V, mu0_raw, gmu_raw, tau_now, tau_ref, gam2_cols,
@@ -130,6 +148,29 @@ def tracked_warm_start(V, mu0_raw, gmu_raw, tau_now, tau_ref, gam2_cols,
     if host_bool(need_mult):
         return mu0, V - multb(mu0)
     return mu0, V - (tau_now * gmu + gam2_cols * mu0)
+
+
+def tracked_warm_start_fwd(V, mu0_raw, gmu_raw, zmu_raw, tau_now, tau_ref,
+                           gam2_cols, it: int, refresh: int, multb_fwd):
+    """``tracked_warm_start`` plus the carried forward product
+    zmu = A mu0[:, 0] (``gvamp_tpu/cg.py:294-321``): the same guards, and
+    the true init mult on a refresh tick also refreshes zmu from its
+    forward half.  Returns (mu0, r0, zmu0)."""
+    finite = (torch.isfinite(mu0_raw).all() & torch.isfinite(gmu_raw).all()
+              & torch.isfinite(zmu_raw).all())
+    mu0 = torch.where(finite, mu0_raw, torch.zeros_like(mu0_raw))
+    zero = (mu0 == 0).all()
+    gmu = torch.where(finite & ~zero, gmu_raw, torch.zeros_like(gmu_raw))
+    zmu = torch.where(finite & ~zero, zmu_raw, torch.zeros_like(zmu_raw))
+    tau_now_t = torch.as_tensor(tau_now)
+    tau_ref_t = torch.as_tensor(tau_ref)
+    stale = ((tau_ref_t <= 0) | (tau_now_t > 4.0 * tau_ref_t)).any()
+    cold = (gmu == 0).all() & (mu0 != 0).any()
+    need_mult = ((it % refresh == 0) | cold | stale) & ~zero
+    if host_bool(need_mult):
+        qp, ap = multb_fwd(mu0)
+        return mu0, V - qp, ap[..., 0]
+    return mu0, V - (tau_now * gmu + gam2_cols * mu0), zmu
 
 
 def extrapolate_pair(V, mu1, gmu1, mu2, gmu2, tau_now, gam2_cols,
@@ -164,11 +205,27 @@ def gram_from_exit(V, sol: CGResult, tau_now, gam2_cols):
     return (V - sol.r - gam2_cols * sol.mu) / tau_safe
 
 
-def make_lmmse_mult_block(axm_fn, atxm_fn, op, tau, gam2):
-    """P[M, B] -> tau A^T(A P) + gam2 P: two passes over the words."""
+def make_lmmse_mult_block(axm_fn, atxm_fn, op, tau, gam2, gram_fn=None):
+    """P[M, B] -> tau A^T(A P) + gam2 P: two passes over the words, or one
+    through ``gram_fn`` (``GenoBed.fn_gram``, the fused primal Gram)."""
+    if gram_fn is not None:
+        def mult(P):
+            return tau * gram_fn(op, P) + gam2 * P
+        return mult
 
     def mult(P):
         return tau * atxm_fn(op, axm_fn(op, P)) + gam2 * P
+
+    return mult
+
+
+def make_lmmse_mult_block_fwd(axm_fn, atxm_fn, op, tau, gam2):
+    """Two-pass LMMSE operator exposing the forward intermediate:
+    P -> (tau A^T(A P) + gam2 P, A P), for solve_block's fwd_mult."""
+
+    def mult(P):
+        Z = axm_fn(op, P)
+        return tau * atxm_fn(op, Z) + gam2 * P, Z
 
     return mult
 

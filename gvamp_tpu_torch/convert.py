@@ -18,10 +18,11 @@ from gvamp_tpu_torch.data import GenoBed, words_from_numpy
 def geno_from_numpy(words: np.ndarray, y_raw: np.ndarray, N: int,
                     M: int | None = None, Mt: int | None = None, S: int = 0,
                     mave=None, msig=None, standardize_phen: bool = True,
-                    alpha_scale: float = 1.0, device="cpu",
+                    alpha_scale: float = 1.0, device="cuda",
                     dtype=torch.float32) -> GenoBed:
-    """A port container from the JAX container's words uint32[Nw, Mpad].
-    ``mave``/``msig`` given as arrays skip the statistics pass."""
+    """A port container from the JAX container's words uint32[Nw, Mpad],
+    on the card unless ``device`` names another.  ``mave``/``msig`` given as
+    arrays skip the statistics pass."""
     return GenoBed.from_device_words(
         words_from_numpy(words, device), y_raw, N=N, M=M, Mt=Mt, S=S,
         standardize_phen=standardize_phen, alpha_scale=alpha_scale,
@@ -40,8 +41,9 @@ def state_from_numpy(d: dict, device="cpu",
     return linear.LinState(**vals)
 
 
-def state_to_numpy(state: linear.LinState) -> dict:
-    """Port state -> the ``gvamp_tpu.linear.LinState`` fields it holds."""
+def state_to_numpy(state) -> dict:
+    """Port state (linear or probit) -> the fields of its JAX counterpart
+    that it holds."""
     return {name: (np.asarray(v) if name == "it"
                    else v.detach().cpu().numpy())
             for name, v in zip(state._fields, state)}
@@ -59,3 +61,13 @@ def aux_from_numpy(geno: GenoBed, cfg: linear.VampConfig, bern: np.ndarray,
         return aux
     return aux._replace(xxt_diag_base=torch.tensor(
         np.asarray(xxt_diag_base), dtype=geno.dtype, device=geno.device))
+
+
+def probit_state_from_numpy(d: dict, device="cuda", dtype=torch.float32):
+    """``gvamp_tpu.probit.ProbitState`` fields (as arrays) -> port state."""
+    from gvamp_tpu_torch import probit
+    vals = {name: (int(np.asarray(d[name])) if name == "it"
+                   else torch.tensor(np.asarray(d[name]), dtype=dtype,
+                                     device=device))
+            for name in probit.ProbitState._fields}
+    return probit.ProbitState(**vals)

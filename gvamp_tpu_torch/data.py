@@ -24,7 +24,12 @@ Routing by dtype (the JAX package routes an f64 request to its XLA path,
 
 The dual (XXT) solve adds the people statistics (``ax``, its Jacobi
 diagonal) and ``fn_gram_aat``, the fused dual Gram A A^T in one read of the
-words (``gram_aat_i8a`` / ``gram_aat_i8``).
+words (``gram_aat_i8a`` / ``gram_aat_i8``); ``fn_gram`` offers the fused
+primal Gram A^T A (``gram_i8a`` / ``gram_i8``) under ``GVAMP_FUSED_GRAM=1``.
+The probit model reads fixed covariates (``read_covariates``).
+
+The entry points put the container on the card unless the caller names
+another device; without a CUDA device they raise rather than run on the CPU.
 """
 
 from __future__ import annotations
@@ -36,8 +41,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from gvamp_tpu import native
-from gvamp_tpu.io import plink
+from gvamp_tpu_torch import native
+from gvamp_tpu_torch.io import plink
 from gvamp_tpu_torch.ops import matvec
 from gvamp_tpu_torch.ops.layout import PlanarLayout
 
@@ -72,8 +77,20 @@ def _standardize(y_raw: np.ndarray, standardize: bool):
             nonas, avg, sqn)
 
 
-def words_from_numpy(words: np.ndarray, device) -> torch.Tensor:
+def require_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without a card raises
+    (the port never moves a run to the CPU on its own)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device}: no CUDA device is available; pass "
+            f"device='cpu' to run on the CPU")
+    return device
+
+
+def words_from_numpy(words: np.ndarray, device="cuda") -> torch.Tensor:
     """uint32[Nw, Mpad] words -> int32 tensor with the same bits."""
+    device = require_device(device)
     arr = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
     if not arr.flags.writeable:  # e.g. a view of a JAX array
         arr = arr.copy()
@@ -173,6 +190,7 @@ class GenoBed:
     alpha_scale: float = 1.0
     bim_path: str = ""
     dtype: torch.dtype = torch.float32
+    covs: Optional[np.ndarray] = None  # [N, C] covariates (probit model)
     _complete: Optional[bool] = None   # no missing genotypes (lazy)
     _chroms: Optional[np.ndarray] = None   # from the .bim (lazy)
 
@@ -186,7 +204,7 @@ class GenoBed:
     def from_arrays(cls, bed_bytes: np.ndarray, y_raw: np.ndarray, N: int,
                     Mt: int | None = None, S: int = 0,
                     standardize_phen: bool = True, alpha_scale: float = 1.0,
-                    dtype=torch.float32, device="cpu", bim_path: str = "",
+                    dtype=torch.float32, device="cuda", bim_path: str = "",
                     word_align: int = 32, marker_align: int = 512) -> "GenoBed":
         """From .bed rows uint8[M, mbytes] (host) onto ``device``."""
         M = bed_bytes.shape[0]
@@ -244,9 +262,10 @@ class GenoBed:
     @classmethod
     def from_files(cls, bed_path: str, phen_path: str | None, N: int, Mt: int,
                    S: int = 0, M: int | None = None, dtype=torch.float32,
-                   device="cpu", standardize_phen: bool = True,
+                   device="cuda", standardize_phen: bool = True,
                    alpha_scale: float = 1.0, bim_path: str = "",
                    word_align: int = 32, marker_align: int = 512) -> "GenoBed":
+        """From a .bed file (and a .phen, or none) onto ``device``."""
         M = Mt if M is None else M
         if phen_path:
             y, isna = plink.read_phen(phen_path)
@@ -421,6 +440,52 @@ class GenoBed:
 
         return ax_fn, atx_fn
 
+    def fn_gram(self):
+        """The fused primal Gram ``gram_fn(op, X[Mpad, B]) -> A^T A X``
+        (standardisation, NA mask and 1/N included) in one read of the
+        words, or None, where the caller takes the two-pass form
+        atxm(axm(.)).  The routing of ``gvamp_tpu/data.py:654-712``: off
+        unless ``GVAMP_FUSED_GRAM=1``, and None
+
+          * under ``GVAMP_NO_FUSED_GRAM=1``;
+          * in float64, whose dense plain products run on the CPU;
+          * when a block's band tile does not fit
+            ``matvec.GRAM_AAT_SMEM_BUDGET`` (Mpad above 237,072 on the 132
+            SMs of an H100; JAX's counterpart is the 80 MB VMEM budget
+            ``_GRAM_BAND_MAX_BYTES``).
+
+        Complete genotypes run ``gram_i8a`` (b's contractions collapse to
+        the scalars colsum(mave W) and colsum(z)), the others ``gram_i8``.
+        The result equals the two-pass form's to f32 rounding: z is
+        quantised per band here and per column there."""
+        if os.environ.get("GVAMP_FUSED_GRAM", "") != "1":
+            return None
+        if os.environ.get("GVAMP_NO_FUSED_GRAM", "") == "1":
+            return None
+        if self.dtype == torch.float64:
+            return None
+        if not matvec.gram_fits(self.words):
+            return None
+        dtype = self.dtype
+        scale2 = self.inv_sqrt_n * self.inv_sqrt_n
+
+        if self.geno_complete:
+            def gram_fn(op: BedOp, X):
+                W = op.msig[:, None] * X.to(op.msig.dtype)
+                cu = (op.mave[:, None] * W).sum(dim=0)
+                av, sv = matvec.gram_i8a(op.words, W, op.na_planar, cu)
+                return ((av.to(dtype) - op.mave[:, None] * sv.to(dtype)[None, :])
+                        * op.msig[:, None] * scale2)
+        else:
+            def gram_fn(op: BedOp, X):
+                W = op.msig[:, None] * X.to(op.msig.dtype)
+                av, bv = matvec.gram_i8(op.words, W, op.mave[:, None] * W,
+                                        op.na_planar)
+                return ((av.to(dtype) - op.mave[:, None] * bv.to(dtype))
+                        * op.msig[:, None] * scale2)
+
+        return gram_fn
+
     def fn_gram_aat(self):
         """The fused dual Gram ``gram_aat_fn(op, Up[4, Nb, B]) -> A A^T Up``
         (standardisation, NA mask and 1/N included) in one read of the
@@ -479,6 +544,29 @@ class GenoBed:
             self._chroms = plink.read_chromosomes(self.bim_path, self.M,
                                                   self.S)
         return self._chroms
+
+    def read_covariates(self, path: str, n_cov: int) -> None:
+        """Fixed covariates [N, C] of the probit model (reference
+        data.cpp:1050)."""
+        self.covs = plink.read_covariates(path, n_cov)
+
+    @property
+    def covs_np(self) -> np.ndarray:
+        if self.covs is None:
+            raise ValueError("no covariates loaded")
+        return self.covs
+
+    def covs_planar(self) -> torch.Tensor:
+        """Covariates as planar [4, Nb, C] (zeros at padding slots)."""
+        Z = self.covs_np
+        return torch.as_tensor(self.layout.planarize(Z.T).transpose(1, 2, 0),
+                               dtype=self.dtype, device=self.device)
+
+    def zx(self, eff) -> torch.Tensor:
+        """Covariate product Z @ eff -> planar [4, Nb] (reference
+        data.cpp:1050)."""
+        z = self.covs_np @ np.asarray(eff)
+        return self.planarize(z)
 
     def filter_pheno(self) -> torch.Tensor:
         """NA-zeroed standardised phenotype, planar (reference data.cpp:1065)."""

@@ -2,9 +2,12 @@
 
 Port of ``gvamp_tpu/linear.py`` for the configuration its defaults select:
 primal LMMSE block CG with the secant-extrapolated tracked warm start, SLQ
-Onsager traces and the noise-EM pass folded into the CG exit; and for
-``use_xxt``, the dual (N-space) LMMSE solve with its tracked warm start,
-Woodbury + SLQ Onsager term and the noise update from the CG residual.  One
+Onsager traces and the noise-EM pass folded into the CG exit; with the
+fused primal Gram (``GVAMP_FUSED_GRAM=1``), ``fold_noise=False`` or
+``GVAMP_NOISE_PASS=1``, the explicit noise pass instead (one wide forward
+pass over [x2, x1] after the solve); and for ``use_xxt``, the dual
+(N-space) LMMSE solve with its tracked warm start, Woodbury + SLQ Onsager
+term and the noise update from the CG residual.  One
 iteration (reference ``infere_linear``, vamp.cpp:190-803):
 
   denoising:  the re-estimation loop x1 = g1(r1, gam1), alpha1, eta1, gam1
@@ -27,13 +30,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from gvamp_tpu_torch import cg, probit, slq
+from gvamp_tpu_torch import cg, slq
 from gvamp_tpu_torch.prior import GAMMA_MAX, GAMMA_MIN, Prior, g1, g1d, update_prior
 from gvamp_tpu_torch.sync import SYNCS, host_bool, host_values
 
@@ -87,9 +91,7 @@ def check_slice(cfg: VampConfig) -> None:
             (cfg.red, "red (reduced-subset solves with probe columns)", 12),
             (cfg.deflate_k > 0, "deflate_k > 0 (spectral deflation)", 9),
             (cfg.use_cross_val, "use_cross_val (the damping tuner)", 11),
-            (not cfg.use_slq, "use_slq=False (probe-column traces)", 12),
-            (not cfg.fold_noise, "fold_noise=False (the explicit noise "
-                                 "pass)", 12)):
+            (not cfg.use_slq, "use_slq=False (probe-column traces)", 12)):
         if on:
             raise NotImplementedError(
                 f"VampConfig.{what} is not ported yet: ROADMAP.md Queue 1 "
@@ -215,6 +217,7 @@ def make_aux(geno, cfg: VampConfig, freeze=None, true_signal=None,
     """Set-up: the probe, A @ probe, the SLQ basis (``cfg.slq_k`` Gram
     passes; over A A^T in dual mode) and A^T y; in dual mode also the
     people statistics.  ``bern`` replaces the drawn probe."""
+    from gvamp_tpu_torch import probit
     check_slice(cfg)
     m_mask = geno.m_mask
     if bern is None:
@@ -243,6 +246,7 @@ def make_aux(geno, cfg: VampConfig, freeze=None, true_signal=None,
 def make_step(geno, cfg: VampConfig, init_est: bool = False,
               with_truth: bool = False):
     """The per-iteration step: (state, aux) -> (state, metrics)."""
+    from gvamp_tpu_torch import probit
     check_slice(cfg)
     Mt = float(geno.Mt)
     N = float(geno.N)
@@ -250,6 +254,12 @@ def make_step(geno, cfg: VampConfig, init_est: bool = False,
     atx_fn = geno.fns()[1]
     # A A^T: the fused dual Gram, or two passes where fn_gram_aat says None
     gram_aat = probit._gram_aat_mult(geno) if cfg.use_xxt else None
+    # A^T A: the fused primal Gram where fn_gram offers it (opt-in)
+    gram_fn = geno.fn_gram()
+    # the noise-EM pass folded into the CG exit (linear.py:464-468): the
+    # fused Gram never forms A P, so z1 cannot ride its first pass
+    fold_noise = (cfg.fold_noise and not cfg.use_xxt and gram_fn is None
+                  and os.environ.get("GVAMP_NOISE_PASS", "0") != "1")
     P_cg = probe_cols(cfg)
 
     def denoise(state: LinState, aux: Aux, it: int):
@@ -383,10 +393,12 @@ def make_step(geno, cfg: VampConfig, init_est: bool = False,
         gam2_eff = gam2 * cfg.gamma_damp
         diag = cg.jacobi_diag(gamw, gam2_eff, N)
         v = gamw * aux.aty + gam2_eff * r2
-        multb = cg.make_lmmse_mult_block(axm_fn, atxm_fn, op, gamw, gam2_eff)
-        # z1 = A x1 rides the first CG iteration's forward pass
-        rider_mult = cg.make_lmmse_mult_block_rider(axm_fn, atxm_fn, op,
-                                                    gamw, gam2_eff)
+        multb = cg.make_lmmse_mult_block(axm_fn, atxm_fn, op, gamw, gam2_eff,
+                                         gram_fn=gram_fn)
+        # fold_noise: z1 = A x1 rides the first CG iteration's forward pass
+        rider_mult = (cg.make_lmmse_mult_block_rider(axm_fn, atxm_fn, op,
+                                                     gamw, gam2_eff)
+                      if fold_noise else None)
         V = torch.cat([v[:, None], aux.bern[:, :P_cg]], dim=1)
         mu_start = torch.cat([state.mu_cg[:, None], state.mu_probe], dim=1)
         mu0, r0 = mu_start, None
@@ -403,20 +415,29 @@ def make_step(geno, cfg: VampConfig, init_est: bool = False,
                              modes=(0,) + (1,) * P_cg, err_tol=cfg.cg_err_tol,
                              onsager_tol=cfg.onsager_tol,
                              plateau=cfg.cg_plateau, r0=r0,
-                             rider=w["x1"][:, None], rider_mult=rider_mult)
-        # exit Gram identity: gamw A^T A mu = V - r - gam2 mu, exact for any
-        # mu, gives the noise-EM residual with no extra pass
+                             rider=w["x1"][:, None] if fold_noise else None,
+                             rider_mult=rider_mult)
         mu = sol.mu[:, 0]
-        quad = ((mu * V[:, 0]).sum() - (mu * sol.r[:, 0]).sum()
-                - gam2_eff * torch.square(mu).sum()) / gamw
-        resid2 = torch.clamp(quad - 2.0 * (mu * aux.aty).sum() + w["l2y"],
-                             min=0.0)
+        if fold_noise:
+            # exit Gram identity: gamw A^T A mu = V - r - gam2 mu, exact for
+            # any mu, gives the noise-EM residual with no extra pass
+            quad = ((mu * V[:, 0]).sum() - (mu * sol.r[:, 0]).sum()
+                    - gam2_eff * torch.square(mu).sum()) / gamw
+            resid2 = torch.clamp(quad - 2.0 * (mu * aux.aty).sum()
+                                 + w["l2y"], min=0.0)
+            z1 = sol.rider_out[..., 0]
+        else:
+            # the explicit noise pass (linear.py:911-926): one wide forward
+            # pass computes A x2, A invq and the deferred z1 = A x1
+            Z2 = axm_fn(op, torch.cat([(mu * m_mask)[:, None], sol.mu[:, 1:],
+                                       w["x1"][:, None]], dim=1))
+            resid2 = torch.square(Z2[..., 0] - aux.y).sum()
+            z1 = Z2[..., -1]
         w.update(
             x2=mu * m_mask,
             alpha2=gam2_eff * slq.quad_inv(aux.slq, gamw, gam2_eff).mean(),
             invq=sol.mu[:, 1:], mu_cg=mu, cg_iters=sol.iters[0],
-            cg_rel_err=sol.rel_err[0], z1=sol.rider_out[..., 0],
-            resid2=resid2,
+            cg_rel_err=sol.rel_err[0], z1=z1, resid2=resid2,
             trace_corr=Mt * slq.quad_ratio(aux.slq, gamw, gam2_eff).mean(),
             gmu=cg.gram_from_exit(V, sol, gamw, gam2_eff))
         if cfg.cg_extrapolate:

@@ -113,5 +113,13 @@ def library() -> ctypes.CDLL:
             lib.gvamp_gram_aat_i8a.restype = ctypes.c_int
             lib.gvamp_gram_aat_i8.argtypes = [vp] * 6 + [i64, i64, i64, vp]
             lib.gvamp_gram_aat_i8.restype = ctypes.c_int
+            lib.gvamp_gram_band_nw.argtypes = []
+            lib.gvamp_gram_band_nw.restype = ctypes.c_int
+            lib.gvamp_gram_smem.argtypes = [i64, i64]
+            lib.gvamp_gram_smem.restype = i64
+            lib.gvamp_gram_i8a.argtypes = [vp] * 8 + [i64] * 4 + [vp]
+            lib.gvamp_gram_i8a.restype = ctypes.c_int
+            lib.gvamp_gram_i8.argtypes = [vp] * 8 + [i64] * 4 + [vp]
+            lib.gvamp_gram_i8.restype = ctypes.c_int
             _lib = lib
         return _lib

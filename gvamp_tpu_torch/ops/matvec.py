@@ -22,6 +22,9 @@ Eight kernels carry every packed-matrix read of the linear path:
 * ``gram_aat_i8a`` / ``gram_aat_i8``  the fused dual Gram A (A^T V) of the
   XXT solve in one read of the words (replace ``gram_aat_i8a_pallas`` /
   ``gram_aat_i8_pallas``)
+* ``gram_i8a`` / ``gram_i8``  the fused primal Gram A^T (na (A W)) of the
+  block CG in one read of the words, opt-in (``GVAMP_FUSED_GRAM=1``;
+  replace ``gram_i8a_pallas`` / ``gram_i8_pallas``)
 
 The a-only kernels serve complete (imputed) genotypes, where the
 non-missing indicator b is 1 on every real sample and its contractions
@@ -32,9 +35,10 @@ The digit contract is the JAX package's: right-hand sides are quantised into
 digits exactly in int32, and the fold back to f32 also runs outside the
 kernel.  The wrappers and the plain versions share the quantisation and the
 fold, so on one device a kernel's output equals its plain version's bit for
-bit.  The fused dual Gram folds and requantises inside the kernel, per
-stripe of ``GRAM_AAT_STRIPE`` markers; its plain version repeats those
-steps with the same roundings (see ``gram_aat_i8a_ref``).
+bit.  The fused Grams fold and requantise inside the kernel, the dual one
+per stripe of ``GRAM_AAT_STRIPE`` markers, the primal one per band of
+``GRAM_BAND_NW`` word rows; their plain versions repeat those steps with
+the same roundings (see ``gram_aat_i8a_ref`` and ``gram_i8a_ref``).
 
 A wrapper takes its plain version only for a tensor on the CPU.  For a CUDA
 tensor it launches its kernel or raises; it never falls back.
@@ -51,8 +55,10 @@ _M3 = 0x03030303
 
 # radix-127 int8 digits per f32 value (gvamp_tpu/ops/matvec.py:456)
 _NDIG = 4
-# forward-product column chunk (gvamp_tpu/ops/matvec.py:464); the CUDA
-# kernel itself takes any width, the chunking keeps JAX's call structure
+# forward-product column chunks (gvamp_tpu/ops/matvec.py:463-464); the
+# CUDA kernels take any width up to these, the chunking keeps JAX's call
+# structure (the fused primal Grams chunk at them as JAX's do)
+_BMAX_AXM = 32
 _BMAX_AXM_A = 64
 
 # markers per stripe of the fused dual Gram: the kernel's work unit and its
@@ -64,8 +70,20 @@ GRAM_AAT_STRIPE = 64
 # to Nw = 822 word rows (N = 13,152)
 GRAM_AAT_SMEM_BUDGET = 232_448
 
+# word rows per band of the fused primal Gram: z is requantised per band, so
+# the band height sets the numbers; shared by the CUDA kernel (kBandNw in
+# csrc/matvec.cu), the plain versions and the JAX parity tests (tnw=).  The
+# JAX package picks 64 at config B (_pick_tnw(Nw, 64)); here a block caches
+# the band's words of its marker range in shared memory, and 32 rows keep
+# that tile within the 227 KB budget at M=131,072 on 132 SMs.
+GRAM_BAND_NW = 32
+# one persistent block per SM: the SM count of the card the words lie on,
+# and an H100's for words on the CPU (the routing test of fn_gram)
+GRAM_BLOCKS_H100 = 132
+
 LAUNCHES = {"axm_i8a": 0, "atxm_i8a": 0, "axm_i8": 0, "atxm_i8": 0,
-            "atx": 0, "ax": 0, "gram_aat_i8a": 0, "gram_aat_i8": 0}
+            "atx": 0, "ax": 0, "gram_aat_i8a": 0, "gram_aat_i8": 0,
+            "gram_i8a": 0, "gram_i8": 0}
 
 
 def reset_launches() -> None:
@@ -471,6 +489,169 @@ def gram_aat_fits(nw: int, m: int) -> bool:
 
 
 # --------------------------------------------------------------------------
+# the fused primal Gram (gvamp_tpu/ops/matvec.py:870-1204)
+#
+# The forward digit products of W (one quantisation over the whole marker
+# axis, as axm_i8a's) are exact int32 sums, folded to f32 per sample and
+# masked: z = na (fold(A_a W) - colsum_u) (general: na fold(A_a W - A_b U)
+# with W and -U under one shared scale).  Per band of GRAM_BAND_NW word rows
+# z is requantised into _NDIG digits with one scale per band and column,
+# the transpose digit products of the band (exact) are folded with that
+# band's scales, and av adds the folds band after band, in band order.  The
+# kernel does the same elementwise f32 steps with round-to-nearest
+# intrinsics and no FMA contraction; sv = colsum(z) is one torch.sum over
+# the same contiguous z on both sides, and every scale division is a
+# division by a tensor, so kernel and plain version agree bit for bit.
+# --------------------------------------------------------------------------
+
+
+def _quant_digits_pair(W: torch.Tensor, U: torch.Tensor):
+    """Digits of W^T and -U^T under ONE shared scale per column (kernel #8's
+    contract, gvamp_tpu/ops/matvec.py:604-615): (int8[NDIG*B, M] x2,
+    scales [B])."""
+    m = W.shape[0]
+    s8, ss = _quant_digits(torch.cat([W.T, -U.T], dim=1).to(torch.float32), 0)
+    return s8[:, :m].contiguous(), s8[:, m:].contiguous(), ss[:, 0]
+
+
+def _mask_cols(na: torch.Tensor, B: int) -> torch.Tensor:
+    """The NA mask as f32[4, Nb, B]: [4, Nb] (one mask for every column) or
+    [4, Nb, B] (one per column, the multi-trait form)."""
+    na = na.to(torch.float32)
+    if na.ndim == 2:
+        na = na[:, :, None].expand(*na.shape, B)
+    return na.contiguous()
+
+
+def _check_bands(name: str, nw: int) -> None:
+    if nw % GRAM_BAND_NW:
+        raise ValueError(f"{name}: Nw={nw} must be a multiple of the "
+                         f"{GRAM_BAND_NW}-row band")
+
+
+def _band_requant(z: torch.Tensor, nw: int):
+    """Per-band digits of z[4, Nb, B]: (int8[4, nbands, 4T, NDIG*B] with
+    digit-major columns d*B + b, scales [NDIG, nbands, B])."""
+    B = z.shape[2]
+    T = GRAM_BAND_NW
+    r = z.reshape(4, nw // T, 4 * T, B)
+    mx = r.abs().amax(dim=(0, 2))                         # [nbands, B]
+    r127 = torch.full_like(mx, 127.0)
+    s = torch.where(mx == 0, 1.0, mx) / r127
+    digits, scales = [], []
+    for _ in range(_NDIG):
+        scales.append(s)
+        d = torch.round(r / s[None, :, None, :])
+        digits.append(d.to(torch.int8))
+        r = r - d * s[None, :, None, :]
+        s = s / r127
+    return torch.cat(digits, dim=3), torch.stack(scales)
+
+
+def _band_transpose_ref(words, z8, scales, plane: int) -> torch.Tensor:
+    """sum over bands, in band order, of fold_j(A_j^T z8_j) on one decoded
+    plane -> f32[B, Mpad].  Each band's digit products are integers below
+    2 * 127 * 16T < 2**24, so an f32 batched product holds them exactly in
+    any summation order (with TF32 too: the inputs have at most 7 bits)."""
+    nw, m = words.shape
+    T = GRAM_BAND_NW
+    nb = nw // T
+    B = scales.shape[2]
+    zt = z8.to(torch.float32).permute(1, 3, 0, 2).reshape(nb, _NDIG * B,
+                                                         16 * T)
+    parts = torch.empty((nb, B, m), dtype=torch.float32, device=words.device)
+    for lo in range(0, m, _REF_BLOCK):
+        p = _decode_plane(words[:, lo:lo + _REF_BLOCK], torch.float32, plane)
+        w = p.shape[2]
+        p = p.reshape(4, nb, 4 * T, w).permute(1, 0, 2, 3).reshape(
+            nb, 16 * T, w)
+        t = torch.bmm(zt, p).reshape(nb, _NDIG, B, w)
+        acc = t[:, 0] * scales[0][:, :, None]
+        for d in range(1, _NDIG):
+            acc = acc + t[:, d] * scales[d][:, :, None]
+        parts[:, :, lo:lo + w] = acc
+    av = torch.zeros((B, m), dtype=torch.float32, device=words.device)
+    for j in range(nb):
+        av = av + parts[j]
+    return av
+
+
+def _gram_chunks(fn, bmax: int, W, na, *cols):
+    """``fn(W, na, *cols)`` over column chunks of at most ``bmax`` (a
+    per-column mask [4, Nb, B] is cut with them), outputs concatenated
+    along their column axis."""
+    outs = [fn(W[:, lo:lo + bmax],
+               na if na.ndim == 2 else na[:, :, lo:lo + bmax],
+               *[c[..., lo:lo + bmax] for c in cols])
+            for lo in range(0, W.shape[1], bmax)]
+    return tuple(torch.cat(o, dim=-1) for o in zip(*outs))
+
+
+def gram_i8a_ref(words, W, na_planar, colsum_u):
+    """Plain version of ``gram_i8a``: (av[Mpad, B], sv[B]) with
+    z = na (A_a W - colsum_u), av = A_a^T z and sv = colsum(z), z
+    requantised per band of GRAM_BAND_NW word rows."""
+    B = W.shape[1]
+    if B > _BMAX_AXM_A:
+        return _gram_chunks(lambda *a: gram_i8a_ref(words, *a), _BMAX_AXM_A,
+                            W, na_planar, colsum_u)
+    nw = words.shape[0]
+    _check_bands("gram_i8a_ref", nw)
+    w8t, ws = _quant_rows(W)
+    z = _fold_digits_zt(axm_i8a_int_ref(words, w8t), ws, B)
+    z = ((z - colsum_u.to(torch.float32)) * _mask_cols(na_planar, B)
+         ).contiguous()
+    z8, scales = _band_requant(z, nw)
+    av = _band_transpose_ref(words, z8, scales, 0)
+    return av.T, z.sum(dim=(0, 1))
+
+
+def gram_i8_ref(words, W, U, na_planar):
+    """Plain version of ``gram_i8``: (av, bv)[Mpad, B] with
+    z = na (A_a W - A_b U) (W and -U under one shared digit scale per
+    column), av = A_a^T z and bv = A_b^T z, z requantised per band."""
+    B = W.shape[1]
+    if B > _BMAX_AXM:
+        return _gram_chunks(lambda W_, na_, U_: gram_i8_ref(words, W_, U_,
+                                                            na_),
+                            _BMAX_AXM, W, na_planar, U)
+    nw = words.shape[0]
+    _check_bands("gram_i8_ref", nw)
+    w8t, mu8t, ws = _quant_digits_pair(W, U)
+    z32 = _axm_int(words, w8t, 0) + _axm_int(words, mu8t, 1)
+    z = (_fold_digits_zt(z32, ws, B) * _mask_cols(na_planar, B)).contiguous()
+    z8, scales = _band_requant(z, nw)
+    return (_band_transpose_ref(words, z8, scales, 0).T,
+            _band_transpose_ref(words, z8, scales, 1).T)
+
+
+def gram_blocks(device: torch.device) -> int:
+    """Persistent blocks of the fused primal Gram: one per SM of the card,
+    GRAM_BLOCKS_H100 for words on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return GRAM_BLOCKS_H100
+
+
+def gram_smem_bytes(mpad: int, nblocks: int) -> int:
+    """Shared memory of one fused-primal-Gram block (csrc/matvec.cu
+    prim_smem_bytes): the band tile GRAM_BAND_NW x (its marker quads x 4)
+    words, the band's digits, the warps' max."""
+    rq = -(-(mpad // 4) // nblocks)
+    return 4 * (GRAM_BAND_NW * 4 * rq + 4 * 4 * GRAM_BAND_NW + 16 + 4)
+
+
+def gram_fits(words: torch.Tensor) -> bool:
+    """Whether the fused primal Gram takes these words: whole bands, whole
+    marker quads, and each block's band tile within GRAM_AAT_SMEM_BUDGET
+    (Mpad up to 237,072 on 132 SMs)."""
+    nw, m = words.shape
+    return (nw % GRAM_BAND_NW == 0 and m % 4 == 0
+            and gram_smem_bytes(m, gram_blocks(words.device))
+            <= GRAM_AAT_SMEM_BUDGET)
+
+
+# --------------------------------------------------------------------------
 # kernel wrappers
 # --------------------------------------------------------------------------
 
@@ -740,3 +921,94 @@ def gram_aat_i8(words: torch.Tensor, V: torch.Tensor, mave: torch.Tensor,
             words.data_ptr(), vdig.data_ptr(), vsc.data_ptr(), mv.data_ptr(),
             ms2.data_ptr(), zpart.data_ptr(), nw, m, B)
     return zpart.sum(dim=0)
+
+
+def _gram_launch_checks(name: str, words, W, na, *vecs):
+    """Checks of the fused primal Grams' CUDA path; returns the library."""
+    _check_cuda(name, words, W, torch.float32)
+    nw, m = words.shape
+    if W.ndim != 2 or W.shape[0] != m:
+        raise ValueError(f"{name}: W must be [{m}, B], got {list(W.shape)}")
+    if tuple(na.shape[:2]) != (4, 4 * nw) or na.ndim not in (2, 3) or (
+            na.ndim == 3 and na.shape[2] != W.shape[1]):
+        raise ValueError(f"{name}: the mask must be [4, {4 * nw}] or "
+                         f"[4, {4 * nw}, B], got {list(na.shape)}")
+    for x in (na, *vecs):
+        _check_cuda(name, words, x, torch.float32)
+    _check_bands(name, nw)
+    nblocks = gram_blocks(words.device)
+    if not gram_fits(words):
+        raise ValueError(f"{name}: {gram_smem_bytes(m, nblocks)} bytes of "
+                         f"band tile exceed GRAM_AAT_SMEM_BUDGET")
+    _check_bound(name, 2 * m)
+    _check_bound(name, 16 * GRAM_BAND_NW)
+    from gvamp_tpu_torch.ops import _build
+    lib = _build.library()
+    if lib.gvamp_gram_band_nw() != GRAM_BAND_NW or \
+            lib.gvamp_gram_smem(m, nblocks) != gram_smem_bytes(m, nblocks):
+        raise RuntimeError(f"{name}: csrc/matvec.cu and ops/matvec.py "
+                           f"disagree on the band or its shared memory")
+    return lib, nblocks
+
+
+def gram_i8a(words: torch.Tensor, W: torch.Tensor, na_planar: torch.Tensor,
+             colsum_u: torch.Tensor):
+    """Fused primal Gram on complete genotypes, one read of the words:
+    (av[Mpad, B], sv[B]) with z = na (A_a W - colsum_u), av = A_a^T z and
+    sv = colsum(z).  The caller applies the mave / msig / scale^2
+    corrections as for atxm_i8a(axm_i8a(.)).  ``na_planar`` is [4, Nb] or
+    [4, Nb, B].  The kernel writes z; sv is its torch.sum, as in the plain
+    version."""
+    B = W.shape[1]
+    if B > _BMAX_AXM_A:
+        return _gram_chunks(lambda *a: gram_i8a(words, *a), _BMAX_AXM_A, W,
+                            na_planar, colsum_u)
+    if words.device.type == "cpu":
+        return gram_i8a_ref(words, W, na_planar, colsum_u)
+    lib, nblocks = _gram_launch_checks("gram_i8a", words, W, na_planar,
+                                       colsum_u)
+    nw, m = words.shape
+    w8t, ws = _quant_rows(W)
+    wsc = _digit_scales(ws).contiguous()
+    na = _mask_cols(na_planar, B)
+    cu = colsum_u.to(torch.float32).contiguous()
+    dev = words.device
+    zacc = torch.zeros((3, _NDIG * B, 4, 4 * GRAM_BAND_NW), dtype=torch.int32,
+                       device=dev)
+    z = torch.empty((4, 4 * nw, B), dtype=torch.float32, device=dev)
+    av = torch.zeros((B, m), dtype=torch.float32, device=dev)
+    _launch("gram_i8a", lib.gvamp_gram_i8a, dev, words.data_ptr(),
+            w8t.data_ptr(), wsc.data_ptr(), cu.data_ptr(), na.data_ptr(),
+            zacc.data_ptr(), z.data_ptr(), av.data_ptr(), nw, m, B, nblocks)
+    return av.T, z.sum(dim=(0, 1))
+
+
+def gram_i8(words: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
+            na_planar: torch.Tensor):
+    """Fused primal Gram on genotypes with missing calls, one read of the
+    words: (av, bv)[Mpad, B] with z = na (A_a W - A_b U), av = A_a^T z and
+    bv = A_b^T z; W and -U share one digit scale per column.  The caller
+    forms (av - mave bv) msig scale^2."""
+    B = W.shape[1]
+    if B > _BMAX_AXM:
+        return _gram_chunks(lambda W_, na_, U_: gram_i8(words, W_, U_, na_),
+                            _BMAX_AXM, W, na_planar, U)
+    if words.device.type == "cpu":
+        return gram_i8_ref(words, W, U, na_planar)
+    if U.shape != W.shape:
+        raise ValueError(f"gram_i8: W and U must have one shape, got "
+                         f"{list(W.shape)} and {list(U.shape)}")
+    lib, nblocks = _gram_launch_checks("gram_i8", words, W, na_planar, U)
+    nw, m = words.shape
+    w8t, mu8t, ws = _quant_digits_pair(W, U)
+    wsc = _digit_scales(ws).contiguous()
+    na = _mask_cols(na_planar, B)
+    dev = words.device
+    zacc = torch.zeros((3, _NDIG * B, 4, 4 * GRAM_BAND_NW), dtype=torch.int32,
+                       device=dev)
+    av = torch.zeros((B, m), dtype=torch.float32, device=dev)
+    bv = torch.zeros_like(av)
+    _launch("gram_i8", lib.gvamp_gram_i8, dev, words.data_ptr(),
+            w8t.data_ptr(), mu8t.data_ptr(), wsc.data_ptr(), na.data_ptr(),
+            zacc.data_ptr(), av.data_ptr(), bv.data_ptr(), nw, m, B, nblocks)
+    return av.T, bv.T

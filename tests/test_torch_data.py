@@ -40,7 +40,7 @@ def _complete_dataset(rng, N, M):
 def _pair(codes, y, N, dt):
     j = JGenoBed.from_arrays(make_bed(codes), y, N=N, dtype=JAX_DTYPE[dt],
                              backend=JAX_BACKEND[dt])
-    t = TGenoBed.from_arrays(make_bed(codes), y, N=N, dtype=dt)
+    t = TGenoBed.from_arrays(make_bed(codes), y, N=N, dtype=dt, device="cpu")
     return j, t
 
 
@@ -58,13 +58,13 @@ def test_words_byte_identical(tmp_path):
     N, M = 203, 77
     codes, y = random_dataset(rng, N, M)
     j = JGenoBed.from_arrays(make_bed(codes), y, N=N)
-    t = TGenoBed.from_arrays(make_bed(codes), y, N=N)
+    t = TGenoBed.from_arrays(make_bed(codes), y, N=N, device="cpu")
     want = np.asarray(j.words)
     np.testing.assert_array_equal(t.words.numpy().view(np.uint32), want)
     bed, phen = str(tmp_path / "d.bed"), str(tmp_path / "d.phen")
     plink.write_bed(bed, codes)
     plink.write_phen(phen, y)
-    tf = TGenoBed.from_files(bed, phen, N=N, Mt=M)
+    tf = TGenoBed.from_files(bed, phen, N=N, Mt=M, device="cpu")
     np.testing.assert_array_equal(tf.words.numpy().view(np.uint32), want)
     assert (tf.Mpad, tf.nonas) == (j.Mpad, j.nonas)
     np.testing.assert_allclose(tf.scale, j.scale, rtol=1e-12)
@@ -173,13 +173,14 @@ def test_chromosomes_match_jax(tmp_path):
         f.writelines(lines)
     bed = make_bed(codes)
     j = JGenoBed.from_arrays(bed[4:16], y, N=N, Mt=M, S=4, bim_path=bim)
-    t = TGenoBed.from_arrays(bed[4:16], y, N=N, Mt=M, S=4, bim_path=bim)
+    t = TGenoBed.from_arrays(bed[4:16], y, N=N, Mt=M, S=4, bim_path=bim,
+                             device="cpu")
     np.testing.assert_array_equal(t.chromosomes(), j.chromosomes())
     assert list(t.chromosomes()) == list(chroms[4:16])
-    full = TGenoBed.from_arrays(bed, y, N=N, bim_path=bim)
+    full = TGenoBed.from_arrays(bed, y, N=N, bim_path=bim, device="cpu")
     assert full.chromosomes()[-1] == 23
     with pytest.raises(ValueError, match="no .bim"):
-        TGenoBed.from_arrays(bed, y, N=N).chromosomes()
+        TGenoBed.from_arrays(bed, y, N=N, device="cpu").chromosomes()
 
 
 def test_float64_on_cuda_raises():
@@ -187,6 +188,33 @@ def test_float64_on_cuda_raises():
     with pytest.raises(NotImplementedError, match="float64 on CUDA"):
         tdata._check_placement(torch.device("cuda"), torch.float64)
     tdata._check_placement(torch.device("cuda"), torch.float32)
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    """GenoBed.from_arrays, GenoBed.from_files and convert.geno_from_numpy
+    put the container on CUDA unless the caller names another device; a
+    call that names none on a machine without a card raises, it never runs
+    on the CPU quietly."""
+    import inspect
+    from gvamp_tpu_torch import convert
+    for fn in (TGenoBed.from_arrays, TGenoBed.from_files,
+               convert.geno_from_numpy):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    rng = np.random.default_rng(3)
+    codes, y = _complete_dataset(rng, 40, 12)
+    bed = str(tmp_path / "d.bed")
+    plink.write_bed(bed, codes)
+    calls = [lambda: TGenoBed.from_arrays(make_bed(codes), y, N=40),
+             lambda: TGenoBed.from_files(bed, None, N=40, Mt=12),
+             lambda: convert.geno_from_numpy(
+                 np.full((32, 512), 0x55555555, np.uint32), y, N=40,
+                 mave=np.zeros(512), msig=np.ones(512))]
+    for call in calls:
+        if torch.cuda.is_available():
+            assert call().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
 
 
 def test_set_phen_and_helpers_match_jax():
@@ -287,12 +315,12 @@ def test_fn_gram_aat_routing(monkeypatch):
     from gvamp_tpu_torch.ops import matvec
     rng = np.random.default_rng(5)
     codes, y = _complete_dataset(rng, 64, 40)
-    t = TGenoBed.from_arrays(make_bed(codes), y, N=64)
+    t = TGenoBed.from_arrays(make_bed(codes), y, N=64, device="cpu")
     assert t.fn_gram_aat() is not None
     monkeypatch.setenv("GVAMP_NO_FUSED_GRAM", "1")
     assert t.fn_gram_aat() is None
     monkeypatch.delenv("GVAMP_NO_FUSED_GRAM")
-    assert TGenoBed.from_arrays(make_bed(codes), y, N=64,
+    assert TGenoBed.from_arrays(make_bed(codes), y, N=64, device="cpu",
                                 dtype=torch.float64).fn_gram_aat() is None
     calls = []
     for name in ("gram_aat_i8a", "gram_aat_i8"):
@@ -301,7 +329,7 @@ def test_fn_gram_aat_routing(monkeypatch):
     U = torch.zeros((4, t.layout.n_bytes, 1))
     t.fn_gram_aat()(t.op, U)
     codes_m, y_m = random_dataset(rng, 64, 40, miss_geno=0.05)
-    tm = TGenoBed.from_arrays(make_bed(codes_m), y_m, N=64)
+    tm = TGenoBed.from_arrays(make_bed(codes_m), y_m, N=64, device="cpu")
     tm.fn_gram_aat()(tm.op, U)
     assert calls == ["gram_aat_i8a", "gram_aat_i8"]
     for nw, fits in ((800, True), (832, False)):

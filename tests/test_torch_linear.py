@@ -7,6 +7,7 @@ interpret mode and f64 through XLA; both sides get JAX's probe (jax.random
 cannot be reproduced in torch)."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -70,7 +71,8 @@ def _genos(problem, dt):
                              backend=JAX_BACKEND[dt])
     j.set_phen(y)
     t = TGenoBed.from_arrays(make_bed(codes), np.zeros(N), N=N,
-                             standardize_phen=False, dtype=dt)
+                             standardize_phen=False, dtype=dt,
+                             device="cpu")
     t.set_phen(y)
     return j, t
 
@@ -104,7 +106,8 @@ def _check_one_step(problem, dt):
     t = convert.geno_from_numpy(np.asarray(j.words), np.asarray(problem[1]),
                                 N=N, M=M, standardize_phen=False,
                                 mave=np.asarray(j.mave),
-                                msig=np.asarray(j.msig), dtype=dt)
+                                msig=np.asarray(j.msig), dtype=dt,
+                                device="cpu")
     cfg_t = tlinear.VampConfig(max_iter=4, **CFG)
     aux_t = convert.aux_from_numpy(t, cfg_t, np.asarray(aux_j.bern))
     st = convert.state_from_numpy(
@@ -173,6 +176,73 @@ def test_six_iteration_recipe_missing_genotypes(problem_miss, dt):
     assert not _check_six_iterations(problem_miss, dt).geno_complete
 
 
+# The routes that run the explicit noise pass: cfg.fold_noise=False, the
+# environment switch GVAMP_NOISE_PASS=1 and the fused primal Gram
+# (GVAMP_FUSED_GRAM=1), set on both sides; the 6-iteration recipe's limits.
+NOISE_PASS_ROUTES = [("fold_noise", {}, dict(fold_noise=False)),
+                     ("noise_pass_env", {"GVAMP_NOISE_PASS": "1"}, {}),
+                     ("fused_gram", {"GVAMP_FUSED_GRAM": "1"}, {})]
+
+
+@pytest.mark.parametrize("miss", [0.0, 0.02])
+@pytest.mark.parametrize("route,env,kw", NOISE_PASS_ROUTES,
+                         ids=[r[0] for r in NOISE_PASS_ROUTES])
+def test_noise_pass_and_fused_gram_match_jax(problem, problem_miss, miss,
+                                             route, env, kw, monkeypatch):
+    """Six f32 iterations with the explicit noise pass (A x2 and z1 from one
+    wide forward pass after the solve) on both sides, x1 within 5e-5 of
+    max|x1| and the scalars within 2e-4; under GVAMP_FUSED_GRAM=1 the CG
+    runs through fn_gram on both sides (the port's plain gram_i8a /
+    gram_i8, JAX's Pallas kernels in interpret mode)."""
+    prob = problem if miss == 0.0 else problem_miss
+    beta, vars_t, probs_t = prob[2:5]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    j, t = _genos(prob, torch.float32)
+    assert (t.fn_gram() is not None) == (route == "fused_gram")
+    assert (j.fn_gram() is not None) == (route == "fused_gram")
+    cfg_j = jlinear.VampConfig(max_iter=6, **CFG, **kw)
+    cfg_t = tlinear.VampConfig(max_iter=6, **CFG, **kw)
+    bern = np.asarray(jlinear.make_bern_probe(j, cfg_j.seed, cfg_j.n_probes))
+    x_j, _, h_j = jlinear.infer(j, cfg_j, probs_t, vars_t, verbose=False)
+    x_t, _, h_t = tlinear.infer(t, cfg_t, probs_t, vars_t, verbose=False,
+                                bern=bern)
+    assert len(h_t) == len(h_j) == 6
+    assert _rel(x_t, x_j) < 5e-5
+    for k in ("gam1", "gam2", "gamw", "alpha2", "R2_train_1", "R2_train_2"):
+        np.testing.assert_allclose(float(h_t[-1][k]), float(h_j[-1][k]),
+                                   rtol=2e-4, err_msg=k)
+    assert np.corrcoef(x_t, beta)[0, 1] > 0.9
+
+
+def test_fused_gram_launches_only_gram_in_the_cg(problem, monkeypatch):
+    """Under GVAMP_FUSED_GRAM=1 every CG product of the primal solve goes
+    through fn_gram (no two-pass product inside the CG), and the noise
+    pass is one forward product per iteration."""
+    from gvamp_tpu_torch.ops import matvec as tmv
+    vars_t, probs_t = problem[3:5]
+    monkeypatch.setenv("GVAMP_FUSED_GRAM", "1")
+    _, t = _genos(problem, torch.float32)
+    calls = {"gram_i8a": 0, "atxm_i8a": 0, "axm_i8a": 0}
+    for name in calls:
+        fn = getattr(tmv, name)
+
+        def counted(*a, _f=fn, _n=name):
+            calls[_n] += 1
+            return _f(*a)
+        monkeypatch.setattr(tmv, name, counted)
+    cfg = tlinear.VampConfig(max_iter=3, **CFG)
+    _, _, hist = tlinear.infer(t, cfg, probs_t, vars_t, verbose=False)
+    cg_total = sum(h["cg_iters"] for h in hist)
+    # the SLQ basis (slq_k passes), the CG iterations and the refresh-tick
+    # or cold-start init products are Gram calls; the two-pass transpose
+    # runs only for A^T y at set-up
+    assert calls["gram_i8a"] >= cfg.slq_k + cg_total
+    assert calls["atxm_i8a"] == 1
+    # A u at set-up, then one noise pass per iteration
+    assert calls["axm_i8a"] == 1 + len(hist)
+
+
 def test_cli_infere_dumps_match_library(problem, tmp_path):
     codes, y, _, vars_t, probs_t = problem
     bed, phen = str(tmp_path / "d.bed"), str(tmp_path / "d.phen")
@@ -186,7 +256,7 @@ def test_cli_infere_dumps_match_library(problem, tmp_path):
                "--vars", ",".join(map(str, vars_t)), "--verbosity", "0",
                "--out-dir", str(tmp_path / "out"), "--out-name", "run"])
     pre = str(tmp_path / "out" / "run")
-    g = TGenoBed.from_files(bed, phen, N=N, Mt=M)
+    g = TGenoBed.from_files(bed, phen, N=N, Mt=M, device="cpu")
     cfg = tlinear.VampConfig(max_iter=n_it, rho=0.3)
     x_lib, state, _ = tlinear.infer(g, cfg, probs_t, vars_t, verbose=False)
     dump = vecio.read_bin_shard(f"{pre}_it_{n_it}.bin", M, 0)
@@ -201,10 +271,11 @@ def test_cli_infere_dumps_match_library(problem, tmp_path):
     for name in ("_gam1s.csv", "_gam2s.csv", "_R2trains.csv"):
         assert os.path.exists(pre + name)
     # a model outside the slice raises naming its item (--use-XXT-denoiser
-    # runs since the dual path was ported: tests/test_torch_xxt.py)
+    # and --model bin_class run since their paths were ported:
+    # tests/test_torch_xxt.py, tests/test_torch_probit.py)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
         tcli.main(["--device", "cpu", "--bed-file", bed, "--phen-files", phen,
-                   "--N", str(N), "--Mt", str(M), "--model", "bin_class",
+                   "--N", str(N), "--Mt", str(M), "--model", "robust",
                    "--probs", "0.9,0.1", "--vars", "0.0,0.01"])
 
 
@@ -245,7 +316,7 @@ def test_cli_store_pvals_on_missing_genotypes(problem_miss, tmp_path):
     p_loco = vecio.read_bin_shard(pre + "_pvals_LOCO.bin", M, 0)
     assert np.all((p_loo > 0) & (p_loo <= 1) & (p_loco > 0) & (p_loco <= 1))
 
-    g = TGenoBed.from_files(bed, phen, N=N, Mt=M, bim_path=bim)
+    g = TGenoBed.from_files(bed, phen, N=N, Mt=M, bim_path=bim, device="cpu")
     assert not g.geno_complete
     _, state, _ = tlinear.infer(g, tlinear.VampConfig(max_iter=n_it, rho=0.3),
                                 probs_t, vars_t, verbose=False)
@@ -282,11 +353,12 @@ def test_red_raises_under_item_12(problem):
 def test_out_of_slice_options_raise(problem):
     vars_t, probs_t = problem[3:5]
     _, t = _genos(problem, torch.float64)
-    # use_xxt left this list when the dual path was ported; it still raises
-    # beside an option that is not (use_slq=False)
+    # use_xxt left this list when the dual path was ported (it still raises
+    # beside an option that is not, use_slq=False), fold_noise=False when
+    # the explicit noise pass was (test_noise_pass_and_fused_gram_match_jax)
     for kw in (dict(use_xxt=True, use_slq=False), dict(red=True),
                dict(deflate_k=4), dict(use_cross_val=True),
-               dict(use_slq=False), dict(fold_noise=False)):
+               dict(use_slq=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tlinear.infer(t, tlinear.VampConfig(**kw), probs_t, vars_t,
                           verbose=False)
@@ -297,41 +369,83 @@ def test_out_of_slice_options_raise(problem):
 
 
 def test_port_imports_and_runs_without_jax():
-    """In a fresh interpreter with JAX blocked, every module of the port
-    imports and a tiny CPU inference runs, primal and dual (through the
-    fused dual Gram's plain version)."""
+    """In a fresh interpreter with JAX and the JAX package both blocked,
+    every module of the port imports and tiny CPU inferences run with the
+    port's own io, sim and native loader: linear (two-pass, then through
+    the fused primal Gram's plain version under GVAMP_FUSED_GRAM=1, then
+    dual through the fused dual Gram's) and probit with covariates."""
     code = """
 import sys
 sys.modules["jax"] = None
-import os, tempfile
+sys.modules["gvamp_tpu"] = None
+import os, pkgutil, tempfile, importlib
 import numpy as np
 import gvamp_tpu_torch
-from gvamp_tpu_torch import cg, cli, convert, data, linear, prior, probit, sim, slq, sync
-from gvamp_tpu_torch.ops import _build, layout, matvec, pvals
-from gvamp_tpu import sim as npsim
-from gvamp_tpu.io import plink
+for m in pkgutil.walk_packages(gvamp_tpu_torch.__path__, "gvamp_tpu_torch."):
+    importlib.import_module(m.name)
+from gvamp_tpu_torch import data, linear, native, probit, sim
+from gvamp_tpu_torch.io import plink
+from gvamp_tpu_torch.ops import matvec
 rng = np.random.default_rng(0)
 N, M = 200, 96
 with tempfile.TemporaryDirectory() as tmp:
     bed = os.path.join(tmp, "d.bed")
-    plink.write_bed(bed, npsim.random_genotypes(rng, M, N))
-    g = data.GenoBed.from_files(bed, None, N=N, Mt=M, standardize_phen=False)
-vars_t, probs_t = npsim.two_group_prior(M, 10, 0.5)
-beta = npsim.simulate_mixture(rng, M, vars_t, probs_t)
+    plink.write_bed(bed, sim.random_genotypes(rng, M, N))
+    g = data.GenoBed.from_files(bed, None, N=N, Mt=M, standardize_phen=False,
+                                device="cpu")
+assert native.get_lib() is None or native.BUILD_DIR in native.get_lib()._name
+vars_t, probs_t = sim.two_group_prior(M, 10, 0.5)
+beta = sim.simulate_mixture(rng, M, vars_t, probs_t)
 g.set_phen(sim.simulate_linear_phenotype(g, beta, 2.0, rng))
 x, state, hist = linear.infer(g, linear.VampConfig(max_iter=3), probs_t,
                               vars_t, verbose=False)
 assert np.isfinite(x).all() and len(hist) == 3
-assert g.fn_gram_aat() is not None
+assert g.fn_gram() is None and g.fn_gram_aat() is not None
+os.environ["GVAMP_FUSED_GRAM"] = "1"
+matvec.reset_launches()
+x, state, hist = linear.infer(g, linear.VampConfig(max_iter=3), probs_t,
+                              vars_t, verbose=False)
+assert g.fn_gram() is not None and np.isfinite(x).all() and len(hist) == 3
+del os.environ["GVAMP_FUSED_GRAM"]
 x, state, hist = linear.infer(g, linear.VampConfig(max_iter=3, use_xxt=True),
                               probs_t, vars_t, verbose=False)
 assert np.isfinite(x).all() and len(hist) == 3 and state.gmu_n.abs().max() > 0
+g.covs = rng.normal(size=(N, 2))
+g.set_phen(sim.simulate_probit_phenotype(g, beta, 0.5, rng,
+                                         cov_effects=np.array([0.3, -0.2])))
+x, state, hist = probit.infer(g, probit.ProbitConfig(max_iter=3,
+                                                     probit_var=0.5),
+                              probs_t, vars_t, verbose=False)
+assert np.isfinite(x).all() and len(hist) == 3
+assert state.cov_eff.abs().max() > 0
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
+assert not any(m == "gvamp_tpu" or m.startswith("gvamp_tpu.")
+               for m in sys.modules if sys.modules[m] is not None)
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("GVAMP_FUSED_GRAM", None)
+    env.pop("GVAMP_NOISE_PASS", None)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+# an import of the JAX package or of JAX itself, at the start of a line
+# (the indentation of a function-level import included)
+_IMPORT_RE = re.compile(r"^\s*(from|import)\s+(gvamp_tpu|jax)(\.|\s|$)")
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    """No file of the port and no line of chip_smoke.py imports gvamp_tpu
+    or jax, at any depth (the subprocess test above sees only what its
+    run imports)."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "gvamp_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 15
+    bad = [f"{f}:{i}: {line.strip()}" for f in files
+           for i, line in enumerate(open(f), 1) if _IMPORT_RE.match(line)]
+    assert not bad, bad

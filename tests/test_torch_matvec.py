@@ -440,7 +440,8 @@ def test_cpu_wrappers_launch_nothing_and_non_cpu_raises():
     words = _t(_words(rng, 32, 512))
     tmv.reset_launches()
     assert set(tmv.LAUNCHES) == {"axm_i8a", "atxm_i8a", "axm_i8", "atxm_i8",
-                                 "atx", "ax", "gram_aat_i8a", "gram_aat_i8"}
+                                 "atx", "ax", "gram_aat_i8a", "gram_aat_i8",
+                                 "gram_i8a", "gram_i8"}
     tmv.axm_i8a(words, torch.ones((512, 2)))
     tmv.atxm_i8a(words, torch.ones((4, 128, 1)))
     tmv.axm_i8(words, torch.ones((512, 2)), torch.ones((512, 2)))
@@ -449,6 +450,10 @@ def test_cpu_wrappers_launch_nothing_and_non_cpu_raises():
     tmv.ax(words, torch.ones(512), torch.ones(512))
     for fn in (tmv.gram_aat_i8a, tmv.gram_aat_i8):
         fn(words, torch.ones((4, 128, 1)), torch.ones(512), torch.ones(512))
+    tmv.gram_i8a(words, torch.ones((512, 1)), torch.ones((4, 128)),
+                 torch.zeros(1))
+    tmv.gram_i8(words, torch.ones((512, 1)), torch.ones((512, 1)),
+                torch.ones((4, 128)))
     assert set(tmv.LAUNCHES.values()) == {0}
     meta = words.to("meta")
     with pytest.raises(ValueError, match="CUDA tensors only"):

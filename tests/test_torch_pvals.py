@@ -38,7 +38,7 @@ def _setup(dt, seed):
     codes, y = random_dataset(rng, N, M, miss_geno=0.05, miss_phen=0.08)
     j = JGenoBed.from_arrays(make_bed(codes), y, N=N, dtype=JAX_DTYPE[dt],
                              backend=JAX_BACKEND[dt])
-    t = TGenoBed.from_arrays(make_bed(codes), y, N=N, dtype=dt)
+    t = TGenoBed.from_arrays(make_bed(codes), y, N=N, dtype=dt, device="cpu")
     assert not t.geno_complete and not j.geno_complete
     x1 = rng.normal(size=t.Mpad) * t.m_mask.numpy() * 0.1
     z1 = np.array(j.ax(jnp.asarray(x1, JAX_DTYPE[dt])))

@@ -67,7 +67,8 @@ def _genos(problem, dt):
                              backend=JAX_BACKEND[dt])
     j.set_phen(y)
     t = TGenoBed.from_arrays(make_bed(codes), np.zeros(N), N=N,
-                             standardize_phen=False, dtype=dt)
+                             standardize_phen=False, dtype=dt,
+                             device="cpu")
     t.set_phen(y)
     return j, t
 
@@ -114,7 +115,7 @@ def test_dual_one_step_from_converted_state(problems, miss, dt):
                                 np.asarray(problems[miss][1]), N=N, M=M,
                                 standardize_phen=False, dtype=dt,
                                 mave=np.asarray(j.mave),
-                                msig=np.asarray(j.msig))
+                                msig=np.asarray(j.msig), device="cpu")
     cfg = tlinear.VampConfig(max_iter=ITERS, **CFG)
     aux_t = convert.aux_from_numpy(t, cfg, np.asarray(aux_j.bern),
                                    xxt_diag_base=np.asarray(
@@ -170,7 +171,8 @@ def test_dual_recipe_matches_jax(problems, miss, dt):
 def _port_geno(problem, dt=torch.float64):
     codes, y = problem[:2]
     t = TGenoBed.from_arrays(make_bed(codes), np.zeros(N), N=N,
-                             standardize_phen=False, dtype=dt)
+                             standardize_phen=False, dtype=dt,
+                             device="cpu")
     t.set_phen(y)
     return t
 
@@ -278,7 +280,7 @@ def test_cli_infere_xxt_matches_library(problems, tmp_path):
             "--out-name", "run"]
     tcli.main(args)
     pre = str(tmp_path / "out" / "run")
-    g = TGenoBed.from_files(bed, phen, N=N, Mt=M)
+    g = TGenoBed.from_files(bed, phen, N=N, Mt=M, device="cpu")
     _, state, _ = tlinear.infer(g, tlinear.VampConfig(
         max_iter=n_it, rho=0.3, use_xxt=True), probs_t, vars_t, verbose=False)
     dump = vecio.read_bin_shard(f"{pre}_it_{n_it}.bin", M, 0)
