@@ -12,11 +12,15 @@ Phases, each of which raises on failure (exit code != 0):
 2. build the CUDA kernels (gvamp_tpu_torch/csrc/matvec.cu) with nvcc; the
    ptxas report must show no spill stores;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
-   with CUDA-event times of both: (a) all ten at small shapes (the fused
-   primal Grams with both mask forms and B above their column chunks),
-   (b) the a-only kernels and atx on the whole config-B matrix at B = 1
-   and 2, (c) the general kernels on the whole config-Bm matrix at B = 1
-   and 2, and axm_i8 at B = 22;
+   with CUDA-event times of both: (a) all fourteen at small shapes (the
+   fused primal Grams with both mask forms and B above their column
+   chunks; the bf16-split products and atx_a also on Gaussian inputs
+   against float64 within kernel_check.TOL),
+   (b) the a-only kernels, atx, atx_a and the bf16-split products on the
+   whole config-B matrix at B = 1 and 2 (the bf16 ones and atx_a also on
+   Gaussian inputs against their plain versions within BF16_PLAIN_TOL),
+   (c) the general kernels, axm_i8s and the bf16-split products on the
+   whole config-Bm matrix at B = 1 and 2, and axm_i8 at B = 22;
    (d) the fused dual Grams on the whole config-X matrix (gram_aat_i8a)
    and config-Xm matrix (gram_aat_i8) at B = 1 and 2, timed beside their
    two-pass composition, and ax there (dyadic inputs bit for bit, the
@@ -49,7 +53,13 @@ Phases, each of which raises on failure (exit code != 0):
 6. the CLI (`--run-mode infere --model linear --store-pvals 1` with a
    .bim) on the flagship recipe of the README's port section, then with
    `--use-XXT-denoiser 1` (6x) and as `--model bin_class --cov-file --C 2`
-   on a binary phenotype (6p).
+   on a binary phenotype (6p);
+7. the port's tools on the card, each of whose ``main([])`` must return 0:
+   the kernel check against float64 (gvamp_tpu_torch.tools.kernel_check,
+   with the fused Grams' correctness), the fused-Gram study (bench_gram)
+   and the kernel profile (profile_kernels).  No engine path launches
+   axm_bf16, atxm_bf16, axm_i8s or atx_a; their launches in the kernels
+   line are those of this phase.
 
 The last two lines of standard output are one JSON object with the
 kernels' numbers (each with its bound on the card) and one with the
@@ -73,6 +83,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from gvamp_tpu_torch.tools import bench_gram, kernel_check  # noqa: E402
+from gvamp_tpu_torch.tools.common import (bound, cuda_ms,  # noqa: E402
+                                          random_words, synth_words)
+
 # config B of bench.py:39-42: N=327,680 (20,480 words of 16 samples),
 # M=131,072 markers -> 10.74 GB packed
 CFG_B_N, CFG_B_M = 327_680, 131_072
@@ -90,7 +104,11 @@ REPLACES = {"axm_i8a": "gvamp_tpu/ops/matvec.py:797",
             "gram_aat_i8a": "gvamp_tpu/ops/matvec.py:1400",
             "gram_aat_i8": "gvamp_tpu/ops/matvec.py:1467",
             "gram_i8a": "gvamp_tpu/ops/matvec.py:963",
-            "gram_i8": "gvamp_tpu/ops/matvec.py:1133"}
+            "gram_i8": "gvamp_tpu/ops/matvec.py:1133",
+            "axm_bf16": "gvamp_tpu/ops/matvec.py:342",
+            "atxm_bf16": "gvamp_tpu/ops/matvec.py:403",
+            "axm_i8s": "gvamp_tpu/ops/matvec.py:618",
+            "atx_a": "gvamp_tpu/ops/matvec.py:1540"}
 KERNELS = tuple(REPLACES)
 # each kernel's entry in the ptxas report (mangled names contain these)
 PTXAS_ENTRY = {"gram_aat_i8a": "gram_aat_kernelILb0E",
@@ -130,60 +148,6 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps=5) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` calls, after a warm-up."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): HBM
-# bytes/s, dense int8 tensor-core ops/s, float32 ops/s outside the tensor
-# cores
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1.979e15
-F32_OPS_PER_S = 67e12
-# digit contractions per kernel: (planes x sides); atx and ax are f32
-INT8_CONTRACTIONS = {"axm_i8a": 1, "atxm_i8a": 1, "axm_i8": 2, "atxm_i8": 2,
-                     "gram_aat_i8a": 2, "gram_aat_i8": 4, "gram_i8a": 2,
-                     "gram_i8": 4}
-
-
-def bound(name, nw, m, B):
-    """(ms, "bytes" or "operations"): the least time the card could take
-    for one call on Nw x Mpad words at width B, the larger of the bytes it
-    must move (the words, each input and each output once) over the HBM
-    rate and its operations over the peak rate of their type: 2 N M D int8
-    operations per digit contraction (D = 4 B digit rows), or 2 N M f32
-    operations per plane for atx / ax."""
-    n = 16 * nw
-    vec_n, vec_m = 4 * n, 4 * m  # f32 bytes of one column in N / in M
-    io = {"axm_i8a": (vec_m + vec_n) * B, "atxm_i8a": (vec_n + vec_m) * B,
-          "axm_i8": (2 * vec_m + vec_n) * B,
-          "atxm_i8": (vec_n + 2 * vec_m) * B,
-          "atx": vec_n + 2 * vec_m, "ax": 2 * vec_m + vec_n,
-          "gram_aat_i8a": 2 * vec_n * B + 2 * vec_m,
-          "gram_aat_i8": 2 * vec_n * B + 2 * vec_m,
-          "gram_i8a": 2 * vec_m * B + vec_n + 8 * B,
-          "gram_i8": 4 * vec_m * B + vec_n}[name]
-    t_bytes = (4 * nw * m + io) / HBM_BYTES_PER_S
-    if name in INT8_CONTRACTIONS:
-        t_ops = (2 * n * m * 4 * B * INT8_CONTRACTIONS[name]
-                 / INT8_OPS_PER_S)
-    else:
-        t_ops = 2 * 2 * n * m / F32_OPS_PER_S
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_environment():
@@ -251,11 +215,6 @@ def phase_build():
                 raise AssertionError(f"{n}: {spill} bytes of spill stores")
 
 
-def random_words(gen, nw, m, device="cuda"):
-    return torch.randint(-2**31, 2**31, (nw, m), dtype=torch.int32,
-                         generator=gen, device=device)
-
-
 def compare(name, label, got, want) -> float:
     """max |got - want| over the paired outputs; raises unless they are
     equal bit for bit."""
@@ -275,21 +234,26 @@ def check_kernels(words, B, gen, label, names=KERNELS, count=None, reps=5,
     this device and their integer products are exact, so they must be
     equal bit for bit.  The fused dual Grams fold and requantise each
     stripe inside the kernel with the plain version's roundings and sum
-    the stripes with the same torch.sum: equal bit for bit too.  atx and
-    ax: dyadic v, w and u (multiples of 1/8) keep every f32 partial sum
-    exact in any order, so they must be equal too.  With v = 1, atx's bv
-    counts each marker's non-missing calls: it must equal the plain
-    version's count and, where given, ``count``."""
+    the stripes with the same torch.sum: equal bit for bit too.  atx, atx_a,
+    ax and the bf16-split products: dyadic inputs (multiples of 1/8 in
+    [0, 1], exact in the bf16 hi part, so mid = lo = 0) keep every f32
+    partial sum exact in any order, so they must be equal too.  With
+    v = 1, atx's bv counts each marker's non-missing calls: it must equal
+    the plain version's count and, where given, ``count``."""
     from gvamp_tpu_torch.ops import matvec
     nw, m = words.shape
     dev = words.device
     W = torch.randn((m, B), generator=gen, device=dev)
     U = torch.randn((m, B), generator=gen, device=dev) * 3
     V = torch.randn((4, 4 * nw, B), generator=gen, device=dev)
-    v = torch.randint(0, 9, (4, 4 * nw), generator=gen,
-                      device=dev).float() / 8
-    w8, u8 = (torch.randint(0, 9, (m,), generator=gen, device=dev).float() / 8
-              for _ in range(2))
+
+    def dyadic(*shape):
+        return torch.randint(0, 9, shape, generator=gen,
+                             device=dev).float() / 8
+
+    v = dyadic(4, 4 * nw)
+    w8, u8 = dyadic(m), dyadic(m)
+    W8, U8, V8 = dyadic(m, B), dyadic(m, B), dyadic(4, 4 * nw, B)
     mave = torch.rand((m,), generator=gen, device=dev) * 2
     msig2 = torch.rand((m,), generator=gen, device=dev) * 1.5 + 0.5
     # the fused primal Grams take one mask for every column or one per
@@ -321,7 +285,15 @@ def check_kernels(words, B, gen, label, names=KERNELS, count=None, reps=5,
         "gram_i8a": (lambda: matvec.gram_i8a(words, W, na_a, cu),
                      lambda: matvec.gram_i8a_ref(words, W, na_a, cu)),
         "gram_i8": (lambda: matvec.gram_i8(words, W, U, na_g),
-                    lambda: matvec.gram_i8_ref(words, W, U, na_g))}
+                    lambda: matvec.gram_i8_ref(words, W, U, na_g)),
+        "axm_bf16": (lambda: matvec.axm_bf16(words, W8, U8),
+                     lambda: matvec.axm_bf16_ref(words, W8, U8)),
+        "atxm_bf16": (lambda: matvec.atxm_bf16(words, V8),
+                      lambda: matvec.atxm_bf16_ref(words, V8)),
+        "axm_i8s": (lambda: matvec.axm_i8s(words, W, U),
+                    lambda: matvec.axm_i8s_ref(words, W, U)),
+        "atx_a": (lambda: matvec.atx_a(words, v),
+                  lambda: matvec.atx_a_ref(words, v))}
     out = {}
     for name in names:
         fn, ref = cases[name]
@@ -346,44 +318,74 @@ def check_kernels(words, B, gen, label, names=KERNELS, count=None, reps=5,
     return out
 
 
+# the f32 kernels that the dyadic checks hold bit for bit, on Gaussian
+# inputs: within kernel_check.TOL of float64 at the small shapes (a bf16
+# part lost would err ~1e-3), and
+# within BF16_PLAIN_TOL of their plain versions on the whole config-B matrix
+# (f32 sums of the same exact terms in other orders; relative to the
+# largest entry).  BF16_PLAIN_TOL was set from the first H100 run: axm_bf16
+# 6.7e-7 (B=1) and 8.8e-7 (B=2), atxm_bf16 4.2e-7, atx_a 8.4e-8 (PERF.md),
+# with room for other summation orders on another card
+GAUSSIAN_KERNELS = ("atx_a", "axm_bf16", "atxm_bf16")
+BF16_PLAIN_TOL = 5e-6
+
+
+def check_gaussian(words, B, gen, label, against, tol,
+                   names=GAUSSIAN_KERNELS) -> dict:
+    """Each kernel of ``names`` on Gaussian inputs against ``against``:
+    "float64" (the dense plain products in float64) or "plain" (the f32
+    plain version); raises beyond ``tol`` of the largest entry.  Returns
+    {name: relative error}."""
+    from gvamp_tpu_torch.ops import matvec
+    nw, m = words.shape
+    dev = words.device
+    W = torch.randn((m, B), generator=gen, device=dev)
+    U = torch.randn((m, B), generator=gen, device=dev) * 0.1
+    V = torch.randn((4, 4 * nw, B), generator=gen, device=dev)
+    f64 = against == "float64"
+    cases = {
+        "atx_a": (lambda: (matvec.atx_a(words, V[..., 0]),),
+                  lambda: (matvec.atx_ref(words, V[..., 0], torch.float64)[0]
+                           if f64 else matvec.atx_a_ref(words, V[..., 0]),)),
+        "axm_bf16": (lambda: (matvec.axm_bf16(words, W, U),),
+                     lambda: (matvec.axm_ref(words, W, U, torch.float64)
+                              if f64 else matvec.axm_bf16_ref(words, W, U),)),
+        "atxm_bf16": (lambda: matvec.atxm_bf16(words, V),
+                      lambda: (matvec.atxm_ref(words, V, torch.float64)
+                               if f64 else matvec.atxm_bf16_ref(words, V)))}
+    out = {}
+    for name in names:
+        fn, ref = cases[name]
+        got, want = fn(), ref()
+        err = max(float((g.double() - w.double()).abs().max()
+                        / w.double().abs().max()) for g, w in zip(got, want))
+        del got, want
+        log(f"  {label:>22s} B={B:<3d} {name:12s} Gaussian: max|kernel - "
+            f"{against}| / max = {err:.3e} (limit {tol:g})")
+        if not err <= tol:
+            raise AssertionError(f"{name} {label} B={B}: {err:.3e} from the "
+                                 f"{against} version on Gaussian inputs")
+        out[name] = err
+    return out
+
+
 def phase_kernels_small(gen):
     log("== phase 3a: kernels vs plain versions, small shapes")
     for nw, m, B in SHAPES:
-        check_kernels(random_words(gen, nw, m), B, gen, f"Nw={nw} Mpad={m}")
-
-
-def synth_words(gen, miss: bool, n=CFG_B_N, m=CFG_B_M):
-    """Words of N=n x M=m (a multiple of 4,096) on the card with the recipe
-    of bench.py:45-86, in column chunks (a single randint of 10.74 GB would
-    need 8x that in int64 temporaries).  Every "01" (missing) code is
-    remapped to "11", except that with ``miss`` the AND of four more random
-    bit-streams keeps one in sixteen of them: about 1.56% of the calls stay
-    missing (configs Bm and Xm)."""
-    from gvamp_tpu_torch.ops.layout import PlanarLayout
-    nw = PlanarLayout.create(n).n_words
-    words = torch.empty((nw, m), dtype=torch.int32, device="cuda")
-    chunk = 4096
-    for c in range(0, m, chunk):
-        raw = random_words(gen, nw, chunk)
-        lo = raw & 0x55555555
-        hi = (raw >> 1) & 0x55555555
-        is01 = lo & ~hi
-        if miss:
-            keep = torch.full_like(raw, 0x55555555)
-            for _ in range(4):
-                keep &= random_words(gen, nw, chunk)
-            is01 &= ~keep
-        words[:, c:c + chunk] = raw | (is01 << 1)
-    torch.cuda.synchronize()
-    return words
+        words = random_words(gen, nw, m)
+        label = f"Nw={nw} Mpad={m}"
+        check_kernels(words, B, gen, label)
+        check_gaussian(words, B, gen, label, "float64", kernel_check.TOL)
 
 
 def phase_kernels_config_b(words, gen):
     """The kernels on a 2,048-marker slice (launch-bound) and on the whole
     config-B matrix at the main path's widths B = 1 and 2, where every row
-    band spans many shared-memory tiles.  The plain versions decode
-    _REF_BLOCK markers at a time, so they run beside the 10.74 GB of words.
-    Returns {B: check_kernels result} of the whole matrix."""
+    band spans many shared-memory tiles: the a-only kernels, atx, atx_a and
+    the bf16-split products, the last three also on Gaussian inputs.  The
+    plain versions decode _REF_BLOCK markers at a time, so they run beside
+    the 10.74 GB of words.  Returns {B: check_kernels result} of the whole
+    matrix."""
     log("== phase 3b: kernels vs plain versions, config-B words")
     sl = words[:, :SLICE_M].contiguous()
     # the fused dual Grams refuse N=327,680: its stripe cache exceeds
@@ -395,24 +397,29 @@ def phase_kernels_config_b(words, gen):
     nw, m = words.shape
     # complete genotypes: every marker has 16 * Nw non-missing calls
     a_only = ("axm_i8a", "atxm_i8a")
-    full = {B: check_kernels(words, B, gen, f"config B full {nw}x{m}",
-                             names=a_only + ("atx",) * (B == 1),
-                             count=16 * nw, reps=3)
+    bf16 = ("axm_bf16", "atxm_bf16")
+    label = f"config B full {nw}x{m}"
+    full = {B: check_kernels(words, B, gen, label,
+                             names=a_only + bf16 + ("atx", "atx_a") * (B == 1),
+                             count=16 * nw, reps=3, plain_reps=1)
             for B in (1, 2)}
+    for B in (1, 2):
+        check_gaussian(words, B, gen, label, "plain", BF16_PLAIN_TOL,
+                       names=bf16 + ("atx_a",) * (B == 1))
     torch.cuda.empty_cache()
     return full
 
 
 def phase_kernels_config_bm(words, gen):
-    """The general kernels on the whole config-Bm matrix at B = 1 and 2
-    (the linear path's widths) and axm_i8 at B = 22 (LOCO's forward
-    product over 22 chromosomes, the widest call of the path).  Returns
-    {B: check_kernels result}."""
+    """The general kernels, axm_i8s and the bf16-split products on the
+    whole config-Bm matrix at B = 1 and 2 (the linear path's widths) and
+    axm_i8 at B = 22 (LOCO's forward product over 22 chromosomes, the
+    widest call of the path).  Returns {B: check_kernels result}."""
     log("== phase 3c: general kernels vs plain versions, config-Bm words")
     nw, m = words.shape
-    general = ("axm_i8", "atxm_i8")
+    general = ("axm_i8", "atxm_i8", "axm_i8s", "axm_bf16", "atxm_bf16")
     full = {B: check_kernels(words, B, gen, f"config Bm full {nw}x{m}",
-                             names=general, reps=3)
+                             names=general, reps=3, plain_reps=1)
             for B in (1, 2)}
     full[BM_CHROMS] = check_kernels(words, BM_CHROMS, gen,
                                     f"config Bm full {nw}x{m}",
@@ -749,17 +756,6 @@ def phase_config_bm(words):
 B_TWO_PASS_TOL = 1e-4
 
 
-def two_pass_primal(words, W, U, na, cu, complete):
-    """The primal Gram as the two-pass composition atxm(na (axm(.))) that
-    fn_gram replaces (GVAMP_FUSED_GRAM unset)."""
-    from gvamp_tpu_torch.ops import matvec
-    mask = matvec._mask_cols(na, W.shape[1])
-    if complete:
-        z = (matvec.axm_i8a(words, W) - cu) * mask
-        return matvec.atxm_i8a(words, z), z.sum(dim=(0, 1))
-    return matvec.atxm_i8(words, matvec.axm_i8(words, W, U) * mask)
-
-
 def phase_kernels_gram(words, gen, complete):
     """The fused primal Gram on the whole matrix at B = 1 and 2: gram_i8a on
     config B, gram_i8 on config Bm, each bit-equal to its plain version and
@@ -791,7 +787,8 @@ def phase_kernels_gram(words, gen, complete):
                 return matvec.gram_i8(words, W, U, na)
 
         def comp():
-            return two_pass_primal(words, W, U, na, cu, complete)
+            return (bench_gram.comp_a(words, W, na, cu) if complete
+                    else bench_gram.comp_m(words, W, U, na))
 
         got, want = fn(), comp()
         diff = max(float((g - w).abs().max() / w.abs().max())
@@ -823,19 +820,6 @@ X_TWO_PASS_TOL = 1e-4
 AX_REAL_TOL = 1e-6
 
 
-def two_pass(words, V, mave, msig2, complete):
-    """The dual Gram as the two-pass composition axm_i8[a](atxm_i8[a](.))
-    that fn_gram_aat replaces (GVAMP_NO_FUSED_GRAM=1)."""
-    from gvamp_tpu_torch.ops import matvec
-    if complete:
-        sv = V.sum(dim=(0, 1))
-        W = msig2[:, None] * (matvec.atxm_i8a(words, V) - mave[:, None] * sv)
-        return matvec.axm_i8a(words, W) - (mave[:, None] * W).sum(dim=0)
-    av, bv = matvec.atxm_i8(words, V)
-    W = msig2[:, None] * (av - mave[:, None] * bv)
-    return matvec.axm_i8(words, W, mave[:, None] * W)
-
-
 def phase_kernels_config_x(words, words_m, gen):
     """The fused dual Grams on the whole config-X matrix (gram_aat_i8a,
     complete) and config-Xm matrix (gram_aat_i8, 1.56% missing) at B = 1 and
@@ -863,7 +847,8 @@ def phase_kernels_config_x(words, words_m, gen):
                 return fused(w, V, mave, msig2)
 
             def comp():
-                return two_pass(w, V, mave, msig2, complete)
+                return (bench_gram.comp_aat_a if complete
+                        else bench_gram.comp_aat)(w, V, mave, msig2)
 
             zf, zt = fn(), comp()
             diff = float((zf - zt).abs().max() / zt.abs().max())
@@ -1400,6 +1385,35 @@ def phase_cli_probit():
         raise AssertionError("the probit CLI flow missed its expectations")
 
 
+# the kernels that only the tools launch (phase 7), and the tools
+TOOL_KERNELS = ("axm_bf16", "atxm_bf16", "axm_i8s", "atx_a")
+TOOLS = ("kernel_check", "bench_gram", "profile_kernels")
+
+
+def phase_tools():
+    """The port's tools on the card, each through ``main([])`` at its
+    defaults; each must return 0 (kernel_check: every product kernel within
+    5e-7 of float64, then the fused Grams' correctness; bench_gram: the
+    correctness again, then the timing).  Returns the launch counts of the
+    three runs."""
+    log("== phase 7: the port's tools on the card")
+    import importlib
+    from gvamp_tpu_torch.ops import matvec
+    matvec.reset_launches()
+    for name in TOOLS:
+        log(f"  -- python3 -m gvamp_tpu_torch.tools.{name}")
+        t0 = time.perf_counter()
+        rc = importlib.import_module(f"gvamp_tpu_torch.tools.{name}").main([])
+        torch.cuda.synchronize()
+        log(f"  {name}: exit code {rc} in {time.perf_counter() - t0:.2f} s")
+        if rc != 0:
+            raise AssertionError(f"{name} returned {rc}")
+        torch.cuda.empty_cache()
+    launches = dict(matvec.LAUNCHES)
+    check_launches("tools", launches, TOOL_KERNELS)
+    return launches
+
+
 def kernel_rows(numbers):
     """The kernels line: one row per kernel from ``numbers`` = {name: (err,
     ms, plain_ms, launches, (nw, m, B))}, with its bound on that shape."""
@@ -1436,7 +1450,7 @@ def main(argv=None):
         return
     # config B: the a-only kernels, the fused a-only Gram, linear two-pass
     # and fused, probit two-pass and fused
-    words = synth_words(gen, miss=False)
+    words = synth_words(gen, False, CFG_B_N, CFG_B_M)
     nw, m = words.shape
     full = phase_kernels_config_b(words, gen)
     full_g = phase_kernels_gram(words, gen, True)
@@ -1446,15 +1460,15 @@ def main(argv=None):
     del words, geno
     torch.cuda.empty_cache()
     # config Bm: the general kernels, the fused general Gram, p-values
-    words = synth_words(gen, miss=True)
+    words = synth_words(gen, True, CFG_B_N, CFG_B_M)
     full_m = phase_kernels_config_bm(words, gen)
     full_gm = phase_kernels_gram(words, gen, False)
     launches_m, geno, problem = phase_config_bm(words)
     launches_mf = phase_fused_linear("config Bm", geno, problem, False)
     del words, geno
     torch.cuda.empty_cache()
-    words = synth_words(gen, miss=False, n=CFG_X_N, m=CFG_X_M)
-    words_m = synth_words(gen, miss=True, n=CFG_X_N, m=CFG_X_M)
+    words = synth_words(gen, False, CFG_X_N, CFG_X_M)
+    words_m = synth_words(gen, True, CFG_X_N, CFG_X_M)
     nwx, mx = words.shape
     full_x = phase_kernels_config_x(words, words_m, gen)
     launches_x, launches_xm = phase_dual_x(words, words_m)
@@ -1471,13 +1485,17 @@ def main(argv=None):
     phase_cli()
     phase_cli_xxt()
     phase_cli_probit()
+    launches_t = phase_tools()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # times at B = 1 on the whole matrix of the path that runs the kernel:
-    # config B (a-only, atx, gram_i8a), Bm (general, gram_i8), X (ax,
-    # gram_aat_i8a), Xm (gram_aat_i8); the error is the largest over every
-    # width checked there (each check raises unless it is 0); launches are
-    # those of that path's run: the linear runs of phases 4 / 4m (4f for
-    # the fused primal Grams) and the dual runs of phase 4x
+    # config B (a-only, atx, atx_a, the bf16-split products, gram_i8a), Bm
+    # (general, axm_i8s, gram_i8), X (ax, gram_aat_i8a), Xm (gram_aat_i8);
+    # the error is the largest over every width checked there (each check
+    # raises unless it is 0); launches are those of that path's run: the
+    # linear runs of phases 4 / 4m (4f for the fused primal Grams), the dual
+    # runs of phase 4x and, for the kernels only the tools launch, phase 7
+    launches.update({n: launches_t[n] for n in TOOL_KERNELS})
+    launches_m["axm_i8s"] = launches_t["axm_i8s"]
     numbers = {}
     for n in KERNELS:
         if n in ("ax", "gram_aat_i8a", "gram_aat_i8"):
@@ -1489,13 +1507,14 @@ def main(argv=None):
                            else (full_gm, launches_mf))
             numbers[n] = (*res[n], counts[n], (nw, m, 1))
             continue
-        runs, counts = ((full_m, launches_m) if n in ("axm_i8", "atxm_i8")
+        runs, counts = ((full_m, launches_m)
+                        if n in ("axm_i8", "atxm_i8", "axm_i8s")
                         else (full, launches))
         err = max(r[n][0] for r in runs.values() if n in r)
         numbers[n] = (err, runs[1][n][1], runs[1][n][2], counts[n],
                       (nw, m, 1))
     log("kernels against their bounds (NVIDIA H100 SXM peaks: 3.35 TB/s "
-        "HBM, 1,979 TOP/s int8, 67 TFLOP/s f32):")
+        "HBM, 1,979 TOP/s int8, 989 TFLOP/s bf16, 67 TFLOP/s f32):")
     kernels = kernel_rows(numbers)
     log(f"probit at config B: launches two-pass {launches_p}, fused "
         f"{launches_pf}")

@@ -121,5 +121,17 @@ def library() -> ctypes.CDLL:
             lib.gvamp_gram_i8a.restype = ctypes.c_int
             lib.gvamp_gram_i8.argtypes = [vp] * 8 + [i64] * 4 + [vp]
             lib.gvamp_gram_i8.restype = ctypes.c_int
+            lib.gvamp_atx_a.argtypes = [vp, vp, vp, i64, i64, vp]
+            lib.gvamp_atx_a.restype = ctypes.c_int
+            lib.gvamp_axm_i8s.argtypes = [vp] * 4 + [i64] * 3 + [vp]
+            lib.gvamp_axm_i8s.restype = ctypes.c_int
+            for name in ("gvamp_axm_bf16_parts", "gvamp_atxm_bf16_parts"):
+                fn = getattr(lib, name)
+                fn.argtypes = [i64] * 3
+                fn.restype = i64
+            lib.gvamp_axm_bf16.argtypes = [vp] * 4 + [i64] * 3 + [vp]
+            lib.gvamp_axm_bf16.restype = ctypes.c_int
+            lib.gvamp_atxm_bf16.argtypes = [vp] * 3 + [i64] * 3 + [vp]
+            lib.gvamp_atxm_bf16.restype = ctypes.c_int
             _lib = lib
         return _lib

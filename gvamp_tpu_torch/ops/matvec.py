@@ -8,7 +8,7 @@ JAX ``uint32`` words: PyTorch's ``uint32`` supports few operations.  Right
 shifts on int32 are arithmetic, so every shift below is followed by a mask
 that clears the sign fill.
 
-Eight kernels carry every packed-matrix read of the linear path:
+Ten kernels carry every packed-matrix read of the engines:
 
 * ``axm_i8a``  z[4, Nb, B] = A_a @ W   (replaces ``axm_i8a_pallas``)
 * ``atxm_i8a`` av[Mpad, B] = A_a^T V   (replaces ``atxm_i8a_pallas``)
@@ -25,6 +25,17 @@ Eight kernels carry every packed-matrix read of the linear path:
 * ``gram_i8a`` / ``gram_i8``  the fused primal Gram A^T (na (A W)) of the
   block CG in one read of the words, opt-in (``GVAMP_FUSED_GRAM=1``;
   replace ``gram_i8a_pallas`` / ``gram_i8_pallas``)
+
+Four more serve the tools of ``gvamp_tpu_torch/tools/`` (the kernel check,
+the Gram study and the kernel profile), as their JAX counterparts serve
+``tools/``:
+
+* ``axm_bf16`` / ``atxm_bf16``  the products of ``axm_i8`` / ``atxm_i8``
+  with the right-hand side split into three bf16 parts (``_split_hi_lo``;
+  replace ``axm_pallas`` / ``atxm_pallas``)
+* ``axm_i8s``  A_a @ W - A_b @ U with W and -U under one digit scale and
+  one int32 sum (replaces ``axm_i8s_pallas``)
+* ``atx_a``    A_a^T v in f32 (replaces ``atx_a_pallas``)
 
 The a-only kernels serve complete (imputed) genotypes, where the
 non-missing indicator b is 1 on every real sample and its contractions
@@ -60,6 +71,9 @@ _NDIG = 4
 # structure (the fused primal Grams chunk at them as JAX's do)
 _BMAX_AXM = 32
 _BMAX_AXM_A = 64
+# column chunk of the bf16-split products (gvamp_tpu/ops/matvec.py:466); the
+# wrappers keep it, the CUDA kernels take one column per grid step
+_BMAX_BF16 = 64
 
 # markers per stripe of the fused dual Gram: the kernel's work unit and its
 # quantisation boundary (W is requantised per stripe and column), shared by
@@ -83,7 +97,8 @@ GRAM_BLOCKS_H100 = 132
 
 LAUNCHES = {"axm_i8a": 0, "atxm_i8a": 0, "axm_i8": 0, "atxm_i8": 0,
             "atx": 0, "ax": 0, "gram_aat_i8a": 0, "gram_aat_i8": 0,
-            "gram_i8a": 0, "gram_i8": 0}
+            "gram_i8a": 0, "gram_i8": 0, "axm_bf16": 0, "atxm_bf16": 0,
+            "axm_i8s": 0, "atx_a": 0}
 
 
 def reset_launches() -> None:
@@ -169,18 +184,33 @@ def ax_ref(words, w, u, dtype=torch.float32):
     return z
 
 
+# The single-vector transposes sum all 16*Nw samples of a marker: one long
+# f32 sum errs about 1e-6 of the largest entry at 1,024 samples, beyond the
+# 5e-7 to which tools/kernel_check.py holds every product.  Their plain
+# versions sum in float64 and round once (the kernels sum each word row in
+# f32 and the rows in double); on dyadic inputs both are exact.
+
+
 def atx_ref(words, v_planar, dtype=torch.float32):
-    """(av[M], bv[M]): the plain version of the ``atx`` kernel at f32,
-    decoded ``_REF_BLOCK`` markers at a time."""
-    v = v_planar.to(dtype)
+    """(av[M], bv[M]): the plain version of the ``atx`` kernel, decoded
+    ``_REF_BLOCK`` markers at a time, summed in float64, rounded to
+    ``dtype``."""
+    f64 = torch.float64
+    v = v_planar.to(f64)
     m = words.shape[1]
     av = torch.empty(m, dtype=dtype, device=words.device)
     bv = torch.empty(m, dtype=dtype, device=words.device)
     for lo in range(0, m, _REF_BLOCK):
-        a, b = decode_planar_dense(words[:, lo:lo + _REF_BLOCK], dtype)
-        av[lo:lo + _REF_BLOCK] = torch.einsum("knm,kn->m", a, v)
-        bv[lo:lo + _REF_BLOCK] = torch.einsum("knm,kn->m", b, v)
+        a, b = decode_planar_dense(words[:, lo:lo + _REF_BLOCK], f64)
+        av[lo:lo + _REF_BLOCK] = torch.einsum("knm,kn->m", a, v).to(dtype)
+        bv[lo:lo + _REF_BLOCK] = torch.einsum("knm,kn->m", b, v).to(dtype)
     return av, bv
+
+
+def atx_a_ref(words, v_planar):
+    """av[M] = A_a^T v: the plain version of the ``atx_a`` kernel, the
+    a-side of ``atx_ref``."""
+    return atx_ref(words, v_planar)[0]
 
 
 def axm_ref(words, W, U, dtype=torch.float32):
@@ -193,6 +223,68 @@ def atxm_ref(words, V, dtype=torch.float32):
     a, b = decode_planar_dense(words, dtype)
     v = V.to(dtype)
     return torch.einsum("knm,knj->mj", a, v), torch.einsum("knm,knj->mj", b, v)
+
+
+# --------------------------------------------------------------------------
+# the bf16 split (gvamp_tpu/ops/matvec.py:115-132, 319-435)
+# --------------------------------------------------------------------------
+
+
+def _split_hi_lo(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """f32 -> three bf16 parts hi, mid, lo concatenated along ``dim``, as
+    ``gvamp_tpu/ops/matvec.py:115-132`` computes them: x ~= hi + mid + lo,
+    each part the round-to-nearest-even bf16 of what the parts before it
+    leave.  Eager PyTorch rounds every conversion, so mid and lo keep the
+    residuals that XLA once folded to zero on the TPU (the reason for
+    ``tools/tpu_check.py``)."""
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16)
+    r1 = x - hi.to(torch.float32)
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.to(torch.float32)).to(torch.bfloat16)
+    return torch.cat([hi, mid, lo], dim=dim)
+
+
+def _sum_parts(d: torch.Tensor, B: int) -> torch.Tensor:
+    """The three part products [..., 3B] added as the TPU kernels add them:
+    (hi + mid) + lo -> [..., B]."""
+    return d[..., :B] + d[..., B:2 * B] + d[..., 2 * B:]
+
+
+def axm_bf16_ref(words, W, U):
+    """Plain version of ``axm_bf16``: A_a @ W - A_b @ U -> f32[4, Nb, B]
+    from the bf16 parts of W and U, decoded ``_REF_BLOCK`` markers at a
+    time; each block's part products (exact per term, f32 sums) meet as
+    (hi + mid) + lo, as in ``_axm_kernel`` (gvamp_tpu/ops/matvec.py:338)."""
+    nw, m = words.shape
+    B = W.shape[1]
+    w2 = _split_hi_lo(W, 1).to(torch.float32)
+    u2 = _split_hi_lo(U, 1).to(torch.float32)
+    z = torch.zeros((4, 4 * nw, B), dtype=torch.float32, device=words.device)
+    for lo in range(0, m, _REF_BLOCK):
+        a, b = decode_planar_dense(words[:, lo:lo + _REF_BLOCK], torch.float32)
+        d = (torch.einsum("knm,mj->knj", a, w2[lo:lo + _REF_BLOCK])
+             - torch.einsum("knm,mj->knj", b, u2[lo:lo + _REF_BLOCK]))
+        z += _sum_parts(d, B)
+    return z
+
+
+def atxm_bf16_ref(words, V):
+    """Plain version of ``atxm_bf16``: (A_a^T V, A_b^T V) -> f32[Mpad, B] x2
+    from the bf16 parts of V, decoded ``_REF_BLOCK`` markers at a time, the
+    part products meeting as (hi + mid) + lo."""
+    m = words.shape[1]
+    B = V.shape[2]
+    v2 = _split_hi_lo(V, 2).to(torch.float32)
+    av = torch.empty((m, B), dtype=torch.float32, device=words.device)
+    bv = torch.empty_like(av)
+    for lo in range(0, m, _REF_BLOCK):
+        a, b = decode_planar_dense(words[:, lo:lo + _REF_BLOCK], torch.float32)
+        av[lo:lo + _REF_BLOCK] = _sum_parts(
+            torch.einsum("knm,knj->mj", a, v2), B)
+        bv[lo:lo + _REF_BLOCK] = _sum_parts(
+            torch.einsum("knm,knj->mj", b, v2), B)
+    return av, bv
 
 
 # --------------------------------------------------------------------------
@@ -350,6 +442,21 @@ def atxm_i8_ref(words, V):
     av, bv = atxm_i8_int_ref(words, v8)
     B = V.shape[2]
     return _fold_digits_t(av, s0, B), _fold_digits_t(bv, s0, B)
+
+
+def axm_i8s_int_ref(words, w8t, mu8t):
+    """Exact shared-accumulator digit products int32[D, 4, Nb]: A_a against
+    the digits of W plus A_b against those of -U, summed in int32 (|sum| <=
+    381*M)."""
+    return _axm_int(words, w8t, 0) + _axm_int(words, mu8t, 1)
+
+
+def axm_i8s_ref(words, W, U):
+    """Plain version of ``axm_i8s``: A_a @ W - A_b @ U -> f32[4, Nb, B] with
+    W and -U quantised at one shared scale per column
+    (``_quant_digits_pair``) and folded once."""
+    w8t, mu8t, ws = _quant_digits_pair(W, U)
+    return _fold_digits_zt(axm_i8s_int_ref(words, w8t, mu8t), ws, W.shape[1])
 
 
 # --------------------------------------------------------------------------
@@ -618,7 +725,7 @@ def gram_i8_ref(words, W, U, na_planar):
     nw = words.shape[0]
     _check_bands("gram_i8_ref", nw)
     w8t, mu8t, ws = _quant_digits_pair(W, U)
-    z32 = _axm_int(words, w8t, 0) + _axm_int(words, mu8t, 1)
+    z32 = axm_i8s_int_ref(words, w8t, mu8t)
     z = (_fold_digits_zt(z32, ws, B) * _mask_cols(na_planar, B)).contiguous()
     z8, scales = _band_requant(z, nw)
     return (_band_transpose_ref(words, z8, scales, 0).T,
@@ -682,11 +789,13 @@ def _check_cuda(name: str, words: torch.Tensor, rhs: torch.Tensor,
                          f"of 4")
 
 
-def _check_bound(name: str, k: int) -> None:
-    """|sum| <= 254*K for a contraction of length K must fit int32."""
-    if 254 * k >= _I32_LIMIT:
+def _check_bound(name: str, k: int, per_term: int = 254) -> None:
+    """|sum| <= per_term*K for a contraction of length K must fit int32:
+    254 = 2*127 for one plane against digits, 381 = 2*127 + 127 for both
+    planes in one sum (axm_i8s)."""
+    if per_term * k >= _I32_LIMIT:
         raise ValueError(f"{name}: contraction length {k} overflows the int32 "
-                         f"accumulator (254*K must stay below 2**31)")
+                         f"accumulator ({per_term}*K must stay below 2**31)")
 
 
 def _launch(name: str, fn, device: torch.device, *args) -> None:
@@ -845,6 +954,113 @@ def ax(words: torch.Tensor, w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
             wc.data_ptr(), uc.data_ptr(), out.data_ptr(), nw, m)
     # the per-band partial rows meet here, in a fixed order: deterministic
     return out.sum(dim=0)
+
+
+def atx_a(words: torch.Tensor, v_planar: torch.Tensor) -> torch.Tensor:
+    """A_a^T v -> f32[Mpad] for one planar vector v[4, Nb]; on complete
+    genotypes the caller takes the b-side as sum(v)."""
+    if words.device.type == "cpu":
+        return atx_a_ref(words, v_planar)
+    _check_cuda("atx_a", words, v_planar, torch.float32)
+    nw, m = words.shape
+    if tuple(v_planar.shape) != (4, 4 * nw):
+        raise ValueError(f"atx_a: v must be [4, {4 * nw}], got "
+                         f"{list(v_planar.shape)}")
+    v = v_planar.contiguous()  # the kernel reads v itself
+    from gvamp_tpu_torch.ops import _build
+    lib = _build.library()
+    out = torch.empty((lib.gvamp_atx_parts(nw, m), m), dtype=torch.float32,
+                      device=words.device)
+    _launch("atx_a", lib.gvamp_atx_a, words.device, words.data_ptr(),
+            v.data_ptr(), out.data_ptr(), nw, m)
+    # the per-band partial rows meet here, in a fixed order: deterministic
+    return out.sum(dim=0)
+
+
+def axm_i8s(words: torch.Tensor, W: torch.Tensor,
+            U: torch.Tensor) -> torch.Tensor:
+    """A_a @ W - A_b @ U -> f32[4, Nb, B] on genotypes with missing calls,
+    with W and -U quantised at one shared scale per column and both planes'
+    digit products in one int32 sum, folded once.
+
+    One launch for any B, as ``axm_i8``: the quantisation is per column, so
+    the JAX wrapper's column chunking (``_BMAX_AXM``) would not change a
+    value."""
+    if words.device.type == "cpu":
+        return axm_i8s_ref(words, W, U)
+    _check_cuda("axm_i8s", words, W, torch.float32)
+    _check_cuda("axm_i8s", words, U, torch.float32)
+    nw, m = words.shape
+    if W.ndim != 2 or W.shape[0] != m or U.shape != W.shape:
+        raise ValueError(f"axm_i8s: W and U must be [{m}, B], got "
+                         f"{list(W.shape)} and {list(U.shape)}")
+    _check_bound("axm_i8s", m, 381)
+    w8t, mu8t, ws = _quant_digits_pair(W, U)
+    D = w8t.shape[0]
+    zt = torch.zeros((D, 4, 4 * nw), dtype=torch.int32, device=words.device)
+    from gvamp_tpu_torch.ops import _build
+    _launch("axm_i8s", _build.library().gvamp_axm_i8s, words.device,
+            words.data_ptr(), w8t.data_ptr(), mu8t.data_ptr(), zt.data_ptr(),
+            nw, m, D)
+    return _fold_digits_zt(zt, ws, W.shape[1])
+
+
+def axm_bf16(words: torch.Tensor, W: torch.Tensor,
+             U: torch.Tensor) -> torch.Tensor:
+    """A_a @ W - A_b @ U -> f32[4, Nb, B] from the three bf16 parts of W
+    and U; columns in chunks of ``_BMAX_BF16``, as ``axm_pallas``."""
+    B = W.shape[1]
+    if B > _BMAX_BF16:
+        return torch.cat([axm_bf16(words, W[:, lo:lo + _BMAX_BF16],
+                                   U[:, lo:lo + _BMAX_BF16])
+                          for lo in range(0, B, _BMAX_BF16)], dim=2)
+    if words.device.type == "cpu":
+        return axm_bf16_ref(words, W, U)
+    _check_cuda("axm_bf16", words, W, torch.float32)
+    _check_cuda("axm_bf16", words, U, torch.float32)
+    nw, m = words.shape
+    if W.ndim != 2 or W.shape[0] != m or U.shape != W.shape:
+        raise ValueError(f"axm_bf16: W and U must be [{m}, B], got "
+                         f"{list(W.shape)} and {list(U.shape)}")
+    # bf16 [3B, Mpad]: row p*B + c is part p of column c, a marker quad one
+    # 8-byte load
+    w2 = _split_hi_lo(W, 1).T.contiguous()
+    u2 = _split_hi_lo(U, 1).T.contiguous()
+    from gvamp_tpu_torch.ops import _build
+    lib = _build.library()
+    out = torch.empty((lib.gvamp_axm_bf16_parts(nw, m, B), B, 4, 4 * nw),
+                      dtype=torch.float32, device=words.device)
+    _launch("axm_bf16", lib.gvamp_axm_bf16, words.device, words.data_ptr(),
+            w2.data_ptr(), u2.data_ptr(), out.data_ptr(), nw, m, B)
+    # the per-band partial rows meet here, in a fixed order: deterministic
+    return out.sum(dim=0).permute(1, 2, 0).contiguous()
+
+
+def atxm_bf16(words: torch.Tensor, V: torch.Tensor):
+    """(A_a^T V, A_b^T V) -> f32[Mpad, B] x2 from the three bf16 parts of
+    V; columns in chunks of ``_BMAX_BF16``, as ``atxm_pallas``."""
+    B = V.shape[2]
+    if B > _BMAX_BF16:
+        outs = [atxm_bf16(words, V[:, :, lo:lo + _BMAX_BF16])
+                for lo in range(0, B, _BMAX_BF16)]
+        return tuple(torch.cat(o, dim=1) for o in zip(*outs))
+    if words.device.type == "cpu":
+        return atxm_bf16_ref(words, V)
+    _check_cuda("atxm_bf16", words, V, torch.float32)
+    nw, m = words.shape
+    if V.ndim != 3 or V.shape[:2] != (4, 4 * nw):
+        raise ValueError(f"atxm_bf16: V must be [4, {4 * nw}, B], got "
+                         f"{list(V.shape)}")
+    v2 = _split_hi_lo(V, 2).contiguous()  # bf16 [4, Nb, 3B]
+    from gvamp_tpu_torch.ops import _build
+    lib = _build.library()
+    out = torch.empty((2, lib.gvamp_atxm_bf16_parts(nw, m, B), B, m),
+                      dtype=torch.float32, device=words.device)
+    _launch("atxm_bf16", lib.gvamp_atxm_bf16, words.device, words.data_ptr(),
+            v2.data_ptr(), out.data_ptr(), nw, m, B)
+    # the per-band partial rows meet here, in a fixed order: deterministic
+    av, bv = out.sum(dim=1)
+    return av.T, bv.T
 
 
 def _gram_aat_launch(name: str, words, V, mave, msig2):
