@@ -9,13 +9,16 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. environment: torch / CUDA / nvcc / triton versions and the card's name
    and power limit; TF32 off for every float32 product;
-2. build the CUDA kernels (gvamp_tpu_torch/csrc/matvec.cu) with nvcc; the
-   ptxas report must show no spill stores;
+2. build the CUDA kernels (gvamp_tpu_torch/csrc/matvec.cu and study.cu)
+   with nvcc; the ptxas report must show no spill stores;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
-   with CUDA-event times of both: (a) all fourteen at small shapes (the
+   with CUDA-event times of both: (a) all eighteen at small shapes (the
    fused primal Grams with both mask forms and B above their column
    chunks; the bf16-split products and atx_a also on Gaussian inputs
-   against float64 within kernel_check.TOL),
+   against float64 within kernel_check.TOL; the study kernels of
+   ops/study.py also at Nw=300 and Mpad not a multiple of 512, at every
+   threads x bytes-per-load configuration of bench_stream's sweep, and
+   v1_decode_a on words of one code against its exact sums),
    (b) the a-only kernels, atx, atx_a and the bf16-split products on the
    whole config-B matrix at B = 1 and 2 (the bf16 ones and atx_a also on
    Gaussian inputs against their plain versions within BF16_PLAIN_TOL),
@@ -28,6 +31,9 @@ Phases, each of which raises on failure (exit code != 0):
    (e) the fused primal Grams on the whole config-B matrix (gram_i8a) and
    config-Bm matrix (gram_i8) at B = 1 and 2, timed beside their two-pass
    composition, with packed GB/s and the bound;
+   (s) the study kernels (stream, stream_sum, v0_stream, v1_decode_a) on
+   the whole config-B matrix, timed beside their plain versions and the
+   one PyTorch call that computes the same sum (torch.sum);
 4. the linear VAMP main path at config B of bench.py (N=327,680 x
    M=131,072, complete genotypes, 10.74 GB of packed words on the card):
    load, phenotype simulation and 10 iterations of linear.infer, with the
@@ -56,10 +62,12 @@ Phases, each of which raises on failure (exit code != 0):
    on a binary phenotype (6p);
 7. the port's tools on the card, each of whose ``main([])`` must return 0:
    the kernel check against float64 (gvamp_tpu_torch.tools.kernel_check,
-   with the fused Grams' correctness), the fused-Gram study (bench_gram)
-   and the kernel profile (profile_kernels).  No engine path launches
-   axm_bf16, atxm_bf16, axm_i8s or atx_a; their launches in the kernels
-   line are those of this phase.
+   with the fused Grams' correctness), the fused-Gram study (bench_gram),
+   the kernel profile (profile_kernels), the stream-ceiling sweep
+   (bench_stream, at its default 1.68 GB and again at config B's 10.74 GB)
+   and the variant ladder (bench_variants).  No engine path launches
+   axm_bf16, atxm_bf16, axm_i8s, atx_a or the four study kernels; their
+   launches in the kernels line are those of this phase.
 
 The last two lines of standard output are one JSON object with the
 kernels' numbers (each with its bound on the card) and one with the
@@ -84,8 +92,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from gvamp_tpu_torch.tools import bench_gram, kernel_check  # noqa: E402
-from gvamp_tpu_torch.tools.common import (bound, cuda_ms,  # noqa: E402
-                                          random_words, synth_words)
+from gvamp_tpu_torch.tools.common import (  # noqa: E402
+    STUDY_KERNELS, bound, cuda_ms, random_words, synth_words)
 
 # config B of bench.py:39-42: N=327,680 (20,480 words of 16 samples),
 # M=131,072 markers -> 10.74 GB packed
@@ -108,14 +116,25 @@ REPLACES = {"axm_i8a": "gvamp_tpu/ops/matvec.py:797",
             "axm_bf16": "gvamp_tpu/ops/matvec.py:342",
             "atxm_bf16": "gvamp_tpu/ops/matvec.py:403",
             "axm_i8s": "gvamp_tpu/ops/matvec.py:618",
-            "atx_a": "gvamp_tpu/ops/matvec.py:1540"}
+            "atx_a": "gvamp_tpu/ops/matvec.py:1540",
+            "stream": "tools/bench_stream.py:33",
+            "stream_sum": "tools/bench_stream.py:59",
+            "v0_stream": "tools/bench_variants.py:78",
+            "v1_decode_a": "tools/bench_variants.py:103"}
 KERNELS = tuple(REPLACES)
+# the product kernels (gvamp_tpu_torch/ops/matvec.py), beside the study
+# kernels (ops/study.py, STUDY_KERNELS) that the study tools run
+PRODUCT_KERNELS = tuple(n for n in KERNELS if n not in STUDY_KERNELS)
 # each kernel's entry in the ptxas report (mangled names contain these)
 PTXAS_ENTRY = {"gram_aat_i8a": "gram_aat_kernelILb0E",
                "gram_aat_i8": "gram_aat_kernelILb1E",
                "gram_i8a": "gram_prim_kernelILb0E",
-               "gram_i8": "gram_prim_kernelILb1E"}
+               "gram_i8": "gram_prim_kernelILb1E",
+               "stream_sum": "row_sum_kernelILi4ELb0E",
+               "v0_stream": "row_sum_kernelILi4ELb0E",
+               "v1_decode_a": "row_sum_kernelILi4ELb1E"}
 SOURCE = "gvamp_tpu_torch/csrc/matvec.cu"
+STUDY_SOURCE = "gvamp_tpu_torch/csrc/study.cu"
 SHAPES = [(32, 512, 1), (64, 1024, 2), (96, 1536, 5), (32, 2048, 17),
           (64, 512, 70)]
 SLICE_M = 2048
@@ -225,8 +244,8 @@ def compare(name, label, got, want) -> float:
     return err
 
 
-def check_kernels(words, B, gen, label, names=KERNELS, count=None, reps=5,
-                  plain_reps=3):
+def check_kernels(words, B, gen, label, names=PRODUCT_KERNELS, count=None,
+                  reps=5, plain_reps=3):
     """Each kernel of ``names`` against its plain version on ``words``;
     returns {name: (max_abs_err, ms, plain_ms)}.
 
@@ -376,6 +395,104 @@ def phase_kernels_small(gen):
         label = f"Nw={nw} Mpad={m}"
         check_kernels(words, B, gen, label)
         check_gaussian(words, B, gen, label, "float64", kernel_check.TOL)
+    for nw, m in [(nw, m) for nw, m, _ in SHAPES] + STUDY_SHAPES:
+        check_study_sweep(random_words(gen, nw, m), f"Nw={nw} Mpad={m}")
+    check_study_codes()
+
+
+# small shapes of the study kernels beyond SHAPES: rows past a multiple of
+# 256 and Mpad not a multiple of 512 (where the JAX grids drop them), and
+# the narrowest matrices
+STUDY_SHAPES = [(300, 1000), (300, 8), (7, 8), (1, 4096)]
+
+
+def check_study_sweep(words, label) -> None:
+    """The study kernels against their plain versions, bit for bit:
+    ``stream`` (at tm = gcd(Mpad, 512)) and ``stream_sum`` at every threads
+    x bytes-per-load configuration of bench_stream's sweep that the shape
+    takes, v0_stream and v1_decode_a at theirs."""
+    import math
+    from gvamp_tpu_torch.ops import study
+    nw, m = words.shape
+    tm = math.gcd(m, study.STREAM_TM)
+    want_rows = study.stream_sum_ref(words)
+    want_stream = study.stream_ref(words, tm)
+    runs = 0
+    for threads in study.THREADS:
+        for nb in study.LOAD_BYTES:
+            if m % (nb // 4):
+                continue
+            compare("stream_sum", f"{label} threads={threads} load={nb}B",
+                    (study.stream_sum(words, threads, nb),), (want_rows,))
+            runs += 1
+            if tm % (nb // 4) == 0:
+                compare("stream", f"{label} tm={tm} threads={threads} "
+                        f"load={nb}B", (study.stream(words, tm, threads, nb),),
+                        (want_stream,))
+                runs += 1
+    compare("v0_stream", label, (study.v0_stream(words),), (want_rows,))
+    compare("v1_decode_a", label, (study.v1_decode_a(words),),
+            (study.v1_decode_a_ref(words),))
+    torch.cuda.synchronize()
+    log(f"  {label:>22s} study kernels equal: {runs} stream / stream_sum "
+        f"configurations (tm={tm}), v0_stream, v1_decode_a")
+
+
+def check_study_codes() -> None:
+    """v1_decode_a on words of one code against the exact sums: code 00
+    decodes to a = 2 in every lane of every plane (M x 0x08080808 per row),
+    10 to a = 1 (M x 0x04040404), 01 and 11 to 0; wrapped to int32."""
+    from gvamp_tpu_torch.ops import study
+    nw, m = 300, 4096 + 512
+    for word, lane in ((0x00000000, 8), (0xAAAAAAAA, 4), (0x55555555, 0),
+                       (0xFFFFFFFF, 0)):
+        words = torch.full((nw, m), word - (1 << 32) * (word >= 1 << 31),
+                           dtype=torch.int32, device="cuda")
+        got = study.v1_decode_a(words)
+        exact = (m * lane * 0x01010101) % (1 << 32)
+        exact -= (1 << 32) * (exact >= 1 << 31)
+        if not bool((got == exact).all()):
+            raise AssertionError(f"v1_decode_a on words 0x{word:08X}: "
+                                 f"{got[0, :4].tolist()}, expected {exact}")
+    log(f"  v1_decode_a on words of one code: exact at Nw={nw} Mpad={m}")
+
+
+def phase_study_config_b(words) -> dict:
+    """The study kernels on the whole config-B matrix at their default
+    launch configuration, bit for bit against their plain versions, with
+    CUDA-event times of the kernel, the plain version and the PyTorch call
+    that computes the same sums (torch.sum; none for v1_decode_a).  Returns
+    {name: (max_abs_err, ms, plain_ms, library_ms)}."""
+    log("== phase 3s: study kernels vs plain versions, config-B words")
+    from gvamp_tpu_torch.ops import study
+    nw, m = words.shape
+    tm = study.STREAM_TM
+
+    def rows():
+        return words.sum(1, dtype=torch.int32)
+
+    cases = {
+        "stream": (lambda: study.stream(words), lambda: study.stream_ref(words),
+                   lambda: words.view(nw, m // tm, tm).sum(
+                       1, dtype=torch.int32)),
+        "stream_sum": (lambda: study.stream_sum(words),
+                       lambda: study.stream_sum_ref(words), rows),
+        "v0_stream": (lambda: study.v0_stream(words),
+                      lambda: study.v0_stream_ref(words), rows),
+        "v1_decode_a": (lambda: study.v1_decode_a(words),
+                        lambda: study.v1_decode_a_ref(words), None)}
+    out = {}
+    for name, (fn, ref, lib) in cases.items():
+        err = compare(name, f"config B full {nw}x{m}", (fn(),), (ref(),))
+        ms, plain = cuda_ms(fn, 5), cuda_ms(ref, 3)
+        lib_ms = cuda_ms(lib, 5) if lib else None
+        out[name] = (err, ms, plain, lib_ms)
+        log(f"  config B full {nw}x{m} {name:12s} equal  max|err|={err:.3e}  "
+            f"kernel {ms:8.3f} ms ({4 * nw * m / (ms * 1e6):7.1f} GB/s "
+            f"packed)  plain {plain:8.3f} ms  torch.sum "
+            + (f"{lib_ms:8.3f} ms" if lib else "none"))
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_kernels_config_b(words, gen):
@@ -390,7 +507,7 @@ def phase_kernels_config_b(words, gen):
     sl = words[:, :SLICE_M].contiguous()
     # the fused dual Grams refuse N=327,680: its stripe cache exceeds
     # GRAM_AAT_SMEM_BUDGET, and fn_gram_aat takes the two-pass form there
-    names = tuple(n for n in KERNELS if not n.startswith("gram_aat"))
+    names = tuple(n for n in PRODUCT_KERNELS if not n.startswith("gram_aat"))
     for B in (1, 2):
         check_kernels(sl, B, gen, f"config B, {SLICE_M} markers", names=names)
     del sl
@@ -1386,29 +1503,36 @@ def phase_cli_probit():
 
 
 # the kernels that only the tools launch (phase 7), and the tools
-TOOL_KERNELS = ("axm_bf16", "atxm_bf16", "axm_i8s", "atx_a")
-TOOLS = ("kernel_check", "bench_gram", "profile_kernels")
+TOOL_KERNELS = ("axm_bf16", "atxm_bf16", "axm_i8s", "atx_a") + STUDY_KERNELS
+TOOLS = ("kernel_check", "bench_gram", "profile_kernels", "bench_stream",
+         "bench_variants")
+# runs beyond each tool's defaults: the stream ceiling at config B's shape
+TOOL_EXTRA_ARGV = {"bench_stream": ([str(CFG_B_N // 16), str(CFG_B_M), "4"],)}
 
 
 def phase_tools():
     """The port's tools on the card, each through ``main([])`` at its
-    defaults; each must return 0 (kernel_check: every product kernel within
-    5e-7 of float64, then the fused Grams' correctness; bench_gram: the
-    correctness again, then the timing).  Returns the launch counts of the
-    three runs."""
+    defaults (and with TOOL_EXTRA_ARGV); each must return 0 (kernel_check:
+    every product kernel within 5e-7 of float64, then the fused Grams'
+    correctness; bench_gram: the correctness again, then the timing).
+    Returns the launch counts of the runs."""
     log("== phase 7: the port's tools on the card")
     import importlib
     from gvamp_tpu_torch.ops import matvec
     matvec.reset_launches()
     for name in TOOLS:
-        log(f"  -- python3 -m gvamp_tpu_torch.tools.{name}")
-        t0 = time.perf_counter()
-        rc = importlib.import_module(f"gvamp_tpu_torch.tools.{name}").main([])
-        torch.cuda.synchronize()
-        log(f"  {name}: exit code {rc} in {time.perf_counter() - t0:.2f} s")
-        if rc != 0:
-            raise AssertionError(f"{name} returned {rc}")
-        torch.cuda.empty_cache()
+        for argv in ([], *TOOL_EXTRA_ARGV.get(name, ())):
+            log(f"  -- python3 -m gvamp_tpu_torch.tools.{name} "
+                f"{' '.join(argv)}")
+            t0 = time.perf_counter()
+            rc = importlib.import_module(
+                f"gvamp_tpu_torch.tools.{name}").main(argv)
+            torch.cuda.synchronize()
+            log(f"  {name}: exit code {rc} in {time.perf_counter() - t0:.2f} "
+                f"s")
+            if rc != 0:
+                raise AssertionError(f"{name} returned {rc}")
+            torch.cuda.empty_cache()
     launches = dict(matvec.LAUNCHES)
     check_launches("tools", launches, TOOL_KERNELS)
     return launches
@@ -1416,21 +1540,27 @@ def phase_tools():
 
 def kernel_rows(numbers):
     """The kernels line: one row per kernel from ``numbers`` = {name: (err,
-    ms, plain_ms, launches, (nw, m, B))}, with its bound on that shape."""
+    ms, plain_ms, launches, (nw, m, B), library_ms)}, with its bound on
+    that shape.  library_ms is None where no PyTorch call computes the
+    kernel's function: none takes the packed 2-bit words to a product, and
+    none decodes them (v1_decode_a); torch.sum computes the study kernels'
+    plain sums."""
     rows = []
     for n in KERNELS:
-        err, ms, plain, launches, (nw, m, B) = numbers[n]
+        err, ms, plain, launches, (nw, m, B), lib_ms = numbers[n]
         b_ms, b_by = bound(n, nw, m, B)
         log(f"  {n:12s} Nw={nw} Mpad={m} B={B}: {ms:9.3f} ms, bound "
             f"{b_ms:.3f} ms by {b_by} ({b_ms / ms:.1%} of it), plain "
-            f"{plain:9.2f} ms, {launches} launches on its path")
+            f"{plain:9.2f} ms, PyTorch call "
+            + (f"{lib_ms:.3f} ms" if lib_ms is not None else "none")
+            + f", {launches} launches on its path")
         rows.append({
-            "name": n, "route": "cuda", "source": SOURCE,
+            "name": n, "route": "cuda",
+            "source": STUDY_SOURCE if n in STUDY_KERNELS else SOURCE,
             "replaces": REPLACES[n], "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by,
-            # no PyTorch call takes the packed 2-bit words
-            "library_ms": None, "shape": f"Nw={nw} Mpad={m} B={B}"})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "shape": f"Nw={nw} Mpad={m} B={B}"})
     return rows
 
 
@@ -1453,6 +1583,7 @@ def main(argv=None):
     words = synth_words(gen, False, CFG_B_N, CFG_B_M)
     nw, m = words.shape
     full = phase_kernels_config_b(words, gen)
+    full_s = phase_study_config_b(words)
     full_g = phase_kernels_gram(words, gen, True)
     launches, geno, problem = phase_main_path(words)
     launches_f = phase_fused_linear("config B", geno, problem, True)
@@ -1493,26 +1624,32 @@ def main(argv=None):
     # the error is the largest over every width checked there (each check
     # raises unless it is 0); launches are those of that path's run: the
     # linear runs of phases 4 / 4m (4f for the fused primal Grams), the dual
-    # runs of phase 4x and, for the kernels only the tools launch, phase 7
+    # runs of phase 4x and, for the kernels only the tools launch, phase 7;
+    # the study kernels at config B (phase 3s), the only rows with a
+    # PyTorch call's time
     launches.update({n: launches_t[n] for n in TOOL_KERNELS})
     launches_m["axm_i8s"] = launches_t["axm_i8s"]
     numbers = {}
     for n in KERNELS:
+        if n in STUDY_KERNELS:
+            err, ms, plain, lib_ms = full_s[n]
+            numbers[n] = (err, ms, plain, launches[n], (nw, m, 1), lib_ms)
+            continue
         if n in ("ax", "gram_aat_i8a", "gram_aat_i8"):
             counts = launches_xm if n == "gram_aat_i8" else launches_x
-            numbers[n] = (*full_x[n], counts[n], (nwx, mx, 1))
+            numbers[n] = (*full_x[n], counts[n], (nwx, mx, 1), None)
             continue
         if n in ("gram_i8a", "gram_i8"):
             res, counts = ((full_g, launches_f) if n == "gram_i8a"
                            else (full_gm, launches_mf))
-            numbers[n] = (*res[n], counts[n], (nw, m, 1))
+            numbers[n] = (*res[n], counts[n], (nw, m, 1), None)
             continue
         runs, counts = ((full_m, launches_m)
                         if n in ("axm_i8", "atxm_i8", "axm_i8s")
                         else (full, launches))
         err = max(r[n][0] for r in runs.values() if n in r)
         numbers[n] = (err, runs[1][n][1], runs[1][n][2], counts[n],
-                      (nw, m, 1))
+                      (nw, m, 1), None)
     log("kernels against their bounds (NVIDIA H100 SXM peaks: 3.35 TB/s "
         "HBM, 1,979 TOP/s int8, 989 TFLOP/s bf16, 67 TFLOP/s f32):")
     kernels = kernel_rows(numbers)

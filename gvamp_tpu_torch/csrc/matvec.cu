@@ -27,29 +27,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "swar.cuh"
+
 namespace {
 
-constexpr uint32_t kM1 = 0x01010101u;
-constexpr uint32_t kM3 = 0x03030303u;
 constexpr int kThreads = 256;
 constexpr int kTileRows = 256;   // word rows of right-hand side per smem tile
 constexpr int kTileQuads = 256;  // marker quads of digits per smem tile
 constexpr int kWarps = kThreads / 32;
 // blocks to aim for: several waves of 132 SMs at 8 resident blocks each
 constexpr int64_t kTargetBlocks = 132 * 8 * 4;
-
-__device__ __forceinline__ uint32_t swar_a(uint32_t w, int k) {
-  const uint32_t c = (w >> (2 * k)) & kM3;
-  const uint32_t lo = c & kM1;
-  const uint32_t hi = (c >> 1) & kM1;
-  const uint32_t notlo = lo ^ kM1;
-  return (notlo << 1) - (hi & notlo);
-}
-
-__device__ __forceinline__ uint32_t swar_b(uint32_t w, int k) {
-  const uint32_t c = (w >> (2 * k)) & kM3;
-  return ((c >> 1) & kM1) | ((c & kM1) ^ kM1);
-}
 
 // Four neighbouring marker words (one 16-byte load) -> y[b] whose byte j is
 // byte b of marker word j: the SWAR decode of y[b] then holds the dosages

@@ -1,10 +1,10 @@
 """Build and bind the port's CUDA kernels: ``nvcc`` into a shared library
 with a plain C interface, loaded with ``ctypes``.
 
-The kernels (``gvamp_tpu_torch/csrc/*.cu``) compile on first use into
-``build/gvamp_tpu_torch/`` beside the package, under a file name keyed by a
-hash of the sources and flags, so an edit rebuilds and an unchanged tree
-reuses the library.  One ``nvcc`` call over a file that includes no PyTorch
+The kernels (``gvamp_tpu_torch/csrc/*.cu``, with the headers beside them)
+compile on first use into ``build/gvamp_tpu_torch/`` beside the package,
+under a file name keyed by a hash of every file under ``csrc/`` and of the
+flags, so an edit rebuilds and an unchanged tree reuses the library.  One ``nvcc`` call over a file that includes no PyTorch
 header takes seconds.
 
 Import this module only where a kernel is launched: the CPU tests import
@@ -54,17 +54,27 @@ def find_nvcc() -> str:
                        "to build the gvamp_tpu_torch CUDA kernels")
 
 
+def source_hash(csrc: str = CSRC) -> str:
+    """Hash of the nvcc flags and of every file under ``csrc`` (its path
+    and bytes), headers included, so an edit to any of them rebuilds."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for root, dirs, names in os.walk(csrc):
+        dirs.sort()
+        for name in sorted(names):
+            path = os.path.join(root, name)
+            h.update(os.path.relpath(path, csrc).encode() + b"\0")
+            with open(path, "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()[:16]
+
+
 def build() -> str:
     """Compile the sources if no library for their hash exists; return its
     path."""
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        with open(src, "rb") as f:
-            h.update(f.read())
-    lib = os.path.join(BUILD_DIR, f"libgvamp_tpu_torch_{h.hexdigest()[:16]}.so")
+    lib = os.path.join(BUILD_DIR, f"libgvamp_tpu_torch_{source_hash()}.so")
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -133,5 +143,11 @@ def library() -> ctypes.CDLL:
             lib.gvamp_axm_bf16.restype = ctypes.c_int
             lib.gvamp_atxm_bf16.argtypes = [vp] * 3 + [i64] * 3 + [vp]
             lib.gvamp_atxm_bf16.restype = ctypes.c_int
+            lib.gvamp_study_stream.argtypes = [vp, vp] + [i64] * 5 + [vp]
+            lib.gvamp_study_stream.restype = ctypes.c_int
+            for name in ("gvamp_study_stream_sum", "gvamp_study_v1_decode_a"):
+                fn = getattr(lib, name)
+                fn.argtypes = [vp, vp] + [i64] * 4 + [vp]
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -1,13 +1,16 @@
-"""The port's tools: the kernel check, the fused-Gram study and the kernel
-profile (counterparts of ``tools/tpu_check.py``, ``tools/bench_gram.py``
-and ``tools/profile_kernels.py``), and the helpers they share with
-``chip_smoke.py`` (``common``).
+"""The port's tools: the kernel check, the fused-Gram study, the kernel
+profile and the stream-ceiling studies (counterparts of
+``tools/tpu_check.py``, ``tools/bench_gram.py``, ``tools/profile_kernels.py``,
+``tools/bench_stream.py`` and ``tools/bench_variants.py``), and the helpers
+they share with ``chip_smoke.py`` (``common``).
 
 Each tool is a module with ``main(argv=None)`` that returns an exit code:
 
     python3 -m gvamp_tpu_torch.tools.kernel_check [--device cuda|cpu]
     python3 -m gvamp_tpu_torch.tools.bench_gram [NW] [M] [--device ...]
     python3 -m gvamp_tpu_torch.tools.profile_kernels [NW] [M] [REPS] [...]
+    python3 -m gvamp_tpu_torch.tools.bench_stream [NW] [M] [REPS] [...]
+    python3 -m gvamp_tpu_torch.tools.bench_variants [NW] [M] [REPS] [...]
 
 They run on the card unless ``--device cpu`` is given; importing one does
 nothing.

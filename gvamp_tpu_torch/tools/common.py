@@ -96,6 +96,24 @@ def timer(device):
     return cuda_ms if torch.device(device).type == "cuda" else cpu_ms
 
 
+def card_line(device) -> str:
+    """The card's name, power limit and current SM and memory clocks as
+    nvidia-smi reports them, or the CPU's name for a CPU device."""
+    if torch.device(device).type != "cuda":
+        return "device cpu"
+    import subprocess
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.mem",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=30).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError):
+        smi = []
+    return (f"device {torch.cuda.get_device_name(device)}; nvidia-smi "
+            f"name, power.limit, clocks.sm, clocks.mem: "
+            f"{smi[torch.device(device).index or 0] if smi else 'unavailable'}")
+
+
 def need_device(device, tool: str) -> torch.device:
     """``device`` as a torch.device; raises SystemExit for CUDA without a
     card (the tools run on the card unless asked for the CPU)."""
@@ -121,16 +139,25 @@ INT8_CONTRACTIONS = {"axm_i8a": 1, "atxm_i8a": 1, "axm_i8": 2, "atxm_i8": 2,
 BF16_PRODUCTS = {"axm_bf16": 2 * 3, "atxm_bf16": 2 * 3}
 # f32 single-vector products: planes, each 2 N M f32 ops
 F32_PLANES = {"atx": 2, "ax": 2, "atx_a": 1}
+# the study kernels (ops/study.py): integer sums of the words, charged by
+# bytes alone (an integer-operation count written before the SASS is known
+# could overstate the least time)
+STUDY_KERNELS = ("stream", "stream_sum", "v0_stream", "v1_decode_a")
 
 
-def bound(name: str, nw: int, m: int, B: int):
+def bound(name: str, nw: int, m: int, B: int, tm: int = 512):
     """(ms, "bytes" or "operations"): the least time the card could take
     for one call on Nw x Mpad words at width B, the larger of the bytes it
     must move (the words, each f32 input and each f32 output once) over the
     HBM rate and its operations over the peak rate of their type: 2 N M D
     int8 operations per digit contraction (D = 4 B digit rows), 2 N M B
     bf16 operations per plane and part of the bf16-split products, or
-    2 N M f32 operations per plane of the single-vector ones."""
+    2 N M f32 operations per plane of the single-vector ones.  The study
+    kernels move the words and their int32 output (Nw x ``tm`` for
+    ``stream``, Nw for the row sums) and are charged by bytes only."""
+    if name in STUDY_KERNELS:
+        out = 4 * nw * (tm if name == "stream" else 1)
+        return 1e3 * (4 * nw * m + out) / HBM_BYTES_PER_S, "bytes"
     n = 16 * nw
     vec_n, vec_m = 4 * n, 4 * m  # f32 bytes of one column in N / in M
     io = {"axm_i8a": (vec_m + vec_n) * B, "atxm_i8a": (vec_n + vec_m) * B,

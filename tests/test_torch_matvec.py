@@ -442,7 +442,8 @@ def test_cpu_wrappers_launch_nothing_and_non_cpu_raises():
     assert set(tmv.LAUNCHES) == {"axm_i8a", "atxm_i8a", "axm_i8", "atxm_i8",
                                  "atx", "ax", "gram_aat_i8a", "gram_aat_i8",
                                  "gram_i8a", "gram_i8", "axm_bf16",
-                                 "atxm_bf16", "axm_i8s", "atx_a"}
+                                 "atxm_bf16", "axm_i8s", "atx_a", "stream",
+                                 "stream_sum", "v0_stream", "v1_decode_a"}
     tmv.axm_i8a(words, torch.ones((512, 2)))
     tmv.atxm_i8a(words, torch.ones((4, 128, 1)))
     tmv.axm_i8(words, torch.ones((512, 2)), torch.ones((512, 2)))
