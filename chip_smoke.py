@@ -9,8 +9,9 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. environment: torch / CUDA / nvcc / triton versions and the card's name
    and power limit; TF32 off for every float32 product;
-2. build the CUDA kernels (gvamp_tpu_torch/csrc/matvec.cu and study.cu)
-   with nvcc; the ptxas report must show no spill stores;
+2. build the CUDA kernels (gvamp_tpu_torch/csrc/matvec.cu and study.cu,
+   one nvcc each, started together); the ptxas report must show no spill
+   store in any instantiation of any kernel;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    with CUDA-event times of both: (a) all eighteen at small shapes (the
    fused primal Grams with both mask forms and B above their column
@@ -93,7 +94,7 @@ import torch  # noqa: E402
 
 from gvamp_tpu_torch.tools import bench_gram, kernel_check  # noqa: E402
 from gvamp_tpu_torch.tools.common import (  # noqa: E402
-    STUDY_KERNELS, bound, cuda_ms, random_words, synth_words)
+    STUDY_KERNELS, bound, cuda_ms, random_words, smi, synth_words)
 
 # config B of bench.py:39-42: N=327,680 (20,480 words of 16 samples),
 # M=131,072 markers -> 10.74 GB packed
@@ -125,14 +126,16 @@ KERNELS = tuple(REPLACES)
 # the product kernels (gvamp_tpu_torch/ops/matvec.py), beside the study
 # kernels (ops/study.py, STUDY_KERNELS) that the study tools run
 PRODUCT_KERNELS = tuple(n for n in KERNELS if n not in STUDY_KERNELS)
-# each kernel's entry in the ptxas report (mangled names contain these)
+# each kernel's entries in the ptxas report: a pattern that the mangled
+# names of every instantiation match (default "<name>_kernel"); the study
+# kernels have one per bytes per load
 PTXAS_ENTRY = {"gram_aat_i8a": "gram_aat_kernelILb0E",
                "gram_aat_i8": "gram_aat_kernelILb1E",
                "gram_i8a": "gram_prim_kernelILb0E",
                "gram_i8": "gram_prim_kernelILb1E",
-               "stream_sum": "row_sum_kernelILi4ELb0E",
-               "v0_stream": "row_sum_kernelILi4ELb0E",
-               "v1_decode_a": "row_sum_kernelILi4ELb1E"}
+               "stream_sum": r"row_sum_kernelILi\d+ELb0E",
+               "v0_stream": r"row_sum_kernelILi\d+ELb0E",
+               "v1_decode_a": r"row_sum_kernelILi\d+ELb1E"}
 SOURCE = "gvamp_tpu_torch/csrc/matvec.cu"
 STUDY_SOURCE = "gvamp_tpu_torch/csrc/study.cu"
 SHAPES = [(32, 512, 1), (64, 1024, 2), (96, 1536, 5), (32, 2048, 17),
@@ -162,13 +165,6 @@ def log(msg=""):
     print(msg, flush=True)
 
 
-def smi_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
 def phase_environment():
     log("== phase 1: environment")
     if not torch.cuda.is_available():
@@ -185,7 +181,7 @@ def phase_environment():
         log(f"triton {triton.__version__}")
     except ImportError:
         log("triton: not importable")
-    log(f"nvidia-smi: {smi_line()}")
+    log(f"nvidia-smi: {smi()}")
     log(f"device: {torch.cuda.get_device_name(0)}  "
         f"count {torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -221,10 +217,15 @@ def phase_build():
     log(f"nvcc: {_build.BUILD_INFO['command']}")
     log(f"nvcc build {_build.BUILD_INFO['seconds']:.2f} s; ptxas:")
     log(_build.BUILD_INFO["log"].strip())
-    report = ptxas_report(_build.BUILD_INFO["log"])
+    check_ptxas(ptxas_report(_build.BUILD_INFO["log"]))
+
+
+def check_ptxas(report: dict) -> None:
+    """Every instantiation of each kernel in the ptxas report (its mangled
+    names matching PTXAS_ENTRY) must show no spill store."""
     for kernel in KERNELS:
         entry = PTXAS_ENTRY.get(kernel, f"{kernel}_kernel")
-        hits = {n: r for n, r in report.items() if entry in n}
+        hits = {n: r for n, r in report.items() if re.search(entry, n)}
         if not hits:
             raise AssertionError(f"ptxas reported no entry for {kernel}")
         for n, (regs, spill) in hits.items():
@@ -1655,7 +1656,7 @@ def main(argv=None):
     kernels = kernel_rows(numbers)
     log(f"probit at config B: launches two-pass {launches_p}, fused "
         f"{launches_pf}")
-    log(smi_line())
+    log(smi())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

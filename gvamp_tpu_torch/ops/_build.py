@@ -4,8 +4,9 @@ with a plain C interface, loaded with ``ctypes``.
 The kernels (``gvamp_tpu_torch/csrc/*.cu``, with the headers beside them)
 compile on first use into ``build/gvamp_tpu_torch/`` beside the package,
 under a file name keyed by a hash of every file under ``csrc/`` and of the
-flags, so an edit rebuilds and an unchanged tree reuses the library.  One ``nvcc`` call over a file that includes no PyTorch
-header takes seconds.
+flags, so an edit rebuilds and an unchanged tree reuses the library.  Each
+source compiles in its own ``nvcc``, all started together, and one more
+links them; a file that includes no PyTorch header takes seconds.
 
 Import this module only where a kernel is launched: the CPU tests import
 every other module of the port and must never reach a CUDA toolchain.
@@ -27,7 +28,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "gvamp_tpu_torch")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # what the last build printed (ptxas register / shared-memory report) and
 # how long it took; empty when the library came from an earlier build
@@ -74,20 +75,40 @@ def build() -> str:
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
-    lib = os.path.join(BUILD_DIR, f"libgvamp_tpu_torch_{source_hash()}.so")
+    lib = os.path.join(BUILD_DIR, f"libgvamp_tpu_torch_{source_hash(CSRC)}.so")
     if os.path.exists(lib):
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    nvcc = find_nvcc()
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    # one nvcc per source, all started together, then one link
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            for src, obj in zip(sources, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    link = [nvcc, "-shared", "-o", tmp, *objs]
+    try:
+        for cmd, p, out in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed (exit {p.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, lib)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0, command=" ".join(cmd),
-                      log=proc.stdout + proc.stderr)
+    BUILD_INFO.update(seconds=time.perf_counter() - t0,
+                      command="; ".join(" ".join(c) for c in [*cmds, link]),
+                      log="".join(outs) + proc.stdout + proc.stderr)
     return lib
 
 

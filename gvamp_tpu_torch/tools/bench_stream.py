@@ -2,7 +2,7 @@
 counterpart of ``tools/bench_stream.py``.
 
     python3 -m gvamp_tpu_torch.tools.bench_stream [NW] [M] [REPS]
-                                                  [--tm TM] [--device cuda|cpu]
+                                                  [--device cuda|cpu]
 
 On NW x M random int32 words (default 6,400 x 65,536, 1.68 GB packed) it
 prints ms (the median CUDA-event time of REPS calls after a warm-up),
@@ -12,8 +12,9 @@ nominal 3.35 TB/s for:
 * ``torch.sum`` over the whole matrix (the counterpart of ``xla_sum``, the
   HBM reference, not a kernel of the port) and the per-row
   ``words.sum(1, dtype=torch.int32)``;
-* ``stream`` (``ops/study.py``, one add per word into an Nw x TM output)
-  and ``stream_sum`` (each row's sum) over the H100 counterpart of the TPU
+* ``stream`` (``ops/study.py``, one add per word into an Nw x 512 output,
+  ``study.STREAM_TM``; skipped where 512 does not divide M) and
+  ``stream_sum`` (each row's sum) over the H100 counterpart of the TPU
   tile sweep (``tools/bench_stream.py:97-111``): threads per block
   {128, 256, 512, 1024} x bytes per load {4, 8, 16}.
 
@@ -32,13 +33,14 @@ import sys
 import torch
 
 
-def run(device, nw: int, m: int, reps: int, tm: int) -> None:
+def run(device, nw: int, m: int, reps: int) -> None:
     """Prints one row of ms, packed GB/s and share of the nominal HBM rate
     per measurement."""
     from gvamp_tpu_torch.ops import study
     from gvamp_tpu_torch.tools.common import (HBM_BYTES_PER_S, card_line,
                                               random_words, timer)
     time_ms = timer(device)
+    tm = study.STREAM_TM
     print(card_line(device), flush=True)
     gen = torch.Generator(device=device)
     gen.manual_seed(7)
@@ -75,15 +77,13 @@ def main(argv=None) -> int:
                     help="word rows (16 samples each)")
     ap.add_argument("m", nargs="?", type=int, default=65536, help="markers")
     ap.add_argument("reps", nargs="?", type=int, default=4)
-    ap.add_argument("--tm", type=int, default=512,
-                    help="output width of stream (divides M)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels, the default) or cpu (their "
                          "plain versions)")
     args = ap.parse_args(argv)
     from gvamp_tpu_torch.tools.common import need_device
     dev = need_device(args.device, "bench_stream")
-    run(dev, args.nw, args.m, args.reps, args.tm)
+    run(dev, args.nw, args.m, args.reps)
     return 0
 
 

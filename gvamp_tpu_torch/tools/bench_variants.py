@@ -19,88 +19,17 @@ packed GB/s:
 The rungs run at one launch configuration (256 threads per block, 16-byte
 loads; the TPU tool's TNW=256, TM=512 tiles have no counterpart).  Rungs
 v2_decode_ab, v3_bitcast, v5_dot1 and v6_fused_ab come with the next slice
-of the port, v7_i8decode with the one after.  On the card it then prints
-the SASS of v0_stream's and v1_decode_a's kernel (``cuobjdump -sass`` of
-the built library): the instructions of each and the integer instructions
-v1 adds, the decode's static cost.  ``--device cpu`` runs the plain
-versions.
+of the port, v7_i8decode with the one after.  ``--device cpu`` runs the
+plain versions.
 """
 
 from __future__ import annotations
 
 import argparse
-import collections
-import os
-import re
-import subprocess
 import sys
 
 import numpy as np
 import torch
-
-# the row-sum kernel of v0_stream and of v1_decode_a at 16-byte loads (their
-# mangled names in csrc/study.cu contain these)
-SASS_ENTRIES = {"v0_stream": "row_sum_kernelILi4ELb0E",
-                "v1_decode_a": "row_sum_kernelILi4ELb1E"}
-# integer-pipe opcodes of the decode (shifts, logic, adds, byte permutes)
-INT_OPCODES = ("LOP3", "SHF", "IADD3", "IMAD", "LEA", "PRMT", "SHL", "SHR",
-               "IADD", "LOP")
-_SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
-
-
-def sass_opcodes(sass: str, entry: str) -> list:
-    """The opcodes (without modifiers), in order, of the one function of a
-    ``cuobjdump -sass`` listing whose name contains ``entry``."""
-    ops = []
-    inside = False
-    for line in sass.splitlines():
-        if "Function :" in line:
-            inside = entry in line
-            continue
-        m = _SASS_LINE.search(line) if inside else None
-        if m:
-            ops.append(m.group(1))
-    return ops
-
-
-def per_load(ops: list) -> collections.Counter:
-    """Opcode counts of the most common stretch from one global load (LDG)
-    to the next: the body of the row loop per vector load."""
-    at = [i for i, o in enumerate(ops) if o == "LDG"]
-    spans = [tuple(ops[a:b]) for a, b in zip(at, at[1:])]
-    if not spans:
-        return collections.Counter()
-    return collections.Counter(collections.Counter(spans).most_common(1)[0][0])
-
-
-def print_sass() -> None:
-    """The static instruction counts of v0_stream's and v1_decode_a's
-    kernel from the built library; says so where cuobjdump is missing."""
-    from gvamp_tpu_torch.ops import _build
-    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
-    try:
-        sass = subprocess.run([tool, "-sass", _build.build()],
-                              capture_output=True, text=True, check=True,
-                              timeout=120).stdout
-    except (OSError, subprocess.SubprocessError) as e:
-        print(f"SASS: cuobjdump unavailable ({e})", flush=True)
-        return
-    loops = {}
-    for name, entry in SASS_ENTRIES.items():
-        ops = sass_opcodes(sass, entry)
-        loops[name] = c = per_load(ops)
-        print(f"SASS {name}: {len(ops)} instructions; per 16-byte load (4 "
-              f"words) in the row loop {sum(c.values())}, integer "
-              f"{sum(c[o] for o in INT_OPCODES)} "
-              f"({', '.join(f'{o} {c[o]}' for o in INT_OPCODES if c[o])})",
-              flush=True)
-    diff = {o: loops["v1_decode_a"][o] - loops["v0_stream"][o]
-            for o in INT_OPCODES}
-    print(f"SASS the decode per 16-byte load (v1_decode_a - v0_stream): "
-          f"{sum(diff.values())} integer instructions, "
-          f"{sum(diff.values()) / 4:g} per word "
-          f"({', '.join(f'{o} {d:+d}' for o, d in diff.items() if d)})",
-          flush=True)
 
 
 def run(device, nw: int, m: int, reps: int) -> None:
@@ -131,8 +60,6 @@ def run(device, nw: int, m: int, reps: int) -> None:
     rec("v4_dot (=axm_i8a B=2)", lambda: matvec.axm_i8a(words, W2))
     rec("ref axm_i8 B=2", lambda: matvec.axm_i8(words, W2, U2))
     print(f"after: {card_line(device)}", flush=True)
-    if torch.device(device).type == "cuda":
-        print_sass()
 
 
 def main(argv=None) -> int:

@@ -9,6 +9,8 @@ import time
 import numpy as np
 import torch
 
+from gvamp_tpu_torch.ops.study import STREAM_TM
+
 # columns of words drawn per step: a single randint over a whole matrix of
 # several GB would need several times that in temporaries
 WORDS_CHUNK = 4096
@@ -96,22 +98,29 @@ def timer(device):
     return cuda_ms if torch.device(device).type == "cuda" else cpu_ms
 
 
+def smi(fields: str = "name,power.limit", index: int = 0) -> str:
+    """``nvidia-smi --query-gpu=FIELDS --format=csv,noheader``'s line for
+    card ``index``; raises if nvidia-smi fails."""
+    import subprocess
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=30).stdout.strip().splitlines()[index]
+
+
 def card_line(device) -> str:
     """The card's name, power limit and current SM and memory clocks as
     nvidia-smi reports them, or the CPU's name for a CPU device."""
     if torch.device(device).type != "cuda":
         return "device cpu"
     import subprocess
+    fields = "name,power.limit,clocks.sm,clocks.mem"
     try:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.mem",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True, timeout=30).stdout.strip().splitlines()
-    except (OSError, subprocess.SubprocessError):
-        smi = []
+        line = smi(fields, torch.device(device).index or 0)
+    except (OSError, IndexError, subprocess.SubprocessError):
+        line = "unavailable"
     return (f"device {torch.cuda.get_device_name(device)}; nvidia-smi "
-            f"name, power.limit, clocks.sm, clocks.mem: "
-            f"{smi[torch.device(device).index or 0] if smi else 'unavailable'}")
+            f"{fields.replace(',', ', ')}: {line}")
 
 
 def need_device(device, tool: str) -> torch.device:
@@ -145,7 +154,7 @@ F32_PLANES = {"atx": 2, "ax": 2, "atx_a": 1}
 STUDY_KERNELS = ("stream", "stream_sum", "v0_stream", "v1_decode_a")
 
 
-def bound(name: str, nw: int, m: int, B: int, tm: int = 512):
+def bound(name: str, nw: int, m: int, B: int):
     """(ms, "bytes" or "operations"): the least time the card could take
     for one call on Nw x Mpad words at width B, the larger of the bytes it
     must move (the words, each f32 input and each f32 output once) over the
@@ -153,10 +162,10 @@ def bound(name: str, nw: int, m: int, B: int, tm: int = 512):
     int8 operations per digit contraction (D = 4 B digit rows), 2 N M B
     bf16 operations per plane and part of the bf16-split products, or
     2 N M f32 operations per plane of the single-vector ones.  The study
-    kernels move the words and their int32 output (Nw x ``tm`` for
+    kernels move the words and their int32 output (Nw x STREAM_TM for
     ``stream``, Nw for the row sums) and are charged by bytes only."""
     if name in STUDY_KERNELS:
-        out = 4 * nw * (tm if name == "stream" else 1)
+        out = 4 * nw * (STREAM_TM if name == "stream" else 1)
         return 1e3 * (4 * nw * m + out) / HBM_BYTES_PER_S, "bytes"
     n = 16 * nw
     vec_n, vec_m = 4 * n, 4 * m  # f32 bytes of one column in N / in M
