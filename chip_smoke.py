@@ -13,13 +13,15 @@ Phases, each of which raises on failure (exit code != 0):
    one nvcc each, started together); the ptxas report must show no spill
    store in any instantiation of any kernel;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
-   with CUDA-event times of both: (a) all eighteen at small shapes (the
+   with CUDA-event times of both: (a) all twenty-two at small shapes (the
    fused primal Grams with both mask forms and B above their column
    chunks; the bf16-split products and atx_a also on Gaussian inputs
    against float64 within kernel_check.TOL; the study kernels of
-   ops/study.py also at Nw=300 and Mpad not a multiple of 512, at every
-   threads x bytes-per-load configuration of bench_stream's sweep, and
-   v1_decode_a on words of one code against its exact sums),
+   ops/study.py also at Nw=300 and Mpad not a multiple of 512, the row
+   sums stream_sum, stream, v2_decode_ab and v3_bitcast at every threads x
+   bytes-per-load configuration of bench_stream's sweep, v1_decode_a,
+   v2_decode_ab and v3_bitcast on words of one code against their exact
+   sums, v5_dot1 and v6_fused_ab at B = 1, 2 and 5),
    (b) the a-only kernels, atx, atx_a and the bf16-split products on the
    whole config-B matrix at B = 1 and 2 (the bf16 ones and atx_a also on
    Gaussian inputs against their plain versions within BF16_PLAIN_TOL),
@@ -32,9 +34,11 @@ Phases, each of which raises on failure (exit code != 0):
    (e) the fused primal Grams on the whole config-B matrix (gram_i8a) and
    config-Bm matrix (gram_i8) at B = 1 and 2, timed beside their two-pass
    composition, with packed GB/s and the bound;
-   (s) the study kernels (stream, stream_sum, v0_stream, v1_decode_a) on
-   the whole config-B matrix, timed beside their plain versions and the
-   one PyTorch call that computes the same sum (torch.sum);
+   (s) the study kernels (stream, stream_sum, v0_stream, v1_decode_a,
+   v2_decode_ab, v3_bitcast and v5_dot1 at B = 2) on the whole config-B
+   matrix and v6_fused_ab (B = 2) on the whole config-Bm matrix, timed
+   beside their plain versions and, for the first three, the one PyTorch
+   call that computes the same sum (torch.sum);
 4. the linear VAMP main path at config B of bench.py (N=327,680 x
    M=131,072, complete genotypes, 10.74 GB of packed words on the card):
    load, phenotype simulation and 10 iterations of linear.infer, with the
@@ -66,9 +70,10 @@ Phases, each of which raises on failure (exit code != 0):
    with the fused Grams' correctness), the fused-Gram study (bench_gram),
    the kernel profile (profile_kernels), the stream-ceiling sweep
    (bench_stream, at its default 1.68 GB and again at config B's 10.74 GB)
-   and the variant ladder (bench_variants).  No engine path launches
-   axm_bf16, atxm_bf16, axm_i8s, atx_a or the four study kernels; their
-   launches in the kernels line are those of this phase.
+   and the eight-rung variant ladder (bench_variants, which fails if
+   v6_fused_ab strays from axm_i8).  No engine path launches axm_bf16,
+   atxm_bf16, axm_i8s, atx_a or the eight study kernels; their launches in
+   the kernels line are those of this phase.
 
 The last two lines of standard output are one JSON object with the
 kernels' numbers (each with its bound on the card) and one with the
@@ -94,7 +99,8 @@ import torch  # noqa: E402
 
 from gvamp_tpu_torch.tools import bench_gram, kernel_check  # noqa: E402
 from gvamp_tpu_torch.tools.common import (  # noqa: E402
-    STUDY_KERNELS, bound, cuda_ms, random_words, smi, synth_words)
+    STUDY_KERNELS, STUDY_PRODUCTS, bound, cuda_ms, random_words, smi,
+    synth_words)
 
 # config B of bench.py:39-42: N=327,680 (20,480 words of 16 samples),
 # M=131,072 markers -> 10.74 GB packed
@@ -121,21 +127,31 @@ REPLACES = {"axm_i8a": "gvamp_tpu/ops/matvec.py:797",
             "stream": "tools/bench_stream.py:33",
             "stream_sum": "tools/bench_stream.py:59",
             "v0_stream": "tools/bench_variants.py:78",
-            "v1_decode_a": "tools/bench_variants.py:103"}
+            "v1_decode_a": "tools/bench_variants.py:103",
+            "v2_decode_ab": "tools/bench_variants.py:126",
+            "v3_bitcast": "tools/bench_variants.py:152",
+            "v5_dot1": "tools/bench_variants.py:179",
+            "v6_fused_ab": "tools/bench_variants.py:215"}
 KERNELS = tuple(REPLACES)
-# the product kernels (gvamp_tpu_torch/ops/matvec.py), beside the study
-# kernels (ops/study.py, STUDY_KERNELS) that the study tools run
-PRODUCT_KERNELS = tuple(n for n in KERNELS if n not in STUDY_KERNELS)
+# the study kernels (ops/study.py, csrc/study.cu) that the study tools run:
+# the row sums, and the staged products of the library's contracts
+STUDY = STUDY_KERNELS + tuple(STUDY_PRODUCTS)
+# the product kernels (gvamp_tpu_torch/ops/matvec.py)
+PRODUCT_KERNELS = tuple(n for n in KERNELS if n not in STUDY)
 # each kernel's entries in the ptxas report: a pattern that the mangled
-# names of every instantiation match (default "<name>_kernel"); the study
-# kernels have one per bytes per load
+# names of every instantiation match (default "<name>_kernel"); the row
+# sums have one per bytes per load, named by <V, Decode, lanes>
 PTXAS_ENTRY = {"gram_aat_i8a": "gram_aat_kernelILb0E",
                "gram_aat_i8": "gram_aat_kernelILb1E",
                "gram_i8a": "gram_prim_kernelILb0E",
                "gram_i8": "gram_prim_kernelILb1E",
-               "stream_sum": r"row_sum_kernelILi\d+ELb0E",
-               "v0_stream": r"row_sum_kernelILi\d+ELb0E",
-               "v1_decode_a": r"row_sum_kernelILi\d+ELb1E"}
+               "stream_sum": r"row_sum_kernelILi\d+EL\w*DecodeE0ELi1E",
+               "v0_stream": r"row_sum_kernelILi\d+EL\w*DecodeE0ELi1E",
+               "v1_decode_a": r"row_sum_kernelILi\d+EL\w*DecodeE1ELi1E",
+               "v2_decode_ab": r"row_sum_kernelILi\d+EL\w*DecodeE2ELi1E",
+               "v3_bitcast": r"row_sum_kernelILi\d+EL\w*DecodeE1ELi4E",
+               "v5_dot1": "stage_dot_kernelILb0E",
+               "v6_fused_ab": "stage_dot_kernelILb1E"}
 SOURCE = "gvamp_tpu_torch/csrc/matvec.cu"
 STUDY_SOURCE = "gvamp_tpu_torch/csrc/study.cu"
 SHAPES = [(32, 512, 1), (64, 1024, 2), (96, 1536, 5), (32, 2048, 17),
@@ -259,8 +275,9 @@ def check_kernels(words, B, gen, label, names=PRODUCT_KERNELS, count=None,
     [0, 1], exact in the bf16 hi part, so mid = lo = 0) keep every f32
     partial sum exact in any order, so they must be equal too.  With
     v = 1, atx's bv counts each marker's non-missing calls: it must equal
-    the plain version's count and, where given, ``count``."""
-    from gvamp_tpu_torch.ops import matvec
+    the plain version's count and, where given, ``count``.  The staged
+    study products (v5_dot1, v6_fused_ab) share the digit contract."""
+    from gvamp_tpu_torch.ops import matvec, study
     nw, m = words.shape
     dev = words.device
     W = torch.randn((m, B), generator=gen, device=dev)
@@ -313,7 +330,11 @@ def check_kernels(words, B, gen, label, names=PRODUCT_KERNELS, count=None,
         "axm_i8s": (lambda: matvec.axm_i8s(words, W, U),
                     lambda: matvec.axm_i8s_ref(words, W, U)),
         "atx_a": (lambda: matvec.atx_a(words, v),
-                  lambda: matvec.atx_a_ref(words, v))}
+                  lambda: matvec.atx_a_ref(words, v)),
+        "v5_dot1": (lambda: study.v5_dot1(words, W),
+                    lambda: study.v5_dot1_ref(words, W)),
+        "v6_fused_ab": (lambda: study.v6_fused_ab(words, W, U),
+                        lambda: study.v6_fused_ab_ref(words, W, U))}
     out = {}
     for name in names:
         fn, ref = cases[name]
@@ -389,7 +410,7 @@ def check_gaussian(words, B, gen, label, against, tol,
     return out
 
 
-def phase_kernels_small(gen):
+def phase_kernels_small(gen, study_gen):
     log("== phase 3a: kernels vs plain versions, small shapes")
     for nw, m, B in SHAPES:
         words = random_words(gen, nw, m)
@@ -398,6 +419,7 @@ def phase_kernels_small(gen):
         check_gaussian(words, B, gen, label, "float64", kernel_check.TOL)
     for nw, m in [(nw, m) for nw, m, _ in SHAPES] + STUDY_SHAPES:
         check_study_sweep(random_words(gen, nw, m), f"Nw={nw} Mpad={m}")
+    check_study_products(study_gen)
     check_study_codes()
 
 
@@ -408,24 +430,32 @@ STUDY_SHAPES = [(300, 1000), (300, 8), (7, 8), (1, 4096)]
 
 
 def check_study_sweep(words, label) -> None:
-    """The study kernels against their plain versions, bit for bit:
-    ``stream`` (at tm = gcd(Mpad, 512)) and ``stream_sum`` at every threads
-    x bytes-per-load configuration of bench_stream's sweep that the shape
-    takes, v0_stream and v1_decode_a at theirs."""
+    """The study row sums against their plain versions, bit for bit:
+    ``stream`` (at tm = gcd(Mpad, 512)), ``stream_sum``, ``v2_decode_ab``
+    and ``v3_bitcast`` at every threads x bytes-per-load configuration of
+    bench_stream's sweep that the shape takes, v0_stream and v1_decode_a
+    at theirs."""
     import math
     from gvamp_tpu_torch.ops import study
     nw, m = words.shape
     tm = math.gcd(m, study.STREAM_TM)
     want_rows = study.stream_sum_ref(words)
     want_stream = study.stream_ref(words, tm)
+    want_v2 = study.v2_decode_ab_ref(words)
+    want_v3 = study.v3_bitcast_ref(words)
     runs = 0
     for threads in study.THREADS:
         for nb in study.LOAD_BYTES:
             if m % (nb // 4):
                 continue
-            compare("stream_sum", f"{label} threads={threads} load={nb}B",
+            conf = f"{label} threads={threads} load={nb}B"
+            compare("stream_sum", conf,
                     (study.stream_sum(words, threads, nb),), (want_rows,))
-            runs += 1
+            compare("v2_decode_ab", conf,
+                    (study.v2_decode_ab(words, threads, nb),), (want_v2,))
+            compare("v3_bitcast", conf,
+                    (study.v3_bitcast(words, threads, nb),), (want_v3,))
+            runs += 3
             if tm % (nb // 4) == 0:
                 compare("stream", f"{label} tm={tm} threads={threads} "
                         f"load={nb}B", (study.stream(words, tm, threads, nb),),
@@ -435,35 +465,81 @@ def check_study_sweep(words, label) -> None:
     compare("v1_decode_a", label, (study.v1_decode_a(words),),
             (study.v1_decode_a_ref(words),))
     torch.cuda.synchronize()
-    log(f"  {label:>22s} study kernels equal: {runs} stream / stream_sum "
-        f"configurations (tm={tm}), v0_stream, v1_decode_a")
+    log(f"  {label:>22s} study row sums equal: {runs} stream / stream_sum "
+        f"/ v2_decode_ab / v3_bitcast configurations (tm={tm}), v0_stream, "
+        f"v1_decode_a")
+
+
+def check_study_products(gen) -> None:
+    """v5_dot1 and v6_fused_ab against their plain versions, bit for bit,
+    on random words of every small shape (Nw=300 and Mpad=1000 among them:
+    a part tile of rows and of markers) at B = 1, 2 and 5 (D = 4, 8 and
+    20: the mma's 8 digit rows padded and split over the grid) and at the
+    shape's own B of SHAPES (B = 70: v5_dot1's column chunks)."""
+    from gvamp_tpu_torch.ops import study
+    widths = {(nw, m): B for nw, m, B in SHAPES}
+    runs = 0
+    for nw, m in [(nw, m) for nw, m, _ in SHAPES] + STUDY_SHAPES:
+        words = random_words(gen, nw, m)
+        for B in sorted({1, 2, 5, widths.get((nw, m), 1)}):
+            W = torch.randn((m, B), generator=gen, device="cuda")
+            U = torch.randn((m, B), generator=gen, device="cuda") * 3
+            label = f"Nw={nw} Mpad={m} B={B}"
+            compare("v5_dot1", label, (study.v5_dot1(words, W),),
+                    (study.v5_dot1_ref(words, W),))
+            compare("v6_fused_ab", label, (study.v6_fused_ab(words, W, U),),
+                    (study.v6_fused_ab_ref(words, W, U),))
+            runs += 2
+    torch.cuda.synchronize()
+    log(f"  v5_dot1 / v6_fused_ab equal to their plain versions: {runs} "
+        f"checks at B = 1, 2, 5 and each shape's B")
+
+
+# words of one code and what the row sums give per word: code 00 decodes
+# to a = 2, b = 1 in every lane of every plane, 10 to a = 1, b = 1, 01
+# (missing) to a = b = 0, 11 to a = 0, b = 1; so per word 4 a and 4 (a + b)
+# in each byte lane
+CODE_LANES = ((0x00000000, 8, 12), (0xAAAAAAAA, 4, 8), (0x55555555, 0, 0),
+              (0xFFFFFFFF, 0, 4))
 
 
 def check_study_codes() -> None:
-    """v1_decode_a on words of one code against the exact sums: code 00
-    decodes to a = 2 in every lane of every plane (M x 0x08080808 per row),
-    10 to a = 1 (M x 0x04040404), 01 and 11 to 0; wrapped to int32."""
+    """The decoding row sums on words of one code against their exact sums
+    (CODE_LANES): v1_decode_a M x lane(a) x 0x01010101 per row,
+    v2_decode_ab M x lane(a + b) x 0x01010101, v3_bitcast M x lane(a) per
+    byte row; wrapped to int32."""
     from gvamp_tpu_torch.ops import study
     nw, m = 300, 4096 + 512
-    for word, lane in ((0x00000000, 8), (0xAAAAAAAA, 4), (0x55555555, 0),
-                       (0xFFFFFFFF, 0)):
-        words = torch.full((nw, m), word - (1 << 32) * (word >= 1 << 31),
-                           dtype=torch.int32, device="cuda")
-        got = study.v1_decode_a(words)
-        exact = (m * lane * 0x01010101) % (1 << 32)
-        exact -= (1 << 32) * (exact >= 1 << 31)
-        if not bool((got == exact).all()):
-            raise AssertionError(f"v1_decode_a on words 0x{word:08X}: "
-                                 f"{got[0, :4].tolist()}, expected {exact}")
-    log(f"  v1_decode_a on words of one code: exact at Nw={nw} Mpad={m}")
+
+    def wrapped(x):
+        x %= 1 << 32
+        return x - (1 << 32) * (x >= 1 << 31)
+
+    for word, a_lane, ab_lane in CODE_LANES:
+        words = torch.full((nw, m), wrapped(word), dtype=torch.int32,
+                           device="cuda")
+        for name, got, exact in (
+                ("v1_decode_a", study.v1_decode_a(words),
+                 m * a_lane * 0x01010101),
+                ("v2_decode_ab", study.v2_decode_ab(words),
+                 m * ab_lane * 0x01010101),
+                ("v3_bitcast", study.v3_bitcast(words), m * a_lane)):
+            if not bool((got == wrapped(exact)).all()):
+                raise AssertionError(f"{name} on words 0x{word:08X}: "
+                                     f"{got[0, :4].tolist()}, expected "
+                                     f"{wrapped(exact)}")
+    log(f"  v1_decode_a, v2_decode_ab, v3_bitcast on words of one code: "
+        f"exact at Nw={nw} Mpad={m}")
 
 
-def phase_study_config_b(words) -> dict:
-    """The study kernels on the whole config-B matrix at their default
+def phase_study_config_b(words, gen) -> dict:
+    """The study row sums on the whole config-B matrix at their default
     launch configuration, bit for bit against their plain versions, with
     CUDA-event times of the kernel, the plain version and the PyTorch call
-    that computes the same sums (torch.sum; none for v1_decode_a).  Returns
-    {name: (max_abs_err, ms, plain_ms, library_ms)}."""
+    that computes the same sums (torch.sum; none for the decoding ones:
+    no PyTorch call reads packed words), then v5_dot1 at B = 2 (no PyTorch
+    call either).  Returns {name: (max_abs_err, ms, plain_ms,
+    library_ms)}."""
     log("== phase 3s: study kernels vs plain versions, config-B words")
     from gvamp_tpu_torch.ops import study
     nw, m = words.shape
@@ -481,7 +557,11 @@ def phase_study_config_b(words) -> dict:
         "v0_stream": (lambda: study.v0_stream(words),
                       lambda: study.v0_stream_ref(words), rows),
         "v1_decode_a": (lambda: study.v1_decode_a(words),
-                        lambda: study.v1_decode_a_ref(words), None)}
+                        lambda: study.v1_decode_a_ref(words), None),
+        "v2_decode_ab": (lambda: study.v2_decode_ab(words),
+                         lambda: study.v2_decode_ab_ref(words), None),
+        "v3_bitcast": (lambda: study.v3_bitcast(words),
+                       lambda: study.v3_bitcast_ref(words), None)}
     out = {}
     for name, (fn, ref, lib) in cases.items():
         err = compare(name, f"config B full {nw}x{m}", (fn(),), (ref(),))
@@ -492,8 +572,20 @@ def phase_study_config_b(words) -> dict:
             f"kernel {ms:8.3f} ms ({4 * nw * m / (ms * 1e6):7.1f} GB/s "
             f"packed)  plain {plain:8.3f} ms  torch.sum "
             + (f"{lib_ms:8.3f} ms" if lib else "none"))
-    torch.cuda.empty_cache()
+    out.update(phase_study_products(words, gen, ("v5_dot1",), "config B"))
     return out
+
+
+def phase_study_products(words, gen, names, config) -> dict:
+    """The staged study products ``names`` at B = 2 on the whole matrix,
+    bit for bit against their plain versions and timed beside them (no
+    PyTorch call computes them).  Returns {name: (max_abs_err, ms,
+    plain_ms, None)}."""
+    nw, m = words.shape
+    res = check_kernels(words, 2, gen, f"{config} full {nw}x{m}",
+                        names=names, reps=5, plain_reps=1)
+    torch.cuda.empty_cache()
+    return {n: (*r, None) for n, r in res.items()}
 
 
 def phase_kernels_config_b(words, gen):
@@ -1504,7 +1596,7 @@ def phase_cli_probit():
 
 
 # the kernels that only the tools launch (phase 7), and the tools
-TOOL_KERNELS = ("axm_bf16", "atxm_bf16", "axm_i8s", "atx_a") + STUDY_KERNELS
+TOOL_KERNELS = ("axm_bf16", "atxm_bf16", "axm_i8s", "atx_a") + STUDY
 TOOLS = ("kernel_check", "bench_gram", "profile_kernels", "bench_stream",
          "bench_variants")
 # runs beyond each tool's defaults: the stream ceiling at config B's shape
@@ -1544,8 +1636,8 @@ def kernel_rows(numbers):
     ms, plain_ms, launches, (nw, m, B), library_ms)}, with its bound on
     that shape.  library_ms is None where no PyTorch call computes the
     kernel's function: none takes the packed 2-bit words to a product, and
-    none decodes them (v1_decode_a); torch.sum computes the study kernels'
-    plain sums."""
+    none decodes them (v1_decode_a to v3_bitcast); torch.sum computes the
+    plain sums of stream, stream_sum and v0_stream."""
     rows = []
     for n in KERNELS:
         err, ms, plain, launches, (nw, m, B), lib_ms = numbers[n]
@@ -1557,7 +1649,7 @@ def kernel_rows(numbers):
             + f", {launches} launches on its path")
         rows.append({
             "name": n, "route": "cuda",
-            "source": STUDY_SOURCE if n in STUDY_KERNELS else SOURCE,
+            "source": STUDY_SOURCE if n in STUDY else SOURCE,
             "replaces": REPLACES[n], "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
@@ -1575,7 +1667,12 @@ def main(argv=None):
     phase_build()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    phase_kernels_small(gen)
+    # the staged study products draw from their own generator, so that the
+    # configurations drawn from ``gen`` stay the instances the engine
+    # phases' limits were set on
+    study_gen = torch.Generator(device="cuda")
+    study_gen.manual_seed(1)
+    phase_kernels_small(gen, study_gen)
     if args.kernels_only:
         log("kernels-only run: phases 1-3a passed")
         return
@@ -1584,7 +1681,7 @@ def main(argv=None):
     words = synth_words(gen, False, CFG_B_N, CFG_B_M)
     nw, m = words.shape
     full = phase_kernels_config_b(words, gen)
-    full_s = phase_study_config_b(words)
+    full_s = phase_study_config_b(words, study_gen)
     full_g = phase_kernels_gram(words, gen, True)
     launches, geno, problem = phase_main_path(words)
     launches_f = phase_fused_linear("config B", geno, problem, True)
@@ -1594,6 +1691,9 @@ def main(argv=None):
     # config Bm: the general kernels, the fused general Gram, p-values
     words = synth_words(gen, True, CFG_B_N, CFG_B_M)
     full_m = phase_kernels_config_bm(words, gen)
+    log("== phase 3s: v6_fused_ab vs its plain version, config-Bm words")
+    full_s.update(phase_study_products(words, study_gen, ("v6_fused_ab",),
+                                      "config Bm"))
     full_gm = phase_kernels_gram(words, gen, False)
     launches_m, geno, problem = phase_config_bm(words)
     launches_mf = phase_fused_linear("config Bm", geno, problem, False)
@@ -1626,15 +1726,16 @@ def main(argv=None):
     # raises unless it is 0); launches are those of that path's run: the
     # linear runs of phases 4 / 4m (4f for the fused primal Grams), the dual
     # runs of phase 4x and, for the kernels only the tools launch, phase 7;
-    # the study kernels at config B (phase 3s), the only rows with a
-    # PyTorch call's time
+    # the study kernels at config B (phase 3s; v5_dot1 at B = 2, v6_fused_ab
+    # at B = 2 on config Bm), the only rows with a PyTorch call's time
     launches.update({n: launches_t[n] for n in TOOL_KERNELS})
     launches_m["axm_i8s"] = launches_t["axm_i8s"]
     numbers = {}
     for n in KERNELS:
-        if n in STUDY_KERNELS:
+        if n in STUDY:
             err, ms, plain, lib_ms = full_s[n]
-            numbers[n] = (err, ms, plain, launches[n], (nw, m, 1), lib_ms)
+            B = 2 if n in STUDY_PRODUCTS else 1
+            numbers[n] = (err, ms, plain, launches[n], (nw, m, B), lib_ms)
             continue
         if n in ("ax", "gram_aat_i8a", "gram_aat_i8"):
             counts = launches_xm if n == "gram_aat_i8" else launches_x

@@ -1,22 +1,26 @@
 // Study kernels of the PyTorch port, written by hand for Hopper (sm_90a):
-// the rungs of the stream-ceiling ladder between "read the packed words"
+// the rungs of the kernel-variant ladder between "read the packed words"
 // and the product kernels of matvec.cu.  Bound through the same plain C
 // interface (gvamp_tpu_torch/ops/_build.py); the wrappers and their plain
 // PyTorch versions are in gvamp_tpu_torch/ops/study.py, and the tools that
 // run them are gvamp_tpu_torch/tools/bench_stream.py and bench_variants.py.
 //
 // Every kernel here is an integer sum of the words (or of their decode),
-// mod 2^32.  Addition mod 2^32 is associative and commutative, so the
-// results equal the plain versions bit for bit whatever the grid, the
-// threads per block, the load width or the order of the atomics.  Sums are
-// taken in uint32 and the wrapper reads them as int32.
+// mod 2^32, or an exact int32 contraction of the decode against int8
+// digits.  Integer addition is associative and commutative, so the results
+// equal the plain versions bit for bit whatever the grid, the threads per
+// block, the load width or the order of the atomics.  Row sums are taken in
+// uint32 and the wrapper reads them as int32.
 //
 // Bound on this card: each kernel reads every packed word once (4*Nw*Mpad
 // bytes, 10.74 GB at config B) and writes a small output, so bytes bound
-// all four.  v1_decode_a adds the SWAR a-decode of all four planes per
-// word (about 41 integer operations), which the rung exists to measure.
+// all of them.  v1_decode_a adds the SWAR a-decode of all four planes per
+// word (22 integer instructions per word in its SASS on an H100),
+// v2_decode_ab the b-decode too, v3_bitcast the split of the decoded
+// bytes into byte rows; v5_dot1 and v6_fused_ab stage the decode in shared
+// memory and contract it on the tensor cores (stage_dot below).
 //
-// The launches take `threads` per block and `load_bytes` per load (4, 8 or
+// The row sums take `threads` per block and `load_bytes` per load (4, 8 or
 // 16), the two things the H100 tile sweep of bench_stream varies.  Each
 // grid aims at kWaves waves of resident blocks on the card's SMs (the SM
 // count is read from the device): where the output alone gives fewer
@@ -66,6 +70,25 @@ __device__ __forceinline__ void load_words(const uint32_t* p, uint32_t w[V]) {
 // lanes: each lane is at most 4 * 2 = 8, so no carry crosses a lane.
 __device__ __forceinline__ uint32_t decode_a(uint32_t w) {
   return swar_a(w, 0) + swar_a(w, 1) + swar_a(w, 2) + swar_a(w, 3);
+}
+
+// The a-plane plus the b-plane (non-missing indicator) decode of all four
+// bit pairs, as u32 byte lanes: each lane is at most 4 * (2 + 1) = 12.
+__device__ __forceinline__ uint32_t decode_ab(uint32_t w) {
+  uint32_t x = 0u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) x += swar_a(w, k) + swar_b(w, k);
+  return x;
+}
+
+// What a row sum adds per word: the word itself, or one of the decodes.
+enum Decode { kIdentity, kDecodeA, kDecodeAB };
+
+template <Decode D>
+__device__ __forceinline__ uint32_t decode(uint32_t w) {
+  if constexpr (D == kDecodeA) return decode_a(w);
+  else if constexpr (D == kDecodeAB) return decode_ab(w);
+  else return w;
 }
 
 // Blocks the grid should reach on this device: kWaves waves of resident
@@ -156,19 +179,23 @@ int launch_stream(const uint32_t* words, uint32_t* out, int64_t nw,
 }
 
 // --------------------------------------------------------------------------
-// row_sum: out[r] = sum_m f(words[r, m]) mod 2^32, int32[1, Nw], with f the
-// identity (stream_sum, v0_stream) or decode_a (v1_decode_a)
+// row_sum: out[L*r + l] = sum_m f(words[r, m]) mod 2^32, with f the
+// identity (stream_sum, v0_stream), decode_a (v1_decode_a) or decode_ab
+// (v2_decode_ab) and L = 1, or f = byte l of decode_a and L = 4
+// (v3_bitcast: byte l of word row r is byte row 4r+l)
 //
 // Replaces `stream_sum` / _stream_sum_kernel (tools/bench_stream.py:50, 59),
-// `v0_stream` / _v0_kernel (tools/bench_variants.py:70, 78) and
-// `v1_decode_a` / _v1_kernel (tools/bench_variants.py:90, 103).  One block
-// row per word row (gridDim.x), the row's vectors split over gridDim.y where
-// Nw alone gives too few blocks.  Each thread strides along its part of the
-// row with V-word loads (a block reads threads*4*V contiguous bytes per
-// step), sums in a register, reduces over its warp with __shfl_xor_sync,
-// and lane 0 adds the warp's sum into the zeroed out[r].
+// `v0_stream` / _v0_kernel (tools/bench_variants.py:70, 78), `v1_decode_a`
+// / _v1_kernel (:90, 103), `v2_decode_ab` / _v2_kernel (:113, 126) and
+// `v3_bitcast` / _v3_kernel (:138, 152).  One block row per word row
+// (gridDim.x), the row's vectors split over gridDim.y where Nw alone gives
+// too few blocks.  Each thread strides along its part of the row with
+// V-word loads (a block reads threads*4*V contiguous bytes per step), sums
+// in L registers, reduces each over its warp with __shfl_xor_sync, and
+// lane 0 adds the warp's sums into the zeroed out.  v3's four byte sums are
+// kept apart (at most 8*Mpad each) rather than packed, so no lane carries.
 // --------------------------------------------------------------------------
-template <int V, bool kDecode>
+template <int V, Decode D, int L>
 __global__ void row_sum_kernel(const uint32_t* __restrict__ words,
                                uint32_t* __restrict__ out, int64_t mpad,
                                int64_t vecs_per_part) {
@@ -176,21 +203,34 @@ __global__ void row_sum_kernel(const uint32_t* __restrict__ words,
   const int64_t i0 = (int64_t)blockIdx.y * vecs_per_part;
   const int64_t i1 = imin(mpad / V, i0 + vecs_per_part);
   const uint32_t* row = words + r * mpad;
-  uint32_t acc = 0u;
+  uint32_t acc[L];
+#pragma unroll
+  for (int l = 0; l < L; ++l) acc[l] = 0u;
 #pragma unroll 4
   for (int64_t i = i0 + threadIdx.x; i < i1; i += blockDim.x) {
     uint32_t w[V];
     load_words<V>(row + i * V, w);
 #pragma unroll
-    for (int v = 0; v < V; ++v) acc += kDecode ? decode_a(w[v]) : w[v];
+    for (int v = 0; v < V; ++v) {
+      const uint32_t x = decode<D>(w[v]);
+      if constexpr (L == 1) {
+        acc[0] += x;
+      } else {
+#pragma unroll
+        for (int l = 0; l < L; ++l) acc[l] += (x >> (8 * l)) & 0xFFu;
+      }
+    }
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if ((threadIdx.x & 31) == 0) atomicAdd(out + r, acc);
+  for (int l = 0; l < L; ++l) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc[l] += __shfl_xor_sync(0xffffffffu, acc[l], off);
+    if ((threadIdx.x & 31) == 0) atomicAdd(out + r * L + l, acc[l]);
+  }
 }
 
-template <int V, bool kDecode>
+template <int V, Decode D, int L>
 int launch_row_sum(const uint32_t* words, uint32_t* out, int64_t nw,
                    int64_t mpad, int64_t threads, cudaStream_t s) {
   int64_t target = 0;
@@ -200,12 +240,12 @@ int launch_row_sum(const uint32_t* words, uint32_t* out, int64_t nw,
   const int64_t steps = part_length(cdiv(vecs, threads), nw, target);
   const int64_t per_part = steps * threads;
   const dim3 grid((unsigned)nw, (unsigned)cdiv(vecs, per_part));
-  row_sum_kernel<V, kDecode><<<grid, (unsigned)threads, 0, s>>>(
+  row_sum_kernel<V, D, L><<<grid, (unsigned)threads, 0, s>>>(
       words, out, mpad, per_part);
   return (int)cudaGetLastError();
 }
 
-template <bool kDecode>
+template <Decode D, int L = 1>
 int row_sum(const void* words, void* out, int64_t nw, int64_t mpad,
             int64_t threads, int64_t load_bytes, void* stream) {
   if (!valid_shape(threads, load_bytes) || mpad % (load_bytes / 4) != 0)
@@ -213,9 +253,241 @@ int row_sum(const void* words, void* out, int64_t nw, int64_t mpad,
   const auto* w = static_cast<const uint32_t*>(words);
   auto* o = static_cast<uint32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (load_bytes == 4) return launch_row_sum<1, kDecode>(w, o, nw, mpad, threads, s);
-  if (load_bytes == 8) return launch_row_sum<2, kDecode>(w, o, nw, mpad, threads, s);
-  return launch_row_sum<4, kDecode>(w, o, nw, mpad, threads, s);
+  if (load_bytes == 4) return launch_row_sum<1, D, L>(w, o, nw, mpad, threads, s);
+  if (load_bytes == 8) return launch_row_sum<2, D, L>(w, o, nw, mpad, threads, s);
+  return launch_row_sum<4, D, L>(w, o, nw, mpad, threads, s);
+}
+
+// --------------------------------------------------------------------------
+// stage_dot: zt[d][k][p] = sum_m a_k[m, p] * wdig[d][m]  (v5_dot1), or
+//            + b_k[m, p] * mudig[d][m]                    (v6_fused_ab)
+//
+// Replaces `v5_dot1` / _v5_kernel (tools/bench_variants.py:164, 179) and
+// `v6_fused_ab` / _v6_kernel (:199, 215) with the contracts of axm_i8a and
+// axm_i8s (matvec.cu): int32[D, 4, 4*Nw], digit rows int8[D, Mpad] (mudig:
+// the digits of -U under W's joint scale), |sum| <= 254*Mpad (381*Mpad for
+// v6), which the wrappers keep below 2^31.
+//
+// Bound on this card: the one read of the packed words, as for the row
+// sums.  The contraction (2*16*Nw*Mpad*D int8 operations, twice that for
+// v6) takes the tensor cores about a ninth of the read's time at D = 8;
+// the decode and the staging's shared-memory traffic (32 bytes per word,
+// 64 for v6) are what this rung measures.
+//
+// Design, the H100 counterpart of the TPU rungs' VMEM scratch and one MXU
+// dot per tile.  A block owns kTnw word rows and walks marker tiles of
+// kDotTm.  Per tile, (a) every thread loads word quads (16 bytes, four
+// neighbouring markers of one row), transposes their bytes with
+// __byte_perm and decodes each plane k, so that one u32 holds the dosages
+// of planar row (k, 4i+b) for four consecutive markers, and stores it into
+// the shared int8 scratch sa[k][4i+b][markers] (v6 appends the b-plane
+// after the a-plane in each row: [a8 | b8]); the tile's digit rows go to sw
+// beside it ([w8 | mu8] for v6).  (b) One contraction of the whole stacked
+// scratch (16*kTnw rows x K) against the digit rows (K x 8) runs as
+// mma.sync m16n8k32 s8 x s8 -> s32, each warp owning a fixed set of 16-row
+// groups whose int32 sums stay in registers across the tiles.  The scratch
+// rows are padded by 4 words so that the fragment loads hit 32 banks.  The
+// next tile's words and digits are loaded while the current one is
+// contracted.  Tiles of 16 word rows (8 for v6) x 128 markers keep a
+// block's shared memory near 38 KB, so that five or six blocks share an SM
+// and hide each other's barriers and load latency.  A block handles 8
+// digit rows (the mma's n; gridDim.z takes the rest, and
+// digit rows past D are zero); marker tiles split over gridDim.y, and the
+// parts meet in atomicAdd on the zeroed output.  Word rows past Nw and
+// markers past Mpad are staged as the missing code (a = b = 0) against
+// zero digits; rows past Nw are never written.
+// --------------------------------------------------------------------------
+constexpr int kDotThreads = 256;
+constexpr int kDotWarps = kDotThreads / 32;
+constexpr int kDotTm = 128;       // markers per tile
+constexpr int kDotQuads = kDotTm / 4;
+constexpr int kDotN = 8;          // digit rows per block: the mma's n
+// one warp loads each digit row, one lane each quad of a tile row
+static_assert(kDotWarps == kDotN && kDotQuads == 32, "stage_dot layout");
+constexpr int kDotPad = 4;        // words of padding per scratch row
+// resident waves of blocks the grid aims at: more than the row sums', so
+// that the last wave's share of the work stays small
+constexpr int64_t kDotWaves = 8;
+
+template <bool kAB>
+struct DotTile {
+  static constexpr int kTnw = kAB ? 8 : 16;          // word rows per block
+  static constexpr int kRows = 16 * kTnw;            // 4 planes x 4*kTnw
+  static constexpr int kK = (kAB ? 2 : 1) * kDotTm;  // contraction per tile
+  static constexpr int kStride = kK / 4 + kDotPad;   // scratch row, words
+  static constexpr int kGroupsPerWarp = kRows / 16 / kDotWarps;
+  static constexpr int kQuadsPerThread = kTnw * kDotQuads / kDotThreads;
+  static constexpr int kSmem = (kRows + kDotN) * kStride * 4;  // bytes
+};
+
+__device__ __forceinline__ void mma_s8(int32_t c[4], const uint32_t a[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four neighbouring marker words (one 16-byte load) -> y[b] whose byte j is
+// byte b of marker word j (matvec.cu's transpose_quad).
+__device__ __forceinline__ void transpose_quad(uint4 x, uint32_t y[4]) {
+  const uint32_t t0 = __byte_perm(x.x, x.y, 0x5140);
+  const uint32_t t1 = __byte_perm(x.x, x.y, 0x7362);
+  const uint32_t t2 = __byte_perm(x.z, x.w, 0x5140);
+  const uint32_t t3 = __byte_perm(x.z, x.w, 0x7362);
+  y[0] = __byte_perm(t0, t2, 0x5410);
+  y[1] = __byte_perm(t0, t2, 0x7632);
+  y[2] = __byte_perm(t1, t3, 0x5410);
+  y[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+template <bool kAB>
+__global__ void __launch_bounds__(kDotThreads)
+stage_dot_kernel(const uint32_t* __restrict__ words,
+                 const int32_t* __restrict__ wdig,   // int32 view [D, Mpad/4]
+                 const int32_t* __restrict__ mudig,  // the same (v6 only)
+                 int32_t* __restrict__ out,          // [D, 4, 4*Nw]
+                 int64_t nw, int64_t mpad, int64_t d_total,
+                 int64_t tiles_per_part) {
+  using T = DotTile<kAB>;
+  extern __shared__ int32_t smem[];
+  int32_t* sa = smem;                          // [kRows][kStride] scratch
+  int32_t* sw = smem + T::kRows * T::kStride;  // [kDotN][kStride] digits
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // the fragments' group, thread
+  const int64_t r0 = (int64_t)blockIdx.x * T::kTnw;
+  const int64_t nq = mpad / 4;
+  const int64_t tiles = (nq + kDotQuads - 1) / kDotQuads;
+  const int64_t j0 = (int64_t)blockIdx.y * tiles_per_part;
+  const int64_t j1 = imin(tiles, j0 + tiles_per_part);
+  const int64_t d = (int64_t)blockIdx.z * kDotN + warp;  // digit row loaded
+
+  int32_t acc[T::kGroupsPerWarp][4];
+#pragma unroll
+  for (int h = 0; h < T::kGroupsPerWarp; ++h)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[h][c] = 0;
+
+  // A thread stages quad `lane` of word rows warp + 8s of every tile, so a
+  // warp reads 512 contiguous bytes of one row and stores 32 consecutive
+  // scratch words; each warp loads digit row `warp` of the block's eight.
+  const int64_t rows_left = nw - r0 - warp;
+  const uint4* src =
+      reinterpret_cast<const uint4*>(words + imin(r0 + warp, nw - 1) * mpad);
+  const int64_t row_step = kDotWarps * nq;  // uint4 per kDotWarps rows
+  int32_t* dst = sa + 4 * warp * T::kStride + lane;
+  const bool live_d = d < d_total;
+  uint4 x[T::kQuadsPerThread];
+  int32_t wq = 0, muq = 0;  // this lane's digit quads of row d
+  auto load = [&](int64_t j) {
+    const int64_t q = j * kDotQuads + lane;
+#pragma unroll
+    for (int s = 0; s < T::kQuadsPerThread; ++s)
+      x[s] = kDotWarps * s < rows_left && q < nq
+                 ? __ldg(src + s * row_step + q)
+                 : make_uint4(0x55555555u, 0x55555555u, 0x55555555u,
+                              0x55555555u);
+    const bool live = live_d && q < nq;
+    wq = live ? __ldg(wdig + d * nq + q) : 0;
+    if constexpr (kAB) muq = live ? __ldg(mudig + d * nq + q) : 0;
+  };
+  if (j0 < j1) load(j0);
+  for (int64_t j = j0; j < j1; ++j) {
+    // (a) the decode of all four planes into the scratch, the digit rows
+#pragma unroll
+    for (int s = 0; s < T::kQuadsPerThread; ++s) {
+      uint32_t y[4];
+      transpose_quad(x[s], y);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          int32_t* row =
+              dst + (k * 4 * T::kTnw + 4 * kDotWarps * s + b) * T::kStride;
+          row[0] = (int32_t)swar_a(y[b], k);
+          if constexpr (kAB) row[kDotQuads] = (int32_t)swar_b(y[b], k);
+        }
+    }
+    sw[warp * T::kStride + lane] = wq;
+    if constexpr (kAB) sw[warp * T::kStride + kDotQuads + lane] = muq;
+    __syncthreads();
+    if (j + 1 < j1) load(j + 1);  // in flight during the contraction
+    // (b) one contraction of the stacked scratch against the digit rows
+#pragma unroll
+    for (int ks = 0; ks < T::kK / 32; ++ks) {
+      const int32_t* bw = sw + g * T::kStride + ks * 8 + t;
+      const uint32_t b0 = (uint32_t)bw[0], b1 = (uint32_t)bw[4];
+#pragma unroll
+      for (int h = 0; h < T::kGroupsPerWarp; ++h) {
+        const int32_t* aw =
+            sa + ((warp * T::kGroupsPerWarp + h) * 16 + g) * T::kStride +
+            ks * 8 + t;
+        const uint32_t a[4] = {(uint32_t)aw[0], (uint32_t)aw[8 * T::kStride],
+                               (uint32_t)aw[4],
+                               (uint32_t)aw[8 * T::kStride + 4]};
+        mma_s8(acc[h], a, b0, b1);
+      }
+    }
+    __syncthreads();
+  }
+  // acc[h][2*half + c] is scratch row (group h) + g + 8*half, digit row
+  // blockIdx.z*8 + 2t + c
+  const int64_t nb = 4 * nw;
+#pragma unroll
+  for (int h = 0; h < T::kGroupsPerWarp; ++h)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = (warp * T::kGroupsPerWarp + h) * 16 + g + 8 * half;
+      const int k = r / (4 * T::kTnw);
+      const int64_t p = 4 * r0 + r % (4 * T::kTnw);
+      if (p >= nb) continue;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int64_t dc = (int64_t)blockIdx.z * kDotN + 2 * t + c;
+        if (dc < d_total)
+          atomicAdd(out + (dc * 4 + k) * nb + p, acc[h][2 * half + c]);
+      }
+    }
+}
+
+template <bool kAB>
+int stage_dot(const void* words, const void* wdig, const void* mudig,
+              void* out, int64_t nw, int64_t mpad, int64_t d_total,
+              void* stream) {
+  using T = DotTile<kAB>;
+  if (nw <= 0 || mpad <= 0 || mpad % 4 != 0 || d_total <= 0)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = stage_dot_kernel<kAB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  // all of the SM's unified memory that can be shared, so that the most
+  // blocks fit
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kDotThreads, T::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int64_t tiles = cdiv(mpad / 4, kDotQuads);
+  const int64_t rows = cdiv(nw, T::kTnw), groups = cdiv(d_total, kDotN);
+  const int64_t per_part =
+      part_length(tiles, rows * groups, kDotWaves * sms * per_sm);
+  const dim3 grid((unsigned)rows, (unsigned)cdiv(tiles, per_part),
+                  (unsigned)groups);
+  kernel<<<grid, kDotThreads, T::kSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), static_cast<const int32_t*>(wdig),
+      static_cast<const int32_t*>(mudig), static_cast<int32_t*>(out), nw,
+      mpad, d_total, per_part);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -241,13 +513,41 @@ int gvamp_study_stream(const void* words, void* out, int64_t nw, int64_t mpad,
 int gvamp_study_stream_sum(const void* words, void* out, int64_t nw,
                            int64_t mpad, int64_t threads, int64_t load_bytes,
                            void* stream) {
-  return row_sum<false>(words, out, nw, mpad, threads, load_bytes, stream);
+  return row_sum<kIdentity>(words, out, nw, mpad, threads, load_bytes,
+                            stream);
 }
 
 int gvamp_study_v1_decode_a(const void* words, void* out, int64_t nw,
                             int64_t mpad, int64_t threads, int64_t load_bytes,
                             void* stream) {
-  return row_sum<true>(words, out, nw, mpad, threads, load_bytes, stream);
+  return row_sum<kDecodeA>(words, out, nw, mpad, threads, load_bytes, stream);
+}
+
+int gvamp_study_v2_decode_ab(const void* words, void* out, int64_t nw,
+                             int64_t mpad, int64_t threads,
+                             int64_t load_bytes, void* stream) {
+  return row_sum<kDecodeAB>(words, out, nw, mpad, threads, load_bytes,
+                            stream);
+}
+
+// out is int32[1, 4*Nw]
+int gvamp_study_v3_bitcast(const void* words, void* out, int64_t nw,
+                           int64_t mpad, int64_t threads, int64_t load_bytes,
+                           void* stream) {
+  return row_sum<kDecodeA, 4>(words, out, nw, mpad, threads, load_bytes,
+                              stream);
+}
+
+int gvamp_study_v5_dot1(const void* words, const void* wdig, void* out,
+                        int64_t nw, int64_t mpad, int64_t d_total,
+                        void* stream) {
+  return stage_dot<false>(words, wdig, wdig, out, nw, mpad, d_total, stream);
+}
+
+int gvamp_study_v6_fused_ab(const void* words, const void* wdig,
+                            const void* mudig, void* out, int64_t nw,
+                            int64_t mpad, int64_t d_total, void* stream) {
+  return stage_dot<true>(words, wdig, mudig, out, nw, mpad, d_total, stream);
 }
 
 }  // extern "C"

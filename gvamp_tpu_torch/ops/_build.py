@@ -166,9 +166,14 @@ def library() -> ctypes.CDLL:
             lib.gvamp_atxm_bf16.restype = ctypes.c_int
             lib.gvamp_study_stream.argtypes = [vp, vp] + [i64] * 5 + [vp]
             lib.gvamp_study_stream.restype = ctypes.c_int
-            for name in ("gvamp_study_stream_sum", "gvamp_study_v1_decode_a"):
+            for name in ("gvamp_study_stream_sum", "gvamp_study_v1_decode_a",
+                         "gvamp_study_v2_decode_ab", "gvamp_study_v3_bitcast"):
                 fn = getattr(lib, name)
                 fn.argtypes = [vp, vp] + [i64] * 4 + [vp]
                 fn.restype = ctypes.c_int
+            lib.gvamp_study_v5_dot1.argtypes = [vp] * 3 + [i64] * 3 + [vp]
+            lib.gvamp_study_v5_dot1.restype = ctypes.c_int
+            lib.gvamp_study_v6_fused_ab.argtypes = [vp] * 4 + [i64] * 3 + [vp]
+            lib.gvamp_study_v6_fused_ab.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -1,6 +1,6 @@
-"""Study kernels of the PyTorch port: the rungs of the stream-ceiling ladder
-between "read the packed words" and the product kernels, with their plain
-PyTorch versions and the wrappers of the hand-written CUDA kernels
+"""Study kernels of the PyTorch port: the rungs of the kernel-variant
+ladder between "read the packed words" and the product kernels, with their
+plain PyTorch versions and the wrappers of the hand-written CUDA kernels
 (``csrc/study.cu``).
 
 Counterparts of the Pallas kernels of the JAX package's study tools, run
@@ -16,15 +16,34 @@ by ``gvamp_tpu_torch/tools/bench_stream.py`` and ``bench_variants.py``:
 * ``v1_decode_a``  int32[1, Nw]: per row, the sum over markers of the
   SWAR a-plane decode of all four bit pairs added as u32 byte lanes
   (replaces ``v1_decode_a``, ``tools/bench_variants.py:103``)
+* ``v2_decode_ab`` int32[1, Nw]: the same with the a- and b-plane decodes
+  added (each byte lane at most 12; replaces ``v2_decode_ab``,
+  ``tools/bench_variants.py:126``)
+* ``v3_bitcast``   int32[1, 4*Nw]: per byte row 4i+b, the sum over markers
+  of byte b of word row i's a-decode (replaces ``v3_bitcast``,
+  ``tools/bench_variants.py:152``)
+* ``v5_dot1``      A_a @ W -> f32[4, Nb, B], ``axm_i8a``'s contract, with
+  the four decoded planes staged in shared memory and one tensor-core
+  contraction per tile (replaces ``v5_dot1``,
+  ``tools/bench_variants.py:179``)
+* ``v6_fused_ab``  A_a @ W - A_b @ U -> f32[4, Nb, B], ``axm_i8s``'s
+  contract (W and -U under one joint digit scale), the planes staged as
+  [a8 | b8] and contracted against [w8; -u8] in one K-concatenated
+  contraction (replaces ``v6_fused_ab``, ``tools/bench_variants.py:215``,
+  as intended: that wrapper lays the right-hand side out marker by marker,
+  so its a and b columns meet the wrong rows)
 
-Every sum wraps mod 2**32, as the int32 sums of the JAX kernels do, so a
-kernel equals its plain version bit for bit whatever its launch
-configuration.  Unlike the JAX kernels, whose grids drop the rows and
-columns past the last full 256 x 512 tile, these sum every row for any Nw
-and Mpad (``stream`` needs tm to divide Mpad).  The TPU kernels' tile
-arguments (``tnw``, ``sem``) have no counterpart; the CUDA kernels take the
-threads per block and the bytes per load instead, which change only the
-time.
+Every row sum wraps mod 2**32, as the int32 sums of the JAX kernels do, so
+a kernel equals its plain version bit for bit whatever its launch
+configuration.  ``v5_dot1`` and ``v6_fused_ab`` share the quantisation and
+the fold with their plain versions, which are ``matvec.axm_i8a_ref`` and
+``matvec.axm_i8s_ref``, and contract exactly in int32: bit for bit too.
+Unlike the JAX kernels, whose grids drop the rows and columns past the
+last full 256 x 512 tile, these cover every row for any Nw and Mpad
+(``stream`` needs tm to divide Mpad, the products Mpad a multiple of 4).
+The TPU kernels' tile arguments (``tnw``, ``sem``) have no counterpart;
+the row-sum kernels take the threads per block and the bytes per load
+instead, which change only the time.
 
 As in ``ops/matvec.py``, a wrapper takes its plain version only for a
 tensor on the CPU; for a CUDA tensor it launches its kernel or raises, and
@@ -42,11 +61,11 @@ STREAM_TM = 512
 # the launch configurations of bench_stream's sweep
 THREADS = (128, 256, 512, 1024)
 LOAD_BYTES = (4, 8, 16)
-# the one launch configuration of bench_variants' rungs (v0_stream,
-# v1_decode_a) and the default of stream / stream_sum
+# the one launch configuration of bench_variants' row-sum rungs (v0_stream
+# to v3_bitcast) and the default of stream / stream_sum
 VARIANT_THREADS, VARIANT_LOAD_BYTES = 256, 16
-# marker columns the plain v1_decode_a decodes per step: bounds its int32
-# temporaries to a few hundred MB at Nw=20,480
+# marker columns the plain decodes take per step: bounds their int32
+# temporaries to a few hundred MB (v3_bitcast: 1.3 GB) at Nw=20,480
 _REF_COLS = 4096
 
 
@@ -74,18 +93,47 @@ def stream_sum_ref(words: torch.Tensor) -> torch.Tensor:
 v0_stream_ref = stream_sum_ref
 
 
-def v1_decode_a_ref(words: torch.Tensor) -> torch.Tensor:
-    """Sum over markers of sum_k _swar(w, k)[0] (u32 byte lanes, each at
-    most 8, so no lane carries), mod 2**32, decoded _REF_COLS columns at a
-    time.  A word's four planes sum to at most 0x08080808, exact in int32;
-    the sum over markers is exact in int64."""
+def _decoded_sums(words: torch.Tensor, with_b: bool,
+                  byte_rows: bool) -> torch.Tensor:
+    """int64[1, Nw] sums over markers of sum_k _swar(w, k)[0] (plus [1]
+    when ``with_b``) per word row, or int64[1, 4*Nw] per byte row 4i+b when
+    ``byte_rows``, decoded _REF_COLS columns at a time.  A word's four
+    planes sum to at most 0x0C0C0C0C, exact in int32."""
     nw, m = words.shape
-    tot = torch.zeros(nw, dtype=torch.int64, device=words.device)
+    tot = torch.zeros(nw * (4 if byte_rows else 1), dtype=torch.int64,
+                      device=words.device)
     for c in range(0, m, _REF_COLS):
         w = words[:, c:c + _REF_COLS]
-        acc = sum(matvec._swar(w, k)[0] for k in range(4))
+        acc = sum(sum(matvec._swar(w, k)) if with_b else matvec._swar(w, k)[0]
+                  for k in range(4))
+        if byte_rows:
+            acc = matvec._bytes_to_rows(acc)
         tot += acc.sum(1, dtype=torch.int64)
-    return _wrap_i32(tot).view(1, nw)
+    return tot.view(1, tot.numel())
+
+
+def v1_decode_a_ref(words: torch.Tensor) -> torch.Tensor:
+    """Sum over markers of sum_k _swar(w, k)[0] (u32 byte lanes, each at
+    most 8, so no lane carries), mod 2**32."""
+    return _wrap_i32(_decoded_sums(words, False, False))
+
+
+def v2_decode_ab_ref(words: torch.Tensor) -> torch.Tensor:
+    """Sum over markers of sum_k (a + b) of _swar(w, k) (u32 byte lanes,
+    each at most 12), mod 2**32."""
+    return _wrap_i32(_decoded_sums(words, True, False))
+
+
+def v3_bitcast_ref(words: torch.Tensor) -> torch.Tensor:
+    """int32[1, 4*Nw]: per byte row 4i+b, the sum over markers of byte b of
+    sum_k _swar(w, k)[0] (at most 8 per marker; wrapped as the kernel's)."""
+    return _wrap_i32(_decoded_sums(words, False, True))
+
+
+# the same function, arithmetic and fold as the library kernels of their
+# contracts: the plain versions are theirs
+v5_dot1_ref = matvec.axm_i8a_ref
+v6_fused_ab_ref = matvec.axm_i8s_ref
 
 
 # --------------------------------------------------------------------------
@@ -144,10 +192,10 @@ def stream(words: torch.Tensor, tm: int = STREAM_TM,
 
 
 def _row_sum(name: str, fn_name: str, words: torch.Tensor, threads: int,
-             load_bytes: int) -> torch.Tensor:
+             load_bytes: int, lanes: int = 1) -> torch.Tensor:
     _check_launch(name, words, threads, load_bytes)
     nw, m = words.shape
-    out = torch.zeros((1, nw), dtype=torch.int32, device=words.device)
+    out = torch.zeros((1, lanes * nw), dtype=torch.int32, device=words.device)
     if words.numel():
         from gvamp_tpu_torch.ops import _build
         matvec._launch(name, getattr(_build.library(), fn_name), words.device,
@@ -181,3 +229,84 @@ def v1_decode_a(words: torch.Tensor) -> torch.Tensor:
         return v1_decode_a_ref(words)
     return _row_sum("v1_decode_a", "gvamp_study_v1_decode_a", words,
                     VARIANT_THREADS, VARIANT_LOAD_BYTES)
+
+
+def v2_decode_ab(words: torch.Tensor, threads: int = VARIANT_THREADS,
+                 load_bytes: int = VARIANT_LOAD_BYTES) -> torch.Tensor:
+    """int32[1, Nw]: per row, the wrapping sum over markers of the a- and
+    b-plane decodes of all four bit pairs (swar_a + swar_b)."""
+    if words.device.type == "cpu":
+        return v2_decode_ab_ref(words)
+    return _row_sum("v2_decode_ab", "gvamp_study_v2_decode_ab", words,
+                    threads, load_bytes)
+
+
+def v3_bitcast(words: torch.Tensor, threads: int = VARIANT_THREADS,
+               load_bytes: int = VARIANT_LOAD_BYTES) -> torch.Tensor:
+    """int32[1, 4*Nw]: out[4i+b] = the sum over markers of byte b of word
+    row i's a-plane decode (all four bit pairs)."""
+    if words.device.type == "cpu":
+        return v3_bitcast_ref(words)
+    return _row_sum("v3_bitcast", "gvamp_study_v3_bitcast", words, threads,
+                    load_bytes, lanes=4)
+
+
+def _stage_dot(name: str, words: torch.Tensor, w8t: torch.Tensor,
+               mu8t: torch.Tensor | None) -> torch.Tensor:
+    """The int32 digit products zt[D, 4, 4*Nw] of the staged contraction:
+    A_a against the digit rows ``w8t`` (v5_dot1), plus A_b against
+    ``mu8t`` (v6_fused_ab)."""
+    nw, m = words.shape
+    D = w8t.shape[0]
+    zt = torch.zeros((D, 4, 4 * nw), dtype=torch.int32, device=words.device)
+    if words.numel() and D:
+        from gvamp_tpu_torch.ops import _build
+        lib = _build.library()
+        if mu8t is None:
+            matvec._launch(name, lib.gvamp_study_v5_dot1, words.device,
+                           words.data_ptr(), w8t.data_ptr(), zt.data_ptr(),
+                           nw, m, D)
+        else:
+            matvec._launch(name, lib.gvamp_study_v6_fused_ab, words.device,
+                           words.data_ptr(), w8t.data_ptr(), mu8t.data_ptr(),
+                           zt.data_ptr(), nw, m, D)
+    return zt
+
+
+def v5_dot1(words: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """A_a @ W -> f32[4, Nb, B] (axm_i8a's contract), the decoded planes
+    staged in shared memory and contracted on the tensor cores; columns
+    above _BMAX_AXM_A go in chunks, as axm_i8a's do."""
+    B = W.shape[1]
+    if B > matvec._BMAX_AXM_A:
+        return torch.cat([v5_dot1(words, W[:, lo:lo + matvec._BMAX_AXM_A])
+                          for lo in range(0, B, matvec._BMAX_AXM_A)], dim=2)
+    if words.device.type == "cpu":
+        return v5_dot1_ref(words, W)
+    matvec._check_cuda("v5_dot1", words, W, torch.float32)
+    m = words.shape[1]
+    if W.ndim != 2 or W.shape[0] != m:
+        raise ValueError(f"v5_dot1: W must be [{m}, B], got {list(W.shape)}")
+    matvec._check_bound("v5_dot1", m)
+    w8t, ws = matvec._quant_rows(W)
+    return matvec._fold_digits_zt(_stage_dot("v5_dot1", words, w8t, None),
+                                  ws, B)
+
+
+def v6_fused_ab(words: torch.Tensor, W: torch.Tensor,
+                U: torch.Tensor) -> torch.Tensor:
+    """A_a @ W - A_b @ U -> f32[4, Nb, B] (axm_i8s's contract: W and -U
+    quantised at one joint scale per column, one int32 sum, one fold), the
+    planes staged as [a8 | b8] and contracted against [w8; -u8]."""
+    if words.device.type == "cpu":
+        return v6_fused_ab_ref(words, W, U)
+    matvec._check_cuda("v6_fused_ab", words, W, torch.float32)
+    matvec._check_cuda("v6_fused_ab", words, U, torch.float32)
+    m = words.shape[1]
+    if W.ndim != 2 or W.shape[0] != m or U.shape != W.shape:
+        raise ValueError(f"v6_fused_ab: W and U must be [{m}, B], got "
+                         f"{list(W.shape)} and {list(U.shape)}")
+    matvec._check_bound("v6_fused_ab", m, 381)
+    w8t, mu8t, ws = matvec._quant_digits_pair(W, U)
+    return matvec._fold_digits_zt(_stage_dot("v6_fused_ab", words, w8t, mu8t),
+                                  ws, W.shape[1])

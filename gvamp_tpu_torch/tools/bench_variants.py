@@ -6,21 +6,28 @@ counterpart of ``tools/bench_variants.py``.
 
 On NW x M random int32 words (default 6,400 x 65,536, 1.68 GB packed) it
 times, with CUDA events (the median of REPS calls after a warm-up), the
-rungs between "read the words" and the product kernels, and prints ms and
-packed GB/s:
+rungs between "read the words" and the product kernels, in the JAX tool's
+order, and prints ms and packed GB/s:
 
   v0_stream      load each word, one add, a row reduction  -> read ceiling
   v1_decode_a    + the SWAR a-decode of all 4 planes        -> decode cost
+  v2_decode_ab   + the b-decode too                         -> full decode
+  v3_bitcast     the a-decode summed per byte row           -> relayout cost
   v4_dot         = axm_i8a at B=2 (decode + int8 products)  -> the a-only
                                                                product
+  v5_dot1        A_a W at B=2, the planes staged in shared  -> staging and
+                 memory, one tensor-core contraction           tensor cores
+  v6_fused_ab    A_a W - A_b U at B=2, [a8 | b8] against    -> both planes
+                 [w8; -u8] under one joint scale               in one sum
   ref axm_i8     axm_i8 at B=2 with U = 0.01 W              -> the general
                                                                product
 
-The rungs run at one launch configuration (256 threads per block, 16-byte
-loads; the TPU tool's TNW=256, TM=512 tiles have no counterpart).  Rungs
-v2_decode_ab, v3_bitcast, v5_dot1 and v6_fused_ab come with the next slice
-of the port, v7_i8decode with the one after.  ``--device cpu`` runs the
-plain versions.
+v6's row label carries its error against axm_i8 (relative to the largest
+entry; the two quantise W and U differently, so about 1e-7); above
+V6_TOL the tool returns 1.  The row-sum rungs run at one launch
+configuration (256 threads per block, 16-byte loads; the TPU tool's
+TNW=256, TM=512 tiles have no counterpart).  Rung v7_i8decode comes with
+the next slice of the port.  ``--device cpu`` runs the plain versions.
 """
 
 from __future__ import annotations
@@ -31,9 +38,15 @@ import sys
 import numpy as np
 import torch
 
+# v6_fused_ab against axm_i8, relative to the largest entry: both are
+# exact integer products of 4-digit radix-127 quantisations (about 127^-4
+# of the largest |W| per term), folded in f32
+V6_TOL = 1e-6
 
-def run(device, nw: int, m: int, reps: int) -> None:
-    """Prints one row of ms and packed GB/s per rung."""
+
+def run(device, nw: int, m: int, reps: int) -> float:
+    """Prints one row of ms and packed GB/s per rung; returns v6's error
+    against axm_i8."""
     from gvamp_tpu_torch.ops import matvec, study
     from gvamp_tpu_torch.tools.common import card_line, random_words, timer
     time_ms = timer(device)
@@ -57,9 +70,19 @@ def run(device, nw: int, m: int, reps: int) -> None:
 
     rec("v0_stream", lambda: study.v0_stream(words))
     rec("v1_decode_a", lambda: study.v1_decode_a(words))
+    rec("v2_decode_ab", lambda: study.v2_decode_ab(words))
+    rec("v3_bitcast", lambda: study.v3_bitcast(words))
     rec("v4_dot (=axm_i8a B=2)", lambda: matvec.axm_i8a(words, W2))
+    rec("v5_dot1 (stacked)", lambda: study.v5_dot1(words, W2))
+    zref = matvec.axm_i8(words, W2, U2)
+    err = float((study.v6_fused_ab(words, W2, U2) - zref).abs().max()
+                / zref.abs().max())
+    del zref
+    rec(f"v6_fused_ab (err={err:.1e})",
+        lambda: study.v6_fused_ab(words, W2, U2))
     rec("ref axm_i8 B=2", lambda: matvec.axm_i8(words, W2, U2))
     print(f"after: {card_line(device)}", flush=True)
+    return err
 
 
 def main(argv=None) -> int:
@@ -74,7 +97,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     from gvamp_tpu_torch.tools.common import need_device
     dev = need_device(args.device, "bench_variants")
-    run(dev, args.nw, args.m, args.reps)
+    err = run(dev, args.nw, args.m, args.reps)
+    if not err <= V6_TOL:
+        print(f"v6_fused_ab: {err:.3e} from axm_i8, above {V6_TOL:g}")
+        return 1
     return 0
 
 

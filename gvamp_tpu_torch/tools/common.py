@@ -148,10 +148,15 @@ INT8_CONTRACTIONS = {"axm_i8a": 1, "atxm_i8a": 1, "axm_i8": 2, "atxm_i8": 2,
 BF16_PRODUCTS = {"axm_bf16": 2 * 3, "atxm_bf16": 2 * 3}
 # f32 single-vector products: planes, each 2 N M f32 ops
 F32_PLANES = {"atx": 2, "ax": 2, "atx_a": 1}
-# the study kernels (ops/study.py): integer sums of the words, charged by
-# bytes alone (an integer-operation count written before the SASS is known
-# could overstate the least time)
-STUDY_KERNELS = ("stream", "stream_sum", "v0_stream", "v1_decode_a")
+# the study kernels of ops/study.py that sum the words or their decode,
+# charged by bytes alone (an integer-operation count written before the
+# SASS is known could overstate the least time)
+STUDY_KERNELS = ("stream", "stream_sum", "v0_stream", "v1_decode_a",
+                 "v2_decode_ab", "v3_bitcast")
+# the study kernels of ops/study.py that compute a library kernel's
+# contract, charged as that kernel: the words, the f32 columns in and out,
+# and its int8 digit contractions
+STUDY_PRODUCTS = {"v5_dot1": "axm_i8a", "v6_fused_ab": "axm_i8s"}
 
 
 def bound(name: str, nw: int, m: int, B: int):
@@ -162,11 +167,14 @@ def bound(name: str, nw: int, m: int, B: int):
     int8 operations per digit contraction (D = 4 B digit rows), 2 N M B
     bf16 operations per plane and part of the bf16-split products, or
     2 N M f32 operations per plane of the single-vector ones.  The study
-    kernels move the words and their int32 output (Nw x STREAM_TM for
-    ``stream``, Nw for the row sums) and are charged by bytes only."""
+    kernels of STUDY_KERNELS move the words and their int32 output (Nw x
+    STREAM_TM for ``stream``, 4 Nw for ``v3_bitcast``, Nw for the other row
+    sums) and are charged by bytes only; those of STUDY_PRODUCTS as the
+    library kernel of their contract."""
     if name in STUDY_KERNELS:
-        out = 4 * nw * (STREAM_TM if name == "stream" else 1)
+        out = 4 * nw * {"stream": STREAM_TM, "v3_bitcast": 4}.get(name, 1)
         return 1e3 * (4 * nw * m + out) / HBM_BYTES_PER_S, "bytes"
+    name = STUDY_PRODUCTS.get(name, name)
     n = 16 * nw
     vec_n, vec_m = 4 * n, 4 * m  # f32 bytes of one column in N / in M
     io = {"axm_i8a": (vec_m + vec_n) * B, "atxm_i8a": (vec_n + vec_m) * B,

@@ -1,21 +1,26 @@
 """The study kernels of the port (gvamp_tpu_torch/ops/study.py: stream,
-stream_sum, v0_stream, v1_decode_a) against the JAX package's study kernels
-(tools/bench_stream.py, tools/bench_variants.py) run in interpret mode, and
-against numpy where the JAX grids drop rows; the byte bounds, the tools
-bench_stream and bench_variants on the CPU, and the build hash over every
-CUDA source.  The CUDA kernels are held against these plain versions on the
-card by chip_smoke.py."""
+stream_sum, v0_stream, v1_decode_a, v2_decode_ab, v3_bitcast, v5_dot1,
+v6_fused_ab) against the JAX package's study kernels (tools/bench_stream.py,
+tools/bench_variants.py) run in interpret mode, and against numpy where the
+JAX grids drop rows; the bounds, the tools bench_stream and bench_variants
+on the CPU, and the build hash over every CUDA source.  The CUDA kernels are
+held against these plain versions on the card by chip_smoke.py."""
 
+import functools
 import importlib
 import os
 import shutil
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
+
+from gvamp_tpu.ops import matvec as jmv
 
 from gvamp_tpu_torch.ops import matvec as tmv
 from gvamp_tpu_torch.ops import study
@@ -60,16 +65,39 @@ def _np_stream(words, tm):
     return _wrap(words.astype(np.int64).reshape(nw, m // tm, tm).sum(1))
 
 
-def _np_decode_a(words):
-    """numpy's own a-plane decode, {2,0,1,0}[code] per 2-bit code, summed as
-    u32 byte lanes over the 4 planes and the markers, mod 2**32."""
+# numpy's own decode of a 2-bit code: dosage a and non-missing indicator b
+_NP_A, _NP_B = np.array([2, 0, 1, 0]), np.array([1, 0, 1, 1])
+
+
+def _np_planes(words):
+    """(a, b) float64[4, 4*Nw, Mpad]: plane k, row 4i+b of word row i."""
     w = words.astype(np.int64)
-    tot = np.zeros(words.shape[0], np.int64)
+    nw, m = words.shape
+    code = np.stack([np.stack([(w >> (8 * b + 2 * k)) & 3 for b in range(4)],
+                              axis=1).reshape(4 * nw, m) for k in range(4)])
+    return _NP_A[code].astype(np.float64), _NP_B[code].astype(np.float64)
+
+
+def _np_decode(words, with_b=False, byte_rows=False):
+    """numpy's own a-plane decode (plus the b-plane with ``with_b``) summed
+    over the 4 planes and the markers: per word row as u32 byte lanes, or
+    per byte row 4i+b with ``byte_rows``; mod 2**32."""
+    w = words.astype(np.int64)
+    tot = np.zeros((words.shape[0], 4), np.int64)
     for b in range(4):
         for k in range(4):
             code = (w >> (8 * b + 2 * k)) & 3
-            tot += (np.array([2, 0, 1, 0])[code] << (8 * b)).sum(1)
-    return _wrap(tot)[None, :]
+            tot[:, b] += (_NP_A[code] + with_b * _NP_B[code]).sum(1)
+    if byte_rows:
+        return _wrap(tot.reshape(-1))[None, :]
+    return _wrap((tot << (8 * np.arange(4))).sum(1))[None, :]
+
+
+# numpy's row sums of each row-sum rung
+NP_ROWS = {"stream_sum": _np_row_sums, "v0_stream": _np_row_sums,
+           "v1_decode_a": _np_decode,
+           "v2_decode_ab": functools.partial(_np_decode, with_b=True),
+           "v3_bitcast": functools.partial(_np_decode, byte_rows=True)}
 
 
 def _jax(fn, words, **kw):
@@ -98,22 +126,23 @@ ROW_SHAPES = [(256, 512), (256, 1024), (512, 1536)]
 
 
 @pytest.mark.parametrize("nw,m", ROW_SHAPES)
-@pytest.mark.parametrize("name", ["stream_sum", "v0_stream", "v1_decode_a"])
+@pytest.mark.parametrize("name", list(NP_ROWS))
 def test_row_sums_equal_jax(jax_tools, name, nw, m):
-    """Each plain row sum equals its JAX kernel bit for bit; stream_sum at
-    two tnw where Nw allows, so tnw does not change the result."""
+    """Each plain row sum equals its JAX kernel bit for bit, and numpy's own
+    decode; stream_sum at two tnw where Nw allows, so tnw does not change
+    the result.  v3_bitcast's byte rows come in the order 4i+b."""
     bs, bv = jax_tools
     words = _words(np.random.default_rng(3 * nw + m), nw, m)
     got = getattr(study, name)(_t(words)).numpy()
-    assert got.shape == (1, nw) and got.dtype == np.int32
+    rows = 4 * nw if name == "v3_bitcast" else nw
+    assert got.shape == (1, rows) and got.dtype == np.int32
     if name == "stream_sum":
         for tnw in (128, 256):
             np.testing.assert_array_equal(
                 got, _jax(bs.stream_sum, words, tnw=tnw, tm=512))
     else:
         np.testing.assert_array_equal(got, _jax(getattr(bv, name), words))
-    want = _np_decode_a(words) if name == "v1_decode_a" else _np_row_sums(words)
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, NP_ROWS[name](words))
 
 
 # one code in every bit pair: 00 (a = 2), 10 (a = 1), 01 (missing, a = 0),
@@ -128,23 +157,139 @@ def test_v1_decode_a_exact_codes(word, lane):
                                                       * 0x01010101)))
 
 
+@pytest.mark.parametrize("word,a_lane,ab_lane", [
+    (0x00000000, 8, 12), (0xAAAAAAAA, 4, 8), (0x55555555, 0, 0),
+    (0xFFFFFFFF, 0, 4)])
+def test_v2_v3_exact_codes(word, a_lane, ab_lane):
+    """Words of one code: per word, 4 (a + b) in each byte lane for
+    v2_decode_ab (b = 1 for 00, 10 and 11, 0 for the missing 01), and
+    4 a in every byte row for v3_bitcast."""
+    nw, m = 8, 2048 + 512
+    words = _t(np.full((nw, m), word, np.uint32))
+    np.testing.assert_array_equal(
+        study.v2_decode_ab(words).numpy(),
+        _wrap(np.full((1, nw), m * ab_lane * 0x01010101)))
+    np.testing.assert_array_equal(study.v3_bitcast(words).numpy(),
+                                  np.full((1, 4 * nw), m * a_lane))
+
+
+def test_v3_bitcast_byte_row_order(jax_tools):
+    """Byte b of word row i is byte row 4i+b, in the port and in the JAX
+    kernel under forced interpret mode, not the tile-local order b*TNW+i:
+    words whose four bytes decode to different sums (codes 00, 10, 01 and
+    then one 10 among 00s: 8, 4, 0, 7 per word) give the pattern
+    8, 4, 0, 7 repeated down the rows."""
+    _, bv = jax_tools
+    nw, m = 256, 512
+    words = np.full((nw, m), 0x0255AA00, np.uint32)
+    want = np.tile(m * np.array([8, 4, 0, 7], np.int32), nw)[None, :]
+    np.testing.assert_array_equal(study.v3_bitcast(_t(words)).numpy(), want)
+    np.testing.assert_array_equal(_jax(bv.v3_bitcast, words), want)
+
+
+# the staged products against float64 (the digit quantisation errs about
+# 127^-4 of each column's largest |entry| per term; the f32 fold a few
+# ulps) and against JAX (the same integers, folded in f32 on each side;
+# 1.8e-7 measured at Nw=256, M=1,024), relative to max|z|
+PRODUCT_TOL = 5e-7
+
+
+def _np_products(words, W, U=None):
+    """float64 A_a W (- A_b U) from numpy's own decode: [4, 4*Nw, B]."""
+    a, b = _np_planes(words)
+    z = np.einsum("knm,mc->knc", a, W.astype(np.float64))
+    if U is not None:
+        z -= np.einsum("knm,mc->knc", b, U.astype(np.float64))
+    return z
+
+
+def _close(got, want, tol=PRODUCT_TOL):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=tol * np.abs(want).max())
+
+
 # shapes where JAX's grid (Nw // 256 x Mpad // 512) drops rows or columns
-DROPPED_SHAPES = [(300, 1024), (256, 1000), (300, 8), (7, 8)]
+DROPPED_SHAPES = [(300, 1024), (256, 1000), (300, 1000), (300, 8), (7, 8)]
 
 
 @pytest.mark.parametrize("nw,m", DROPPED_SHAPES)
 def test_every_row_at_shapes_jax_drops(nw, m):
-    words = _words(np.random.default_rng(nw * 7 + m), nw, m)
+    rng = np.random.default_rng(nw * 7 + m)
+    words = _words(rng, nw, m)
     t = _t(words)
     np.testing.assert_array_equal(study.stream_sum(t).numpy(),
                                   _np_row_sums(words))
-    np.testing.assert_array_equal(study.v0_stream(t).numpy(),
-                                  _np_row_sums(words))
-    np.testing.assert_array_equal(study.v1_decode_a(t).numpy(),
-                                  _np_decode_a(words))
+    for name in ("v0_stream", "v1_decode_a", "v2_decode_ab", "v3_bitcast"):
+        np.testing.assert_array_equal(getattr(study, name)(t).numpy(),
+                                      NP_ROWS[name](words))
     tm = 8
     np.testing.assert_array_equal(study.stream(t, tm).numpy(),
                                   _np_stream(words, tm))
+    W = rng.standard_normal((m, 2)).astype(np.float32)
+    U = (rng.standard_normal((m, 2)) * 0.5).astype(np.float32)
+    tW, tU = torch.from_numpy(W), torch.from_numpy(U)
+    _close(study.v5_dot1(t, tW), _np_products(words, W))
+    _close(study.v6_fused_ab(t, tW, tU), _np_products(words, W, U))
+
+
+@pytest.mark.parametrize("nw,m", [(256, 512), (256, 1024)])
+def test_v5_dot1_matches_jax(jax_tools, nw, m):
+    """The plain v5_dot1 (axm_i8a's integers and fold) against JAX's
+    v5_dot1 at B=2 under forced interpret mode, and against float64."""
+    _, bv = jax_tools
+    rng = np.random.default_rng(nw + 5 * m)
+    words = _words(rng, nw, m)
+    W = rng.standard_normal((m, 2)).astype(np.float32)
+    z = study.v5_dot1(_t(words), torch.from_numpy(W))
+    with pltpu.force_tpu_interpret_mode():
+        want = bv.v5_dot1(jnp.asarray(words), jnp.asarray(W))
+    _close(z, want)
+    _close(z, _np_products(words, W))
+
+
+def _jax_v6_intended(bv, words, W, U):
+    """JAX's _v6_kernel with the right-hand side it was written for: per
+    marker tile j, rows [w8 of tile j; -u8 of tile j] under one joint digit
+    scale of [W; -U] (the tool's wrapper interleaves the markers instead)."""
+    nw, m = words.shape
+    B = W.shape[1]
+    D, tnw, tm = 4 * B, bv.TNW, bv.TM
+    wu8, s = bv._quant_digits(jnp.concatenate([W, -U], axis=0), 1)
+    wu8 = wu8.reshape(2, m // tm, tm, D).transpose(1, 0, 2, 3).reshape(
+        2 * m, D)
+    vmem = pltpu.VMEM
+    z = pl.pallas_call(
+        bv._v6_kernel, grid=(nw // tnw, m // tm),
+        in_specs=[pl.BlockSpec((tnw, tm), lambda i, j: (i, j),
+                               memory_space=vmem),
+                  pl.BlockSpec((2 * tm, D), lambda i, j: (j, 0),
+                               memory_space=vmem)],
+        out_specs=pl.BlockSpec((4, 4 * tnw, D), lambda i, j: (0, i, 0),
+                               memory_space=vmem),
+        out_shape=jax.ShapeDtypeStruct((4, 4 * nw, D), jnp.int32),
+    )(words, wu8)
+    return bv._fold_digits(z, s[0][None, None, :], B)
+
+
+@pytest.mark.parametrize("nw,m,B", [(256, 512, 2), (256, 1024, 2),
+                                    (256, 1024, 1)])
+def test_v6_fused_ab_matches_the_intended_contract(jax_tools, nw, m, B):
+    """The plain v6_fused_ab (axm_i8s's integers and fold) against
+    axm_i8s_pallas, against JAX's _v6_kernel fed the intended per-tile
+    [w8; -u8] rows (forced interpret mode), and against float64."""
+    _, bv = jax_tools
+    rng = np.random.default_rng(nw + 3 * m + B)
+    words = _words(rng, nw, m)
+    W = rng.standard_normal((m, B)).astype(np.float32)
+    U = (rng.standard_normal((m, B)) * 0.5).astype(np.float32)
+    z = study.v6_fused_ab(_t(words), torch.from_numpy(W), torch.from_numpy(U))
+    jw, jW, jU = jnp.asarray(words), jnp.asarray(W), jnp.asarray(U)
+    _close(z, jmv.axm_i8s_pallas(jw, jW, jU))
+    with pltpu.force_tpu_interpret_mode():
+        _close(z, _jax_v6_intended(bv, jw, jW, jU))
+    _close(z, _np_products(words, W, U))
 
 
 def test_v1_decode_a_chunks_the_columns():
@@ -153,7 +298,7 @@ def test_v1_decode_a_chunks_the_columns():
     nw, m = 4, 2 * study._REF_COLS + 12
     words = _words(np.random.default_rng(11), nw, m)
     np.testing.assert_array_equal(study.v1_decode_a(_t(words)).numpy(),
-                                  _np_decode_a(words))
+                                  _np_decode(words))
 
 
 def test_stream_raises_when_tm_does_not_divide():
@@ -177,27 +322,73 @@ def test_wrappers_take_the_plain_versions_on_cpu_and_raise_elsewhere():
                        study.stream_sum_ref(words))
     assert torch.equal(study.v0_stream(words), study.v0_stream_ref(words))
     assert torch.equal(study.v1_decode_a(words), study.v1_decode_a_ref(words))
+    assert torch.equal(study.v2_decode_ab(words, 512, 4),
+                       study.v2_decode_ab_ref(words))
+    assert torch.equal(study.v3_bitcast(words), study.v3_bitcast_ref(words))
+    W, U = torch.randn((1024, 3)), torch.randn((1024, 3))
+    assert torch.equal(study.v5_dot1(words, W), tmv.axm_i8a_ref(words, W))
+    assert torch.equal(study.v6_fused_ab(words, W, U),
+                       tmv.axm_i8s_ref(words, W, U))
     assert set(tmv.LAUNCHES.values()) == {0}
     meta = words.to("meta")
+    Wm, Um = W.to("meta"), U.to("meta")
     for call in (lambda: study.stream(meta), lambda: study.stream_sum(meta),
                  lambda: study.v0_stream(meta),
-                 lambda: study.v1_decode_a(meta)):
+                 lambda: study.v1_decode_a(meta),
+                 lambda: study.v2_decode_ab(meta),
+                 lambda: study.v3_bitcast(meta),
+                 lambda: study.v5_dot1(meta, Wm),
+                 lambda: study.v6_fused_ab(meta, Wm, Um)):
         with pytest.raises(ValueError, match="CUDA tensors only"):
             call()
     assert set(tmv.LAUNCHES.values()) == {0}
 
 
+def test_v5_dot1_chunks_wide_right_hand_sides():
+    """Above _BMAX_AXM_A columns v5_dot1 goes in chunks, as axm_i8a does:
+    the same values as one call of the plain version (quantisation and
+    fold are per column)."""
+    rng = np.random.default_rng(9)
+    words = _t(_words(rng, 8, 64))
+    W = torch.from_numpy(rng.standard_normal(
+        (64, tmv._BMAX_AXM_A + 6)).astype(np.float32))
+    assert torch.equal(study.v5_dot1(words, W), study.v5_dot1_ref(words, W))
+
+
 def test_bound_of_the_study_kernels():
-    """Bytes only: the words once plus the int32 output at 3.35 TB/s, about
-    0.50 ms at the tools' 1.68 GB and 3.21 ms at config B."""
+    """Bytes only: the words once plus the int32 output (4 Nw for
+    v3_bitcast's byte rows) at 3.35 TB/s, about 0.50 ms at the tools' 1.68
+    GB and 3.21 ms at config B."""
     for (nw, m), lo, hi in (((6_400, 65_536), 0.500, 0.505),
                             ((20_480, 131_072), 3.20, 3.22)):
         for name in STUDY_KERNELS:
             ms, by = common.bound(name, nw, m, 1)
-            out = 4 * nw * (512 if name == "stream" else 1)
+            out = 4 * nw * {"stream": 512, "v3_bitcast": 4}.get(name, 1)
             assert by == "bytes" and lo < ms < hi, (name, ms)
             assert ms == pytest.approx(1e3 * (4 * nw * m + out)
                                        / common.HBM_BYTES_PER_S, rel=1e-12)
+
+
+@pytest.mark.parametrize("B,by", [(1, "bytes"), (2, "bytes"),
+                                  (64, "operations")])
+def test_bound_of_the_staged_products(B, by):
+    """v5_dot1 and v6_fused_ab are charged as axm_i8a and axm_i8s: the
+    words and the f32 columns at 3.35 TB/s against 2 N M D int8 operations
+    (twice that for v6) at 1,979 TOP/s, the larger of the two; at config
+    B the bytes bound them at the ladder's B = 2, the operations at
+    B = 64."""
+    nw, m = 20_480, 131_072
+    n = 16 * nw
+    assert not set(common.STUDY_PRODUCTS) & set(STUDY_KERNELS)
+    for name, planes, cols in (("v5_dot1", 1, 1), ("v6_fused_ab", 2, 2)):
+        lib = common.STUDY_PRODUCTS[name]
+        ms, got_by = common.bound(name, nw, m, B)
+        assert (ms, got_by) == common.bound(lib, nw, m, B)
+        t_bytes = (4 * nw * m + (cols * 4 * m + 4 * n) * B) \
+            / common.HBM_BYTES_PER_S
+        t_ops = 2 * n * m * 4 * B * planes / common.INT8_OPS_PER_S
+        assert got_by == by
+        assert ms == pytest.approx(1e3 * max(t_bytes, t_ops), rel=1e-12)
 
 
 def test_bench_stream_runs_on_cpu(capsys):
@@ -218,9 +409,14 @@ def test_bench_variants_runs_on_cpu(capsys):
     from gvamp_tpu_torch.tools import bench_variants
     assert bench_variants.main(["--device", "cpu", "8", "1024", "1"]) == 0
     out = capsys.readouterr().out
-    for name in ("v0_stream", "v1_decode_a", "v4_dot (=axm_i8a B=2)",
-                 "ref axm_i8 B=2"):
-        assert f"\n{name} " in out, name
+    rows = [ln for ln in out.splitlines() if ln.endswith("GB/s")]
+    assert len(rows) == 8
+    for name in ("v0_stream", "v1_decode_a", "v2_decode_ab", "v3_bitcast",
+                 "v4_dot (=axm_i8a B=2)", "v5_dot1 (stacked)",
+                 "v6_fused_ab (err=", "ref axm_i8 B=2"):
+        assert f"\n{name}" in out, name
+    err = float(out.split("v6_fused_ab (err=")[1].split(")")[0])
+    assert err <= bench_variants.V6_TOL
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit):
             bench_variants.main([])
@@ -301,17 +497,24 @@ def test_build_compiles_each_source_then_links(tmp_path, monkeypatch, fail):
         len(sources) + 1
 
 
+# the mangled names of every instantiation of study.cu's kernels, as ptxas
+# reports them on the card (nvcc names the anonymous namespace by file):
+# stream per V; the row sums per <V, Decode, lanes> (stream_sum and
+# v0_stream, v1_decode_a, v2_decode_ab, v3_bitcast); stage_dot per <kAB>
+_NS = "_ZN40_GLOBAL__N__4cd102fc_8_study_cu_649beea1"
 STUDY_INSTANTIATIONS = (
-    [f"_ZN12_GLOBAL__N_113stream_kernelILi{v}EEEvPKjPjllll" for v in (1, 2, 4)]
-    + [f"_ZN12_GLOBAL__N_114row_sum_kernelILi{v}ELb{d}EEEvPKjPjll"
-       for v in (1, 2, 4) for d in (0, 1)])
+    [f"{_NS}13stream_kernelILi{v}EEEvPKjPjllll" for v in (1, 2, 4)]
+    + [f"{_NS}14row_sum_kernelILi{v}ELNS_6DecodeE{d}ELi{lanes}EEEvPKjPjll"
+       for v in (1, 2, 4) for d, lanes in ((0, 1), (1, 1), (2, 1), (1, 4))]
+    + [f"{_NS}16stage_dot_kernelILb{b}EEEvPKjPKiS4_Pillll" for b in (0, 1)])
 
 
 @pytest.mark.parametrize("spilling", STUDY_INSTANTIATIONS)
 def test_chip_smoke_checks_every_instantiation_for_spills(monkeypatch,
                                                           spilling):
     """chip_smoke's phase 2 reads a spill store in any instantiation of a
-    study kernel (every bytes per load, with and without the decode)."""
+    study kernel (every bytes per load and decode of the row sums, both
+    staged products)."""
     monkeypatch.syspath_prepend(REPO)
     smoke = importlib.import_module("chip_smoke")
     report = {f"_Z{smoke.PTXAS_ENTRY.get(k, f'{k}_kernel')}v": (32, 0)
