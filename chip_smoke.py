@@ -18,10 +18,10 @@ Phases, each of which raises on failure (exit code != 0):
    chunks; the bf16-split products and atx_a also on Gaussian inputs
    against float64 within kernel_check.TOL; the study kernels of
    ops/study.py also at Nw=300 and Mpad not a multiple of 512, the row
-   sums stream_sum, stream, v2_decode_ab and v3_bitcast at every threads x
-   bytes-per-load configuration of bench_stream's sweep, v1_decode_a,
-   v2_decode_ab and v3_bitcast on words of one code against their exact
-   sums, v5_dot1 and v6_fused_ab at B = 1, 2 and 5),
+   sums stream_sum and stream at every threads x bytes-per-load
+   configuration of bench_stream's sweep, v1_decode_a, v2_decode_ab and
+   v3_bitcast on words of one code against their exact sums, v5_dot1 and
+   v6_fused_ab at B = 1, 2 and 5),
    (b) the a-only kernels, atx, atx_a and the bf16-split products on the
    whole config-B matrix at B = 1 and 2 (the bf16 ones and atx_a also on
    Gaussian inputs against their plain versions within BF16_PLAIN_TOL),
@@ -70,8 +70,10 @@ Phases, each of which raises on failure (exit code != 0):
    with the fused Grams' correctness), the fused-Gram study (bench_gram),
    the kernel profile (profile_kernels), the stream-ceiling sweep
    (bench_stream, at its default 1.68 GB and again at config B's 10.74 GB)
-   and the eight-rung variant ladder (bench_variants, which fails if
-   v6_fused_ab strays from axm_i8).  No engine path launches axm_bf16,
+   and the eight-rung variant ladder (bench_variants, which holds every
+   rung bit for bit against its plain version on the tool's own words and
+   shape, and fails if one differs or v6_fused_ab strays from axm_i8).  No
+   engine path launches axm_bf16,
    atxm_bf16, axm_i8s, atx_a or the eight study kernels; their launches in
    the kernels line are those of this phase.
 
@@ -431,18 +433,15 @@ STUDY_SHAPES = [(300, 1000), (300, 8), (7, 8), (1, 4096)]
 
 def check_study_sweep(words, label) -> None:
     """The study row sums against their plain versions, bit for bit:
-    ``stream`` (at tm = gcd(Mpad, 512)), ``stream_sum``, ``v2_decode_ab``
-    and ``v3_bitcast`` at every threads x bytes-per-load configuration of
-    bench_stream's sweep that the shape takes, v0_stream and v1_decode_a
-    at theirs."""
+    ``stream`` (at tm = gcd(Mpad, 512)) and ``stream_sum`` at every
+    threads x bytes-per-load configuration of bench_stream's sweep that
+    the shape takes, v0_stream to v3_bitcast at the ladder's one."""
     import math
     from gvamp_tpu_torch.ops import study
     nw, m = words.shape
     tm = math.gcd(m, study.STREAM_TM)
     want_rows = study.stream_sum_ref(words)
     want_stream = study.stream_ref(words, tm)
-    want_v2 = study.v2_decode_ab_ref(words)
-    want_v3 = study.v3_bitcast_ref(words)
     runs = 0
     for threads in study.THREADS:
         for nb in study.LOAD_BYTES:
@@ -451,23 +450,19 @@ def check_study_sweep(words, label) -> None:
             conf = f"{label} threads={threads} load={nb}B"
             compare("stream_sum", conf,
                     (study.stream_sum(words, threads, nb),), (want_rows,))
-            compare("v2_decode_ab", conf,
-                    (study.v2_decode_ab(words, threads, nb),), (want_v2,))
-            compare("v3_bitcast", conf,
-                    (study.v3_bitcast(words, threads, nb),), (want_v3,))
-            runs += 3
+            runs += 1
             if tm % (nb // 4) == 0:
                 compare("stream", f"{label} tm={tm} threads={threads} "
                         f"load={nb}B", (study.stream(words, tm, threads, nb),),
                         (want_stream,))
                 runs += 1
     compare("v0_stream", label, (study.v0_stream(words),), (want_rows,))
-    compare("v1_decode_a", label, (study.v1_decode_a(words),),
-            (study.v1_decode_a_ref(words),))
+    for name in ("v1_decode_a", "v2_decode_ab", "v3_bitcast"):
+        compare(name, label, (getattr(study, name)(words),),
+                (getattr(study, f"{name}_ref")(words),))
     torch.cuda.synchronize()
     log(f"  {label:>22s} study row sums equal: {runs} stream / stream_sum "
-        f"/ v2_decode_ab / v3_bitcast configurations (tm={tm}), v0_stream, "
-        f"v1_decode_a")
+        f"configurations (tm={tm}), v0_stream to v3_bitcast")
 
 
 def check_study_products(gen) -> None:
@@ -475,7 +470,8 @@ def check_study_products(gen) -> None:
     on random words of every small shape (Nw=300 and Mpad=1000 among them:
     a part tile of rows and of markers) at B = 1, 2 and 5 (D = 4, 8 and
     20: the mma's 8 digit rows padded and split over the grid) and at the
-    shape's own B of SHAPES (B = 70: v5_dot1's column chunks)."""
+    shape's own B of SHAPES (B = 70: 280 digit rows, 35 blocks on the
+    grid's z axis)."""
     from gvamp_tpu_torch.ops import study
     widths = {(nw, m): B for nw, m, B in SHAPES}
     runs = 0

@@ -42,8 +42,9 @@ Unlike the JAX kernels, whose grids drop the rows and columns past the
 last full 256 x 512 tile, these cover every row for any Nw and Mpad
 (``stream`` needs tm to divide Mpad, the products Mpad a multiple of 4).
 The TPU kernels' tile arguments (``tnw``, ``sem``) have no counterpart;
-the row-sum kernels take the threads per block and the bytes per load
-instead, which change only the time.
+``stream`` and ``stream_sum`` take the threads per block and the bytes per
+load instead (bench_stream's sweep), which change only the time, and the
+ladder's row sums run at one launch configuration.
 
 As in ``ops/matvec.py``, a wrapper takes its plain version only for a
 tensor on the CPU; for a CUDA tensor it launches its kernel or raises, and
@@ -61,8 +62,8 @@ STREAM_TM = 512
 # the launch configurations of bench_stream's sweep
 THREADS = (128, 256, 512, 1024)
 LOAD_BYTES = (4, 8, 16)
-# the one launch configuration of bench_variants' row-sum rungs (v0_stream
-# to v3_bitcast) and the default of stream / stream_sum
+# the one launch configuration of the ladder's row-sum rungs (v0_stream to
+# v3_bitcast) and the default of stream / stream_sum
 VARIANT_THREADS, VARIANT_LOAD_BYTES = 256, 16
 # marker columns the plain decodes take per step: bounds their int32
 # temporaries to a few hundred MB (v3_bitcast: 1.3 GB) at Nw=20,480
@@ -231,24 +232,22 @@ def v1_decode_a(words: torch.Tensor) -> torch.Tensor:
                     VARIANT_THREADS, VARIANT_LOAD_BYTES)
 
 
-def v2_decode_ab(words: torch.Tensor, threads: int = VARIANT_THREADS,
-                 load_bytes: int = VARIANT_LOAD_BYTES) -> torch.Tensor:
+def v2_decode_ab(words: torch.Tensor) -> torch.Tensor:
     """int32[1, Nw]: per row, the wrapping sum over markers of the a- and
     b-plane decodes of all four bit pairs (swar_a + swar_b)."""
     if words.device.type == "cpu":
         return v2_decode_ab_ref(words)
     return _row_sum("v2_decode_ab", "gvamp_study_v2_decode_ab", words,
-                    threads, load_bytes)
+                    VARIANT_THREADS, VARIANT_LOAD_BYTES)
 
 
-def v3_bitcast(words: torch.Tensor, threads: int = VARIANT_THREADS,
-               load_bytes: int = VARIANT_LOAD_BYTES) -> torch.Tensor:
+def v3_bitcast(words: torch.Tensor) -> torch.Tensor:
     """int32[1, 4*Nw]: out[4i+b] = the sum over markers of byte b of word
     row i's a-plane decode (all four bit pairs)."""
     if words.device.type == "cpu":
         return v3_bitcast_ref(words)
-    return _row_sum("v3_bitcast", "gvamp_study_v3_bitcast", words, threads,
-                    load_bytes, lanes=4)
+    return _row_sum("v3_bitcast", "gvamp_study_v3_bitcast", words,
+                    VARIANT_THREADS, VARIANT_LOAD_BYTES, lanes=4)
 
 
 def _stage_dot(name: str, words: torch.Tensor, w8t: torch.Tensor,
@@ -275,12 +274,8 @@ def _stage_dot(name: str, words: torch.Tensor, w8t: torch.Tensor,
 
 def v5_dot1(words: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """A_a @ W -> f32[4, Nb, B] (axm_i8a's contract), the decoded planes
-    staged in shared memory and contracted on the tensor cores; columns
-    above _BMAX_AXM_A go in chunks, as axm_i8a's do."""
-    B = W.shape[1]
-    if B > matvec._BMAX_AXM_A:
-        return torch.cat([v5_dot1(words, W[:, lo:lo + matvec._BMAX_AXM_A])
-                          for lo in range(0, B, matvec._BMAX_AXM_A)], dim=2)
+    staged in shared memory and contracted on the tensor cores; any B in
+    one launch (the grid's z axis takes the digit rows eight at a time)."""
     if words.device.type == "cpu":
         return v5_dot1_ref(words, W)
     matvec._check_cuda("v5_dot1", words, W, torch.float32)
@@ -290,7 +285,7 @@ def v5_dot1(words: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     matvec._check_bound("v5_dot1", m)
     w8t, ws = matvec._quant_rows(W)
     return matvec._fold_digits_zt(_stage_dot("v5_dot1", words, w8t, None),
-                                  ws, B)
+                                  ws, W.shape[1])
 
 
 def v6_fused_ab(words: torch.Tensor, W: torch.Tensor,

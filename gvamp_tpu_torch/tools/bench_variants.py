@@ -22,9 +22,12 @@ order, and prints ms and packed GB/s:
   ref axm_i8     axm_i8 at B=2 with U = 0.01 W              -> the general
                                                                product
 
-v6's row label carries its error against axm_i8 (relative to the largest
-entry; the two quantise W and U differently, so about 1e-7); above
-V6_TOL the tool returns 1.  The row-sum rungs run at one launch
+Before it times a rung, the tool holds the rung's result on its words
+against the rung's plain version (ops/study.py, ops/matvec.py), bit for
+bit.  v6's row label carries its error against axm_i8 (relative to the
+largest entry; the two quantise W and U differently, so about 1e-7).  The
+tool returns 1 if a rung differs from its plain version or v6's error is
+above V6_TOL.  The row-sum rungs run at one launch
 configuration (256 threads per block, 16-byte loads; the TPU tool's
 TNW=256, TM=512 tiles have no counterpart).  Rung v7_i8decode comes with
 the next slice of the port.  ``--device cpu`` runs the plain versions.
@@ -44,9 +47,9 @@ import torch
 V6_TOL = 1e-6
 
 
-def run(device, nw: int, m: int, reps: int) -> float:
-    """Prints one row of ms and packed GB/s per rung; returns v6's error
-    against axm_i8."""
+def run(device, nw: int, m: int, reps: int) -> list[str]:
+    """Prints one row of ms and packed GB/s per rung; returns the faults
+    found (a rung unequal to its plain version, v6 above V6_TOL)."""
     from gvamp_tpu_torch.ops import matvec, study
     from gvamp_tpu_torch.tools.common import card_line, random_words, timer
     time_ms = timer(device)
@@ -62,27 +65,48 @@ def run(device, nw: int, m: int, reps: int) -> float:
     W2 = torch.from_numpy(rng.standard_normal((m, 2)).astype(np.float32)
                           ).to(device)
     U2 = W2 * 0.01
+    faults = []
 
-    def rec(name, fn):
+    def rec(name, fn, plain, against=None):
+        """Holds fn's result against plain's, bit for bit (and, given
+        ``against``, measures its error against that), then times fn."""
+        got = fn()
+        if not torch.equal(got, plain()):
+            faults.append(f"{name}: differs from its plain version")
+        if against is not None:
+            z = against()
+            err = float((got - z).abs().max() / z.abs().max())
+            name = f"{name} (err={err:.1e})"
+            if not err <= V6_TOL:
+                faults.append(f"{name}: {err:.3e} from axm_i8, above "
+                              f"{V6_TOL:g}")
+            del z
+        del got
         ms = time_ms(fn, reps)
         print(f"{name:30s} {ms:9.3f} ms  {packed_gb / (ms / 1e3):8.1f} GB/s",
               flush=True)
 
-    rec("v0_stream", lambda: study.v0_stream(words))
-    rec("v1_decode_a", lambda: study.v1_decode_a(words))
-    rec("v2_decode_ab", lambda: study.v2_decode_ab(words))
-    rec("v3_bitcast", lambda: study.v3_bitcast(words))
-    rec("v4_dot (=axm_i8a B=2)", lambda: matvec.axm_i8a(words, W2))
-    rec("v5_dot1 (stacked)", lambda: study.v5_dot1(words, W2))
-    zref = matvec.axm_i8(words, W2, U2)
-    err = float((study.v6_fused_ab(words, W2, U2) - zref).abs().max()
-                / zref.abs().max())
-    del zref
-    rec(f"v6_fused_ab (err={err:.1e})",
-        lambda: study.v6_fused_ab(words, W2, U2))
-    rec("ref axm_i8 B=2", lambda: matvec.axm_i8(words, W2, U2))
+    rec("v0_stream", lambda: study.v0_stream(words),
+        lambda: study.v0_stream_ref(words))
+    rec("v1_decode_a", lambda: study.v1_decode_a(words),
+        lambda: study.v1_decode_a_ref(words))
+    rec("v2_decode_ab", lambda: study.v2_decode_ab(words),
+        lambda: study.v2_decode_ab_ref(words))
+    rec("v3_bitcast", lambda: study.v3_bitcast(words),
+        lambda: study.v3_bitcast_ref(words))
+    rec("v4_dot (=axm_i8a B=2)", lambda: matvec.axm_i8a(words, W2),
+        lambda: matvec.axm_i8a_ref(words, W2))
+    rec("v5_dot1 (stacked)", lambda: study.v5_dot1(words, W2),
+        lambda: study.v5_dot1_ref(words, W2))
+    rec("v6_fused_ab", lambda: study.v6_fused_ab(words, W2, U2),
+        lambda: study.v6_fused_ab_ref(words, W2, U2),
+        against=lambda: matvec.axm_i8(words, W2, U2))
+    rec("ref axm_i8 B=2", lambda: matvec.axm_i8(words, W2, U2),
+        lambda: matvec.axm_i8_ref(words, W2, U2))
+    if not faults:
+        print("every rung equal to its plain version", flush=True)
     print(f"after: {card_line(device)}", flush=True)
-    return err
+    return faults
 
 
 def main(argv=None) -> int:
@@ -97,11 +121,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     from gvamp_tpu_torch.tools.common import need_device
     dev = need_device(args.device, "bench_variants")
-    err = run(dev, args.nw, args.m, args.reps)
-    if not err <= V6_TOL:
-        print(f"v6_fused_ab: {err:.3e} from axm_i8, above {V6_TOL:g}")
-        return 1
-    return 0
+    faults = run(dev, args.nw, args.m, args.reps)
+    for f in faults:
+        print(f"FAULT {f}")
+    return 1 if faults else 0
 
 
 if __name__ == "__main__":

@@ -322,7 +322,7 @@ def test_wrappers_take_the_plain_versions_on_cpu_and_raise_elsewhere():
                        study.stream_sum_ref(words))
     assert torch.equal(study.v0_stream(words), study.v0_stream_ref(words))
     assert torch.equal(study.v1_decode_a(words), study.v1_decode_a_ref(words))
-    assert torch.equal(study.v2_decode_ab(words, 512, 4),
+    assert torch.equal(study.v2_decode_ab(words),
                        study.v2_decode_ab_ref(words))
     assert torch.equal(study.v3_bitcast(words), study.v3_bitcast_ref(words))
     W, U = torch.randn((1024, 3)), torch.randn((1024, 3))
@@ -342,17 +342,6 @@ def test_wrappers_take_the_plain_versions_on_cpu_and_raise_elsewhere():
         with pytest.raises(ValueError, match="CUDA tensors only"):
             call()
     assert set(tmv.LAUNCHES.values()) == {0}
-
-
-def test_v5_dot1_chunks_wide_right_hand_sides():
-    """Above _BMAX_AXM_A columns v5_dot1 goes in chunks, as axm_i8a does:
-    the same values as one call of the plain version (quantisation and
-    fold are per column)."""
-    rng = np.random.default_rng(9)
-    words = _t(_words(rng, 8, 64))
-    W = torch.from_numpy(rng.standard_normal(
-        (64, tmv._BMAX_AXM_A + 6)).astype(np.float32))
-    assert torch.equal(study.v5_dot1(words, W), study.v5_dot1_ref(words, W))
 
 
 def test_bound_of_the_study_kernels():
@@ -417,9 +406,31 @@ def test_bench_variants_runs_on_cpu(capsys):
         assert f"\n{name}" in out, name
     err = float(out.split("v6_fused_ab (err=")[1].split(")")[0])
     assert err <= bench_variants.V6_TOL
+    assert "every rung equal to its plain version" in out
+    assert "FAULT" not in out
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit):
             bench_variants.main([])
+
+
+@pytest.mark.parametrize("name", ["v0_stream", "v3_bitcast", "v5_dot1",
+                                  "v6_fused_ab"])
+def test_bench_variants_fails_when_a_rung_differs(capsys, monkeypatch, name):
+    """A rung whose result is one off its plain version's anywhere makes
+    the tool name it and return 1."""
+    from gvamp_tpu_torch.tools import bench_variants
+    ref = getattr(study, f"{name}_ref")
+
+    def off_by_one(*args):
+        z = ref(*args).clone(memory_format=torch.contiguous_format)
+        z.view(-1)[-1] += 1
+        return z
+
+    monkeypatch.setattr(study, name, off_by_one)
+    assert bench_variants.main(["--device", "cpu", "8", "1024", "1"]) == 1
+    out = capsys.readouterr().out
+    assert f"FAULT {name}" in out and "differs from its plain version" in out
+    assert "every rung equal" not in out
 
 
 def test_study_tools_import_quietly(capsys, monkeypatch):
