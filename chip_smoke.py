@@ -13,15 +13,17 @@ Phases, each of which raises on failure (exit code != 0):
    one nvcc each, started together); the ptxas report must show no spill
    store in any instantiation of any kernel;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
-   with CUDA-event times of both: (a) all twenty-two at small shapes (the
+   with CUDA-event times of both: (a) all twenty-five at small shapes (the
    fused primal Grams with both mask forms and B above their column
    chunks; the bf16-split products and atx_a also on Gaussian inputs
    against float64 within kernel_check.TOL; the study kernels of
    ops/study.py also at Nw=300 and Mpad not a multiple of 512, the row
    sums stream_sum and stream at every threads x bytes-per-load
    configuration of bench_stream's sweep, v1_decode_a, v2_decode_ab and
-   v3_bitcast on words of one code against their exact sums, v5_dot1 and
-   v6_fused_ab at B = 1, 2 and 5),
+   v3_bitcast on words of one code against their exact sums, v5_dot1,
+   v6_fused_ab, v7_i8decode (both keys) and v8_atxm_vt at B = 1, 2 and 5
+   and each shape's B, v7 also against axm_i8a on the words its byte rows
+   were expanded from),
    (b) the a-only kernels, atx, atx_a and the bf16-split products on the
    whole config-B matrix at B = 1 and 2 (the bf16 ones and atx_a also on
    Gaussian inputs against their plain versions within BF16_PLAIN_TOL),
@@ -35,10 +37,12 @@ Phases, each of which raises on failure (exit code != 0):
    config-Bm matrix (gram_i8) at B = 1 and 2, timed beside their two-pass
    composition, with packed GB/s and the bound;
    (s) the study kernels (stream, stream_sum, v0_stream, v1_decode_a,
-   v2_decode_ab, v3_bitcast and v5_dot1 at B = 2) on the whole config-B
-   matrix and v6_fused_ab (B = 2) on the whole config-Bm matrix, timed
-   beside their plain versions and, for the first three, the one PyTorch
-   call that computes the same sum (torch.sum);
+   v2_decode_ab, v3_bitcast, and at B = 2 v5_dot1, v7_i8decode under both
+   keys on the matrix's byte rows, a second 10.74 GB buffer freed before
+   3e, and v8_atxm_vt) on the whole config-B matrix and v6_fused_ab (B =
+   2) on the whole config-Bm matrix, timed beside their plain versions
+   and, for the first three, the one PyTorch call that computes the same
+   sum (torch.sum);
 4. the linear VAMP main path at config B of bench.py (N=327,680 x
    M=131,072, complete genotypes, 10.74 GB of packed words on the card):
    load, phenotype simulation and 10 iterations of linear.infer, with the
@@ -70,12 +74,14 @@ Phases, each of which raises on failure (exit code != 0):
    with the fused Grams' correctness), the fused-Gram study (bench_gram),
    the kernel profile (profile_kernels), the stream-ceiling sweep
    (bench_stream, at its default 1.68 GB and again at config B's 10.74 GB)
-   and the eight-rung variant ladder (bench_variants, which holds every
-   rung bit for bit against its plain version on the tool's own words and
-   shape, and fails if one differs or v6_fused_ab strays from axm_i8).  No
-   engine path launches axm_bf16,
-   atxm_bf16, axm_i8s, atx_a or the eight study kernels; their launches in
-   the kernels line are those of this phase.
+   the nine-rung variant ladder (bench_variants, which holds every rung
+   bit for bit against its plain version on the tool's own words and
+   shape, v7_i8decode also against axm_i8a, and fails if one differs or
+   v6_fused_ab strays from axm_i8) and the round-2 candidates
+   (bench_round2: v8_atxm_vt against atxm_i8a and v7_i8decode against
+   axm_i8a, bit for bit at the timed shape).  No engine path launches
+   axm_bf16, atxm_bf16, axm_i8s, atx_a or the eleven study kernels; their
+   launches in the kernels line are those of this phase.
 
 The last two lines of standard output are one JSON object with the
 kernels' numbers (each with its bound on the card) and one with the
@@ -133,7 +139,10 @@ REPLACES = {"axm_i8a": "gvamp_tpu/ops/matvec.py:797",
             "v2_decode_ab": "tools/bench_variants.py:126",
             "v3_bitcast": "tools/bench_variants.py:152",
             "v5_dot1": "tools/bench_variants.py:179",
-            "v6_fused_ab": "tools/bench_variants.py:215"}
+            "v6_fused_ab": "tools/bench_variants.py:215",
+            "v7_i8decode": "tools/bench_variants.py:296",
+            "v8_atxm_vt": "tools/bench_round2.py:58",
+            "v7_i8decode_round2": "tools/bench_round2.py:102"}
 KERNELS = tuple(REPLACES)
 # the study kernels (ops/study.py, csrc/study.cu) that the study tools run:
 # the row sums, and the staged products of the library's contracts
@@ -153,7 +162,10 @@ PTXAS_ENTRY = {"gram_aat_i8a": "gram_aat_kernelILb0E",
                "v2_decode_ab": r"row_sum_kernelILi\d+EL\w*DecodeE2ELi1E",
                "v3_bitcast": r"row_sum_kernelILi\d+EL\w*DecodeE1ELi4E",
                "v5_dot1": "stage_dot_kernelILb0E",
-               "v6_fused_ab": "stage_dot_kernelILb1E"}
+               "v6_fused_ab": "stage_dot_kernelILb1E",
+               "v7_i8decode": "i8decode_kernel",
+               "v7_i8decode_round2": "i8decode_kernel",
+               "v8_atxm_vt": "atxm_vt_kernel"}
 SOURCE = "gvamp_tpu_torch/csrc/matvec.cu"
 STUDY_SOURCE = "gvamp_tpu_torch/csrc/study.cu"
 SHAPES = [(32, 512, 1), (64, 1024, 2), (96, 1536, 5), (32, 2048, 17),
@@ -277,8 +289,10 @@ def check_kernels(words, B, gen, label, names=PRODUCT_KERNELS, count=None,
     [0, 1], exact in the bf16 hi part, so mid = lo = 0) keep every f32
     partial sum exact in any order, so they must be equal too.  With
     v = 1, atx's bv counts each marker's non-missing calls: it must equal
-    the plain version's count and, where given, ``count``.  The staged
-    study products (v5_dot1, v6_fused_ab) share the digit contract."""
+    the plain version's count and, where given, ``count``.  The study
+    products (v5_dot1, v6_fused_ab, v7_i8decode on the words' byte rows,
+    made here only for it, and v8_atxm_vt) share the digit contract, and
+    v7 must equal axm_i8a on the words too."""
     from gvamp_tpu_torch.ops import matvec, study
     nw, m = words.shape
     dev = words.device
@@ -302,6 +316,8 @@ def check_kernels(words, B, gen, label, names=PRODUCT_KERNELS, count=None,
               > 0.1).float()
     na_a, na_g = (na_all, na_col) if B % 2 else (na_col, na_all)
     cu = torch.randn((B,), generator=gen, device=dev)
+    bytes8 = (study.expand_words(words)
+              if any(n.startswith("v7_") for n in names) else None)
     cases = {
         "axm_i8a": (lambda: matvec.axm_i8a(words, W),
                     lambda: matvec.axm_i8a_ref(words, W)),
@@ -336,7 +352,14 @@ def check_kernels(words, B, gen, label, names=PRODUCT_KERNELS, count=None,
         "v5_dot1": (lambda: study.v5_dot1(words, W),
                     lambda: study.v5_dot1_ref(words, W)),
         "v6_fused_ab": (lambda: study.v6_fused_ab(words, W, U),
-                        lambda: study.v6_fused_ab_ref(words, W, U))}
+                        lambda: study.v6_fused_ab_ref(words, W, U)),
+        "v7_i8decode": (lambda: study.v7_i8decode(bytes8, W),
+                        lambda: study.v7_i8decode_ref(bytes8, W)),
+        "v7_i8decode_round2": (
+            lambda: study.v7_i8decode_round2(bytes8, W),
+            lambda: study.v7_i8decode_round2_ref(bytes8, W)),
+        "v8_atxm_vt": (lambda: study.v8_atxm_vt(words, V),
+                       lambda: study.v8_atxm_vt_ref(words, V))}
     out = {}
     for name in names:
         fn, ref = cases[name]
@@ -344,6 +367,9 @@ def check_kernels(words, B, gen, label, names=PRODUCT_KERNELS, count=None,
         if isinstance(got, torch.Tensor):
             got, want = (got,), (want,)
         err = compare(name, f"{label} B={B}", got, want)
+        if name.startswith("v7_"):
+            compare(name, f"{label} B={B} against axm_i8a", got,
+                    (matvec.axm_i8a(words, W),))
         del got, want
         out[name] = (err, cuda_ms(fn, reps), cuda_ms(ref, plain_reps))
     if "atx" in names:
@@ -466,29 +492,42 @@ def check_study_sweep(words, label) -> None:
 
 
 def check_study_products(gen) -> None:
-    """v5_dot1 and v6_fused_ab against their plain versions, bit for bit,
-    on random words of every small shape (Nw=300 and Mpad=1000 among them:
-    a part tile of rows and of markers) at B = 1, 2 and 5 (D = 4, 8 and
-    20: the mma's 8 digit rows padded and split over the grid) and at the
-    shape's own B of SHAPES (B = 70: 280 digit rows, 35 blocks on the
-    grid's z axis)."""
-    from gvamp_tpu_torch.ops import study
+    """v5_dot1, v6_fused_ab, v7_i8decode (both keys, on the words' byte
+    rows) and v8_atxm_vt against their plain versions, bit for bit, on
+    random words of every small shape (Nw=300 and Mpad=1000 among them: a
+    part tile of rows and of markers, and byte rows that take v7's 4-byte
+    loads) at B = 1, 2 and 5 (D = 4, 8 and 20: the mma's 8 digit rows
+    padded and split over the grid) and at the shape's own B of SHAPES (B
+    = 70: 280 digit rows, 35 blocks on the grid's z axis); v7 also against
+    axm_i8a on the words."""
+    from gvamp_tpu_torch.ops import matvec, study
     widths = {(nw, m): B for nw, m, B in SHAPES}
     runs = 0
     for nw, m in [(nw, m) for nw, m, _ in SHAPES] + STUDY_SHAPES:
         words = random_words(gen, nw, m)
+        bytes8 = study.expand_words(words)
         for B in sorted({1, 2, 5, widths.get((nw, m), 1)}):
             W = torch.randn((m, B), generator=gen, device="cuda")
             U = torch.randn((m, B), generator=gen, device="cuda") * 3
+            V = torch.randn((4, 4 * nw, B), generator=gen, device="cuda")
             label = f"Nw={nw} Mpad={m} B={B}"
             compare("v5_dot1", label, (study.v5_dot1(words, W),),
                     (study.v5_dot1_ref(words, W),))
             compare("v6_fused_ab", label, (study.v6_fused_ab(words, W, U),),
                     (study.v6_fused_ab_ref(words, W, U),))
-            runs += 2
+            for name in ("v7_i8decode", "v7_i8decode_round2"):
+                z = getattr(study, name)(bytes8, W)
+                compare(name, label, (z,),
+                        (getattr(study, f"{name}_ref")(bytes8, W),))
+                compare(name, f"{label} against axm_i8a", (z,),
+                        (matvec.axm_i8a(words, W),))
+            compare("v8_atxm_vt", label, (study.v8_atxm_vt(words, V),),
+                    (study.v8_atxm_vt_ref(words, V),))
+            runs += 5
     torch.cuda.synchronize()
-    log(f"  v5_dot1 / v6_fused_ab equal to their plain versions: {runs} "
-        f"checks at B = 1, 2, 5 and each shape's B")
+    log(f"  v5_dot1 / v6_fused_ab / v7_i8decode (both keys) / v8_atxm_vt "
+        f"equal to their plain versions: {runs} checks at B = 1, 2, 5 and "
+        f"each shape's B; v7 equal to axm_i8a")
 
 
 # words of one code and what the row sums give per word: code 00 decodes
@@ -533,9 +572,9 @@ def phase_study_config_b(words, gen) -> dict:
     launch configuration, bit for bit against their plain versions, with
     CUDA-event times of the kernel, the plain version and the PyTorch call
     that computes the same sums (torch.sum; none for the decoding ones:
-    no PyTorch call reads packed words), then v5_dot1 at B = 2 (no PyTorch
-    call either).  Returns {name: (max_abs_err, ms, plain_ms,
-    library_ms)}."""
+    no PyTorch call reads packed words), then v5_dot1, v7_i8decode (both
+    keys) and v8_atxm_vt at B = 2 (no PyTorch call either).  Returns
+    {name: (max_abs_err, ms, plain_ms, library_ms)}."""
     log("== phase 3s: study kernels vs plain versions, config-B words")
     from gvamp_tpu_torch.ops import study
     nw, m = words.shape
@@ -568,7 +607,9 @@ def phase_study_config_b(words, gen) -> dict:
             f"kernel {ms:8.3f} ms ({4 * nw * m / (ms * 1e6):7.1f} GB/s "
             f"packed)  plain {plain:8.3f} ms  torch.sum "
             + (f"{lib_ms:8.3f} ms" if lib else "none"))
-    out.update(phase_study_products(words, gen, ("v5_dot1",), "config B"))
+    out.update(phase_study_products(
+        words, gen, ("v5_dot1", "v7_i8decode", "v7_i8decode_round2",
+                     "v8_atxm_vt"), "config B"))
     return out
 
 
@@ -1594,7 +1635,7 @@ def phase_cli_probit():
 # the kernels that only the tools launch (phase 7), and the tools
 TOOL_KERNELS = ("axm_bf16", "atxm_bf16", "axm_i8s", "atx_a") + STUDY
 TOOLS = ("kernel_check", "bench_gram", "profile_kernels", "bench_stream",
-         "bench_variants")
+         "bench_variants", "bench_round2")
 # runs beyond each tool's defaults: the stream ceiling at config B's shape
 TOOL_EXTRA_ARGV = {"bench_stream": ([str(CFG_B_N // 16), str(CFG_B_M), "4"],)}
 
@@ -1722,8 +1763,8 @@ def main(argv=None):
     # raises unless it is 0); launches are those of that path's run: the
     # linear runs of phases 4 / 4m (4f for the fused primal Grams), the dual
     # runs of phase 4x and, for the kernels only the tools launch, phase 7;
-    # the study kernels at config B (phase 3s; v5_dot1 at B = 2, v6_fused_ab
-    # at B = 2 on config Bm), the only rows with a PyTorch call's time
+    # the study kernels at config B (phase 3s; the products at B = 2,
+    # v6_fused_ab on config Bm), the only rows with a PyTorch call's time
     launches.update({n: launches_t[n] for n in TOOL_KERNELS})
     launches_m["axm_i8s"] = launches_t["axm_i8s"]
     numbers = {}

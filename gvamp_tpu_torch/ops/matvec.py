@@ -95,14 +95,15 @@ GRAM_BAND_NW = 32
 # and an H100's for words on the CPU (the routing test of fn_gram)
 GRAM_BLOCKS_H100 = 132
 
-# one count per wrapper; the last eight are the study kernels of
+# one count per wrapper; the last eleven are the study kernels of
 # ops/study.py
 LAUNCHES = {"axm_i8a": 0, "atxm_i8a": 0, "axm_i8": 0, "atxm_i8": 0,
             "atx": 0, "ax": 0, "gram_aat_i8a": 0, "gram_aat_i8": 0,
             "gram_i8a": 0, "gram_i8": 0, "axm_bf16": 0, "atxm_bf16": 0,
             "axm_i8s": 0, "atx_a": 0, "stream": 0, "stream_sum": 0,
             "v0_stream": 0, "v1_decode_a": 0, "v2_decode_ab": 0,
-            "v3_bitcast": 0, "v5_dot1": 0, "v6_fused_ab": 0}
+            "v3_bitcast": 0, "v5_dot1": 0, "v6_fused_ab": 0,
+            "v7_i8decode": 0, "v8_atxm_vt": 0, "v7_i8decode_round2": 0}
 
 
 def reset_launches() -> None:

@@ -32,12 +32,25 @@ by ``gvamp_tpu_torch/tools/bench_stream.py`` and ``bench_variants.py``:
   contraction (replaces ``v6_fused_ab``, ``tools/bench_variants.py:215``,
   as intended: that wrapper lays the right-hand side out marker by marker,
   so its a and b columns meet the wrong rows)
+* ``v7_i8decode``  A_a @ W -> f32[4, Nb, B], ``axm_i8a``'s contract, from
+  the words pre-expanded to byte rows int8[4*Nw, Mpad] (``expand_words``),
+  tensor-core fragments taken straight from the SWAR decode of each byte
+  row, with no staging and no byte transpose (replaces ``v7_i8decode``,
+  ``tools/bench_variants.py:296``; ``v7_i8decode_round2`` is the same
+  kernel under its own launch count, for the same body at
+  ``tools/bench_round2.py:102``)
+* ``v8_atxm_vt``   A_a^T @ V -> f32[Mpad, B], ``atxm_i8a``'s contract, the
+  contraction over people with V's digits transposed to [4, D, 4*Nw] and
+  the fragments taken straight from the decoded words (replaces
+  ``v8_atxm_vt``, ``tools/bench_round2.py:58``)
 
 Every row sum wraps mod 2**32, as the int32 sums of the JAX kernels do, so
 a kernel equals its plain version bit for bit whatever its launch
-configuration.  ``v5_dot1`` and ``v6_fused_ab`` share the quantisation and
-the fold with their plain versions, which are ``matvec.axm_i8a_ref`` and
-``matvec.axm_i8s_ref``, and contract exactly in int32: bit for bit too.
+configuration.  The products share the quantisation and the fold with
+their plain versions, which are ``matvec.axm_i8a_ref`` (v5, and v7 on the
+words its bytes came from), ``matvec.axm_i8s_ref`` (v6) and
+``matvec.atxm_i8a_ref`` (v8), and contract exactly in int32: bit for bit
+too, and on the card equal to ``axm_i8a`` / ``atxm_i8a`` themselves.
 Unlike the JAX kernels, whose grids drop the rows and columns past the
 last full 256 x 512 tile, these cover every row for any Nw and Mpad
 (``stream`` needs tm to divide Mpad, the products Mpad a multiple of 4).
@@ -135,6 +148,32 @@ def v3_bitcast_ref(words: torch.Tensor) -> torch.Tensor:
 # contracts: the plain versions are theirs
 v5_dot1_ref = matvec.axm_i8a_ref
 v6_fused_ab_ref = matvec.axm_i8s_ref
+v8_atxm_vt_ref = matvec.atxm_i8a_ref
+
+
+def expand_words(words: torch.Tensor) -> torch.Tensor:
+    """int32[Nw, Mpad] words -> int8[4*Nw, Mpad] byte rows: row 4i+b is
+    byte b of word row i (``tools/bench_round2.py``'s ``expand_words``),
+    contiguous (at Nw = 1 the reshape alone would be a strided view)."""
+    nw, m = words.shape
+    return (words.contiguous().view(torch.int8).view(nw, m, 4)
+            .permute(0, 2, 1).reshape(4 * nw, m).contiguous())
+
+
+def collapse_bytes(bytes8: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``expand_words``: int8[4*Nw, Mpad] -> int32[Nw,
+    Mpad]."""
+    n8, m = bytes8.shape
+    return (bytes8.view(n8 // 4, 4, m).permute(0, 2, 1).contiguous()
+            .view(torch.int32).view(n8 // 4, m))
+
+
+def v7_i8decode_ref(bytes8: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """``axm_i8a_ref`` on the words the byte rows came from."""
+    return matvec.axm_i8a_ref(collapse_bytes(bytes8), W)
+
+
+v7_i8decode_round2_ref = v7_i8decode_ref
 
 
 # --------------------------------------------------------------------------
@@ -305,3 +344,78 @@ def v6_fused_ab(words: torch.Tensor, W: torch.Tensor,
     w8t, mu8t, ws = matvec._quant_digits_pair(W, U)
     return matvec._fold_digits_zt(_stage_dot("v6_fused_ab", words, w8t, mu8t),
                                   ws, W.shape[1])
+
+
+def _i8decode(name: str, bytes8: torch.Tensor,
+              W: torch.Tensor) -> torch.Tensor:
+    """A_a @ W from the byte rows through i8decode_kernel, counted under
+    ``name`` (the JAX package's two copies of v7_i8decode share the
+    kernel)."""
+    if bytes8.device.type == "cpu":
+        return v7_i8decode_ref(bytes8, W)
+    if bytes8.device.type != "cuda":
+        raise ValueError(f"{name}: bytes on {bytes8.device}; the kernel runs "
+                         f"on CUDA tensors only")
+    if W.device != bytes8.device:
+        raise ValueError(f"{name}: operands on {bytes8.device} and "
+                         f"{W.device}")
+    if bytes8.dtype != torch.int8 or bytes8.ndim != 2 or bytes8.shape[0] % 4:
+        raise ValueError(f"{name}: bytes must be int8[4*Nw, Mpad], got "
+                         f"{bytes8.dtype}{list(bytes8.shape)}")
+    if W.dtype != torch.float32:
+        raise ValueError(f"{name}: W must be torch.float32, got {W.dtype}")
+    if not bytes8.is_contiguous() or bytes8.data_ptr() % 16:
+        raise ValueError(f"{name}: bytes must be contiguous and 16-byte "
+                         f"aligned")
+    n8, m = bytes8.shape
+    if m % 4:
+        raise ValueError(f"{name}: Mpad={m} must be a multiple of 4")
+    if W.ndim != 2 or W.shape[0] != m:
+        raise ValueError(f"{name}: W must be [{m}, B], got {list(W.shape)}")
+    matvec._check_bound(name, m)
+    w8t, ws = matvec._quant_rows(W)
+    D = w8t.shape[0]
+    zt = torch.zeros((D, 4, n8), dtype=torch.int32, device=bytes8.device)
+    if n8 and m and D:
+        from gvamp_tpu_torch.ops import _build
+        matvec._launch(name, _build.library().gvamp_study_i8decode,
+                       bytes8.device, bytes8.data_ptr(), w8t.data_ptr(),
+                       zt.data_ptr(), n8, m, D)
+    return matvec._fold_digits_zt(zt, ws, W.shape[1])
+
+
+def v7_i8decode(bytes8: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """A_a @ W -> f32[4, Nb, B] (axm_i8a's contract) from the byte rows
+    int8[4*Nw, Mpad] of ``expand_words``: each plane's tensor-core
+    fragments are the SWAR decode of u32 loads of the byte rows, with no
+    staging and no byte transpose; any B in one launch."""
+    return _i8decode("v7_i8decode", bytes8, W)
+
+
+def v7_i8decode_round2(bytes8: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """``v7_i8decode`` for bench_round2, counted under its own name."""
+    return _i8decode("v7_i8decode_round2", bytes8, W)
+
+
+def v8_atxm_vt(words: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """A_a^T @ V -> f32[Mpad, B] (atxm_i8a's contract), contracted over
+    people against V's digits transposed to [4, D, 4*Nw]: each plane's
+    fragments are the SWAR decode of the words (markers as the mma's m) and
+    u32 loads of the digits; any B in one launch."""
+    if words.device.type == "cpu":
+        return v8_atxm_vt_ref(words, V)
+    matvec._check_cuda("v8_atxm_vt", words, V, torch.float32)
+    nw, m = words.shape
+    if V.ndim != 3 or V.shape[:2] != (4, 4 * nw):
+        raise ValueError(f"v8_atxm_vt: V must be [4, {4 * nw}, B], got "
+                         f"{list(V.shape)}")
+    matvec._check_bound("v8_atxm_vt", 16 * nw)
+    v8, s0 = matvec._quant_digits_t(V)
+    D = v8.shape[1]
+    av = torch.zeros((D, m), dtype=torch.int32, device=words.device)
+    if words.numel() and D:
+        from gvamp_tpu_torch.ops import _build
+        matvec._launch("v8_atxm_vt", _build.library().gvamp_study_v8_atxm_vt,
+                       words.device, words.data_ptr(), v8.data_ptr(),
+                       av.data_ptr(), nw, m, D)
+    return matvec._fold_digits_t(av, s0, V.shape[2])

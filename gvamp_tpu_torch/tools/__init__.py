@@ -1,7 +1,8 @@
 """The port's tools: the kernel check, the fused-Gram study, the kernel
-profile and the stream-ceiling studies (counterparts of
-``tools/tpu_check.py``, ``tools/bench_gram.py``, ``tools/profile_kernels.py``,
-``tools/bench_stream.py`` and ``tools/bench_variants.py``), and the helpers
+profile, the stream-ceiling studies and the round-2 candidates
+(counterparts of ``tools/tpu_check.py``, ``tools/bench_gram.py``,
+``tools/profile_kernels.py``, ``tools/bench_stream.py``,
+``tools/bench_variants.py`` and ``tools/bench_round2.py``), and the helpers
 they share with ``chip_smoke.py`` (``common``).
 
 Each tool is a module with ``main(argv=None)`` that returns an exit code:
@@ -11,6 +12,7 @@ Each tool is a module with ``main(argv=None)`` that returns an exit code:
     python3 -m gvamp_tpu_torch.tools.profile_kernels [NW] [M] [REPS] [...]
     python3 -m gvamp_tpu_torch.tools.bench_stream [NW] [M] [REPS] [...]
     python3 -m gvamp_tpu_torch.tools.bench_variants [NW] [M] [REPS] [...]
+    python3 -m gvamp_tpu_torch.tools.bench_round2 [NW] [M] [REPS] [...]
 
 They run on the card unless ``--device cpu`` is given; importing one does
 nothing.

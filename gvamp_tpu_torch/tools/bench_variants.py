@@ -19,18 +19,22 @@ order, and prints ms and packed GB/s:
                  memory, one tensor-core contraction           tensor cores
   v6_fused_ab    A_a W - A_b U at B=2, [a8 | b8] against    -> both planes
                  [w8; -u8] under one joint scale               in one sum
+  v7_i8decode    A_a W at B=2 from the words expanded to    -> fragments
+                 int8 byte rows, the mma fragments taken       without
+                 straight from their decode                    staging
   ref axm_i8     axm_i8 at B=2 with U = 0.01 W              -> the general
                                                                product
 
 Before it times a rung, the tool holds the rung's result on its words
 against the rung's plain version (ops/study.py, ops/matvec.py), bit for
-bit.  v6's row label carries its error against axm_i8 (relative to the
-largest entry; the two quantise W and U differently, so about 1e-7).  The
-tool returns 1 if a rung differs from its plain version or v6's error is
-above V6_TOL.  The row-sum rungs run at one launch
-configuration (256 threads per block, 16-byte loads; the TPU tool's
-TNW=256, TM=512 tiles have no counterpart).  Rung v7_i8decode comes with
-the next slice of the port.  ``--device cpu`` runs the plain versions.
+bit, and v7's (on ``study.expand_words`` of the tool's words, made once
+before it) against ``axm_i8a`` on those words too.  v6's row label
+carries its error against axm_i8 (relative to the largest entry; the two
+quantise W and U differently, so about 1e-7).  The tool returns 1 if a
+rung differs from its plain version, v7 from axm_i8a, or v6's error is
+above V6_TOL.  The row-sum rungs run at one launch configuration (256
+threads per block, 16-byte loads; the TPU tool's TNW=256, TM=512 tiles
+have no counterpart).  ``--device cpu`` runs the plain versions.
 """
 
 from __future__ import annotations
@@ -67,12 +71,15 @@ def run(device, nw: int, m: int, reps: int) -> list[str]:
     U2 = W2 * 0.01
     faults = []
 
-    def rec(name, fn, plain, against=None):
-        """Holds fn's result against plain's, bit for bit (and, given
-        ``against``, measures its error against that), then times fn."""
+    def rec(name, fn, plain, against=None, same_as=None):
+        """Holds fn's result against plain's, bit for bit (and against
+        ``same_as``'s (label, fn), given; given ``against``, measures its
+        error against that), then times fn."""
         got = fn()
         if not torch.equal(got, plain()):
             faults.append(f"{name}: differs from its plain version")
+        if same_as is not None and not torch.equal(got, same_as[1]()):
+            faults.append(f"{name}: differs from {same_as[0]}")
         if against is not None:
             z = against()
             err = float((got - z).abs().max() / z.abs().max())
@@ -101,6 +108,11 @@ def run(device, nw: int, m: int, reps: int) -> list[str]:
     rec("v6_fused_ab", lambda: study.v6_fused_ab(words, W2, U2),
         lambda: study.v6_fused_ab_ref(words, W2, U2),
         against=lambda: matvec.axm_i8(words, W2, U2))
+    bytes8 = study.expand_words(words)
+    rec("v7_i8decode B=2", lambda: study.v7_i8decode(bytes8, W2),
+        lambda: study.v7_i8decode_ref(bytes8, W2),
+        same_as=("axm_i8a", lambda: matvec.axm_i8a(words, W2)))
+    del bytes8
     rec("ref axm_i8 B=2", lambda: matvec.axm_i8(words, W2, U2),
         lambda: matvec.axm_i8_ref(words, W2, U2))
     if not faults:

@@ -154,9 +154,12 @@ F32_PLANES = {"atx": 2, "ax": 2, "atx_a": 1}
 STUDY_KERNELS = ("stream", "stream_sum", "v0_stream", "v1_decode_a",
                  "v2_decode_ab", "v3_bitcast")
 # the study kernels of ops/study.py that compute a library kernel's
-# contract, charged as that kernel: the words, the f32 columns in and out,
-# and its int8 digit contractions
-STUDY_PRODUCTS = {"v5_dot1": "axm_i8a", "v6_fused_ab": "axm_i8s"}
+# contract, charged as that kernel: the words (v7: the byte rows, the same
+# 4 Nw Mpad bytes), the f32 columns in and out, and its int8 digit
+# contractions
+STUDY_PRODUCTS = {"v5_dot1": "axm_i8a", "v6_fused_ab": "axm_i8s",
+                  "v7_i8decode": "axm_i8a", "v8_atxm_vt": "atxm_i8a",
+                  "v7_i8decode_round2": "axm_i8a"}
 
 
 def bound(name: str, nw: int, m: int, B: int):

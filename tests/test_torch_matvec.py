@@ -445,7 +445,8 @@ def test_cpu_wrappers_launch_nothing_and_non_cpu_raises():
                                  "atxm_bf16", "axm_i8s", "atx_a", "stream",
                                  "stream_sum", "v0_stream", "v1_decode_a",
                                  "v2_decode_ab", "v3_bitcast", "v5_dot1",
-                                 "v6_fused_ab"}
+                                 "v6_fused_ab", "v7_i8decode", "v8_atxm_vt",
+                                 "v7_i8decode_round2"}
     tmv.axm_i8a(words, torch.ones((512, 2)))
     tmv.atxm_i8a(words, torch.ones((4, 128, 1)))
     tmv.axm_i8(words, torch.ones((512, 2)), torch.ones((512, 2)))

@@ -1,6 +1,6 @@
 """The study kernels of the port (gvamp_tpu_torch/ops/study.py: stream,
 stream_sum, v0_stream, v1_decode_a, v2_decode_ab, v3_bitcast, v5_dot1,
-v6_fused_ab) against the JAX package's study kernels (tools/bench_stream.py,
+v6_fused_ab; v7_i8decode and v8_atxm_vt in test_torch_round2.py) against the JAX package's study kernels (tools/bench_stream.py,
 tools/bench_variants.py) run in interpret mode, and against numpy where the
 JAX grids drop rows; the bounds, the tools bench_stream and bench_variants
 on the CPU, and the build hash over every CUDA source.  The CUDA kernels are
@@ -399,10 +399,10 @@ def test_bench_variants_runs_on_cpu(capsys):
     assert bench_variants.main(["--device", "cpu", "8", "1024", "1"]) == 0
     out = capsys.readouterr().out
     rows = [ln for ln in out.splitlines() if ln.endswith("GB/s")]
-    assert len(rows) == 8
+    assert len(rows) == 9
     for name in ("v0_stream", "v1_decode_a", "v2_decode_ab", "v3_bitcast",
                  "v4_dot (=axm_i8a B=2)", "v5_dot1 (stacked)",
-                 "v6_fused_ab (err=", "ref axm_i8 B=2"):
+                 "v6_fused_ab (err=", "v7_i8decode B=2", "ref axm_i8 B=2"):
         assert f"\n{name}" in out, name
     err = float(out.split("v6_fused_ab (err=")[1].split(")")[0])
     assert err <= bench_variants.V6_TOL
@@ -414,7 +414,7 @@ def test_bench_variants_runs_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("name", ["v0_stream", "v3_bitcast", "v5_dot1",
-                                  "v6_fused_ab"])
+                                  "v6_fused_ab", "v7_i8decode"])
 def test_bench_variants_fails_when_a_rung_differs(capsys, monkeypatch, name):
     """A rung whose result is one off its plain version's anywhere makes
     the tool name it and return 1."""
@@ -435,7 +435,7 @@ def test_bench_variants_fails_when_a_rung_differs(capsys, monkeypatch, name):
 
 def test_study_tools_import_quietly(capsys, monkeypatch):
     monkeypatch.setattr(sys, "argv", ["x", "--no-such-flag", "1", "2"])
-    for name in ("bench_stream", "bench_variants"):
+    for name in ("bench_stream", "bench_variants", "bench_round2"):
         importlib.reload(importlib.import_module(f"gvamp_tpu_torch.tools.{name}"))
     assert capsys.readouterr().out == ""
 
@@ -511,13 +511,16 @@ def test_build_compiles_each_source_then_links(tmp_path, monkeypatch, fail):
 # the mangled names of every instantiation of study.cu's kernels, as ptxas
 # reports them on the card (nvcc names the anonymous namespace by file):
 # stream per V; the row sums per <V, Decode, lanes> (stream_sum and
-# v0_stream, v1_decode_a, v2_decode_ab, v3_bitcast); stage_dot per <kAB>
+# v0_stream, v1_decode_a, v2_decode_ab, v3_bitcast); stage_dot per <kAB>;
+# i8decode per <kVec> (both v7_i8decode keys); atxm_vt (v8_atxm_vt)
 _NS = "_ZN40_GLOBAL__N__4cd102fc_8_study_cu_649beea1"
 STUDY_INSTANTIATIONS = (
     [f"{_NS}13stream_kernelILi{v}EEEvPKjPjllll" for v in (1, 2, 4)]
     + [f"{_NS}14row_sum_kernelILi{v}ELNS_6DecodeE{d}ELi{lanes}EEEvPKjPjll"
        for v in (1, 2, 4) for d, lanes in ((0, 1), (1, 1), (2, 1), (1, 4))]
-    + [f"{_NS}16stage_dot_kernelILb{b}EEEvPKjPKiS4_Pillll" for b in (0, 1)])
+    + [f"{_NS}16stage_dot_kernelILb{b}EEEvPKjPKiS4_Pillll" for b in (0, 1)]
+    + [f"{_NS}15i8decode_kernelILb{b}EEEvPKhS2_Pillll" for b in (0, 1)]
+    + [f"{_NS}14atxm_vt_kernelEPKjPKhPillll"])
 
 
 @pytest.mark.parametrize("spilling", STUDY_INSTANTIATIONS)
@@ -525,7 +528,7 @@ def test_chip_smoke_checks_every_instantiation_for_spills(monkeypatch,
                                                           spilling):
     """chip_smoke's phase 2 reads a spill store in any instantiation of a
     study kernel (every bytes per load and decode of the row sums, both
-    staged products)."""
+    staged products, both load widths of i8decode, atxm_vt)."""
     monkeypatch.syspath_prepend(REPO)
     smoke = importlib.import_module("chip_smoke")
     report = {f"_Z{smoke.PTXAS_ENTRY.get(k, f'{k}_kernel')}v": (32, 0)
