@@ -9,9 +9,9 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. environment: torch / CUDA / nvcc / triton versions and the card's name
    and power limit; TF32 off for every float32 product;
-2. build the CUDA kernels (gvamp_tpu_torch/csrc/matvec.cu and study.cu,
-   one nvcc each, started together); the ptxas report must show no spill
-   store in any instantiation of any kernel;
+2. build the CUDA kernels (gvamp_tpu_torch/csrc/matvec.cu, fragments.cu
+   and study.cu, one nvcc each, started together); the ptxas report must
+   show no spill store in any instantiation of any kernel;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    with CUDA-event times of both: (a) all twenty-five at small shapes (the
    fused primal Grams with both mask forms and B above their column
@@ -23,7 +23,8 @@ Phases, each of which raises on failure (exit code != 0):
    v3_bitcast on words of one code against their exact sums, v5_dot1,
    v6_fused_ab, v7_i8decode (both keys) and v8_atxm_vt at B = 1, 2 and 5
    and each shape's B, v7 also against axm_i8a on the words its byte rows
-   were expanded from),
+   were expanded from; axm_i8 and atxm_i8 also at the edges of their grids,
+   FRAGMENT_SHAPES: Nw = 7 and 300, Mpad = 8 and 1,000, B up to 22),
    (b) the a-only kernels, atx, atx_a and the bf16-split products on the
    whole config-B matrix at B = 1 and 2 (the bf16 ones and atx_a also on
    Gaussian inputs against their plain versions within BF16_PLAIN_TOL),
@@ -168,8 +169,18 @@ PTXAS_ENTRY = {"gram_aat_i8a": "gram_aat_kernelILb0E",
                "v8_atxm_vt": "atxm_vt_kernel"}
 SOURCE = "gvamp_tpu_torch/csrc/matvec.cu"
 STUDY_SOURCE = "gvamp_tpu_torch/csrc/study.cu"
+# the products whose mma fragments come straight from the decode
+FRAGMENT_KERNELS = ("axm_i8", "atxm_i8")
+FRAGMENT_SOURCE = "gvamp_tpu_torch/csrc/fragments.cu"
 SHAPES = [(32, 512, 1), (64, 1024, 2), (96, 1536, 5), (32, 2048, 17),
           (64, 512, 70)]
+# the edges of the fragment kernels' grids beyond SHAPES, checked for those
+# kernels only (the fused Grams refuse Nw not a multiple of 32 and Mpad
+# not a multiple of 64): Nw not a multiple of 8 (7) or of a block's rows
+# (300), Mpad below one step (8) and not a multiple of one (1,000), and
+# B = 22 (LOCO's width, 11 digit groups over gridDim.z)
+FRAGMENT_SHAPES = [(7, 8, 22), (7, 1000, 1), (300, 8, 2), (300, 1000, 22),
+                   (300, 1000, 1)]
 SLICE_M = 2048
 # corr(x_hat, beta) and R2_train_1 after 10 iterations at config B and at
 # config Bm; set from the first H100 runs of this script (config B 0.99590
@@ -449,6 +460,13 @@ def phase_kernels_small(gen, study_gen):
         check_study_sweep(random_words(gen, nw, m), f"Nw={nw} Mpad={m}")
     check_study_products(study_gen)
     check_study_codes()
+    # a generator of their own, so that the draws of ``gen`` stay those the
+    # engine phases' limits were set on
+    edge_gen = torch.Generator(device="cuda")
+    edge_gen.manual_seed(2)
+    for nw, m, B in FRAGMENT_SHAPES:
+        check_kernels(random_words(edge_gen, nw, m), B, edge_gen,
+                      f"Nw={nw} Mpad={m}", names=FRAGMENT_KERNELS)
 
 
 # small shapes of the study kernels beyond SHAPES: rows past a multiple of
@@ -1686,7 +1704,8 @@ def kernel_rows(numbers):
             + f", {launches} launches on its path")
         rows.append({
             "name": n, "route": "cuda",
-            "source": STUDY_SOURCE if n in STUDY else SOURCE,
+            "source": (STUDY_SOURCE if n in STUDY else FRAGMENT_SOURCE
+                       if n in FRAGMENT_KERNELS else SOURCE),
             "replaces": REPLACES[n], "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,

@@ -35,6 +35,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
 #include "swar.cuh"
 
 namespace {
@@ -43,12 +44,6 @@ namespace {
 constexpr int64_t kWaves = 2;
 // resident threads per SM on Hopper
 constexpr int64_t kThreadsPerSm = 2048;
-
-__device__ __forceinline__ int64_t imin(int64_t a, int64_t b) {
-  return a < b ? a : b;
-}
-
-int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 // V consecutive words (4*V bytes, aligned to that) in one load through the
 // read-only path.
@@ -104,16 +99,6 @@ int target_blocks(int64_t threads, int64_t* target) {
   if (err != cudaSuccess) return (int)err;
   *target = kWaves * sms * (kThreadsPerSm / threads);
   return 0;
-}
-
-// Split `n` units of work into parts so that `blocks` blocks times the part
-// count reaches the target (at most `n` parts); returns units per part.
-int64_t part_length(int64_t n, int64_t blocks, int64_t target) {
-  int64_t parts = cdiv(target, blocks > 0 ? blocks : 1);
-  if (parts < 1) parts = 1;
-  if (parts > n) parts = n;
-  if (parts > 65535) parts = 65535;  // gridDim.y
-  return n > 0 ? cdiv(n, parts) : 1;
 }
 
 bool valid_shape(int64_t threads, int64_t load_bytes) {
@@ -308,26 +293,6 @@ constexpr int kDotN = 8;          // digit rows per block: the mma's n
 // one warp loads each digit row, one lane each quad of a tile row
 static_assert(kDotWarps == kDotN && kDotQuads == 32, "stage_dot layout");
 constexpr int kDotPad = 4;        // words of padding per scratch row
-// resident waves of blocks the grid aims at: more than the row sums', so
-// that the last wave's share of the work stays small
-constexpr int64_t kDotWaves = 8;
-
-// Blocks a tensor-core grid should reach: kDotWaves waves of the blocks of
-// `kernel` that fit an SM at once on this device.  Returns a CUDA error.
-template <typename Kernel>
-int dot_target(Kernel kernel, int threads, int smem, int64_t* target) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  *target = kDotWaves * sms * per_sm;
-  return 0;
-}
 
 template <bool kAB>
 struct DotTile {
@@ -339,28 +304,6 @@ struct DotTile {
   static constexpr int kQuadsPerThread = kTnw * kDotQuads / kDotThreads;
   static constexpr int kSmem = (kRows + kDotN) * kStride * 4;  // bytes
 };
-
-__device__ __forceinline__ void mma_s8(int32_t c[4], const uint32_t a[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four neighbouring marker words (one 16-byte load) -> y[b] whose byte j is
-// byte b of marker word j (matvec.cu's transpose_quad).
-__device__ __forceinline__ void transpose_quad(uint4 x, uint32_t y[4]) {
-  const uint32_t t0 = __byte_perm(x.x, x.y, 0x5140);
-  const uint32_t t1 = __byte_perm(x.x, x.y, 0x7362);
-  const uint32_t t2 = __byte_perm(x.z, x.w, 0x5140);
-  const uint32_t t3 = __byte_perm(x.z, x.w, 0x7362);
-  y[0] = __byte_perm(t0, t2, 0x5410);
-  y[1] = __byte_perm(t0, t2, 0x7632);
-  y[2] = __byte_perm(t1, t3, 0x5410);
-  y[3] = __byte_perm(t1, t3, 0x7632);
-}
 
 template <bool kAB>
 __global__ void __launch_bounds__(kDotThreads)
@@ -503,23 +446,6 @@ int stage_dot(const void* words, const void* wdig, const void* mudig,
       mpad, d_total, per_part);
   return (int)cudaGetLastError();
 }
-
-// The a-plane decode of all four bit pairs of a word at once.  Each 2-bit
-// field of w (low bit lo, high bit hi) becomes 2*(1-lo) - hi*(1-lo), in
-// {0, 1, 2}, in place: no field borrows from the next, so one subtraction
-// decodes all sixteen codes, and plane(a, k), the field at bit 2k of every
-// byte (a shift and a mask), equals swar_a(w, k).
-__device__ __forceinline__ uint32_t swar_a_fields(uint32_t w) {
-  constexpr uint32_t kM5 = 0x55555555u;
-  const uint32_t notlo = ~w & kM5;
-  return (notlo << 1) - ((w >> 1) & notlo);
-}
-
-__device__ __forceinline__ uint32_t plane(uint32_t fields, int k) {
-  return (fields >> (2 * k)) & kM3;
-}
-
-__device__ __forceinline__ uint4 zero4() { return make_uint4(0u, 0u, 0u, 0u); }
 
 // --------------------------------------------------------------------------
 // i8decode: zt[d][k][p] = sum_m a_k(bytes8[p, m]) * wdig[d][m]

@@ -1,5 +1,6 @@
 """Packed-genotype products of the PyTorch port: plain versions and the
-wrappers of the hand-written CUDA kernels (``csrc/matvec.cu``).
+wrappers of the hand-written CUDA kernels (``csrc/matvec.cu``, and
+``csrc/fragments.cu`` for ``axm_i8`` and ``atxm_i8``).
 
 Counterpart of ``gvamp_tpu/ops/matvec.py`` for the linear main path.  The
 word layout is the same (word-major ``[Nw, Mpad]``, 16 samples per word,

@@ -10,7 +10,8 @@ a warm-up) and prints ms and packed GB/s, the bytes of the words over the
 time: ``axm_i8``, ``axm_i8a``, ``atxm_i8`` and ``atxm_i8a`` at B = 1, 2
 and 4, then ``ax``, ``atx`` and ``atx_a`` at B = 1.  The JAX tool's tile
 sweep (``tools/profile_kernels.py:81-93``) has no counterpart: the port's
-kernels take no tile arguments (``csrc/matvec.cu`` fixes their grids).
+kernels take no tile arguments (``csrc/matvec.cu`` and ``fragments.cu``
+fix their grids).
 """
 
 from __future__ import annotations
