@@ -23,11 +23,14 @@ Phases, each of which raises on failure (exit code != 0):
    v3_bitcast on words of one code against their exact sums, v5_dot1,
    v6_fused_ab, v7_i8decode (both keys) and v8_atxm_vt at B = 1, 2 and 5
    and each shape's B, v7 also against axm_i8a on the words its byte rows
-   were expanded from; axm_i8 and atxm_i8 also at the edges of their grids,
+   were expanded from; the four digit products of fragments.cu, axm_i8a,
+   atxm_i8a, axm_i8 and atxm_i8, also at the edges of their grids,
    FRAGMENT_SHAPES: Nw = 7 and 300, Mpad = 8 and 1,000, B up to 22),
    (b) the a-only kernels, atx, atx_a and the bf16-split products on the
    whole config-B matrix at B = 1 and 2 (the bf16 ones and atx_a also on
    Gaussian inputs against their plain versions within BF16_PLAIN_TOL),
+   and axm_i8a and atxm_i8a at B = 22 (LOCO's width on complete
+   genotypes, 11 digit groups),
    (c) the general kernels, axm_i8s and the bf16-split products on the
    whole config-Bm matrix at B = 1 and 2, and axm_i8 at B = 22;
    (d) the fused dual Grams on the whole config-X matrix (gram_aat_i8a)
@@ -153,7 +156,11 @@ PRODUCT_KERNELS = tuple(n for n in KERNELS if n not in STUDY)
 # each kernel's entries in the ptxas report: a pattern that the mangled
 # names of every instantiation match (default "<name>_kernel"); the row
 # sums have one per bytes per load, named by <V, Decode, lanes>
-PTXAS_ENTRY = {"gram_aat_i8a": "gram_aat_kernelILb0E",
+PTXAS_ENTRY = {"axm_i8a": "axm_i8_kernelILb0E",
+               "atxm_i8a": "atxm_i8_kernelILb0E",
+               "axm_i8": "axm_i8_kernelILb1E",
+               "atxm_i8": "atxm_i8_kernelILb1E",
+               "gram_aat_i8a": "gram_aat_kernelILb0E",
                "gram_aat_i8": "gram_aat_kernelILb1E",
                "gram_i8a": "gram_prim_kernelILb0E",
                "gram_i8": "gram_prim_kernelILb1E",
@@ -169,8 +176,10 @@ PTXAS_ENTRY = {"gram_aat_i8a": "gram_aat_kernelILb0E",
                "v8_atxm_vt": "atxm_vt_kernel"}
 SOURCE = "gvamp_tpu_torch/csrc/matvec.cu"
 STUDY_SOURCE = "gvamp_tpu_torch/csrc/study.cu"
-# the products whose mma fragments come straight from the decode
-FRAGMENT_KERNELS = ("axm_i8", "atxm_i8")
+# the products whose mma fragments come straight from the decode: one
+# template per product (csrc/fragments.cu), instantiated for one plane
+# (complete genotypes) and for two (missing calls)
+FRAGMENT_KERNELS = ("axm_i8a", "atxm_i8a", "axm_i8", "atxm_i8")
 FRAGMENT_SOURCE = "gvamp_tpu_torch/csrc/fragments.cu"
 SHAPES = [(32, 512, 1), (64, 1024, 2), (96, 1536, 5), (32, 2048, 17),
           (64, 512, 70)]
@@ -647,10 +656,11 @@ def phase_kernels_config_b(words, gen):
     """The kernels on a 2,048-marker slice (launch-bound) and on the whole
     config-B matrix at the main path's widths B = 1 and 2, where every row
     band spans many shared-memory tiles: the a-only kernels, atx, atx_a and
-    the bf16-split products, the last three also on Gaussian inputs.  The
-    plain versions decode _REF_BLOCK markers at a time, so they run beside
-    the 10.74 GB of words.  Returns {B: check_kernels result} of the whole
-    matrix."""
+    the bf16-split products, the last three also on Gaussian inputs; then
+    the a-only kernels at B = 22 (LOCO's forward width on complete
+    genotypes, the words read 11 times).  The plain versions decode
+    _REF_BLOCK markers at a time, so they run beside the 10.74 GB of words.
+    Returns {B: check_kernels result} of the whole matrix."""
     log("== phase 3b: kernels vs plain versions, config-B words")
     sl = words[:, :SLICE_M].contiguous()
     # the fused dual Grams refuse N=327,680: its stripe cache exceeds
@@ -671,6 +681,12 @@ def phase_kernels_config_b(words, gen):
     for B in (1, 2):
         check_gaussian(words, B, gen, label, "plain", BF16_PLAIN_TOL,
                        names=bf16 + ("atx_a",) * (B == 1))
+    # a generator of its own, so that the draws of ``gen`` stay those the
+    # engine phases' limits were set on
+    wide_gen = torch.Generator(device="cuda")
+    wide_gen.manual_seed(3)
+    full[BM_CHROMS] = check_kernels(words, BM_CHROMS, wide_gen, label,
+                                    names=a_only, reps=3, plain_reps=1)
     torch.cuda.empty_cache()
     return full
 

@@ -29,11 +29,11 @@ def geno_from_numpy(words: np.ndarray, y_raw: np.ndarray, N: int,
         dtype=dtype, mave=mave, msig=msig)
 
 
-def state_from_numpy(d: dict, device="cpu",
+def state_from_numpy(d: dict, device="cuda",
                      dtype=torch.float32) -> linear.LinState:
-    """``gvamp_tpu.linear.LinState`` fields (as arrays) -> port state,
-    primal and dual (``*_n``) fields alike; the cross-validation field
-    ``cv_r2`` (not ported) is ignored."""
+    """``gvamp_tpu.linear.LinState`` fields (as arrays) -> port state on the
+    card unless ``device`` names another, primal and dual (``*_n``) fields
+    alike; the cross-validation field ``cv_r2`` (not ported) is ignored."""
     vals = {name: (int(np.asarray(d[name])) if name == "it"
                    else torch.tensor(np.asarray(d[name]), dtype=dtype,
                                      device=device))

@@ -1,9 +1,10 @@
 // Packed-genotype products of the PyTorch port whose tensor-core fragments
 // come straight from the SWAR decode, written by hand for Hopper (sm_90a):
-// the two products on genotypes with missing calls, axm_i8 and atxm_i8.
-// Bound through the plain C interface of gvamp_tpu_torch/ops/_build.py;
-// the wrappers, their quantisation and fold and the plain PyTorch versions
-// are in gvamp_tpu_torch/ops/matvec.py.
+// the four digit products, axm_i8 and atxm_i8 on genotypes with missing
+// calls (both planes, a and b) and axm_i8a and atxm_i8a on complete
+// genotypes (the a-plane only).  Bound through the plain C interface of
+// gvamp_tpu_torch/ops/_build.py; the wrappers, their quantisation and fold
+// and the plain PyTorch versions are in gvamp_tpu_torch/ops/matvec.py.
 //
 // Layout and contract as in matvec.cu: words uint32[Nw, Mpad] word-major,
 // byte b of word row i holding the codes of planar rows (k, 4i+b); the
@@ -13,10 +14,14 @@
 // in any order, so the results equal the plain versions bit for bit
 // whatever the grid or the order of the atomics.
 //
-// Both kernels read every packed word once per group of 8 digit rows (the
-// mma's n), for both planes together: once at B <= 2 (D <= 8 digit rows),
-// ceil(D/8) times in all.  A word's a- and b-fields (swar.cuh) give, plane
-// by plane, registers of four values that are the A fragments of
+// Each product is one loop with a compile-time plane count (kBoth): the
+// one-plane form is the two-plane one without the b-fields, their
+// accumulators, digit loads, mma and atomics, so the two contracts share
+// every lane map and cannot drift apart.  The kernels read every packed
+// word once per group of 8 digit rows (the mma's n), for both planes
+// together where there are two: once at B <= 2 (D <= 8 digit rows),
+// ceil(D/8) times in all.  A word's a-fields (and b-fields, swar.cuh) give,
+// plane by plane, registers of four values that are the A fragments of
 // mma.sync m16n8k32 (mma.cuh) as they stand; there is no shared memory and
 // no barrier.  Each plane goes to the top two bits of its bytes (plane64:
 // 64 times its value, u8 x s8 products), which costs the integer pipe a
@@ -29,8 +34,9 @@
 // Digit groups of 8 rows spread over gridDim.z, the walk along the
 // contraction over gridDim.y; parts meet in atomicAdd on the zeroed output.
 // Rows past the end and digit rows past D re-read the last valid one and
-// are never written.  Every launcher returns cudaGetLastError(); indices
-// are 64-bit.
+// are never written.  Every launcher validates its arguments and returns a
+// CUDA error code (cudaGetLastError() after the launch); indices are
+// 64-bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,65 +53,70 @@ constexpr int64_t kScaledTerm = (2 << kScaleShift) * 127;
 
 // --------------------------------------------------------------------------
 // atxm_i8: (av, bv)[d][m] = sum_{k, p} (a_k, b_k)[m, p] * vdig[k][d][p]
+// atxm_i8a: av[d][m] = sum_{k, p} a_k[m, p] * vdig[k][d][p]
 //
-// Replaces atxm_i8_pallas / _atxm_i8_kernel (gvamp_tpu/ops/matvec.py:651-677,
-// 704), the transpose product on genotypes with missing calls: words
-// int32[Nw, Mpad], the digits of V transposed to int8[4, D, 4*Nw]
-// (matvec._quant_digits_t), one quantisation for both planes, int32[D,
-// Mpad] out twice, |sum| <= 254*16*Nw.
+// Replace atxm_i8_pallas / _atxm_i8_kernel (gvamp_tpu/ops/matvec.py:651-677,
+// 704), the transpose product on genotypes with missing calls, and
+// atxm_i8a_pallas / _atxm_i8a_kernel (:1560, 1581), its a-plane form on
+// complete genotypes: words int32[Nw, Mpad], the digits of V transposed to
+// int8[4, D, 4*Nw] (matvec._quant_digits_t), one quantisation for both
+// planes, int32[D, Mpad] out per plane, |sum| <= 254*16*Nw.
 //
 // Bound on this card: the one read of the 4*Nw*Mpad bytes of the words
-// (10.74 GB at config Bm, 3.21 ms at 3.35 TB/s) for D <= 8; the decode of
-// both planes, about 12.5 instructions per word on the integer pipe and
-// 8.5 on the multiply-add pipe (the loop's SASS on an H100), takes each a
-// little under that read, and the contraction (2 planes x 2*16*Nw*Mpad*8
-// int8 operations per digit group) a fifth of it on the tensor cores.
+// (10.74 GB at configs B and Bm, 3.21 ms at 3.35 TB/s) for D <= 8; the
+// decode of both planes, about 12.5 instructions per word on the integer
+// pipe and 8.5 on the multiply-add pipe (the loop's SASS on an H100),
+// takes each a little under that read, the a-plane alone less; the
+// contraction (2*16*Nw*Mpad*8 int8 operations per plane and digit group)
+// takes a tenth of it per plane on the tensor cores.
 //
-// Design: v8_atxm_vt's (study.cu) with the b-plane beside the a-plane.  The
-// contraction runs over people, with the markers as the mma's m: one word
-// of one marker, decoded for plane k, holds the values of people 4i..4i+3
-// in byte order, one register of an A fragment (row = marker, column =
-// person), with no transpose; four consecutive people of one digit row are
-// one aligned u32 of the [4, D, 4*Nw] digits, one register of the B
-// fragment.  A warp owns 64 markers (four m tiles) x 8 digit rows and
-// walks the word rows 8 at a time (32 people of every plane per mma):
-// lane (g, t) loads 16 bytes at each of markers m0+32l+4g (l = 0, 1) of
-// word rows i0+t and i0+t+4, so each of the warp's 8 word rows is read in
-// 128-byte segments; m tile (l, h) takes markers m0+32l+4g+2h (fragment
-// row g) and m0+32l+4g+2h+1 (row g+8).  Each word is decoded once into
-// a-fields and b-fields; for plane k both take the same B fragment (the
-// u32 of digit row d0+g at people 4(i0+t) and 4(i0+t+4)), as the TPU
-// kernel feeds one vt to both dots.  The four planes accumulate into the
-// same C fragments, one set per plane type: 2 x 4 tiles x 4 = 32 int32 per
-// lane.  The warps of a block walk the same word rows, so they share the
-// digit loads in L1.  Word-row steps split over gridDim.y, in parts of at
-// most kTxMaxSteps (the scaled sums' limit), and digit groups of 8 rows
-// over gridDim.z: the grid reads each word once per digit group, ceil(D/8)
-// times, for both planes.  Markers past Mpad (a multiple of 4, so a
-// 16-byte load is all in or all out) re-read the last valid ones; word
-// rows past Nw occur only in the last step, whose masked form loads them
-// as zero words against zero digits.
+// Design: v8_atxm_vt's (study.cu), with the b-plane beside the a-plane in
+// the two-plane form.  The contraction runs over people, with the markers
+// as the mma's m: one word of one marker, decoded for plane k, holds the
+// values of people 4i..4i+3 in byte order, one register of an A fragment
+// (row = marker, column = person), with no transpose; four consecutive
+// people of one digit row are one aligned u32 of the [4, D, 4*Nw] digits,
+// one register of the B fragment.  A warp owns 64 markers (four m tiles) x
+// 8 digit rows and walks the word rows 8 at a time (32 people of every
+// plane per mma): lane (g, t) loads 16 bytes at each of markers m0+32l+4g
+// (l = 0, 1) of word rows i0+t and i0+t+4, so each of the warp's 8 word
+// rows is read in 128-byte segments; m tile (l, h) takes markers
+// m0+32l+4g+2h (fragment row g) and m0+32l+4g+2h+1 (row g+8).  Each word is
+// decoded once into a-fields (and b-fields); for plane k both take the
+// same B fragment (the u32 of digit row d0+g at people 4(i0+t) and
+// 4(i0+t+4)), as the TPU kernel feeds one vt to both dots.  The four
+// planes accumulate into the same C fragments, one set per plane type: 4
+// tiles x 4 = 16 int32 per lane and type.  The warps of a block walk the
+// same word rows, so they share the digit loads in L1.  Word-row steps
+// split over gridDim.y, in parts of at most kTxMaxSteps (the scaled sums'
+// limit), and digit groups of 8 rows over gridDim.z: the grid reads each
+// word once per digit group, ceil(D/8) times.  Markers past Mpad (a
+// multiple of 4, so a 16-byte load is all in or all out) re-read the last
+// valid ones; word rows past Nw occur only in the last step, whose masked
+// form loads them as zero words against zero digits.
 // --------------------------------------------------------------------------
 constexpr int kTxThreads = 256;
 constexpr int kTxLoads = 2;  // 16-byte loads per word row and lane in a step
 constexpr int kTxWarpMarkers = 32 * kTxLoads;
 constexpr int kTxMarkers = kTxWarpMarkers * (kTxThreads / 32);  // per block
 // steps per part that keep a part's scaled sum in int32: 128 terms (4
-// planes x 32 people) per step and output
+// planes x 32 people) per step and output, in either form (each output
+// sums one plane type)
 constexpr int64_t kTxMaxSteps = INT32_MAX / (128 * kScaledTerm);
 
 // One step of 8 word rows (32 people of every plane) from word row 8*st:
 // lane (g, t) loads its markers' words (16 bytes at each of wp[l]) of rows
 // 8st+t and 8st+t+4 and, for each plane, the digits of those people in its
-// digit row, and contracts both decodes into the m tiles' C fragments.
-// With kMasked, word rows past Nw load as zero words against zero digits.
-template <bool kMasked>
+// digit row, and contracts the decodes into the m tiles' C fragments,
+// acc[0] for the a-plane and, with kBoth, acc[1] for the b-plane.  With
+// kMasked, word rows past Nw load as zero words against zero digits.
+template <bool kMasked, bool kBoth>
 __device__ __forceinline__ void atxm_i8_step(const uint32_t* const wp[],
                                              const uint8_t* vp,
                                              int64_t plane_bytes, int64_t nw,
                                              int64_t mpad, int64_t st,
-                                             int32_t acc_a[][4],
-                                             int32_t acc_b[][4]) {
+                                             int32_t acc[][2 * kTxLoads][4]) {
+  constexpr int kTypes = kBoth ? 2 : 1;
   const int t = threadIdx.x & 3;
   const int64_t ia = 8 * st + t, ib = ia + 4;  // word rows of a0/a1, a2/a3
   const bool la = !kMasked || ia < nw, lb = !kMasked || ib < nw;
@@ -117,18 +128,21 @@ __device__ __forceinline__ void atxm_i8_step(const uint32_t* const wp[],
     xb[l] = lb ? __ldg(reinterpret_cast<const uint4*>(wp[l] + ib * mpad))
                : zero4();
   }
-  // the a-fields (fa, fb) and b-fields (ga, gb) of rows ia and ib
-  uint32_t fa[kTxLoads][4], fb[kTxLoads][4], ga[kTxLoads][4], gb[kTxLoads][4];
+  // the a-fields (fa[0], fb[0]) and b-fields (fa[1], fb[1]) of rows ia
+  // and ib
+  uint32_t fa[kTypes][kTxLoads][4], fb[kTypes][kTxLoads][4];
 #pragma unroll
   for (int l = 0; l < kTxLoads; ++l) {
     const uint32_t wa[4] = {xa[l].x, xa[l].y, xa[l].z, xa[l].w};
     const uint32_t wb[4] = {xb[l].x, xb[l].y, xb[l].z, xb[l].w};
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      fa[l][q] = swar_a_fields(wa[q]);
-      fb[l][q] = swar_a_fields(wb[q]);
-      ga[l][q] = swar_b_fields(wa[q]);
-      gb[l][q] = swar_b_fields(wb[q]);
+      fa[0][l][q] = swar_a_fields(wa[q]);
+      fb[0][l][q] = swar_a_fields(wb[q]);
+      if constexpr (kBoth) {
+        fa[1][l][q] = swar_b_fields(wa[q]);
+        fb[1][l][q] = swar_b_fields(wb[q]);
+      }
     }
   }
 #pragma unroll
@@ -141,28 +155,27 @@ __device__ __forceinline__ void atxm_i8_step(const uint32_t* const wp[],
 #pragma unroll
     for (int l = 0; l < kTxLoads; ++l)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint32_t a[4] = {plane64(fa[l][2 * h], k),
-                               plane64(fa[l][2 * h + 1], k),
-                               plane64(fb[l][2 * h], k),
-                               plane64(fb[l][2 * h + 1], k)};
-        mma_u8s8(acc_a[2 * l + h], a, b0, b1);
-        const uint32_t b[4] = {plane64(ga[l][2 * h], k),
-                               plane64(ga[l][2 * h + 1], k),
-                               plane64(gb[l][2 * h], k),
-                               plane64(gb[l][2 * h + 1], k)};
-        mma_u8s8(acc_b[2 * l + h], b, b0, b1);
-      }
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int p = 0; p < kTypes; ++p) {
+          const uint32_t a[4] = {plane64(fa[p][l][2 * h], k),
+                                 plane64(fa[p][l][2 * h + 1], k),
+                                 plane64(fb[p][l][2 * h], k),
+                                 plane64(fb[p][l][2 * h + 1], k)};
+          mma_u8s8(acc[p][2 * l + h], a, b0, b1);
+        }
   }
 }
 
+template <bool kBoth>
 __global__ void __launch_bounds__(kTxThreads)
 atxm_i8_kernel(const uint32_t* __restrict__ words,  // [Nw, Mpad]
                const uint8_t* __restrict__ vdig,    // [4, D, 4*Nw]
                int32_t* __restrict__ out_a,         // [D, Mpad]
-               int32_t* __restrict__ out_b,         // [D, Mpad]
+               int32_t* __restrict__ out_b,         // [D, Mpad], kBoth
                int64_t nw, int64_t mpad, int64_t d_total,
                int64_t steps_per_part) {
+  constexpr int kTypes = kBoth ? 2 : 1;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -184,22 +197,25 @@ atxm_i8_kernel(const uint32_t* __restrict__ words,  // [Nw, Mpad]
   const uint8_t* vp = vdig + imin(d0 + g, d_total - 1) * nb;
   const int64_t plane_bytes = d_total * nb;
 
-  int32_t acc_a[2 * kTxLoads][4], acc_b[2 * kTxLoads][4];
+  int32_t acc[kTypes][2 * kTxLoads][4];
 #pragma unroll
-  for (int h = 0; h < 2 * kTxLoads; ++h)
+  for (int p = 0; p < kTypes; ++p)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc_a[h][c] = acc_b[h][c] = 0;
+    for (int h = 0; h < 2 * kTxLoads; ++h)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[p][h][c] = 0;
 
   // whole steps with unmasked loads, so that the compiler issues the loads
   // of the unrolled steps together; then the partial last step
   const int64_t sf = imin(i_hi, nw / 8);
 #pragma unroll 2
   for (int64_t st = i_lo; st < sf; ++st)
-    atxm_i8_step<false>(wp, vp, plane_bytes, nw, mpad, st, acc_a, acc_b);
+    atxm_i8_step<false, kBoth>(wp, vp, plane_bytes, nw, mpad, st, acc);
   if (sf < i_hi)
-    atxm_i8_step<true>(wp, vp, plane_bytes, nw, mpad, sf, acc_a, acc_b);
-  // acc[2l + h][2*half + c] is marker m0 + 32l + 4g + 2h + half, digit row
-  // d0 + 2t + c
+    atxm_i8_step<true, kBoth>(wp, vp, plane_bytes, nw, mpad, sf, acc);
+  // acc[p][2l + h][2*half + c] is marker m0 + 32l + 4g + 2h + half, digit
+  // row d0 + 2t + c
+  int32_t* const out[2] = {out_a, out_b};
 #pragma unroll
   for (int lh = 0; lh < 2 * kTxLoads; ++lh)
 #pragma unroll
@@ -211,8 +227,9 @@ atxm_i8_kernel(const uint32_t* __restrict__ words,  // [Nw, Mpad]
         const int64_t d = d0 + 2 * t + c;
         if (d >= d_total) continue;
         const int64_t o = d * mpad + m;
-        atomicAdd(out_a + o, acc_a[lh][2 * half + c] >> kScaleShift);
-        atomicAdd(out_b + o, acc_b[lh][2 * half + c] >> kScaleShift);
+#pragma unroll
+        for (int p = 0; p < kTypes; ++p)
+          atomicAdd(out[p] + o, acc[p][lh][2 * half + c] >> kScaleShift);
       }
     }
 }
@@ -220,19 +237,23 @@ atxm_i8_kernel(const uint32_t* __restrict__ words,  // [Nw, Mpad]
 // --------------------------------------------------------------------------
 // axm_i8: (za, zb)[d][k][p] = sum_m (a_k[m, p] * wdig[d][m],
 //                                   b_k[m, p] * udig[d][m])
+// axm_i8a: za[d][k][p] = sum_m a_k[m, p] * wdig[d][m]
 //
-// Replaces axm_i8_pallas / _axm_i8_kernel (gvamp_tpu/ops/matvec.py:514-536,
-// 539), the forward product on genotypes with missing calls: words
-// int32[Nw, Mpad], the digits of W and of U int8[D, Mpad] each under its
-// own scales (matvec._quant_rows), so the a-plane and b-plane products stay
-// apart: int32[D, 4, 4*Nw] out twice, |sum| <= 254*Mpad.
+// Replace axm_i8_pallas / _axm_i8_kernel (gvamp_tpu/ops/matvec.py:514-536,
+// 539), the forward product on genotypes with missing calls, and
+// axm_i8a_pallas / _axm_i8a_kernel and _axm_i8a_wide_kernel (:755-841,
+// 797; the TPU's orientation switch at D > 64 has no counterpart here),
+// its a-plane form on complete genotypes: words int32[Nw, Mpad], the
+// digits of W (and of U) int8[D, Mpad] each under its own scales
+// (matvec._quant_rows), so the a-plane and b-plane products stay apart:
+// int32[D, 4, 4*Nw] out per plane, |sum| <= 254*Mpad.
 //
-// Bound on this card: the one read of the words (3.21 ms at config Bm) for
-// D <= 8.  On top of it each word costs two byte permutes (the transpose
-// below) and the decode of both planes: about 15 instructions on the
-// integer pipe and 8 on the multiply-add pipe (the loop's SASS on an
-// H100), each near the read's time; the contraction is a fifth of it on
-// the tensor cores.
+// Bound on this card: the one read of the words (3.21 ms at configs B and
+// Bm) for D <= 8.  On top of it each word costs two byte permutes (the
+// transpose below) and the decode of both planes: about 15 instructions on
+// the integer pipe and 8 on the multiply-add pipe (the loop's SASS on an
+// H100), each near the read's time, the a-plane alone less; the
+// contraction is a tenth of it per plane on the tensor cores.
 //
 // Design: the contraction runs along the markers, the fast axis of the
 // words, so one register of four markers of one planar row needs the byte
@@ -240,89 +261,100 @@ atxm_i8_kernel(const uint32_t* __restrict__ words,  // [Nw, Mpad]
 // walks the markers 32 at a time (the mma's k): lane (g, t) loads 16 bytes
 // at each of markers m+4t and m+16+4t of word row i0+g (64 contiguous
 // bytes of each row per load instruction).  transpose_quad turns each load
-// into y[b], four markers of person 4(i0+g)+b, decoded into a-fields and
-// b-fields.  A word row holds 16 planar rows (b, k); m tile 2b+h takes row
+// into y[b], four markers of person 4(i0+g)+b, decoded into a-fields (and
+// b-fields).  A word row holds 16 planar rows (b, k); m tile 2b+h takes row
 // (2h, 4(i0+g)+b) as fragment row g and (2h+1, 4(i0+g)+b) as row g+8, so
 // 8 tiles cover the 8 x 16 planar rows, with contraction index 4t+j =
 // marker m+4t+j and 16+4t+j = marker m+16+4t+j.  B fragments: the u32 of
 // digit row d0+g at markers m+4t and m+16+4t, of W for the a-plane tiles
-// and of U for the b-plane ones.  16 mma per step and 2 x 8 tiles x 4 = 64
-// int32 per lane.  A block holds kFwGroups groups of 8 word rows; the
-// kFwSplit warps of a group take its steps in turn (warp s of the group
-// steps j0+s, j0+s+kFwSplit, ...), so that together they read
+// and of U for the b-plane ones.  8 mma per step and plane type, 8 tiles
+// x 4 = 32 int32 per lane and type.  A block holds kFwGroups groups of 8
+// word rows; the kFwSplit warps of a group take its steps in turn (warp s
+// of the group steps j0+s, j0+s+kFwSplit, ...), so that together they read
 // kFwSplit x 128 contiguous bytes of each row at a time and share the
 // digit loads in L1; they meet in atomicAdd on the output.  (One warp per
 // 8 rows, each row read in 128-byte pieces far apart, ran slower on an
 // H100.)  Marker steps split over gridDim.y, in parts of at most
 // kFwMaxSteps, and digit groups of 8 rows over gridDim.z: the grid reads
-// each word once per digit group, ceil(D/8) times, for both planes.
-// Whole steps load unmasked; markers past Mpad (a multiple of 4) occur
-// only in the last step, whose masked form loads them as zero words
-// against zero digits.
+// each word once per digit group, ceil(D/8) times.  Whole steps load
+// unmasked; markers past Mpad (a multiple of 4) occur only in the last
+// step, whose masked form loads them as zero words against zero digits.
 // --------------------------------------------------------------------------
 constexpr int kFwThreads = 256;
 constexpr int kFwGroups = 2;  // groups of 8 word rows per block
 constexpr int kFwSplit = kFwThreads / 32 / kFwGroups;  // warps per group
 constexpr int kFwStep = 32;  // markers per step
 // steps per part that keep a part's scaled sum in int32: 32 terms (32
-// markers) per step and output (each warp of a group sums a kFwSplit-th of
-// them, so its own sum keeps room)
+// markers) per step and output, in either form (each output sums one
+// plane type; each warp of a group sums a kFwSplit-th of them, so its own
+// sum keeps room)
 constexpr int64_t kFwMaxSteps = INT32_MAX / (32 * kScaledTerm);
 
 // One step of 32 markers from marker m: lane (g, t) loads 16 bytes at m+4t
-// and m+16+4t of its word row and of its digit rows of W and U (the row
-// pointers carry the 4t), decodes both planes and contracts them into the
-// 8 tiles of each.  With kMasked, markers past Mpad (m >= lane_mpad) load
-// as zero words against zero digits.
-template <bool kMasked>
+// and m+16+4t of its word row and of its digit rows of W (and, with kBoth,
+// of U; the row pointers carry the 4t), decodes the planes and contracts
+// them into the 8 tiles of acc[0] (a-plane against W) and acc[1] (b-plane
+// against U).  With kMasked, markers past Mpad (m >= lane_mpad) load as
+// zero words against zero digits.
+template <bool kMasked, bool kBoth>
 __device__ __forceinline__ void axm_i8_step(const uint32_t* row,
                                             const uint8_t* wd,
                                             const uint8_t* ud, int64_t m,
                                             int64_t lane_mpad,
-                                            int32_t acc_a[8][4],
-                                            int32_t acc_b[8][4]) {
+                                            int32_t acc[][8][4]) {
+  constexpr int kTypes = kBoth ? 2 : 1;
   const bool l0 = !kMasked || m < lane_mpad;
   const bool l1 = !kMasked || m + 16 < lane_mpad;
   const uint4 x0 =
       l0 ? __ldg(reinterpret_cast<const uint4*>(row + m)) : zero4();
   const uint4 x1 =
       l1 ? __ldg(reinterpret_cast<const uint4*>(row + m + 16)) : zero4();
-  const uint32_t w0 =
-      l0 ? __ldg(reinterpret_cast<const uint32_t*>(wd + m)) : 0u;
-  const uint32_t w1 =
-      l1 ? __ldg(reinterpret_cast<const uint32_t*>(wd + m + 16)) : 0u;
-  const uint32_t u0 =
-      l0 ? __ldg(reinterpret_cast<const uint32_t*>(ud + m)) : 0u;
-  const uint32_t u1 =
-      l1 ? __ldg(reinterpret_cast<const uint32_t*>(ud + m + 16)) : 0u;
+  // dig[p]: the B fragment of plane type p, W's digits then U's
+  uint32_t dig[kTypes][2];
+  dig[0][0] = l0 ? __ldg(reinterpret_cast<const uint32_t*>(wd + m)) : 0u;
+  dig[0][1] = l1 ? __ldg(reinterpret_cast<const uint32_t*>(wd + m + 16)) : 0u;
+  if constexpr (kBoth) {
+    dig[1][0] = l0 ? __ldg(reinterpret_cast<const uint32_t*>(ud + m)) : 0u;
+    dig[1][1] =
+        l1 ? __ldg(reinterpret_cast<const uint32_t*>(ud + m + 16)) : 0u;
+  }
   uint32_t y0[4], y1[4];
   transpose_quad(x0, y0);
   transpose_quad(x1, y1);
 #pragma unroll
   for (int b = 0; b < 4; ++b) {
-    const uint32_t fa0 = swar_a_fields(y0[b]), fa1 = swar_a_fields(y1[b]);
-    const uint32_t fb0 = swar_b_fields(y0[b]), fb1 = swar_b_fields(y1[b]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      // planes 2h (fragment row g) and 2h+1 (row g+8) of person byte b
-      const uint32_t a[4] = {plane64(fa0, 2 * h), plane64(fa0, 2 * h + 1),
-                             plane64(fa1, 2 * h), plane64(fa1, 2 * h + 1)};
-      mma_u8s8(acc_a[2 * b + h], a, w0, w1);
-      const uint32_t nm[4] = {plane64(fb0, 2 * h), plane64(fb0, 2 * h + 1),
-                              plane64(fb1, 2 * h), plane64(fb1, 2 * h + 1)};
-      mma_u8s8(acc_b[2 * b + h], nm, u0, u1);
+    // the a-fields (f0[0], f1[0]) and b-fields (f0[1], f1[1]) of y0, y1
+    uint32_t f0[kTypes], f1[kTypes];
+    f0[0] = swar_a_fields(y0[b]);
+    f1[0] = swar_a_fields(y1[b]);
+    if constexpr (kBoth) {
+      f0[1] = swar_b_fields(y0[b]);
+      f1[1] = swar_b_fields(y1[b]);
     }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int p = 0; p < kTypes; ++p) {
+        // planes 2h (fragment row g) and 2h+1 (row g+8) of person byte b
+        const uint32_t a[4] = {plane64(f0[p], 2 * h),
+                               plane64(f0[p], 2 * h + 1),
+                               plane64(f1[p], 2 * h),
+                               plane64(f1[p], 2 * h + 1)};
+        mma_u8s8(acc[p][2 * b + h], a, dig[p][0], dig[p][1]);
+      }
   }
 }
 
+template <bool kBoth>
 __global__ void __launch_bounds__(kFwThreads)
 axm_i8_kernel(const uint32_t* __restrict__ words,  // [Nw, Mpad]
               const uint8_t* __restrict__ wdig,    // [D, Mpad]
-              const uint8_t* __restrict__ udig,    // [D, Mpad]
+              const uint8_t* __restrict__ udig,    // [D, Mpad], kBoth
               int32_t* __restrict__ out_a,         // [D, 4, 4*Nw]
-              int32_t* __restrict__ out_b,         // [D, 4, 4*Nw]
+              int32_t* __restrict__ out_b,         // [D, 4, 4*Nw], kBoth
               int64_t nw, int64_t mpad, int64_t d_total,
               int64_t steps_per_part) {
+  constexpr int kTypes = kBoth ? 2 : 1;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -339,28 +371,31 @@ axm_i8_kernel(const uint32_t* __restrict__ words,  // [Nw, Mpad]
   const uint32_t* row = words + imin(i0 + g, nw - 1) * mpad + 4 * t;
   const int64_t dr = imin(d0 + g, d_total - 1) * mpad + 4 * t;
   const uint8_t* wd = wdig + dr;
-  const uint8_t* ud = udig + dr;
+  const uint8_t* ud = kBoth ? udig + dr : nullptr;
   const int64_t lane_mpad = mpad - 4 * t;
 
-  int32_t acc_a[8][4], acc_b[8][4];
+  int32_t acc[kTypes][8][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int p = 0; p < kTypes; ++p)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc_a[j][c] = acc_b[j][c] = 0;
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[p][j][c] = 0;
 
   // whole steps with unmasked loads, then the partial last step, each
   // taken by the group's warp whose turn it is
   const int64_t jf = imin(j1, mpad / kFwStep);
 #pragma unroll 2
   for (int64_t j = j0 + sub; j < jf; j += kFwSplit)
-    axm_i8_step<false>(row, wd, ud, j * kFwStep, lane_mpad, acc_a, acc_b);
+    axm_i8_step<false, kBoth>(row, wd, ud, j * kFwStep, lane_mpad, acc);
   if (jf < j1 && (jf - j0) % kFwSplit == sub)
-    axm_i8_step<true>(row, wd, ud, jf * kFwStep, lane_mpad, acc_a, acc_b);
-  // acc[2b + h][2*half + c] is planar row (2h + half, 4(i0 + g) + b), digit
-  // row d0 + 2t + c
+    axm_i8_step<true, kBoth>(row, wd, ud, jf * kFwStep, lane_mpad, acc);
+  // acc[p][2b + h][2*half + c] is planar row (2h + half, 4(i0 + g) + b),
+  // digit row d0 + 2t + c
   const int64_t i = i0 + g;
   if (i >= nw) return;
   const int64_t nb = 4 * nw;
+  int32_t* const out[2] = {out_a, out_b};
 #pragma unroll
   for (int c = 0; c < 2; ++c) {
     const int64_t d = d0 + 2 * t + c;
@@ -372,10 +407,69 @@ axm_i8_kernel(const uint32_t* __restrict__ words,  // [Nw, Mpad]
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int64_t o = (d * 4 + 2 * h + half) * nb + 4 * i + b;
-          atomicAdd(out_a + o, acc_a[2 * b + h][2 * half + c] >> kScaleShift);
-          atomicAdd(out_b + o, acc_b[2 * b + h][2 * half + c] >> kScaleShift);
+#pragma unroll
+          for (int p = 0; p < kTypes; ++p)
+            atomicAdd(out[p] + o,
+                      acc[p][2 * b + h][2 * half + c] >> kScaleShift);
         }
   }
+}
+
+// The arguments every launcher refuses: the kernels load the words 16
+// bytes at a time and a marker quad is all in or all out.
+bool bad_args(const void* words, int64_t nw, int64_t mpad, int64_t d_total) {
+  return nw <= 0 || mpad <= 0 || mpad % 4 != 0 || d_total <= 0 ||
+         reinterpret_cast<uintptr_t>(words) % 16 != 0;
+}
+
+// words int32[Nw, Mpad], vdig int8[4, D, 4*Nw], out_a (and, with kBoth,
+// out_b) int32[D, Mpad], zeroed
+template <bool kBoth>
+int launch_atxm(const void* words, const void* vdig, void* out_a,
+                void* out_b, int64_t nw, int64_t mpad, int64_t d_total,
+                void* stream) {
+  if (bad_args(words, nw, mpad, d_total)) return (int)cudaErrorInvalidValue;
+  int64_t target = 0;
+  if (const int e =
+          dot_target(atxm_i8_kernel<kBoth>, kTxThreads, 0, &target))
+    return e;
+  const int64_t cols = cdiv(mpad, kTxMarkers), groups = cdiv(d_total, 8);
+  const int64_t steps = cdiv(nw, 8);
+  const int64_t per_part =
+      imin(part_length(steps, cols * groups, target), kTxMaxSteps);
+  const dim3 grid((unsigned)cols, (unsigned)cdiv(steps, per_part),
+                  (unsigned)groups);
+  atxm_i8_kernel<kBoth>
+      <<<grid, kTxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint32_t*>(words),
+          static_cast<const uint8_t*>(vdig), static_cast<int32_t*>(out_a),
+          static_cast<int32_t*>(out_b), nw, mpad, d_total, per_part);
+  return (int)cudaGetLastError();
+}
+
+// words int32[Nw, Mpad], wdig (and, with kBoth, udig) int8[D, Mpad], out_a
+// (and out_b) int32[D, 4, 4*Nw], zeroed
+template <bool kBoth>
+int launch_axm(const void* words, const void* wdig, const void* udig,
+               void* out_a, void* out_b, int64_t nw, int64_t mpad,
+               int64_t d_total, void* stream) {
+  if (bad_args(words, nw, mpad, d_total)) return (int)cudaErrorInvalidValue;
+  int64_t target = 0;
+  if (const int e = dot_target(axm_i8_kernel<kBoth>, kFwThreads, 0, &target))
+    return e;
+  const int64_t rows = cdiv(nw, 8 * kFwGroups), groups = cdiv(d_total, 8);
+  const int64_t steps = cdiv(mpad, kFwStep);
+  const int64_t per_part =
+      imin(part_length(steps, rows * groups, target), kFwMaxSteps);
+  const dim3 grid((unsigned)rows, (unsigned)cdiv(steps, per_part),
+                  (unsigned)groups);
+  axm_i8_kernel<kBoth>
+      <<<grid, kFwThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint32_t*>(words),
+          static_cast<const uint8_t*>(wdig),
+          static_cast<const uint8_t*>(udig), static_cast<int32_t*>(out_a),
+          static_cast<int32_t*>(out_b), nw, mpad, d_total, per_part);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -387,23 +481,15 @@ extern "C" {
 int gvamp_atxm_i8(const void* words, const void* vdig, void* out_a,
                   void* out_b, int64_t nw, int64_t mpad, int64_t d_total,
                   void* stream) {
-  if (nw <= 0 || mpad <= 0 || mpad % 4 != 0 || d_total <= 0 ||
-      reinterpret_cast<uintptr_t>(words) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  int64_t target = 0;
-  if (const int e = dot_target(atxm_i8_kernel, kTxThreads, 0, &target))
-    return e;
-  const int64_t cols = cdiv(mpad, kTxMarkers), groups = cdiv(d_total, 8);
-  const int64_t steps = cdiv(nw, 8);
-  const int64_t per_part =
-      imin(part_length(steps, cols * groups, target), kTxMaxSteps);
-  const dim3 grid((unsigned)cols, (unsigned)cdiv(steps, per_part),
-                  (unsigned)groups);
-  atxm_i8_kernel<<<grid, kTxThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<const uint8_t*>(vdig),
-      static_cast<int32_t*>(out_a), static_cast<int32_t*>(out_b), nw, mpad,
-      d_total, per_part);
-  return (int)cudaGetLastError();
+  return launch_atxm<true>(words, vdig, out_a, out_b, nw, mpad, d_total,
+                           stream);
+}
+
+// the a-plane only: out int32[D, Mpad], zeroed
+int gvamp_atxm_i8a(const void* words, const void* vdig, void* out,
+                   int64_t nw, int64_t mpad, int64_t d_total, void* stream) {
+  return launch_atxm<false>(words, vdig, out, nullptr, nw, mpad, d_total,
+                            stream);
 }
 
 // words int32[Nw, Mpad], wdig / udig int8[D, Mpad], out_a / out_b
@@ -411,23 +497,15 @@ int gvamp_atxm_i8(const void* words, const void* vdig, void* out_a,
 int gvamp_axm_i8(const void* words, const void* wdig, const void* udig,
                  void* out_a, void* out_b, int64_t nw, int64_t mpad,
                  int64_t d_total, void* stream) {
-  if (nw <= 0 || mpad <= 0 || mpad % 4 != 0 || d_total <= 0 ||
-      reinterpret_cast<uintptr_t>(words) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  int64_t target = 0;
-  if (const int e = dot_target(axm_i8_kernel, kFwThreads, 0, &target))
-    return e;
-  const int64_t rows = cdiv(nw, 8 * kFwGroups), groups = cdiv(d_total, 8);
-  const int64_t steps = cdiv(mpad, kFwStep);
-  const int64_t per_part =
-      imin(part_length(steps, rows * groups, target), kFwMaxSteps);
-  const dim3 grid((unsigned)rows, (unsigned)cdiv(steps, per_part),
-                  (unsigned)groups);
-  axm_i8_kernel<<<grid, kFwThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<const uint8_t*>(wdig),
-      static_cast<const uint8_t*>(udig), static_cast<int32_t*>(out_a),
-      static_cast<int32_t*>(out_b), nw, mpad, d_total, per_part);
-  return (int)cudaGetLastError();
+  return launch_axm<true>(words, wdig, udig, out_a, out_b, nw, mpad, d_total,
+                          stream);
+}
+
+// the a-plane only: wdig int8[D, Mpad], out int32[D, 4, 4*Nw], zeroed
+int gvamp_axm_i8a(const void* words, const void* wdig, void* out, int64_t nw,
+                  int64_t mpad, int64_t d_total, void* stream) {
+  return launch_axm<false>(words, wdig, nullptr, out, nullptr, nw, mpad,
+                           d_total, stream);
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 // Packed-genotype products of the PyTorch port, written by hand for Hopper
-// (sm_90a).  Bound through a plain C interface (ctypes, see
-// gvamp_tpu_torch/ops/_build.py); the wrappers are in
-// gvamp_tpu_torch/ops/matvec.py, beside the plain PyTorch versions the
-// kernels are checked against.
+// (sm_90a), apart from the four digit products axm_i8a, atxm_i8a, axm_i8
+// and atxm_i8, whose tensor-core kernels are in fragments.cu.  Bound
+// through a plain C interface (ctypes, see gvamp_tpu_torch/ops/_build.py);
+// the wrappers are in gvamp_tpu_torch/ops/matvec.py, beside the plain
+// PyTorch versions the kernels are checked against.
 //
 // Layout (gvamp_tpu/ops/layout.py): words are uint32[Nw, Mpad], word-major,
 // 16 samples per word.  Byte b of word-row i holds the four 2-bit codes of
@@ -57,158 +58,6 @@ int64_t band_length(int64_t n, int64_t other, int64_t unit) {
 }
 
 // --------------------------------------------------------------------------
-// atxm_i8a: av[d][m] = sum_{k, p} a_k[m, p] * vdig[k][d][p]
-//
-// Replaces atxm_i8a_pallas / _atxm_i8a_kernel (gvamp_tpu/ops/matvec.py:1560,
-// 1581).  Bound on this card: one pass reads all 4*Nw*Mpad packed bytes
-// (10.74 GB at N=327,680 x M=131,072) and does 4*DT dp4a per word, so it
-// is bound by packed bytes at small D and by the integer pipe as D grows.
-// Design: one thread per marker column, so that a warp reads 128
-// consecutive bytes of a word row; the digit words of a band of rows are
-// the same for every thread and sit in shared memory (broadcast reads).
-// Row bands spread over gridDim.y and meet in int32 atomicAdd; digit groups
-// of DT rows spread over gridDim.z.
-// --------------------------------------------------------------------------
-template <int DT>
-__global__ void __launch_bounds__(kThreads)
-atxm_i8a_kernel(const uint32_t* __restrict__ words,
-                const int32_t* __restrict__ vdig,  // int32 view [4, D, Nw]
-                int32_t* __restrict__ out,         // [D, Mpad]
-                int64_t nw, int64_t mpad, int64_t d_total,
-                int64_t rows_per_band) {
-  __shared__ int32_t sdig[4][DT][kTileRows];
-  const int64_t m = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  const int64_t d0 = (int64_t)blockIdx.z * DT;
-  const int64_t r_begin = (int64_t)blockIdx.y * rows_per_band;
-  const int64_t r_end = imin(nw, r_begin + rows_per_band);
-
-  int32_t acc[DT];
-#pragma unroll
-  for (int d = 0; d < DT; ++d) acc[d] = 0;
-
-  for (int64_t t0 = r_begin; t0 < r_end; t0 += kTileRows) {
-    const int rows = (int)imin((int64_t)kTileRows, r_end - t0);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < 4 * DT * kTileRows; idx += kThreads) {
-      const int k = idx / (DT * kTileRows);
-      const int d = (idx / kTileRows) % DT;
-      const int r = idx % kTileRows;
-      int32_t v = 0;
-      if (r < rows && d0 + d < d_total)
-        v = vdig[((int64_t)k * d_total + d0 + d) * nw + t0 + r];
-      sdig[k][d][r] = v;
-    }
-    __syncthreads();
-    if (m < mpad) {
-      const uint32_t* col = words + t0 * mpad + m;
-      for (int r = 0; r < rows; ++r) {
-        const uint32_t w = __ldg(col + (int64_t)r * mpad);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int a = (int)swar_a(w, k);
-#pragma unroll
-          for (int d = 0; d < DT; ++d) acc[d] = __dp4a(a, sdig[k][d][r], acc[d]);
-        }
-      }
-    }
-  }
-  if (m < mpad) {
-#pragma unroll
-    for (int d = 0; d < DT; ++d)
-      if (d0 + d < d_total) atomicAdd(out + (d0 + d) * mpad + m, acc[d]);
-  }
-}
-
-// --------------------------------------------------------------------------
-// axm_i8a: zt[d][k][p] = sum_m a_k[m, p] * wdig[d][m]
-//
-// Replaces axm_i8a_pallas / _axm_i8a_kernel and _axm_i8a_wide_kernel
-// (gvamp_tpu/ops/matvec.py:755-841; the TPU's orientation switch at D > 64
-// has no counterpart here).  Bound on this card: as atxm_i8a, one read of
-// every packed byte per digit group; the contraction runs along the fast
-// (marker) axis, so the sum crosses threads.
-// Design: one warp per word row.  A lane loads four neighbouring marker
-// words as one 16-byte load and transposes their bytes with __byte_perm, so
-// that byte j of y_b is byte b of marker 4q+j; the SWAR decode of y_b then
-// gives the dosages of row (k, 4i+b) for four markers, which one __dp4a
-// multiplies with the packed digits of those markers.  The digits of a
-// marker tile are shared by the block's warps through shared memory.  Each
-// lane keeps 16*DT int32 sums; a warp-shuffle reduction and one atomicAdd
-// per sum finish the row.  Marker bands spread over gridDim.y, digit groups
-// over gridDim.z.
-// --------------------------------------------------------------------------
-constexpr int kAxmDT = 4;
-
-__global__ void __launch_bounds__(kThreads)
-axm_i8a_kernel(const uint32_t* __restrict__ words,
-               const int32_t* __restrict__ wdig,  // int32 view [D, Mpad/4]
-               int32_t* __restrict__ out,         // [D, 4, 4*Nw]
-               int64_t nw, int64_t mpad, int64_t d_total,
-               int64_t quads_per_band) {
-  constexpr int DT = kAxmDT;
-  __shared__ int32_t sw[DT][kTileQuads];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kWarps + warp;
-  const int64_t nq = mpad / 4;
-  const int64_t q_begin = (int64_t)blockIdx.y * quads_per_band;
-  const int64_t q_end = imin(nq, q_begin + quads_per_band);
-  const int64_t d0 = (int64_t)blockIdx.z * DT;
-
-  int32_t acc[DT][16];  // [d][k * 4 + b]
-#pragma unroll
-  for (int d = 0; d < DT; ++d)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[d][j] = 0;
-
-  const uint4* wrow =
-      reinterpret_cast<const uint4*>(words + (row < nw ? row : 0) * mpad);
-  for (int64_t qt = q_begin; qt < q_end; qt += kTileQuads) {
-    const int nqt = (int)imin((int64_t)kTileQuads, q_end - qt);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < DT * kTileQuads; idx += kThreads) {
-      const int d = idx / kTileQuads;
-      const int q = idx % kTileQuads;
-      int32_t v = 0;
-      if (q < nqt && d0 + d < d_total) v = wdig[(d0 + d) * nq + qt + q];
-      sw[d][q] = v;
-    }
-    __syncthreads();
-    if (row < nw) {
-      for (int q = lane; q < nqt; q += 32) {
-        uint32_t y[4];
-        transpose_quad(__ldg(wrow + qt + q), y);
-        int32_t wd[DT];
-#pragma unroll
-        for (int d = 0; d < DT; ++d) wd[d] = sw[d][q];
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int a = (int)swar_a(y[b], k);
-#pragma unroll
-            for (int d = 0; d < DT; ++d)
-              acc[d][k * 4 + b] = __dp4a(a, wd[d], acc[d][k * 4 + b]);
-          }
-      }
-    }
-  }
-  if (row >= nw) return;  // after the last __syncthreads of the block
-  const int64_t nb = 4 * nw;
-#pragma unroll
-  for (int d = 0; d < DT; ++d) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int32_t v = warp_sum(acc[d][j]);
-      if (lane == 0 && d0 + d < d_total) {
-        const int k = j / 4, b = j % 4;
-        atomicAdd(out + ((d0 + d) * 4 + k) * nb + 4 * row + b, v);
-      }
-    }
-  }
-}
-
-// --------------------------------------------------------------------------
 // axm_i8s: zt[d][k][p] = sum_m a_k[m, p] * wdig[d][m] + b_k[m, p] * mudig[d][m]
 //
 // Replaces axm_i8s_pallas / _axm_i8s_kernel (gvamp_tpu/ops/matvec.py:
@@ -219,10 +68,13 @@ axm_i8a_kernel(const uint32_t* __restrict__ words,
 // Bound on this card: one read of the packed bytes per group of DT digit
 // rows, plus the byte transposes, two SWAR decodes and 2*16*DT __dp4a per
 // 16-byte load.
-// Design: axm_i8's (one warp per word row, the 16-byte load and the
-// __byte_perm transpose, both digit tiles in shared memory, a warp
-// reduction and one atomicAdd per sum), with one set of lane sums: 16*DT
-// int32, so DT = 4 digit rows per read of the words, as axm_i8a's.
+// Design: one warp per word row.  A lane loads four neighbouring marker
+// words as one 16-byte load and transposes their bytes (transpose_quad),
+// so that the SWAR decode of y[b] holds row (k, 4i+b) of four markers,
+// one __dp4a operand against their packed digits.  Both digit tiles sit
+// in shared memory; a warp reduction and one atomicAdd per sum finish the
+// row.  One set of lane sums, 16*DT int32, so DT = 4 digit rows per read
+// of the words.
 // --------------------------------------------------------------------------
 constexpr int kAxmI8sDT = 4;
 
@@ -410,7 +262,7 @@ int64_t atx_rows_per_band(int64_t nw, int64_t mpad) {
 // (GenoBed.compute_people_statistics).  Bound on this card: one read of
 // the packed bytes and 32 float FMAs (with their byte-to-float
 // conversions) per word, so the conversions, not HBM, set its pace.
-// Design: axm_i8a's (one warp per word row, 16-byte loads of four marker
+// Design: axm_i8s's (one warp per word row, 16-byte loads of four marker
 // words, the __byte_perm transpose, lanes striding over the marker quads
 // of a band); each lane keeps one f32 sum per (plane k, byte b) and the
 // warp sums them with a fixed shuffle tree.  Marker bands spread over
@@ -720,7 +572,7 @@ int64_t atxm_bf16_rows_per_band(int64_t nw, int64_t mpad, int64_t ncols) {
 //      contracts no FMA across them, so they round as the plain version's
 //      separate torch ops do.
 //   4. Forward side: one thread per word row contracts the cached row
-//      against the stripe's digits (axm_i8a's __byte_perm transpose and
+//      against the stripe's digits (axm_i8s's __byte_perm transpose and
 //      __dp4a), folds with the stripe's scales and writes the stripe's
 //      f32 partial z_j.  Stripes carry their own scales, so they cannot
 //      meet in int32 atomics, and f32 atomics would make runs differ: the
@@ -959,7 +811,7 @@ int launch_gram_aat(const void* words, const void* vdig, const void* vsc,
 //   1. the block copies its kBandNw x range tile of words into shared
 //      memory: the words' only read from HBM;
 //   2. forward side, per column: warp w takes tile rows w, w + 16, lanes
-//      stride over the quads (axm_i8a's 16-byte load, __byte_perm
+//      stride over the quads (axm_i8s's 16-byte load, __byte_perm
 //      transpose and __dp4a against W's digits); a warp reduction and one
 //      int32 atomicAdd per sum into the band's partials (exact, so the
 //      order of the blocks does not matter);
@@ -1203,36 +1055,6 @@ int launch_gram_prim(const void* words, const void* wdig, const void* udig,
 }  // namespace
 
 extern "C" {
-
-int gvamp_atxm_i8a(const void* words, const void* vdig, void* out, int64_t nw,
-                   int64_t mpad, int64_t d_total, void* stream) {
-  const int64_t nx = cdiv(mpad, kThreads);
-  const bool narrow = d_total <= 4;
-  const int64_t nz = cdiv(d_total, narrow ? 4 : 8);
-  const int64_t rows = band_length(nw, nx * nz, kTileRows);
-  const dim3 grid((unsigned)nx, (unsigned)cdiv(nw, rows), (unsigned)nz);
-  const auto* w = static_cast<const uint32_t*>(words);
-  const auto* v = static_cast<const int32_t*>(vdig);
-  auto* o = static_cast<int32_t*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (narrow)
-    atxm_i8a_kernel<4><<<grid, kThreads, 0, s>>>(w, v, o, nw, mpad, d_total, rows);
-  else
-    atxm_i8a_kernel<8><<<grid, kThreads, 0, s>>>(w, v, o, nw, mpad, d_total, rows);
-  return (int)cudaGetLastError();
-}
-
-int gvamp_axm_i8a(const void* words, const void* wdig, void* out, int64_t nw,
-                  int64_t mpad, int64_t d_total, void* stream) {
-  const int64_t nx = cdiv(nw, kWarps);
-  const int64_t nz = cdiv(d_total, kAxmDT);
-  const int64_t quads = band_length(mpad / 4, nx * nz, kTileQuads);
-  const dim3 grid((unsigned)nx, (unsigned)cdiv(mpad / 4, quads), (unsigned)nz);
-  axm_i8a_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<const int32_t*>(wdig),
-      static_cast<int32_t*>(out), nw, mpad, d_total, quads);
-  return (int)cudaGetLastError();
-}
 
 // number of row bands the atx launch uses: the wrapper sizes its partial
 // output [2, bands, Mpad] with it

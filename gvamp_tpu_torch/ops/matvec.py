@@ -1,6 +1,7 @@
 """Packed-genotype products of the PyTorch port: plain versions and the
 wrappers of the hand-written CUDA kernels (``csrc/matvec.cu``, and
-``csrc/fragments.cu`` for ``axm_i8`` and ``atxm_i8``).
+``csrc/fragments.cu`` for the four digit products ``axm_i8a``,
+``atxm_i8a``, ``axm_i8`` and ``atxm_i8``).
 
 Counterpart of ``gvamp_tpu/ops/matvec.py`` for the linear main path.  The
 word layout is the same (word-major ``[Nw, Mpad]``, 16 samples per word,
@@ -68,8 +69,9 @@ _M3 = 0x03030303
 # radix-127 int8 digits per f32 value (gvamp_tpu/ops/matvec.py:456)
 _NDIG = 4
 # forward-product column chunks (gvamp_tpu/ops/matvec.py:463-464); the
-# CUDA kernels take any width up to these, the chunking keeps JAX's call
-# structure (the fused primal Grams chunk at them as JAX's do)
+# fused primal Grams chunk at them as JAX's do, while axm_i8a, axm_i8 and
+# axm_i8s take any width in one launch (quantisation is per column, so a
+# chunk would not change a value)
 _BMAX_AXM = 32
 _BMAX_AXM_A = 64
 # column chunk of the bf16-split products (gvamp_tpu/ops/matvec.py:466); the
@@ -815,11 +817,11 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
 
 def axm_i8a(words: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """A_a @ W -> f32[4, Nb, B] on complete genotypes; the caller subtracts
-    the b-side scalar colsum(mave W)."""
-    B = W.shape[1]
-    if B > _BMAX_AXM_A:
-        return torch.cat([axm_i8a(words, W[:, lo:lo + _BMAX_AXM_A])
-                          for lo in range(0, B, _BMAX_AXM_A)], dim=2)
+    the b-side scalar colsum(mave W).
+
+    One launch for any B: the kernel spreads digit groups over its grid, and
+    quantisation is per column, so the JAX wrapper's column chunking
+    (``_BMAX_AXM_A``) would not change a value."""
     if words.device.type == "cpu":
         return axm_i8a_ref(words, W)
     _check_cuda("axm_i8a", words, W, torch.float32)
@@ -834,7 +836,7 @@ def axm_i8a(words: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     _launch("axm_i8a", _build.library().gvamp_axm_i8a, words.device,
             words.data_ptr(), w8t.data_ptr(), zt.data_ptr(), nw, m,
             w8t.shape[0])
-    return _fold_digits_zt(zt, ws, B)
+    return _fold_digits_zt(zt, ws, W.shape[1])
 
 
 def atxm_i8a(words: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
@@ -844,7 +846,7 @@ def atxm_i8a(words: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
         return atxm_i8a_ref(words, V)
     _check_cuda("atxm_i8a", words, V, torch.float32)
     nw, m = words.shape
-    if V.shape[:2] != (4, 4 * nw):
+    if V.ndim != 3 or V.shape[:2] != (4, 4 * nw):
         raise ValueError(f"atxm_i8a: V must be [4, {4 * nw}, B], got "
                          f"{list(V.shape)}")
     _check_bound("atxm_i8a", 16 * nw)

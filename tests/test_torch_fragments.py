@@ -7,15 +7,23 @@ of the digits, the byte transpose and the SWAR decode that turn them into
 A fragments (each plane at the top of its bytes, 64 times its value), the
 mma.sync m16n8k32 u8 x s8 -> s32 semantics (the PTX fragment layout), the
 parts of the contraction (int32 sums, shifted back by 6 at each part's
-end) and the index each C fragment is added to.  Its integers must equal
-the port's plain versions (axm_i8_int_ref, atxm_i8_int_ref) and the JAX
-package's kernel bodies in interpret mode; folded, they must match
-axm_i8_pallas / atxm_i8_pallas as tests/test_torch_matvec.py holds the
-port's wrappers.  The shapes are the edges the kernels' grids must cover:
+end) and the index each C fragment is added to.  Like the kernels, each
+emulator has a compile-time plane count: both planes for the products on
+genotypes with missing calls (axm_i8, atxm_i8), the a-plane alone for those
+on complete genotypes (axm_i8a, atxm_i8a).  Its integers must equal the
+port's plain versions (axm_i8_int_ref, atxm_i8_int_ref, axm_i8a_int_ref,
+atxm_i8a_int_ref) and the JAX package's kernel bodies in interpret mode;
+folded, they must match axm_i8_pallas / atxm_i8_pallas / axm_i8a_pallas /
+atxm_i8a_pallas as tests/test_torch_matvec.py holds the port's wrappers.
+The shapes are the edges the kernels' grids must cover:
 Nw not a multiple of 8 or of a block's rows, Mpad not a multiple of a
 step, D not a multiple of 8, and B = 22 (11 digit groups); at the
 largest sums (every call a = 2, every digit 127) the longest part keeps
 its 64-fold sum inside int32."""
+
+import importlib
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +33,8 @@ import torch
 from gvamp_tpu.ops import matvec as jmv
 from gvamp_tpu_torch.ops import matvec as tmv
 from test_torch_matvec import (FOLD_TOL, _close, _jax_atxm_i8_int,
-                               _jax_axm_i8_int, _t, _words)
+                               _jax_atxm_int, _jax_axm_i8_int, _jax_axm_int,
+                               _t, _words)
 
 M1, M3, M5 = 0x01010101, 0x03030303, 0x55555555
 
@@ -129,19 +138,20 @@ def _parts(steps, per_part):
     return [(lo, min(steps, lo + per_part)) for lo in range(0, steps, per_part)]
 
 
-def emulate_axm_i8(words, w8t, u8t, per_part=FW_MAX_STEPS):
-    """axm_i8_kernel's integers (za, zb) int64[D, 4, 4*Nw]: groups of 8
-    word rows x 8 digit rows walking 32 markers per step, the group's
-    FW_SPLIT warps taking the steps of a part in turn, lane (g, t) loading
-    16 bytes at m+4t and m+16+4t of word row i0+g and the u32 of digit row
-    d0+g there; each warp's int32 sums of a part, shifted back, are added
-    to the output."""
+def emulate_axm_i8(words, w8t, u8t=None, per_part=FW_MAX_STEPS, both=True):
+    """axm_i8_kernel<both>'s integers, (za, zb) int64[D, 4, 4*Nw] or, with
+    ``both`` false (axm_i8a, no U), (za,): groups of 8 word rows x 8 digit
+    rows walking 32 markers per step, the group's FW_SPLIT warps taking the
+    steps of a part in turn, lane (g, t) loading 16 bytes at m+4t and
+    m+16+4t of word row i0+g and the u32 of digit row d0+g there; each
+    warp's int32 sums of a part, shifted back, are added to the output."""
     nw, mpad = words.shape
     D = w8t.shape[0]
     w = words.astype(np.int64)
     nb = 4 * nw
-    za = np.zeros((D, 4, nb), np.int64)
-    zb = np.zeros_like(za)
+    # (decode, digits) of each plane type the kernel accumulates
+    types = [(swar_a_fields, w8t)] + [(swar_b_fields, u8t)] * both
+    outs = [np.zeros((D, 4, nb), np.int64) for _ in types]
     # every group (i0) and digit group (d0): batch axes
     i0 = np.arange(0, nw, 8)
     d0 = np.arange(0, D, 8)
@@ -156,8 +166,8 @@ def emulate_axm_i8(words, w8t, u8t, per_part=FW_MAX_STEPS):
     dd = d0[:, None, None] + 2 * T[None, :, None] + c_.ravel()[None, None]
     ii = i0[:, None, None] + G[None, :, None]                     # [W, 32, 1]
     for lo, hi in _parts(-(-mpad // FW_STEP), per_part):
-        acc_a = np.zeros((FW_SPLIT, len(i0), len(d0), 8, 32, 4), np.int64)
-        acc_b = np.zeros_like(acc_a)
+        accs = [np.zeros((FW_SPLIT, len(i0), len(d0), 8, 32, 4), np.int64)
+                for _ in types]
         for j in range(lo, hi):
             sub, m = (j - lo) % FW_SPLIT, j * FW_STEP
             cols = [m + 4 * T, m + 16 + 4 * T]                    # [32] each
@@ -168,7 +178,7 @@ def emulate_axm_i8(words, w8t, u8t, per_part=FW_MAX_STEPS):
                 q = w[rows[:, :, None], idx]                       # [W, 32, 4]
                 x.append(np.where(lv[None, :, None], q, 0))
             dig = []
-            for d8 in (w8t, u8t):
+            for _, d8 in types:
                 dg = []
                 for c, lv in zip(cols, live):
                     u = _u32(d8, (drow, np.minimum(c, mpad - 4)[None, :]))
@@ -176,11 +186,9 @@ def emulate_axm_i8(words, w8t, u8t, per_part=FW_MAX_STEPS):
                 dig.append(np.stack(dg, axis=-1)[None])            # [1,Z,32,2]
             y0, y1 = transpose_quad(x[0]), transpose_quad(x[1])    # [W,32,4]
             for b in range(4):
-                fa0, fa1 = swar_a_fields(y0[..., b]), swar_a_fields(y1[..., b])
-                fb0, fb1 = swar_b_fields(y0[..., b]), swar_b_fields(y1[..., b])
                 for h in range(2):
-                    for f0, f1, acc, dgt in ((fa0, fa1, acc_a, dig[0]),
-                                             (fb0, fb1, acc_b, dig[1])):
+                    for (dec, _), acc, dgt in zip(types, accs, dig):
+                        f0, f1 = dec(y0[..., b]), dec(y1[..., b])
                         a = np.stack([plane64(f0, 2 * h),
                                       plane64(f0, 2 * h + 1),
                                       plane64(f1, 2 * h),
@@ -188,7 +196,7 @@ def emulate_axm_i8(words, w8t, u8t, per_part=FW_MAX_STEPS):
                                      axis=-1)[:, None]             # [W,1,32,4]
                         acc[sub, :, :, 2 * b + h] = mma(
                             acc[sub, :, :, 2 * b + h], a, dgt)
-        for acc, out in ((acc_a, za), (acc_b, zb)):
+        for acc, out in zip(accs, outs):
             # each warp's part shifted back, then the group's warps added
             part = (wrap32(acc) >> SCALE_SHIFT).sum(axis=0)        # [W,Z,8,32,4]
             v = np.moveaxis(part, 3, 2)[..., tile, slot]           # [W,Z,32,P]
@@ -196,21 +204,22 @@ def emulate_axm_i8(words, w8t, u8t, per_part=FW_MAX_STEPS):
             W_, Z_, L_, P_ = np.nonzero(ok)
             np.add.at(out, (dd[Z_, L_, P_], k_[P_],
                             4 * ii[W_, L_, 0] + bb_[P_]), v[W_, Z_, L_, P_])
-    return za, zb
+    return tuple(outs)
 
 
-def emulate_atxm_i8(words, v8, per_part=TX_MAX_STEPS):
-    """atxm_i8_kernel's integers (av, bv) int64[D, Mpad]: warps of 64
-    markers x 8 digit rows walking 8 word rows per step, lane (g, t)
-    loading 16 bytes at markers m0+32l+4g of word rows 8st+t and 8st+t+4
-    and, per plane, the u32 of digit row d0+g at those people; each part's
-    int32 sums, shifted back, are added to the output."""
+def emulate_atxm_i8(words, v8, per_part=TX_MAX_STEPS, both=True):
+    """atxm_i8_kernel<both>'s integers, (av, bv) int64[D, Mpad] or, with
+    ``both`` false (atxm_i8a), (av,): warps of 64 markers x 8 digit rows
+    walking 8 word rows per step, lane (g, t) loading 16 bytes at markers
+    m0+32l+4g of word rows 8st+t and 8st+t+4 and, per plane, the u32 of
+    digit row d0+g at those people; each part's int32 sums, shifted back,
+    are added to the output."""
     nw, mpad = words.shape
     D = v8.shape[1]
     nb = 4 * nw
     w = words.astype(np.int64)
-    av = np.zeros((D, mpad), np.int64)
-    bv = np.zeros_like(av)
+    decs = [swar_a_fields] + [swar_b_fields] * both
+    outs = [np.zeros((D, mpad), np.int64) for _ in decs]
     m0 = np.arange(0, mpad, TX_WARP_MARKERS)
     d0 = np.arange(0, D, 8)
     drow = np.minimum(d0[:, None] + G[None, :], D - 1)            # [Z, 32]
@@ -227,8 +236,8 @@ def emulate_atxm_i8(words, v8, per_part=TX_MAX_STEPS):
           + half_.ravel()[None, None])                             # [W, 32, P]
     dd = d0[:, None, None] + 2 * T[None, :, None] + c_.ravel()[None, None]
     for lo, hi in _parts(-(-nw // 8), per_part):
-        acc_a = np.zeros((len(m0), len(d0), 2 * TX_LOADS, 32, 4), np.int64)
-        acc_b = np.zeros_like(acc_a)
+        accs = [np.zeros((len(m0), len(d0), 2 * TX_LOADS, 32, 4), np.int64)
+                for _ in decs]
         for st in range(lo, hi):
             ia, ib = 8 * st + T, 8 * st + T + 4                    # [32]
             la, lb = ia < nw, ib < nw
@@ -247,8 +256,7 @@ def emulate_atxm_i8(words, v8, per_part=TX_MAX_STEPS):
                 bb = np.stack([b0, b1], axis=-1)[None]             # [1,Z,32,2]
                 for l in range(TX_LOADS):
                     for h in range(2):
-                        for dec, acc in ((swar_a_fields, acc_a),
-                                         (swar_b_fields, acc_b)):
+                        for dec, acc in zip(decs, accs):
                             a = np.stack(
                                 [plane64(dec(xa[l][..., 2 * h]), k),
                                  plane64(dec(xa[l][..., 2 * h + 1]), k),
@@ -257,14 +265,14 @@ def emulate_atxm_i8(words, v8, per_part=TX_MAX_STEPS):
                                 axis=-1)[:, None]                  # [W,1,32,4]
                             acc[:, :, 2 * l + h] = mma(
                                 acc[:, :, 2 * l + h], a, bb)
-        for acc, out in ((acc_a, av), (acc_b, bv)):
+        for acc, out in zip(accs, outs):
             part = wrap32(acc) >> SCALE_SHIFT                      # [W,Z,4,32,4]
             v = np.moveaxis(part, 2, -2)[..., tile, slot]          # [W,Z,32,P]
             ok = (mm < mpad)[:, None] & (dd < D)[None]             # [W,Z,32,P]
             W_, Z_, L_, P_ = np.nonzero(ok)
             np.add.at(out, (dd[Z_, L_, P_], mm[W_, L_, P_]),
                       v[W_, Z_, L_, P_])
-    return av, bv
+    return tuple(outs)
 
 
 # --------------------------------------------------------------------------
@@ -375,6 +383,74 @@ def test_atxm_i8_lane_map_matches_refs(nw, m, B):
                                   B), w, FOLD_TOL)
 
 
+# the edges of chip_smoke.FRAGMENT_SHAPES for the one-plane forms: Nw = 7
+# and 300, Mpad = 8 and 1,000, B = 1, 2 and 22
+A_ONLY_CASES = [(7, 8, 22), (7, 1000, 1), (300, 8, 2), (300, 1000, 22),
+                (300, 1000, 1)]
+
+
+@pytest.mark.parametrize("nw,m,B", A_ONLY_CASES)
+def test_axm_i8a_lane_map_matches_refs(nw, m, B):
+    """axm_i8_kernel<false>'s loop (axm_i8a), emulated: za equals
+    axm_i8a_int_ref and the JAX _axm_i8a_kernel body exactly; folded,
+    within FOLD_TOL of axm_i8a_pallas."""
+    rng = np.random.default_rng(nw * 11 + m + B)
+    words = _words(rng, nw, m)
+    W = rng.standard_normal((m, B)).astype(np.float32)
+    w8t, ws = tmv._quant_rows(torch.from_numpy(W))
+    (za,) = emulate_axm_i8(words, w8t.numpy(), both=False)
+    np.testing.assert_array_equal(za, tmv.axm_i8a_int_ref(_t(words),
+                                                          w8t).numpy())
+    np.testing.assert_array_equal(za, np.asarray(_jax_axm_int(words,
+                                                              w8t.numpy())))
+    _close(tmv._fold_digits_zt(torch.from_numpy(za).to(torch.int32), ws, B),
+           jmv.axm_i8a_pallas(jnp.asarray(words), jnp.asarray(W)), FOLD_TOL)
+
+
+@pytest.mark.parametrize("nw,m,B", A_ONLY_CASES)
+def test_atxm_i8a_lane_map_matches_refs(nw, m, B):
+    """atxm_i8_kernel<false>'s loop (atxm_i8a), emulated: av equals
+    atxm_i8a_int_ref and the JAX _atxm_i8a_kernel body exactly; folded,
+    within FOLD_TOL of atxm_i8a_pallas."""
+    rng = np.random.default_rng(nw * 17 + m + B)
+    words = _words(rng, nw, m)
+    V = rng.standard_normal((4, 4 * nw, B)).astype(np.float32)
+    v8, s0 = tmv._quant_digits_t(torch.from_numpy(V))
+    (av,) = emulate_atxm_i8(words, v8.numpy(), both=False)
+    np.testing.assert_array_equal(av, tmv.atxm_i8a_int_ref(_t(words),
+                                                           v8).numpy())
+    np.testing.assert_array_equal(av, np.asarray(_jax_atxm_int(words,
+                                                               v8.numpy())))
+    _close(tmv._fold_digits_t(torch.from_numpy(av).to(torch.int32), s0, B),
+           jmv.atxm_i8a_pallas(jnp.asarray(words), jnp.asarray(V)), FOLD_TOL)
+
+
+def test_axm_i8a_one_launch_equals_its_column_chunks():
+    """axm_i8a makes one launch for any B, where the JAX wrapper chunks the
+    columns at _BMAX_AXM_A: at B = 70 (35 digit groups over gridDim.z) the
+    emulated kernel's one call, folded, equals its two chunks' calls bit for
+    bit, as the quantisation is per column; so does the wrapper."""
+    rng = np.random.default_rng(70)
+    nw, m, B = 9, 64, tmv._BMAX_AXM_A + 6
+    words = _words(rng, nw, m)
+    W = torch.from_numpy(rng.standard_normal((m, B)).astype(np.float32))
+
+    def emulated(cols):
+        w8t, ws = tmv._quant_rows(cols)
+        (za,) = emulate_axm_i8(words, w8t.numpy(), both=False)
+        return tmv._fold_digits_zt(torch.from_numpy(za).to(torch.int32), ws,
+                                   cols.shape[1])
+
+    chunks = [W[:, lo:lo + tmv._BMAX_AXM_A]
+              for lo in range(0, B, tmv._BMAX_AXM_A)]
+    assert len(chunks) == 2
+    one = emulated(W)
+    assert torch.equal(one, torch.cat([emulated(c) for c in chunks], dim=2))
+    assert torch.equal(one, tmv.axm_i8a(_t(words), W))
+    assert torch.equal(one, torch.cat([tmv.axm_i8a(_t(words), c)
+                                       for c in chunks], dim=2))
+
+
 def test_part_caps_are_the_longest_that_fit_int32():
     """A part of FW_MAX_STEPS / TX_MAX_STEPS steps at the largest terms (64
     x 2 x 127, 32 per output and step in axm_i8, 128 in atxm_i8) stays
@@ -384,32 +460,69 @@ def test_part_caps_are_the_longest_that_fit_int32():
         assert (cap + 1) * per_step * SCALED_TERM >= 2**31
 
 
-@pytest.mark.parametrize("kernel", ["axm_i8", "atxm_i8"])
+@pytest.mark.parametrize("kernel", ["axm_i8", "atxm_i8", "axm_i8a",
+                                    "atxm_i8a"])
 def test_largest_sums_stay_exact_in_the_longest_part(kernel):
     """Every call a = 2 (code 00) against digits of 127: the a-plane sums
     are the largest the words allow, 64 times them would leave int32, and a
     contraction a few steps longer than the part cap spans two parts.  The
-    emulated kernel equals the plain version there.  atxm_i8's one warp
-    per output would leave int32 in one part; axm_i8's group of FW_SPLIT
-    warps takes a part's steps in turn, so its cap holds with room."""
-    if kernel == "axm_i8":
+    emulated kernel, in its two-plane form (axm_i8, atxm_i8) and its
+    one-plane form (axm_i8a, atxm_i8a), equals the plain version there: a
+    part's sums are per plane type, so one cap serves both forms.
+    atxm_i8's one warp per output would leave int32 in one part; axm_i8's
+    group of FW_SPLIT warps takes a part's steps in turn, so its cap holds
+    with room."""
+    both = not kernel.endswith("a")
+    if kernel.startswith("axm"):
         nw, m = 9, 32 * FW_MAX_STEPS + 100
         words = np.zeros((nw, m), np.uint32)
         w8t = np.full((1, m), 127, np.int8)
-        got = emulate_axm_i8(words, w8t, w8t)
-        want = tmv.axm_i8_int_ref(_t(words), torch.from_numpy(w8t),
-                                  torch.from_numpy(w8t))
+        d8 = torch.from_numpy(w8t)
+        got = emulate_axm_i8(words, w8t, w8t, both=both)
+        want = (tmv.axm_i8_int_ref(_t(words), d8, d8) if both
+                else (tmv.axm_i8a_int_ref(_t(words), d8),))
         one_part = got
     else:
         nw, m = 8 * TX_MAX_STEPS + 20, 8
         words = np.zeros((nw, m), np.uint32)
         v8 = np.full((4, 1, 4 * nw), 127, np.int8)
-        got = emulate_atxm_i8(words, v8)
-        want = tmv.atxm_i8_int_ref(_t(words), torch.from_numpy(v8))
-        one_part = emulate_atxm_i8(words, v8, per_part=10**9)
+        d8 = torch.from_numpy(v8)
+        got = emulate_atxm_i8(words, v8, both=both)
+        want = (tmv.atxm_i8_int_ref(_t(words), d8) if both
+                else (tmv.atxm_i8a_int_ref(_t(words), d8),))
+        one_part = emulate_atxm_i8(words, v8, per_part=10**9, both=both)
+    assert len(got) == len(want) == 1 + both
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w.numpy())
     # the a-plane's sums (b = 1 halves them)
     assert int(want[0].abs().max()) << SCALE_SHIFT >= 2**31
-    if kernel == "atxm_i8":
+    if kernel.startswith("atxm"):
         assert not np.array_equal(one_part[0], want[0].numpy())
+
+
+def test_chip_smoke_ptxas_entries_split_the_instantiations(monkeypatch):
+    """chip_smoke's no-spill check reads each fragment product's own
+    instantiation of the two templates: against the mangled names of
+    axm_i8_kernel<kBoth> and atxm_i8_kernel<kBoth> (and of the other
+    kernels of the report), the pattern of each of the four keys matches
+    exactly one name, its own, and every instantiation is some key's."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.syspath_prepend(repo)
+    smoke = importlib.import_module("chip_smoke")
+    ns = "_ZN45_GLOBAL__N__5b2f9e1c_12_fragments_cu_8d1e0f3a"
+
+    def mangled(kernel, both):
+        return f"{ns}{len(kernel)}{kernel}ILb{int(both)}EEEvPKjPKhS5_PiS6_llll"
+
+    own = {"axm_i8a": mangled("axm_i8_kernel", False),
+           "axm_i8": mangled("axm_i8_kernel", True),
+           "atxm_i8a": mangled("atxm_i8_kernel", False),
+           "atxm_i8": mangled("atxm_i8_kernel", True)}
+    others = ["_ZN12_GLOBAL__N_114axm_i8s_kernelEPKjPKiS3_Pilll",
+              "_ZN12_GLOBAL__N_115gram_aat_kernelILb0EEEvPKjPKfS3_S3_Pfll",
+              "_ZN12_GLOBAL__N_115i8decode_kernelEPKaPKhPilll"]
+    assert set(smoke.FRAGMENT_KERNELS) == set(own)
+    for key, name in own.items():
+        hits = [n for n in [*own.values(), *others]
+                if re.search(smoke.PTXAS_ENTRY[key], n)]
+        assert hits == [name], key

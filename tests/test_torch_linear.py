@@ -111,7 +111,8 @@ def _check_one_step(problem, dt):
     cfg_t = tlinear.VampConfig(max_iter=4, **CFG)
     aux_t = convert.aux_from_numpy(t, cfg_t, np.asarray(aux_j.bern))
     st = convert.state_from_numpy(
-        {k: np.asarray(v) for k, v in state0._asdict().items()}, dtype=dt)
+        {k: np.asarray(v) for k, v in state0._asdict().items()}, dtype=dt,
+        device="cpu")
     state_t, m_t = tlinear.make_step(t, cfg_t)(st, aux_t)
 
     assert state_t.it == int(state_j.it) == 4

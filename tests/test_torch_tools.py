@@ -302,8 +302,10 @@ def test_profile_prints_one_row_per_kernel(capsys):
     lines = capsys.readouterr().out.splitlines()
     rows = [ln for ln in lines if ln.rstrip().endswith("GB/s")]
     names = [ln.split()[0] for ln in rows]
-    assert len(rows) == 15
-    assert names.count("axm_i8") == names.count("atxm_i8a") == 3
+    assert len(rows) == 4 * len(profile_kernels.WIDTHS) + 3
+    for name in profile_kernels.DIGIT_PRODUCTS:
+        assert [r.split()[1] for r in rows if r.split()[0] == name] == [
+            f"B={B}" for B in profile_kernels.WIDTHS]
     assert {"ax", "atx", "atx_a"} <= set(names)
 
 

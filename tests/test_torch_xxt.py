@@ -121,7 +121,8 @@ def test_dual_one_step_from_converted_state(problems, miss, dt):
                                    xxt_diag_base=np.asarray(
                                        aux_j.xxt_diag_base))
     st = convert.state_from_numpy(
-        {k: np.asarray(v) for k, v in states[-2]._asdict().items()}, dtype=dt)
+        {k: np.asarray(v) for k, v in states[-2]._asdict().items()}, dtype=dt,
+        device="cpu")
     assert st.gmu_n.abs().max() > 0 and st.mu_cg_n.abs().max() > 0
     state_t, m_t = tlinear.make_step(t, cfg)(st, aux_t)
     state_j, m_j = states[-1], hist[-1]
