@@ -9,9 +9,9 @@ Phases, each of which raises on failure (exit code != 0):
 
 1. environment: torch / CUDA / nvcc / triton versions and the card's name
    and power limit; TF32 off for every float32 product;
-2. build the CUDA kernels (gvamp_tpu_torch/csrc/matvec.cu, fragments.cu
-   and study.cu, one nvcc each, started together); the ptxas report must
-   show no spill store in any instantiation of any kernel;
+2. build the CUDA kernels (gvamp_tpu_torch/csrc/matvec.cu, fragments.cu,
+   gram_aat.cu and study.cu, one nvcc each, started together); the ptxas
+   report must show no spill store in any instantiation of any kernel;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    with CUDA-event times of both: (a) all twenty-five at small shapes (the
    fused primal Grams with both mask forms and B above their column
@@ -25,7 +25,10 @@ Phases, each of which raises on failure (exit code != 0):
    and each shape's B, v7 also against axm_i8a on the words its byte rows
    were expanded from; the four digit products of fragments.cu, axm_i8a,
    atxm_i8a, axm_i8 and atxm_i8, also at the edges of their grids,
-   FRAGMENT_SHAPES: Nw = 7 and 300, Mpad = 8 and 1,000, B up to 22),
+   FRAGMENT_SHAPES: Nw = 7 and 300, Mpad = 8 and 1,000, B up to 22; the
+   fused dual Grams of gram_aat.cu at theirs, GRAM_AAT_SHAPES: Nw = 7, 300
+   and 822 (the route's edge), Mpad of one stripe and with a short last
+   group of stripes, B up to 5),
    (b) the a-only kernels, atx, atx_a and the bf16-split products on the
    whole config-B matrix at B = 1 and 2 (the bf16 ones and atx_a also on
    Gaussian inputs against their plain versions within BF16_PLAIN_TOL),
@@ -34,9 +37,9 @@ Phases, each of which raises on failure (exit code != 0):
    (c) the general kernels, axm_i8s and the bf16-split products on the
    whole config-Bm matrix at B = 1 and 2, and axm_i8 at B = 22;
    (d) the fused dual Grams on the whole config-X matrix (gram_aat_i8a)
-   and config-Xm matrix (gram_aat_i8) at B = 1 and 2, timed beside their
-   two-pass composition, and ax there (dyadic inputs bit for bit, the
-   statistics' real inputs to a stated tolerance);
+   and config-Xm matrix (gram_aat_i8) at B = 1, 2 and 5, timed beside
+   their two-pass composition, and ax there (dyadic inputs bit for bit,
+   the statistics' real inputs to a stated tolerance);
    (e) the fused primal Grams on the whole config-B matrix (gram_i8a) and
    config-Bm matrix (gram_i8) at B = 1 and 2, timed beside their two-pass
    composition, with packed GB/s and the bound;
@@ -154,8 +157,10 @@ STUDY = STUDY_KERNELS + tuple(STUDY_PRODUCTS)
 # the product kernels (gvamp_tpu_torch/ops/matvec.py)
 PRODUCT_KERNELS = tuple(n for n in KERNELS if n not in STUDY)
 # each kernel's entries in the ptxas report: a pattern that the mangled
-# names of every instantiation match (default "<name>_kernel"); the row
-# sums have one per bytes per load, named by <V, Decode, lanes>
+# names of every instantiation match (default "<name>_kernel"); the
+# fragment products and the dual Grams (gram_aat.cu) one instantiation of
+# their template each, by the plane count <kBoth>; the row sums one per
+# bytes per load, named by <V, Decode, lanes>
 PTXAS_ENTRY = {"axm_i8a": "axm_i8_kernelILb0E",
                "atxm_i8a": "atxm_i8_kernelILb0E",
                "axm_i8": "axm_i8_kernelILb1E",
@@ -176,6 +181,10 @@ PTXAS_ENTRY = {"axm_i8a": "axm_i8_kernelILb0E",
                "v8_atxm_vt": "atxm_vt_kernel"}
 SOURCE = "gvamp_tpu_torch/csrc/matvec.cu"
 STUDY_SOURCE = "gvamp_tpu_torch/csrc/study.cu"
+# the fused dual Grams: one template, gram_aat_kernel<kBoth>, instantiated
+# for one plane (gram_aat_i8a) and for two (gram_aat_i8)
+GRAM_AAT_KERNELS = ("gram_aat_i8a", "gram_aat_i8")
+GRAM_AAT_SOURCE = "gvamp_tpu_torch/csrc/gram_aat.cu"
 # the products whose mma fragments come straight from the decode: one
 # template per product (csrc/fragments.cu), instantiated for one plane
 # (complete genotypes) and for two (missing calls)
@@ -184,12 +193,19 @@ FRAGMENT_SOURCE = "gvamp_tpu_torch/csrc/fragments.cu"
 SHAPES = [(32, 512, 1), (64, 1024, 2), (96, 1536, 5), (32, 2048, 17),
           (64, 512, 70)]
 # the edges of the fragment kernels' grids beyond SHAPES, checked for those
-# kernels only (the fused Grams refuse Nw not a multiple of 32 and Mpad
-# not a multiple of 64): Nw not a multiple of 8 (7) or of a block's rows
-# (300), Mpad below one step (8) and not a multiple of one (1,000), and
-# B = 22 (LOCO's width, 11 digit groups over gridDim.z)
+# kernels only (the fused primal Grams refuse Nw not a multiple of 32, the
+# dual ones Mpad not a multiple of 64): Nw not a multiple of 8 (7) or of a
+# block's rows (300), Mpad below one step (8) and not a multiple of one
+# (1,000), and B = 22 (LOCO's width, 11 digit groups over gridDim.z)
 FRAGMENT_SHAPES = [(7, 8, 22), (7, 1000, 1), (300, 8, 2), (300, 1000, 22),
                    (300, 1000, 1)]
+# the edges of the fused dual Grams' grid beyond SHAPES: Nw not a multiple
+# of 8 (7, 300; one masked step and one warp at 7), Nw = 822 (the route's
+# edge, the largest shared memory), Mpad of one stripe (64) and with a
+# short last group of stripes (576: 8 + 1, 704: 8 + 3, 1,216: 8 + 8 + 3),
+# B = 1 to 5 (one to three groups of two columns)
+GRAM_AAT_SHAPES = [(7, 64, 1), (7, 704, 5), (300, 576, 2), (300, 1216, 3),
+                   (822, 704, 5), (822, 64, 2)]
 SLICE_M = 2048
 # corr(x_hat, beta) and R2_train_1 after 10 iterations at config B and at
 # config Bm; set from the first H100 runs of this script (config B 0.99590
@@ -476,6 +492,9 @@ def phase_kernels_small(gen, study_gen):
     for nw, m, B in FRAGMENT_SHAPES:
         check_kernels(random_words(edge_gen, nw, m), B, edge_gen,
                       f"Nw={nw} Mpad={m}", names=FRAGMENT_KERNELS)
+    for nw, m, B in GRAM_AAT_SHAPES:
+        check_kernels(random_words(edge_gen, nw, m), B, edge_gen,
+                      f"Nw={nw} Mpad={m}", names=GRAM_AAT_KERNELS)
 
 
 # small shapes of the study kernels beyond SHAPES: rows past a multiple of
@@ -663,8 +682,8 @@ def phase_kernels_config_b(words, gen):
     Returns {B: check_kernels result} of the whole matrix."""
     log("== phase 3b: kernels vs plain versions, config-B words")
     sl = words[:, :SLICE_M].contiguous()
-    # the fused dual Grams refuse N=327,680: its stripe cache exceeds
-    # GRAM_AAT_SMEM_BUDGET, and fn_gram_aat takes the two-pass form there
+    # the fused dual Grams refuse N=327,680 (Nw above GRAM_AAT_MAX_NW), and
+    # fn_gram_aat takes the two-pass form there
     names = tuple(n for n in PRODUCT_KERNELS if not n.startswith("gram_aat"))
     for B in (1, 2):
         check_kernels(sl, B, gen, f"config B, {SLICE_M} markers", names=names)
@@ -1103,8 +1122,8 @@ AX_REAL_TOL = 1e-6
 
 def phase_kernels_config_x(words, words_m, gen):
     """The fused dual Grams on the whole config-X matrix (gram_aat_i8a,
-    complete) and config-Xm matrix (gram_aat_i8, 1.56% missing) at B = 1 and
-    2, each beside its two-pass composition at the same B; ax on config X
+    complete) and config-Xm matrix (gram_aat_i8, 1.56% missing) at B = 1, 2
+    and 5, each beside its two-pass composition at the same B; ax on config X
     with dyadic inputs (bit for bit) and with the statistics' real inputs
     (AX_REAL_TOL).  Returns {name: check_kernels numbers at B = 1}."""
     log("== phase 3d: dual kernels vs plain versions, config-X words")
@@ -1114,7 +1133,7 @@ def phase_kernels_config_x(words, words_m, gen):
     for w, name, complete in ((words, "gram_aat_i8a", True),
                               (words_m, "gram_aat_i8", False)):
         label = f"config X{'' if complete else 'm'} full {nw}x{m}"
-        for B in (1, 2):
+        for B in (1, 2, 5):
             res = check_kernels(w, B, gen, label, names=(name,), reps=5,
                                 plain_reps=1)
             if B == 1:
@@ -1721,7 +1740,8 @@ def kernel_rows(numbers):
         rows.append({
             "name": n, "route": "cuda",
             "source": (STUDY_SOURCE if n in STUDY else FRAGMENT_SOURCE
-                       if n in FRAGMENT_KERNELS else SOURCE),
+                       if n in FRAGMENT_KERNELS else GRAM_AAT_SOURCE
+                       if n in GRAM_AAT_KERNELS else SOURCE),
             "replaces": REPLACES[n], "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,

@@ -5,8 +5,9 @@ device the linear VAMP engine (primal, with the two-pass or the opt-in
 fused Gram, or dual) and the probit engine with fixed covariates, on
 complete (imputed) genotypes and on genotypes with missing calls, then the
 LOO and LOCO association p-values.  The packed-genotype products run in
-hand-written CUDA kernels on the card (``csrc/matvec.cu``) and in their
-plain PyTorch versions on the CPU.
+hand-written CUDA kernels on the card (``csrc/matvec.cu``,
+``csrc/fragments.cu``, ``csrc/gram_aat.cu``) and in their plain PyTorch
+versions on the CPU.
 
 The package stands alone: it imports ``torch`` and never ``jax``, and
 nothing of ``gvamp_tpu``, not even its modules that import no JAX.  What

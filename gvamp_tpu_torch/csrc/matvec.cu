@@ -1,6 +1,7 @@
 // Packed-genotype products of the PyTorch port, written by hand for Hopper
 // (sm_90a), apart from the four digit products axm_i8a, atxm_i8a, axm_i8
-// and atxm_i8, whose tensor-core kernels are in fragments.cu.  Bound
+// and atxm_i8, whose tensor-core kernels are in fragments.cu, and the fused
+// dual Grams gram_aat_i8a and gram_aat_i8 (gram_aat.cu).  Bound
 // through a plain C interface (ctypes, see gvamp_tpu_torch/ops/_build.py);
 // the wrappers are in gvamp_tpu_torch/ops/matvec.py, beside the plain
 // PyTorch versions the kernels are checked against.
@@ -543,254 +544,6 @@ int64_t atxm_bf16_rows_per_band(int64_t nw, int64_t mpad, int64_t ncols) {
 }
 
 // --------------------------------------------------------------------------
-// gram_aat_i8a / gram_aat_i8: the fused dual Gram of the XXT solve,
-//   a-only:  z = A_a W - colsum(mave W),  W = msig2 (A_a^T V - sv mave)
-//   general: z = A_a W - A_b (mave W),    W = msig2 (A_a^T V - mave A_b^T V)
-// in one read of the words.
-//
-// Replaces gram_aat_i8a_pallas / _gram_aat_i8a_kernel and
-// gram_aat_i8_pallas / _gram_aat_i8_kernel (gvamp_tpu/ops/matvec.py:
-// 1207-1381, 1400-1520), which walk the marker stripes in sequence and
-// cache one in VMEM.  Bound on this card: the integer pipe.  The words
-// are read from HBM once, but every word feeds 4 __dp4a per digit row on
-// each side (8 per side with the b-plane), plus the decodes and the
-// forward side's byte transposes.
-// Design: one block per stripe of kGramS markers, so stripes run in
-// parallel instead of in sequence.
-//   1. The stripe (Nw x kGramS words) goes into shared memory, each row
-//      padded by 16 bytes so that the forward side's 16-byte row reads
-//      hit distinct banks.
-//   2. Transpose side, per column b of V: thread (g, c) contracts marker c
-//      of the stripe against V's digits over the word rows i = g mod 4;
-//      the digits of a row and plane are one 16-byte load, the same for
-//      the whole warp.  The four groups meet in shared memory (int32,
-//      exact).
-//   3. Thread c folds t to f32 and forms W (and -mave W), the block takes
-//      the stripe's max |W|, and each thread computes the same 4 scales
-//      and its marker's 4 digits.  Every f32 step is a round-to-nearest
-//      intrinsic (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn, rintf): nvcc
-//      contracts no FMA across them, so they round as the plain version's
-//      separate torch ops do.
-//   4. Forward side: one thread per word row contracts the cached row
-//      against the stripe's digits (axm_i8s's __byte_perm transpose and
-//      __dp4a), folds with the stripe's scales and writes the stripe's
-//      f32 partial z_j.  Stripes carry their own scales, so they cannot
-//      meet in int32 atomics, and f32 atomics would make runs differ: the
-//      wrapper sums the partials [nJ, 4, Nb, B] with one torch.sum (168 MB
-//      at N=5,120 x M=524,288, S=64, B=1: a quarter of the words' bytes).
-// The a-only kernel also writes W, from which the wrapper forms
-// colsum(mave W) with the plain version's own torch op.
-// --------------------------------------------------------------------------
-constexpr int kGramS = 64;               // markers per stripe (numerics)
-constexpr int kGramSP = kGramS + 4;      // padded shared-memory row (words)
-constexpr int kGramQ = kGramS / 4;       // marker quads per stripe
-constexpr int kGramGroups = kThreads / kGramS;
-
-int64_t gram_smem_bytes(int64_t nw) {
-  return 4 * (nw * kGramSP + 8 * kThreads + 2 * kGramS + kWarps);
-}
-
-// t[0] s0 + t[1] s1 + t[2] s2 + t[3] s3, left to right, each step rounded
-__device__ __forceinline__ float fold4(const int32_t t[4], const float s[4]) {
-  float acc = __fmul_rn((float)t[0], s[0]);
-#pragma unroll
-  for (int d = 1; d < 4; ++d) acc = __fadd_rn(acc, __fmul_rn((float)t[d], s[d]));
-  return acc;
-}
-
-template <bool kGeneral>
-__global__ void __launch_bounds__(kThreads, 2)
-gram_aat_kernel(const uint32_t* __restrict__ words,
-                const int4* __restrict__ vdig,   // [B][Nw][4 planes] x 4 digits
-                const float* __restrict__ vsc,   // [4][B] scales of V's digits
-                const float* __restrict__ sv,    // [B] colsum(V) (a-only)
-                const float* __restrict__ mave,  // [Mpad]
-                const float* __restrict__ msig2, // [Mpad]
-                float* __restrict__ zpart,       // [nJ][4][4*Nw][B]
-                float* __restrict__ wout,        // [B][Mpad] (a-only)
-                int64_t nw, int64_t mpad, int64_t ncols) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  uint32_t* stripe = smem;                                          // [Nw][kGramSP]
-  int32_t* red = reinterpret_cast<int32_t*>(stripe + nw * kGramSP);  // [8][kThreads]
-  int32_t* wq = red + 8 * kThreads;                                 // [4][kGramQ]
-  int32_t* uq = wq + kGramS;                                        // [4][kGramQ]
-  float* wmax = reinterpret_cast<float*>(uq + kGramS);              // [kWarps]
-  int8_t* wq8 = reinterpret_cast<int8_t*>(wq);
-  int8_t* uq8 = reinterpret_cast<int8_t*>(uq);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int64_t j = blockIdx.x;
-  const int64_t m0 = j * kGramS;
-  const int64_t nb = 4 * nw;
-
-  // 1. the stripe into shared memory: its only read from HBM
-  for (int64_t idx = tid; idx < nw * kGramQ; idx += kThreads) {
-    const int64_t i = idx / kGramQ;
-    const int q = (int)(idx % kGramQ);
-    const uint4 x = __ldg(reinterpret_cast<const uint4*>(words + i * mpad + m0) + q);
-    *reinterpret_cast<uint4*>(stripe + i * kGramSP + 4 * q) = x;
-  }
-  __syncthreads();
-
-  const int c = tid % kGramS;
-  const int g = tid / kGramS;
-  for (int64_t b = 0; b < ncols; ++b) {
-    // 2. transpose side: marker c against V's digits, rows i = g mod 4
-    int32_t ta[4] = {0, 0, 0, 0}, tb[4] = {0, 0, 0, 0};
-    const int4* vb = vdig + b * nw * 4;
-    for (int64_t i = g; i < nw; i += kGramGroups) {
-      const uint32_t w = stripe[i * kGramSP + c];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int4 v = __ldg(vb + i * 4 + k);
-        const int a = (int)swar_a(w, k);
-        ta[0] = __dp4a(a, v.x, ta[0]);
-        ta[1] = __dp4a(a, v.y, ta[1]);
-        ta[2] = __dp4a(a, v.z, ta[2]);
-        ta[3] = __dp4a(a, v.w, ta[3]);
-        if (kGeneral) {
-          const int nm = (int)swar_b(w, k);
-          tb[0] = __dp4a(nm, v.x, tb[0]);
-          tb[1] = __dp4a(nm, v.y, tb[1]);
-          tb[2] = __dp4a(nm, v.z, tb[2]);
-          tb[3] = __dp4a(nm, v.w, tb[3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int d = 0; d < 4; ++d) {
-      red[d * kThreads + tid] = ta[d];
-      if (kGeneral) red[(4 + d) * kThreads + tid] = tb[d];
-    }
-    __syncthreads();
-
-    // 3. marker c: fold t, form W, then the stripe's max |W|
-    float wv = 0.f, uv = 0.f;
-    if (tid < kGramS) {
-      const float s[4] = {vsc[b], vsc[ncols + b], vsc[2 * ncols + b],
-                          vsc[3 * ncols + b]};
-      int32_t t[4];
-#pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        t[d] = 0;
-#pragma unroll
-        for (int gg = 0; gg < kGramGroups; ++gg)
-          t[d] += red[d * kThreads + gg * kGramS + tid];
-      }
-      const float av = fold4(t, s);
-      const int64_t m = m0 + tid;
-      if (kGeneral) {
-#pragma unroll
-        for (int d = 0; d < 4; ++d) {
-          t[d] = 0;
-#pragma unroll
-          for (int gg = 0; gg < kGramGroups; ++gg)
-            t[d] += red[(4 + d) * kThreads + gg * kGramS + tid];
-        }
-        const float bv = fold4(t, s);
-        wv = __fmul_rn(msig2[m], __fsub_rn(av, __fmul_rn(mave[m], bv)));
-        uv = __fmul_rn(-mave[m], wv);
-      } else {
-        wv = __fmul_rn(msig2[m], __fsub_rn(av, __fmul_rn(sv[b], mave[m])));
-        wout[b * mpad + m] = wv;
-      }
-    }
-    float mx = fmaxf(fabsf(wv), fabsf(uv));
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    if (lane == 0) wmax[tid >> 5] = mx;
-    __syncthreads();
-    mx = wmax[0];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, wmax[w]);
-    float sc[4];
-    sc[0] = __fdiv_rn(mx == 0.f ? 1.f : mx, 127.f);
-#pragma unroll
-    for (int d = 1; d < 4; ++d) sc[d] = __fdiv_rn(sc[d - 1], 127.f);
-    if (tid < kGramS) {
-      float r = wv, ru = uv;
-#pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        const float dw = rintf(__fdiv_rn(r, sc[d]));
-        wq8[d * kGramS + tid] = (int8_t)(int)dw;
-        r = __fsub_rn(r, __fmul_rn(dw, sc[d]));
-        if (kGeneral) {
-          const float du = rintf(__fdiv_rn(ru, sc[d]));
-          uq8[d * kGramS + tid] = (int8_t)(int)du;
-          ru = __fsub_rn(ru, __fmul_rn(du, sc[d]));
-        }
-      }
-    }
-    __syncthreads();
-
-    // 4. forward side: word row i of the cached stripe against the digits
-    for (int64_t i = tid; i < nw; i += kThreads) {
-      int32_t acc[4][16];  // [d][k * 4 + byte]
-#pragma unroll
-      for (int d = 0; d < 4; ++d)
-#pragma unroll
-        for (int e = 0; e < 16; ++e) acc[d][e] = 0;
-      const uint4* row = reinterpret_cast<const uint4*>(stripe + i * kGramSP);
-      for (int q = 0; q < kGramQ; ++q) {
-        uint32_t y[4];
-        transpose_quad(row[q], y);
-        int32_t wd[4], ud[4];
-#pragma unroll
-        for (int d = 0; d < 4; ++d) {
-          wd[d] = wq[d * kGramQ + q];
-          if (kGeneral) ud[d] = uq[d * kGramQ + q];
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int a = (int)swar_a(y[e], k);
-#pragma unroll
-            for (int d = 0; d < 4; ++d)
-              acc[d][k * 4 + e] = __dp4a(a, wd[d], acc[d][k * 4 + e]);
-            if (kGeneral) {
-              const int nm = (int)swar_b(y[e], k);
-#pragma unroll
-              for (int d = 0; d < 4; ++d)
-                acc[d][k * 4 + e] = __dp4a(nm, ud[d], acc[d][k * 4 + e]);
-            }
-          }
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int32_t t[4] = {acc[0][k * 4 + e], acc[1][k * 4 + e],
-                                acc[2][k * 4 + e], acc[3][k * 4 + e]};
-          zpart[((j * 4 + k) * nb + 4 * i + e) * ncols + b] = fold4(t, sc);
-        }
-    }
-    // the next column's step 2 writes only red; its __syncthreads orders
-    // this step's reads of wq / uq / wmax before they are rewritten
-  }
-}
-
-template <bool kGeneral>
-int launch_gram_aat(const void* words, const void* vdig, const void* vsc,
-                    const void* sv, const void* mave, const void* msig2,
-                    void* zpart, void* wout, int64_t nw, int64_t mpad,
-                    int64_t ncols, void* stream) {
-  const int64_t smem = gram_smem_bytes(nw);
-  cudaError_t err = cudaFuncSetAttribute(
-      gram_aat_kernel<kGeneral>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  gram_aat_kernel<kGeneral><<<(unsigned)(mpad / kGramS), kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<const int4*>(vdig),
-      static_cast<const float*>(vsc), static_cast<const float*>(sv),
-      static_cast<const float*>(mave), static_cast<const float*>(msig2),
-      static_cast<float*>(zpart), static_cast<float*>(wout), nw, mpad, ncols);
-  return (int)cudaGetLastError();
-}
-
-// --------------------------------------------------------------------------
 // gram_i8a / gram_i8: the fused primal Gram of the block CG,
 //   a-only:  z = na (A_a W - colsum_u),  av = A_a^T z,  zout = z (sv)
 //   general: z = na (A_a W - A_b U),     av = A_a^T z,  bv = A_b^T z
@@ -825,8 +578,9 @@ int launch_gram_aat(const void* words, const void* vdig, const void* vsc,
 //      block owns its markers: no f32 atomics, runs repeat bit for bit).
 // The partials rotate through three buffers: block 0 zeroes the one the
 // band after next adds into, which every block finished reading before
-// this band's sync.  Every f32 step is a round-to-nearest intrinsic, as in
-// gram_aat_kernel, so the kernel equals its plain version bit for bit.
+// this band's sync.  Every f32 step is a round-to-nearest intrinsic (fold4
+// in mma.cuh, __fmul_rn, __fsub_rn, __fdiv_rn, rintf), as in gram_aat.cu's
+// dual Gram, so the kernel equals its plain version bit for bit.
 // The band height kBandNw is a quantisation boundary (z is requantised per
 // band), shared with GRAM_BAND_NW in ops/matvec.py; the tile bounds the
 // markers a block can own: Mpad up to 237,072 on 132 SMs.
@@ -1154,12 +908,6 @@ int gvamp_atxm_bf16(const void* words, const void* v2, void* out, int64_t nw,
   return (int)cudaGetLastError();
 }
 
-// the stripe width and the shared memory of one block, so that the
-// wrapper can check that it agrees with ops/matvec.py
-int gvamp_gram_aat_stripe() { return kGramS; }
-
-int64_t gvamp_gram_aat_smem(int64_t nw) { return gram_smem_bytes(nw); }
-
 // the band height and the shared memory of one fused-primal-Gram block
 int gvamp_gram_band_nw() { return kBandNw; }
 
@@ -1183,21 +931,6 @@ int gvamp_gram_i8(const void* words, const void* wdig, const void* udig,
   return launch_gram_prim<true>(words, wdig, udig, wsc, nullptr, na, zacc,
                                 nullptr, av, bv, nw, mpad, ncols, nblocks,
                                 stream);
-}
-
-int gvamp_gram_aat_i8a(const void* words, const void* vdig, const void* vsc,
-                       const void* sv, const void* mave, const void* msig2,
-                       void* zpart, void* wout, int64_t nw, int64_t mpad,
-                       int64_t ncols, void* stream) {
-  return launch_gram_aat<false>(words, vdig, vsc, sv, mave, msig2, zpart,
-                                wout, nw, mpad, ncols, stream);
-}
-
-int gvamp_gram_aat_i8(const void* words, const void* vdig, const void* vsc,
-                      const void* mave, const void* msig2, void* zpart,
-                      int64_t nw, int64_t mpad, int64_t ncols, void* stream) {
-  return launch_gram_aat<true>(words, vdig, vsc, nullptr, mave, msig2, zpart,
-                               nullptr, nw, mpad, ncols, stream);
 }
 
 }  // extern "C"

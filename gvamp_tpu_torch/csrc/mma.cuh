@@ -1,5 +1,6 @@
 // The int8 mma.sync of the port's tensor-core kernels (study.cu,
-// fragments.cu), and the integer and grid helpers of every source.
+// fragments.cu, gram_aat.cu), the integer and grid helpers of every
+// source, and the f32 fold of the fused Grams' digit sums.
 
 #pragma once
 
@@ -39,6 +40,16 @@ __device__ __forceinline__ void mma_u8s8(int32_t c[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// t[0] s0 + t[1] s1 + t[2] s2 + t[3] s3, left to right, each step rounded
+// to nearest (no FMA contraction), as the plain versions' separate torch
+// ops round: the digit fold of the fused Grams (matvec.cu, gram_aat.cu)
+__device__ __forceinline__ float fold4(const int32_t t[4], const float s[4]) {
+  float acc = __fmul_rn((float)t[0], s[0]);
+#pragma unroll
+  for (int d = 1; d < 4; ++d) acc = __fadd_rn(acc, __fmul_rn((float)t[d], s[d]));
+  return acc;
 }
 
 // Split `n` units of work into parts so that `blocks` blocks times the part

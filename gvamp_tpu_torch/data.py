@@ -495,11 +495,11 @@ class GenoBed:
 
           * under ``GVAMP_NO_FUSED_GRAM=1``;
           * in float64, whose dense plain products run on the CPU;
-          * when the kernel's stripe cache does not fit
-            ``matvec.GRAM_AAT_SMEM_BUDGET`` (227 KB of shared memory, which
-            holds N up to 13,152; JAX's counterpart is the 80 MB VMEM
-            budget ``_GRAM_BAND_MAX_BYTES``) or Mpad is not a whole number
-            of ``matvec.GRAM_AAT_STRIPE``-marker stripes.
+          * for N above 13,152 (``matvec.GRAM_AAT_MAX_NW`` word rows, the
+            route's edge, whose stripe cache fits the 227 KB of shared
+            memory ``matvec.GRAM_AAT_SMEM_BUDGET``; JAX's counterpart is the
+            80 MB VMEM budget ``_GRAM_BAND_MAX_BYTES``) or where Mpad is not
+            a whole number of ``matvec.GRAM_AAT_STRIPE``-marker stripes.
 
         Complete genotypes run ``gram_aat_i8a``, the others
         ``gram_aat_i8``."""

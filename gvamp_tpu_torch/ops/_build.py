@@ -136,8 +136,10 @@ def library() -> ctypes.CDLL:
             lib.gvamp_ax.restype = ctypes.c_int
             lib.gvamp_ax_parts.argtypes = [i64, i64]
             lib.gvamp_ax_parts.restype = i64
-            lib.gvamp_gram_aat_stripe.argtypes = []
-            lib.gvamp_gram_aat_stripe.restype = ctypes.c_int
+            for name in ("gvamp_gram_aat_stripe", "gvamp_gram_aat_group"):
+                fn = getattr(lib, name)
+                fn.argtypes = []
+                fn.restype = ctypes.c_int
             lib.gvamp_gram_aat_smem.argtypes = [i64]
             lib.gvamp_gram_aat_smem.restype = i64
             lib.gvamp_gram_aat_i8a.argtypes = [vp] * 8 + [i64, i64, i64, vp]

@@ -1,7 +1,8 @@
 """Packed-genotype products of the PyTorch port: plain versions and the
-wrappers of the hand-written CUDA kernels (``csrc/matvec.cu``, and
+wrappers of the hand-written CUDA kernels (``csrc/matvec.cu``,
 ``csrc/fragments.cu`` for the four digit products ``axm_i8a``,
-``atxm_i8a``, ``axm_i8`` and ``atxm_i8``).
+``atxm_i8a``, ``axm_i8`` and ``atxm_i8``, and ``csrc/gram_aat.cu`` for the
+fused dual Grams ``gram_aat_i8a`` and ``gram_aat_i8``).
 
 Counterpart of ``gvamp_tpu/ops/matvec.py`` for the linear main path.  The
 word layout is the same (word-major ``[Nw, Mpad]``, 16 samples per word,
@@ -80,12 +81,21 @@ _BMAX_BF16 = 64
 
 # markers per stripe of the fused dual Gram: the kernel's work unit and its
 # quantisation boundary (W is requantised per stripe and column), shared by
-# the CUDA kernel (kGramS in csrc/matvec.cu) and the plain versions
+# the CUDA kernel (kGramS in csrc/gram_aat.cu) and the plain versions
 GRAM_AAT_STRIPE = 64
-# shared memory one block of the fused dual Gram may use on an H100 (227 KB,
-# the opt-in maximum); gram_aat_smem_bytes(Nw) must fit it, which holds up
-# to Nw = 822 word rows (N = 13,152)
+# consecutive stripes whose folded partials one block of the fused dual Gram
+# adds in stripe order before the one torch.sum over the groups: a
+# summation-order boundary, shared by the CUDA kernel (kGramGroup) and the
+# plain versions, never sized from the card
+GRAM_AAT_GROUP = 8
+# shared memory one block of a fused Gram may use on an H100 (227 KB, the
+# opt-in maximum); the dual Gram's gram_aat_smem_bytes(Nw) must fit it
 GRAM_AAT_SMEM_BUDGET = 232_448
+# the widest words the fused dual Gram takes: N up to 13,152 (822 word
+# rows), the route's edge; its shared memory would hold 887 rows, but the
+# fused and the two-pass forms quantise W differently, so moving the edge
+# would change the numbers a user gets at those N
+GRAM_AAT_MAX_NW = 822
 
 # word rows per band of the fused primal Gram: z is requantised per band, so
 # the band height sets the numbers; shared by the CUDA kernel (kBandNw in
@@ -474,10 +484,12 @@ def axm_i8s_ref(words, W, U):
 # (exact int32), folded to f32; W = msig2 (A_a^T V - ...); W requantised
 # into _NDIG digits with one scale per stripe and column; the forward digit
 # products of those digits (exact int32), folded with the stripe's scales
-# into one f32 partial z_j[4, Nb, B].  The kernel does the same elementwise
-# f32 steps with round-to-nearest intrinsics and no FMA contraction, and
-# writes the partials; z = sum_j z_j is one torch.sum over the stripe axis
-# on both sides, so kernel and plain version agree bit for bit on a device.
+# into one f32 partial z_j[B, 4, Nb].  The partials of each group of
+# GRAM_AAT_GROUP consecutive stripes are added in stripe order.  The kernel
+# does the same elementwise f32 steps with round-to-nearest intrinsics and
+# no FMA contraction, and writes the group sums; z = sum_g z_g is one
+# torch.sum over the group axis on both sides, so kernel and plain version
+# agree bit for bit on a device.
 # Every scale division is a division by a tensor (true IEEE division on
 # the CPU and on CUDA, as the kernel's __fdiv_rn), never by a Python
 # scalar, which PyTorch's CUDA backend turns into a product with the
@@ -518,19 +530,22 @@ def _quant_stripes(*xs: torch.Tensor):
 
 
 def _gram_forward_ref(words, scales, w8, u8=None):
-    """Folded per-stripe forward products f32[nJ, 4, Nb, B]: the a-plane
-    against the digits w8 int8[NDIG, B, Mpad] (plus, with ``u8``, the
-    b-plane against u8, summed in int32 before the fold, as the general
-    kernel does), folded with the stripe scales [NDIG, B, nJ].  Integer
-    sums stay below 381*S, exact in float64."""
+    """Folded forward products summed per group of GRAM_AAT_GROUP stripes,
+    f32[nJ/G, B, 4, Nb]: per stripe the a-plane against the digits w8
+    int8[NDIG, B, Mpad] (plus, with ``u8``, the b-plane against u8, summed
+    in int32 before the fold, as the general kernel does), folded with the
+    stripe scales [NDIG, B, nJ]; the stripes of a group added in stripe
+    order, as the kernel adds them into its block's slice.  Integer sums
+    stay below 381*S, exact in float64."""
     nw, m = words.shape
     S = GRAM_AAT_STRIPE
+    step = GRAM_AAT_GROUP * S
     B = w8.shape[1]
     f64 = torch.float64
-    out = torch.empty((m // S, 4, 4 * nw, B), dtype=torch.float32,
+    out = torch.empty((-(-m // step), B, 4, 4 * nw), dtype=torch.float32,
                       device=words.device)
-    for lo in range(0, m, _REF_BLOCK):
-        hi = min(m, lo + _REF_BLOCK)
+    for lo in range(0, m, step):
+        hi = min(m, lo + step)
         j0, j1 = lo // S, hi // S
         blk = words[:, lo:hi]
 
@@ -547,8 +562,16 @@ def _gram_forward_ref(words, scales, w8, u8=None):
         acc = zf[:, 0] * sc[:, 0]
         for d in range(1, _NDIG):
             acc = acc + zf[:, d] * sc[:, d]
-        out[j0:j1] = acc.permute(0, 2, 3, 1)
+        zg = acc[0]
+        for j in range(1, j1 - j0):
+            zg = zg + acc[j]
+        out[lo // step] = zg
     return out
+
+
+def _gram_group_sum(zg: torch.Tensor) -> torch.Tensor:
+    """The group sums f32[nJ/G, B, 4, Nb] summed -> z f32[4, Nb, B]."""
+    return zg.sum(dim=0).permute(1, 2, 0)
 
 
 def _check_stripes(name: str, m: int) -> None:
@@ -568,7 +591,7 @@ def gram_aat_i8a_ref(words, V, mave, msig2):
     av = _fold_digits_t(atxm_i8a_int_ref(words, v8), vs, B).T   # [B, Mpad]
     W = msig2[None, :] * (av - sv[:, None] * mave[None, :])
     (w8,), scales = _quant_stripes(W)
-    z = _gram_forward_ref(words, scales, w8).sum(dim=0)
+    z = _gram_group_sum(_gram_forward_ref(words, scales, w8))
     return z - (W * mave[None, :]).sum(dim=1)[None, None, :]
 
 
@@ -585,22 +608,23 @@ def gram_aat_i8_ref(words, V, mave, msig2):
     W = msig2[None, :] * (av - mave[None, :] * bv)
     mU = -mave[None, :] * W
     (w8, u8), scales = _quant_stripes(W, mU)
-    return _gram_forward_ref(words, scales, w8, u8).sum(dim=0)
+    return _gram_group_sum(_gram_forward_ref(words, scales, w8, u8))
 
 
 def gram_aat_smem_bytes(nw: int) -> int:
-    """Shared memory of one fused-dual-Gram block (csrc/matvec.cu
-    gram_smem_bytes): the stripe cache Nw x (S + 4) words, the transpose
-    sums of 256 threads x 8, two digit tiles, the block's max."""
-    return 4 * (nw * (GRAM_AAT_STRIPE + 4) + 8 * 256 + 2 * GRAM_AAT_STRIPE
-                + 8)
+    """Shared memory of one fused-dual-Gram block (csrc/gram_aat.cu
+    gram_smem_bytes): the stripe cache, Nw x S words (swizzled, unpadded),
+    then two [8 x S] int32 tiles of transpose sums, two [8 x S] int8 digit
+    tiles and 2 x 4 f32 scales."""
+    S = GRAM_AAT_STRIPE
+    return 4 * S * nw + 4 * 2 * 8 * S + 2 * 8 * S + 4 * 2 * 4
 
 
 def gram_aat_fits(nw: int, m: int) -> bool:
-    """Whether the fused dual Gram takes these words: the stripe cache
-    within GRAM_AAT_SMEM_BUDGET and whole stripes."""
-    return (gram_aat_smem_bytes(nw) <= GRAM_AAT_SMEM_BUDGET
-            and m % GRAM_AAT_STRIPE == 0)
+    """Whether the fused dual Gram takes these words: at most
+    GRAM_AAT_MAX_NW word rows (whose stripe cache fits
+    GRAM_AAT_SMEM_BUDGET) and whole stripes."""
+    return nw <= GRAM_AAT_MAX_NW and m % GRAM_AAT_STRIPE == 0
 
 
 # --------------------------------------------------------------------------
@@ -1071,10 +1095,15 @@ def atxm_bf16(words: torch.Tensor, V: torch.Tensor):
     return av.T, bv.T
 
 
-def _gram_aat_launch(name: str, words, V, mave, msig2):
-    """Checks, V's digits in the kernel's [B, Nw, 4, NDIG] int32 layout and
-    their scales; returns (B, digits, scales, mave, msig2, library) for the
-    launch."""
+def gram_aat_launch(name: str, words, V, mave, msig2):
+    """The checks and operands of one fused-dual-Gram launch:
+    (kernel, arguments, finish).  The kernel takes V's digits int8[4, 4B,
+    Nb] with row 4b + d (one column's digits together; the digit rows of
+    _quant_digits_t reordered), their scales, and writes the group sums
+    f32[nJ/G, B, 4, Nb] (and, for ``gram_aat_i8a``, W itself); ``finish()``
+    turns them, after the launch, into the wrapper's result with the plain
+    version's own torch ops.  The bare launch of tools/profile_kernels.py
+    uses it too."""
     _check_cuda(name, words, V, torch.float32)
     nw, m = words.shape
     if V.ndim != 3 or V.shape[:2] != (4, 4 * nw):
@@ -1086,22 +1115,45 @@ def _gram_aat_launch(name: str, words, V, mave, msig2):
             raise ValueError(f"{name}: mave and msig2 must be [{m}]")
     _check_stripes(name, m)
     if not gram_aat_fits(nw, m):
-        raise ValueError(f"{name}: {gram_aat_smem_bytes(nw)} bytes of stripe "
-                         f"cache exceed GRAM_AAT_SMEM_BUDGET")
+        raise ValueError(f"{name}: Nw={nw} word rows exceed GRAM_AAT_MAX_NW="
+                         f"{GRAM_AAT_MAX_NW}")
     _check_bound(name, 16 * nw)
     _check_bound(name, 2 * GRAM_AAT_STRIPE)
     from gvamp_tpu_torch.ops import _build
     lib = _build.library()
-    if lib.gvamp_gram_aat_stripe() != GRAM_AAT_STRIPE or \
-            lib.gvamp_gram_aat_smem(nw) != gram_aat_smem_bytes(nw):
-        raise RuntimeError(f"{name}: csrc/matvec.cu and ops/matvec.py "
-                           f"disagree on the stripe or its shared memory")
+    if (lib.gvamp_gram_aat_stripe(), lib.gvamp_gram_aat_group(),
+            lib.gvamp_gram_aat_smem(nw)) != (
+            GRAM_AAT_STRIPE, GRAM_AAT_GROUP, gram_aat_smem_bytes(nw)):
+        raise RuntimeError(f"{name}: csrc/gram_aat.cu and ops/matvec.py "
+                           f"disagree on the stripe, the group or the shared "
+                           f"memory")
     B = V.shape[2]
     v8, vs = _quant_digits_t(V)
-    vdig = v8.view(torch.int32).reshape(4, _NDIG, B, nw).permute(
-        2, 3, 0, 1).contiguous()
-    return B, vdig, _digit_scales(vs).contiguous(), mave.contiguous(), \
-        msig2.contiguous(), lib
+    vdig = v8.reshape(4, _NDIG, B, 4 * nw).transpose(1, 2).contiguous()
+    vsc = _digit_scales(vs).contiguous()
+    mv, ms2 = mave.contiguous(), msig2.contiguous()
+    n_groups = -(-(m // GRAM_AAT_STRIPE) // GRAM_AAT_GROUP)
+    zpart = torch.empty((n_groups, B, 4, 4 * nw), dtype=torch.float32,
+                        device=words.device)
+    head = (words.data_ptr(), vdig.data_ptr(), vsc.data_ptr())
+    if name == "gram_aat_i8a":
+        sv = V.to(torch.float32).sum(dim=(0, 1))
+        W = torch.empty((B, m), dtype=torch.float32, device=words.device)
+        args = (*head, sv.data_ptr(), mv.data_ptr(), ms2.data_ptr(),
+                zpart.data_ptr(), W.data_ptr(), nw, m, B)
+
+        # finish holds the operands, so that they live as long as a launch
+        # with ``args`` may read them
+        def finish(_operands=(vdig, vsc, sv, mv, ms2)):
+            return (_gram_group_sum(zpart)
+                    - (W * mave[None, :]).sum(dim=1)[None, None, :])
+    else:
+        args = (*head, mv.data_ptr(), ms2.data_ptr(), zpart.data_ptr(), nw, m,
+                B)
+
+        def finish(_operands=(vdig, vsc, mv, ms2)):
+            return _gram_group_sum(zpart)
+    return getattr(lib, f"gvamp_{name}"), args, finish
 
 
 def gram_aat_i8a(words: torch.Tensor, V: torch.Tensor, mave: torch.Tensor,
@@ -1109,24 +1161,14 @@ def gram_aat_i8a(words: torch.Tensor, V: torch.Tensor, mave: torch.Tensor,
     """Fused dual Gram on complete genotypes, one read of the words:
     z[4, Nb, B] = A_a W - colsum(mave W), W = msig2 (A_a^T V - sv mave),
     sv = colsum(V).  ``V`` is already NA-masked; the caller applies
-    na * scale^2.  The kernel writes one f32 partial per stripe and W
-    itself; the stripe sum and colsum(mave W) run here, as in the plain
-    version."""
+    na * scale^2.  The kernel writes one f32 sum per group of stripes and W
+    itself; the sum over the groups and colsum(mave W) run here, as in the
+    plain version."""
     if words.device.type == "cpu":
         return gram_aat_i8a_ref(words, V, mave, msig2)
-    B, vdig, vsc, mv, ms2, lib = _gram_aat_launch("gram_aat_i8a", words, V,
-                                                  mave, msig2)
-    nw, m = words.shape
-    sv = V.to(torch.float32).sum(dim=(0, 1))
-    zpart = torch.empty((m // GRAM_AAT_STRIPE, 4, 4 * nw, B),
-                        dtype=torch.float32, device=words.device)
-    W = torch.empty((B, m), dtype=torch.float32, device=words.device)
-    _launch("gram_aat_i8a", lib.gvamp_gram_aat_i8a, words.device,
-            words.data_ptr(), vdig.data_ptr(), vsc.data_ptr(), sv.data_ptr(),
-            mv.data_ptr(), ms2.data_ptr(), zpart.data_ptr(), W.data_ptr(), nw,
-            m, B)
-    z = zpart.sum(dim=0)
-    return z - (W * mave[None, :]).sum(dim=1)[None, None, :]
+    fn, args, finish = gram_aat_launch("gram_aat_i8a", words, V, mave, msig2)
+    _launch("gram_aat_i8a", fn, words.device, *args)
+    return finish()
 
 
 def gram_aat_i8(words: torch.Tensor, V: torch.Tensor, mave: torch.Tensor,
@@ -1136,15 +1178,9 @@ def gram_aat_i8(words: torch.Tensor, V: torch.Tensor, mave: torch.Tensor,
     W = msig2 (A_a^T V - mave A_b^T V)."""
     if words.device.type == "cpu":
         return gram_aat_i8_ref(words, V, mave, msig2)
-    B, vdig, vsc, mv, ms2, lib = _gram_aat_launch("gram_aat_i8", words, V,
-                                                  mave, msig2)
-    nw, m = words.shape
-    zpart = torch.empty((m // GRAM_AAT_STRIPE, 4, 4 * nw, B),
-                        dtype=torch.float32, device=words.device)
-    _launch("gram_aat_i8", lib.gvamp_gram_aat_i8, words.device,
-            words.data_ptr(), vdig.data_ptr(), vsc.data_ptr(), mv.data_ptr(),
-            ms2.data_ptr(), zpart.data_ptr(), nw, m, B)
-    return zpart.sum(dim=0)
+    fn, args, finish = gram_aat_launch("gram_aat_i8", words, V, mave, msig2)
+    _launch("gram_aat_i8", fn, words.device, *args)
+    return finish()
 
 
 def _gram_launch_checks(name: str, words, W, na, *vecs):

@@ -11,9 +11,10 @@ against ``axm_i8`` at NW=64 x M=2,048, B=2, with the JAX tool's tolerances.
 The timing (default NW=6,400 x M=65,536, 1.68 GB packed, B=2) gives each
 fused kernel beside its two-pass composition, and ``axm_i8s`` beside
 ``axm_i8``, with packed GB/s ("eff" counts the two reads of the words a
-composition makes).  The fused dual Grams refuse N above 13,152 (their
-stripe cache), so where NW exceeds that they are timed at N=5,120 (config
-X's N) over as many markers as give the same packed bytes.
+composition makes).  The fused dual Grams refuse N above 13,152
+(``matvec.GRAM_AAT_MAX_NW`` word rows, the route's edge), so where NW
+exceeds that they are timed at N=5,120 (config X's N) over as many
+markers as give the same packed bytes.
 
 Times are CUDA events around single calls (``common.cuda_ms``, the median
 of ``--reps``).  The burst-marginal method of ``tools/bench_burst.py`` is

@@ -3,8 +3,8 @@ oracle, on the card: the counterpart of ``tools/tpu_check.py``.
 
     python3 -m gvamp_tpu_torch.tools.kernel_check [--device cuda|cpu]
 
-Run it on the card after any edit of ``gvamp_tpu_torch/csrc/matvec.cu`` or
-``fragments.cu``.
+Run it on the card after any edit of ``gvamp_tpu_torch/csrc/matvec.cu``,
+``fragments.cu`` or ``gram_aat.cu``.
 ``chip_smoke.py`` holds each kernel bit for bit against its plain version;
 this holds the kernels and their plain versions alike against the exact
 products, at the sizes and tolerance of ``tools/tpu_check.py``: random

@@ -8,15 +8,21 @@ Times each kernel through its wrapper on random words (default NW=6,400 x
 M=65,536, 1.68 GB packed) with CUDA events (the median of REPS calls after
 a warm-up) and prints ms and packed GB/s, the bytes of the words over the
 time: ``axm_i8``, ``axm_i8a``, ``atxm_i8`` and ``atxm_i8a`` at each width
-of ``WIDTHS``, then ``ax``, ``atx`` and ``atx_a`` at B = 1.  On the card
-each of the four digit products is also timed as its bare launch: the
-digits quantised and the int32 outputs zeroed once, outside the timed
-region, as the wrapper makes them; the first launch is folded and must
-equal the wrapper's result bit for bit (exit 1 if not).  The difference
-is the wrapper's own share: quantisation, zeroing and fold.  The JAX
-tool's tile sweep (``tools/profile_kernels.py:81-93``) has no counterpart:
-the port's kernels take no tile arguments (``csrc/matvec.cu`` and
-``fragments.cu`` fix their grids).
+of ``WIDTHS`` and, where the words take them (NW up to
+``matvec.GRAM_AAT_MAX_NW``, M whole 64-marker stripes: config X's shape
+is ``320 524288``), the fused dual Grams ``gram_aat_i8`` and
+``gram_aat_i8a`` there too, then ``ax``, ``atx`` and ``atx_a`` at B = 1.
+On the card each of these products is also timed as its bare launch: its
+operands made once, outside the timed region, as the wrapper makes them
+(the digits quantised, the int32 outputs zeroed; for the dual Grams V's
+digits and scales, colsum(V) and the partial buffer); the first launch is
+finished as the wrapper finishes it (the fold; for the dual Grams the sum
+over the stripe groups and colsum(mave W)) and must equal the wrapper's
+result bit for bit (exit 1 if not).  The difference is the wrapper's own
+share.  The JAX tool's tile sweep (``tools/profile_kernels.py:81-93``)
+has no counterpart: the port's kernels take no tile arguments
+(``csrc/matvec.cu``, ``fragments.cu`` and ``gram_aat.cu`` fix their
+grids).
 """
 
 from __future__ import annotations
@@ -27,19 +33,25 @@ import sys
 import numpy as np
 import torch
 
-# the digit products of csrc/fragments.cu, whose bare launch is timed
+# the digit products of csrc/fragments.cu and the fused dual Grams of
+# csrc/gram_aat.cu, whose bare launch is timed
 DIGIT_PRODUCTS = ("axm_i8", "axm_i8a", "atxm_i8", "atxm_i8a")
+DUAL_GRAMS = ("gram_aat_i8", "gram_aat_i8a")
 # their widths: the JAX tool's (tools/profile_kernels.py:68), then LOCO's
 # over 22 chromosomes (ops/pvals.py), the widest call of the engines
 WIDTHS = (1, 2, 4, 22)
 
 
-def bare_launch(name: str, words, W, U, V):
-    """(launch, fold) for the digit product ``name`` on the operands its
-    wrapper would make from (W, U) or V: ``launch()`` launches the kernel
-    alone on digits quantised and outputs zeroed here; ``fold()`` turns the
-    outputs, after one launch, into the wrapper's result."""
+def bare_launch(name: str, words, W, U, V, mave=None, msig2=None):
+    """(launch, fold) for the digit product or dual Gram ``name`` on the
+    operands its wrapper would make from (W, U) or V (and mave, msig2):
+    ``launch()`` launches the kernel alone on operands made here;
+    ``fold()`` turns the outputs, after one launch, into the wrapper's
+    result."""
     from gvamp_tpu_torch.ops import _build, matvec
+    if name in DUAL_GRAMS:
+        fn, args, finish = matvec.gram_aat_launch(name, words, V, mave, msig2)
+        return (lambda: matvec._launch(name, fn, words.device, *args)), finish
     nw, m = words.shape
     both = name in ("axm_i8", "atxm_i8")
     if name.startswith("atxm"):
@@ -90,6 +102,18 @@ def profile(device, nw: int, m: int, reps: int) -> int:
     def t(x):
         return torch.from_numpy(x.astype(np.float32)).to(device)
 
+    names = DIGIT_PRODUCTS
+    if matvec.gram_aat_fits(nw, m):
+        names += DUAL_GRAMS
+        mave = t(rng.uniform(0, 2, m))
+        msig2 = t(rng.uniform(0.5, 2, m))
+    else:
+        print(f"{' and '.join(DUAL_GRAMS)}: not timed, NW={nw} exceeds "
+              f"GRAM_AAT_MAX_NW={matvec.GRAM_AAT_MAX_NW} or M={m} is not "
+              f"whole {matvec.GRAM_AAT_STRIPE}-marker stripes (config X: "
+              f"320 524288)", flush=True)
+        mave = msig2 = None
+
     def rec(name, fn):
         ms = time_ms(fn, reps)
         print(f"{name:34s} {ms:9.3f} ms   {packed_gb / (ms / 1e3):8.1f} GB/s",
@@ -103,13 +127,17 @@ def profile(device, nw: int, m: int, reps: int) -> int:
         wrappers = {"axm_i8": lambda: matvec.axm_i8(words, W, U),
                     "axm_i8a": lambda: matvec.axm_i8a(words, W),
                     "atxm_i8": lambda: matvec.atxm_i8(words, V),
-                    "atxm_i8a": lambda: matvec.atxm_i8a(words, V)}
-        for name in DIGIT_PRODUCTS:
+                    "atxm_i8a": lambda: matvec.atxm_i8a(words, V),
+                    "gram_aat_i8": lambda: matvec.gram_aat_i8(
+                        words, V, mave, msig2),
+                    "gram_aat_i8a": lambda: matvec.gram_aat_i8a(
+                        words, V, mave, msig2)}
+        for name in names:
             label = f"{name} B={B}" + (" (a-only)" * name.endswith("a"))
             ms = rec(label, wrappers[name])
             if device.type != "cuda":
                 continue
-            launch, fold = bare_launch(name, words, W, U, V)
+            launch, fold = bare_launch(name, words, W, U, V, mave, msig2)
             launch()
             got, want = fold(), wrappers[name]()
             if isinstance(got, torch.Tensor):

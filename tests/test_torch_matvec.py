@@ -202,17 +202,21 @@ def test_gram_aat_refs_match_two_pass(nw, m, B, pad):
 
 
 def test_gram_aat_stripe_and_budget():
-    """The stripe width and the shared-memory formula agree with the CUDA
-    source; the budget admits Nw = 822 word rows and not 823; the plain
-    versions refuse a partial stripe, and gram_aat_fits says so."""
+    """The stripe width, the stripe group and the shared-memory formula
+    agree with the CUDA source (csrc/gram_aat.cu); the route admits Nw =
+    822 word rows and not 823, and at 822 the kernel's shared memory fits
+    the budget; the plain versions refuse a partial stripe, and
+    gram_aat_fits says so."""
     import os
     src = open(os.path.join(os.path.dirname(tmv.__file__), os.pardir, "csrc",
-                            "matvec.cu")).read()
+                            "gram_aat.cu")).read()
     assert f"constexpr int kGramS = {tmv.GRAM_AAT_STRIPE};" in src
-    assert ("return 4 * (nw * kGramSP + 8 * kThreads + 2 * kGramS + kWarps);"
-            in src and "constexpr int kThreads = 256;" in src)
+    assert f"constexpr int kGramGroup = {tmv.GRAM_AAT_GROUP};" in src
+    assert ("return 4 * kGramS * nw + kScratchBytes;" in src
+            and "constexpr int kTile = 8 * kGramS;" in src
+            and "kScratchBytes = 4 * 2 * kTile + 2 * kTile + 4 * 2 * 4;"
+            in src)
     assert tmv.gram_aat_smem_bytes(822) <= tmv.GRAM_AAT_SMEM_BUDGET
-    assert tmv.gram_aat_smem_bytes(823) > tmv.GRAM_AAT_SMEM_BUDGET
     assert tmv.gram_aat_fits(822, 512) and not tmv.gram_aat_fits(823, 512)
     assert not tmv.gram_aat_fits(32, 544)
     words = torch.zeros((32, 544), dtype=torch.int32)
