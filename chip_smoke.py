@@ -10,7 +10,8 @@ Phases, each of which raises on failure (exit code != 0):
 1. environment: torch / CUDA / nvcc / triton versions and the card's name
    and power limit; TF32 off for every float32 product;
 2. build the CUDA kernels (gvamp_tpu_torch/csrc/matvec.cu, fragments.cu,
-   gram_aat.cu and study.cu, one nvcc each, started together); the ptxas
+   gram_aat.cu, gram_prim.cu and study.cu, one nvcc each, started
+   together); the ptxas
    report must show no spill store in any instantiation of any kernel;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    with CUDA-event times of both: (a) all twenty-five at small shapes (the
@@ -28,7 +29,10 @@ Phases, each of which raises on failure (exit code != 0):
    FRAGMENT_SHAPES: Nw = 7 and 300, Mpad = 8 and 1,000, B up to 22; the
    fused dual Grams of gram_aat.cu at theirs, GRAM_AAT_SHAPES: Nw = 7, 300
    and 822 (the route's edge), Mpad of one stripe and with a short last
-   group of stripes, B up to 5),
+   group of stripes, B up to 5; the fused primal Grams of gram_prim.cu at
+   theirs, GRAM_PRIM_SHAPES: one band and fewer bands than the tile ring,
+   a short last block, Mpad 135,168 (the route's edge on 132 SMs), B from
+   1 to 5 and 70),
    (b) the a-only kernels, atx, atx_a and the bf16-split products on the
    whole config-B matrix at B = 1 and 2 (the bf16 ones and atx_a also on
    Gaussian inputs against their plain versions within BF16_PLAIN_TOL),
@@ -41,8 +45,9 @@ Phases, each of which raises on failure (exit code != 0):
    their two-pass composition, and ax there (dyadic inputs bit for bit,
    the statistics' real inputs to a stated tolerance);
    (e) the fused primal Grams on the whole config-B matrix (gram_i8a) and
-   config-Bm matrix (gram_i8) at B = 1 and 2, timed beside their two-pass
-   composition, with packed GB/s and the bound;
+   config-Bm matrix (gram_i8) at B = 1 and 2, timed through the wrapper
+   and as the bare launch beside their two-pass composition, with packed
+   GB/s and the bound;
    (s) the study kernels (stream, stream_sum, v0_stream, v1_decode_a,
    v2_decode_ab, v3_bitcast, and at B = 2 v5_dot1, v7_i8decode under both
    keys on the matrix's byte rows, a second 10.74 GB buffer freed before
@@ -158,9 +163,10 @@ STUDY = STUDY_KERNELS + tuple(STUDY_PRODUCTS)
 PRODUCT_KERNELS = tuple(n for n in KERNELS if n not in STUDY)
 # each kernel's entries in the ptxas report: a pattern that the mangled
 # names of every instantiation match (default "<name>_kernel"); the
-# fragment products and the dual Grams (gram_aat.cu) one instantiation of
-# their template each, by the plane count <kBoth>; the row sums one per
-# bytes per load, named by <V, Decode, lanes>
+# fragment products, the dual Grams (gram_aat.cu) and the primal ones
+# (gram_prim.cu) one instantiation of their template each, by the plane
+# count <kBoth> / <kGeneral>; the row sums one per bytes per load, named
+# by <V, Decode, lanes>
 PTXAS_ENTRY = {"axm_i8a": "axm_i8_kernelILb0E",
                "atxm_i8a": "atxm_i8_kernelILb0E",
                "axm_i8": "axm_i8_kernelILb1E",
@@ -185,6 +191,10 @@ STUDY_SOURCE = "gvamp_tpu_torch/csrc/study.cu"
 # for one plane (gram_aat_i8a) and for two (gram_aat_i8)
 GRAM_AAT_KERNELS = ("gram_aat_i8a", "gram_aat_i8")
 GRAM_AAT_SOURCE = "gvamp_tpu_torch/csrc/gram_aat.cu"
+# the fused primal Grams: one template, gram_prim_kernel<kGeneral>,
+# instantiated for one plane (gram_i8a) and for two (gram_i8)
+GRAM_PRIM_KERNELS = ("gram_i8a", "gram_i8")
+GRAM_PRIM_SOURCE = "gvamp_tpu_torch/csrc/gram_prim.cu"
 # the products whose mma fragments come straight from the decode: one
 # template per product (csrc/fragments.cu), instantiated for one plane
 # (complete genotypes) and for two (missing calls)
@@ -206,6 +216,16 @@ FRAGMENT_SHAPES = [(7, 8, 22), (7, 1000, 1), (300, 8, 2), (300, 1000, 22),
 # B = 1 to 5 (one to three groups of two columns)
 GRAM_AAT_SHAPES = [(7, 64, 1), (7, 704, 5), (300, 576, 2), (300, 1216, 3),
                    (822, 704, 5), (822, 64, 2)]
+# the edges of the fused primal Grams' design beyond SHAPES, on the card's
+# SMs (132 on an H100): one band (Nw = 16) and two, fewer than the ring of
+# three band tiles; Mpad 1,004 and 4,204, whose last block has a short
+# quad range (1 quad of 2, 3 of 8); Mpad 135,168, the route's edge (256
+# quads per block), and 135,156 (the last block 253 quads); B from 1 to 5
+# (one to three digit groups; above 2 av is read and written per band)
+# and 70, above both column chunks
+GRAM_PRIM_SHAPES = [(16, 512, 1), (32, 1004, 2), (48, 4204, 3),
+                    (32, 2048, 4), (16, 135_168, 5), (32, 135_156, 2),
+                    (64, 512, 70)]
 SLICE_M = 2048
 # corr(x_hat, beta) and R2_train_1 after 10 iterations at config B and at
 # config Bm; set from the first H100 runs of this script (config B 0.99590
@@ -495,6 +515,10 @@ def phase_kernels_small(gen, study_gen):
     for nw, m, B in GRAM_AAT_SHAPES:
         check_kernels(random_words(edge_gen, nw, m), B, edge_gen,
                       f"Nw={nw} Mpad={m}", names=GRAM_AAT_KERNELS)
+    for nw, m, B in GRAM_PRIM_SHAPES:
+        check_kernels(random_words(edge_gen, nw, m), B, edge_gen,
+                      f"Nw={nw} Mpad={m}", names=GRAM_PRIM_KERNELS,
+                      plain_reps=1)
 
 
 # small shapes of the study kernels beyond SHAPES: rows past a multiple of
@@ -838,7 +862,7 @@ def phase_main_path(words):
 
 
 # the fused primal Gram against the two-pass form over 10 iterations (the
-# same problem, probe and warm starts): z is quantised per 32-row band in
+# same problem, probe and warm starts): z is quantised per 16-row band in
 # one and per column in the other, both ~127^-4 fine; the tolerances of
 # phase 4x (tests/test_xxt.py:95-99)
 FUSED_XTOL, FUSED_RTOL = 5e-5, 2e-4
@@ -1050,7 +1074,7 @@ def phase_config_bm(words):
 
 
 # the fused primal Gram against its two-pass composition on the whole
-# config-B / Bm matrix: z is quantised per 32-row band in one and per column
+# config-B / Bm matrix: z is quantised per 16-row band in one and per column
 # in the other, both ~127^-4 fine, and the f32 sums run in other orders; a
 # sanity bound on max|fused - two-pass| / max|two-pass|, as for the dual
 B_TWO_PASS_TOL = 1e-4
@@ -1059,9 +1083,11 @@ B_TWO_PASS_TOL = 1e-4
 def phase_kernels_gram(words, gen, complete):
     """The fused primal Gram on the whole matrix at B = 1 and 2: gram_i8a on
     config B, gram_i8 on config Bm, each bit-equal to its plain version and
-    timed beside its two-pass composition at the same B, with packed GB/s
-    and the bound.  Returns {name: check_kernels numbers at B = 1,
-    "name two-pass B=b": ms}."""
+    timed through its wrapper and as its bare launch (the operands made
+    once by matvec.gram_launch; the first launch's result equal to the
+    wrapper's bit for bit) beside its two-pass composition at the same B,
+    with packed GB/s and the bound.  Returns {name: check_kernels numbers
+    at B = 1, "name two-pass B=b": ms, "name bare B=b": ms}."""
     log(f"== phase 3e: fused primal Gram vs plain version, config "
         f"B{'' if complete else 'm'} words")
     from gvamp_tpu_torch.ops import matvec
@@ -1093,18 +1119,31 @@ def phase_kernels_gram(words, gen, complete):
         got, want = fn(), comp()
         diff = max(float((g - w).abs().max() / w.abs().max())
                    for g, w in zip(got, want))
+        kern, args, finish = matvec.gram_launch(name, words, W, na,
+                                                cu if complete else U)
+
+        def bare():
+            matvec._launch(name, kern, words.device, *args)
+
+        bare()
+        if not all(torch.equal(g, w) for g, w in zip(finish(), got)):
+            raise AssertionError(f"{name}: the bare launch differs from the "
+                                 f"wrapper")
         del got, want
         t_two = cuda_ms(comp, 3)
         t_fused = cuda_ms(fn, 3)
+        t_bare = cuda_ms(bare, 3)
         b_ms, b_by = bound(name, nw, m, B)
         log(f"  {label:>22s} B={B:<3d} {name} {t_fused:8.3f} ms "
             f"({4 * nw * m / (t_fused * 1e6):7.1f} GB/s packed, bound "
-            f"{b_ms:.3f} ms by {b_by}) against two-pass {t_two:8.3f} ms "
-            f"({t_two / t_fused:.2f}x); max|fused - two-pass| / max = "
-            f"{diff:.2e} (limit {B_TWO_PASS_TOL:g})")
+            f"{b_ms:.3f} ms by {b_by}; bare launch {t_bare:8.3f} ms) against "
+            f"two-pass {t_two:8.3f} ms ({t_two / t_fused:.2f}x); "
+            f"max|fused - two-pass| / max = {diff:.2e} (limit "
+            f"{B_TWO_PASS_TOL:g})")
         if not diff < B_TWO_PASS_TOL:
             raise AssertionError(f"{name}: fused and two-pass differ")
         out[f"{name} two-pass B={B}"] = t_two
+        out[f"{name} bare B={B}"] = t_bare
     torch.cuda.empty_cache()
     return out
 
@@ -1741,7 +1780,8 @@ def kernel_rows(numbers):
             "name": n, "route": "cuda",
             "source": (STUDY_SOURCE if n in STUDY else FRAGMENT_SOURCE
                        if n in FRAGMENT_KERNELS else GRAM_AAT_SOURCE
-                       if n in GRAM_AAT_KERNELS else SOURCE),
+                       if n in GRAM_AAT_KERNELS else GRAM_PRIM_SOURCE
+                       if n in GRAM_PRIM_KERNELS else SOURCE),
             "replaces": REPLACES[n], "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,

@@ -1,7 +1,8 @@
 // Packed-genotype products of the PyTorch port, written by hand for Hopper
 // (sm_90a), apart from the four digit products axm_i8a, atxm_i8a, axm_i8
-// and atxm_i8, whose tensor-core kernels are in fragments.cu, and the fused
-// dual Grams gram_aat_i8a and gram_aat_i8 (gram_aat.cu).  Bound
+// and atxm_i8, whose tensor-core kernels are in fragments.cu, the fused
+// dual Grams gram_aat_i8a and gram_aat_i8 (gram_aat.cu) and the fused
+// primal Grams gram_i8a and gram_i8 (gram_prim.cu).  Bound
 // through a plain C interface (ctypes, see gvamp_tpu_torch/ops/_build.py);
 // the wrappers are in gvamp_tpu_torch/ops/matvec.py, beside the plain
 // PyTorch versions the kernels are checked against.
@@ -25,7 +26,6 @@
 // outputs.  Indices are 64-bit: a full-size matrix holds more than 2^31
 // words.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -543,269 +543,6 @@ int64_t atxm_bf16_rows_per_band(int64_t nw, int64_t mpad, int64_t ncols) {
   return band_length(nw, cdiv(mpad, kThreads) * groups, kBfTileRows);
 }
 
-// --------------------------------------------------------------------------
-// gram_i8a / gram_i8: the fused primal Gram of the block CG,
-//   a-only:  z = na (A_a W - colsum_u),  av = A_a^T z,  zout = z (sv)
-//   general: z = na (A_a W - A_b U),     av = A_a^T z,  bv = A_b^T z
-// in one read of the words.
-//
-// Replaces gram_i8a_pallas / _gram_i8a_kernel and gram_i8_pallas /
-// _gram_i8_kernel (gvamp_tpu/ops/matvec.py:870-1204), which walk the
-// sample bands in sequence and cache one band of words in VMEM.  A band's
-// forward sum runs over ALL markers before its requantisation and its
-// transpose can start, so each band is a grid-wide step.
-// Bound on this card: the integer pipe.  The words are read from HBM once
-// (10.74 GB at N=327,680 x M=131,072: 3.2 ms at 3.35 TB/s), but each word
-// feeds 4 __dp4a per digit row on each side (twice that with the b-plane),
-// plus the SWAR decodes and the forward side's byte transposes.
-// Design: one persistent cooperative block per SM (cudaLaunchCooperative-
-// Kernel, cooperative_groups grid sync); block j owns a fixed range of
-// marker quads.  Per band of kBandNw word rows (16 * kBandNw samples):
-//   1. the block copies its kBandNw x range tile of words into shared
-//      memory: the words' only read from HBM;
-//   2. forward side, per column: warp w takes tile rows w, w + 16, lanes
-//      stride over the quads (axm_i8s's 16-byte load, __byte_perm
-//      transpose and __dp4a against W's digits); a warp reduction and one
-//      int32 atomicAdd per sum into the band's partials (exact, so the
-//      order of the blocks does not matter);
-//   3. one grid sync: every block's partials of the band are in;
-//   4. per column, every block folds the band (thread = sample), masks it,
-//      takes the band's max |z| and requantises it into 4 digits,
-//      redundantly and identically, so no second sync is needed; block 0
-//      writes z itself (the wrapper's colsum sv);
-//   5. transpose side: thread = marker column of the tile against the
-//      band's digits; the f32 fold is added to av in band order (each
-//      block owns its markers: no f32 atomics, runs repeat bit for bit).
-// The partials rotate through three buffers: block 0 zeroes the one the
-// band after next adds into, which every block finished reading before
-// this band's sync.  Every f32 step is a round-to-nearest intrinsic (fold4
-// in mma.cuh, __fmul_rn, __fsub_rn, __fdiv_rn, rintf), as in gram_aat.cu's
-// dual Gram, so the kernel equals its plain version bit for bit.
-// The band height kBandNw is a quantisation boundary (z is requantised per
-// band), shared with GRAM_BAND_NW in ops/matvec.py; the tile bounds the
-// markers a block can own: Mpad up to 237,072 on 132 SMs.
-// --------------------------------------------------------------------------
-constexpr int kBandNw = 32;                  // word rows per band (numerics)
-constexpr int kBandRows = 4 * kBandNw;       // planar rows per plane and band
-constexpr int kPrimThreads = 512;
-constexpr int kPrimWarps = kPrimThreads / 32;
-static_assert(kPrimThreads == 4 * kBandRows, "one fold thread per band sample");
-
-int64_t prim_quads_per_block(int64_t mpad, int64_t nblocks) {
-  return cdiv(mpad / 4, nblocks);
-}
-
-int64_t prim_smem_bytes(int64_t mpad, int64_t nblocks) {
-  // tile [kBandNw][4 rq] words, z digits [4 k][4 d][kBandRows] int8, the
-  // warps' max, padding
-  return 4 * (kBandNw * 4 * prim_quads_per_block(mpad, nblocks)
-              + 4 * kBandRows + kPrimWarps + 4);
-}
-
-template <bool kGeneral>
-__global__ void __launch_bounds__(kPrimThreads, 1)
-gram_prim_kernel(const uint32_t* __restrict__ words,
-                 const int32_t* __restrict__ wdig,  // int32 view [D][Mpad/4]
-                 const int32_t* __restrict__ udig,  // [D][Mpad/4] (general)
-                 const float* __restrict__ wsc,     // [4][B] W digit scales
-                 const float* __restrict__ cu,      // [B] colsum_u (a-only)
-                 const float* __restrict__ na,      // [4][Nb][B]
-                 int32_t* zacc,                     // [3][D][4][kBandRows]
-                 float* __restrict__ zout,          // [4][Nb][B] (a-only)
-                 float* __restrict__ av,            // [B][Mpad]
-                 float* __restrict__ bv,            // [B][Mpad] (general)
-                 int64_t nw, int64_t mpad, int64_t ncols, int64_t rq) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  const int64_t R = 4 * rq;                                   // tile row (words)
-  uint32_t* tile = smem;                                      // [kBandNw][R]
-  int32_t* zd = reinterpret_cast<int32_t*>(tile + kBandNw * R);  // [4 k][4 d][kBandNw]
-  int8_t* zd8 = reinterpret_cast<int8_t*>(zd);                // [4 k][4 d][kBandRows]
-  float* wmax = reinterpret_cast<float*>(zd + 16 * kBandNw);  // [kPrimWarps]
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int64_t nq = mpad / 4;
-  const int64_t q0 = (int64_t)blockIdx.x * rq;
-  const int nqb = (int)imin(rq, nq - q0);  // quads of this block (> 0)
-  const int64_t nb = 4 * nw;
-  const int64_t zstride = 4 * ncols * 4 * kBandRows;
-  const int64_t nbands = nw / kBandNw;
-  // this thread's sample of the band in the fold: plane k, row p
-  const int fk = tid / kBandRows;
-  const int fp = tid % kBandRows;
-
-  for (int64_t band = 0; band < nbands; ++band) {
-    const int64_t r0 = band * kBandNw;
-    int32_t* zb = zacc + (band % 3) * zstride;
-    // 1. the band's tile into shared memory: its only read from HBM
-    __syncthreads();  // the previous band's transpose is done with the tile
-    for (int idx = tid; idx < kBandNw * nqb; idx += kPrimThreads) {
-      const int r = idx / nqb;
-      const int q = idx - r * nqb;
-      const uint4 x = __ldg(
-          reinterpret_cast<const uint4*>(words + (r0 + r) * mpad) + q0 + q);
-      *reinterpret_cast<uint4*>(tile + r * R + 4 * q) = x;
-    }
-    __syncthreads();
-
-    // 2. forward side: the block's partial sums of the band, per column
-    for (int64_t b = 0; b < ncols; ++b) {
-      for (int r = warp; r < kBandNw; r += kPrimWarps) {
-        int32_t acc[4][16];  // [d][k * 4 + byte]
-#pragma unroll
-        for (int d = 0; d < 4; ++d)
-#pragma unroll
-          for (int e = 0; e < 16; ++e) acc[d][e] = 0;
-        const uint4* row = reinterpret_cast<const uint4*>(tile + r * R);
-        for (int q = lane; q < nqb; q += 32) {
-          uint32_t y[4];
-          transpose_quad(row[q], y);
-          int32_t wd[4], ud[4];
-#pragma unroll
-          for (int d = 0; d < 4; ++d) {
-            wd[d] = __ldg(wdig + (d * ncols + b) * nq + q0 + q);
-            if (kGeneral) ud[d] = __ldg(udig + (d * ncols + b) * nq + q0 + q);
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int a = (int)swar_a(y[e], k);
-#pragma unroll
-              for (int d = 0; d < 4; ++d)
-                acc[d][k * 4 + e] = __dp4a(a, wd[d], acc[d][k * 4 + e]);
-              if (kGeneral) {
-                const int nm = (int)swar_b(y[e], k);
-#pragma unroll
-                for (int d = 0; d < 4; ++d)
-                  acc[d][k * 4 + e] = __dp4a(nm, ud[d], acc[d][k * 4 + e]);
-              }
-            }
-        }
-#pragma unroll
-        for (int d = 0; d < 4; ++d)
-#pragma unroll
-          for (int e = 0; e < 16; ++e) {
-            const int32_t v = __reduce_add_sync(0xffffffffu, acc[d][e]);
-            if (lane == ((d * 16 + e) & 31))
-              atomicAdd(zb + ((d * ncols + b) * 4 + e / 4) * kBandRows
-                            + 4 * r + e % 4, v);
-          }
-      }
-    }
-
-    // 3. every block's partials of the band are in
-    grid.sync();
-    if (blockIdx.x == 0) {
-      int32_t* znext = zacc + ((band + 2) % 3) * zstride;
-      for (int64_t i = tid; i < zstride; i += kPrimThreads) znext[i] = 0;
-    }
-
-    for (int64_t b = 0; b < ncols; ++b) {
-      // 4. fold, mask and requantise the band (every block alike)
-      int32_t t[4];
-      float s[4];
-#pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        t[d] = __ldcg(zb + ((d * ncols + b) * 4 + fk) * kBandRows + fp);
-        s[d] = __ldg(wsc + d * ncols + b);
-      }
-      const int64_t o = (fk * nb + 4 * r0 + fp) * ncols + b;
-      const float mk = __ldg(na + o);
-      const float z = kGeneral ? __fmul_rn(fold4(t, s), mk)
-                               : __fmul_rn(__fsub_rn(fold4(t, s), __ldg(cu + b)), mk);
-      if (!kGeneral && blockIdx.x == 0) zout[o] = z;
-      float mx = fabsf(z);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      if (lane == 0) wmax[warp] = mx;
-      __syncthreads();
-      mx = wmax[0];
-#pragma unroll
-      for (int w = 1; w < kPrimWarps; ++w) mx = fmaxf(mx, wmax[w]);
-      float sc[4];
-      sc[0] = __fdiv_rn(mx == 0.f ? 1.f : mx, 127.f);
-#pragma unroll
-      for (int d = 1; d < 4; ++d) sc[d] = __fdiv_rn(sc[d - 1], 127.f);
-      float rr = z;
-#pragma unroll
-      for (int d = 0; d < 4; ++d) {
-        const float dz = rintf(__fdiv_rn(rr, sc[d]));
-        zd8[(fk * 4 + d) * kBandRows + fp] = (int8_t)(int)dz;
-        rr = __fsub_rn(rr, __fmul_rn(dz, sc[d]));
-      }
-      __syncthreads();
-
-      // 5. transpose side: marker columns of the tile against the digits
-      for (int c = tid; c < 4 * nqb; c += kPrimThreads) {
-        int32_t ta[4] = {0, 0, 0, 0}, tb[4] = {0, 0, 0, 0};
-        for (int r = 0; r < kBandNw; ++r) {
-          const uint32_t w = tile[r * R + c];
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int a = (int)swar_a(w, k);
-            const int nm = kGeneral ? (int)swar_b(w, k) : 0;
-#pragma unroll
-            for (int d = 0; d < 4; ++d) {
-              const int32_t zz = zd[(k * 4 + d) * kBandNw + r];
-              ta[d] = __dp4a(a, zz, ta[d]);
-              if (kGeneral) tb[d] = __dp4a(nm, zz, tb[d]);
-            }
-          }
-        }
-        const int64_t m = 4 * q0 + c;
-        av[b * mpad + m] = __fadd_rn(av[b * mpad + m], fold4(ta, sc));
-        if (kGeneral) bv[b * mpad + m] = __fadd_rn(bv[b * mpad + m], fold4(tb, sc));
-      }
-      __syncthreads();  // the next column rewrites zd and wmax
-    }
-  }
-}
-
-template <bool kGeneral>
-int launch_gram_prim(const void* words, const void* wdig, const void* udig,
-                     const void* wsc, const void* cu, const void* na,
-                     void* zacc, void* zout, void* av, void* bv, int64_t nw,
-                     int64_t mpad, int64_t ncols, int64_t nblocks,
-                     void* stream) {
-  auto kern = gram_prim_kernel<kGeneral>;
-  int64_t rq = prim_quads_per_block(mpad, nblocks);
-  const int64_t smem = prim_smem_bytes(mpad, nblocks);
-  const int64_t grid = cdiv(mpad / 4, rq);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  // a cooperative grid must be resident all at once
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                      kPrimThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if ((int64_t)per_sm * sms < grid) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const uint32_t* a_words = static_cast<const uint32_t*>(words);
-  const int32_t* a_wdig = static_cast<const int32_t*>(wdig);
-  const int32_t* a_udig = static_cast<const int32_t*>(udig);
-  const float* a_wsc = static_cast<const float*>(wsc);
-  const float* a_cu = static_cast<const float*>(cu);
-  const float* a_na = static_cast<const float*>(na);
-  int32_t* a_zacc = static_cast<int32_t*>(zacc);
-  float* a_zout = static_cast<float*>(zout);
-  float* a_av = static_cast<float*>(av);
-  float* a_bv = static_cast<float*>(bv);
-  void* args[] = {&a_words, &a_wdig, &a_udig, &a_wsc, &a_cu, &a_na, &a_zacc,
-                  &a_zout, &a_av, &a_bv, &nw, &mpad, &ncols, &rq};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern),
-                                    dim3((unsigned)grid), dim3(kPrimThreads),
-                                    args, (size_t)smem,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -906,31 +643,6 @@ int gvamp_atxm_bf16(const void* words, const void* v2, void* out, int64_t nw,
   else
     atxm_bf16_kernel<2><<<grid, kThreads, 0, s>>>(w, v, o, nw, mpad, ncols, rows);
   return (int)cudaGetLastError();
-}
-
-// the band height and the shared memory of one fused-primal-Gram block
-int gvamp_gram_band_nw() { return kBandNw; }
-
-int64_t gvamp_gram_smem(int64_t mpad, int64_t nblocks) {
-  return prim_smem_bytes(mpad, nblocks);
-}
-
-int gvamp_gram_i8a(const void* words, const void* wdig, const void* wsc,
-                   const void* cu, const void* na, void* zacc, void* zout,
-                   void* av, int64_t nw, int64_t mpad, int64_t ncols,
-                   int64_t nblocks, void* stream) {
-  return launch_gram_prim<false>(words, wdig, nullptr, wsc, cu, na, zacc,
-                                 zout, av, nullptr, nw, mpad, ncols, nblocks,
-                                 stream);
-}
-
-int gvamp_gram_i8(const void* words, const void* wdig, const void* udig,
-                  const void* wsc, const void* na, void* zacc, void* av,
-                  void* bv, int64_t nw, int64_t mpad, int64_t ncols,
-                  int64_t nblocks, void* stream) {
-  return launch_gram_prim<true>(words, wdig, udig, wsc, nullptr, na, zacc,
-                                nullptr, av, bv, nw, mpad, ncols, nblocks,
-                                stream);
 }
 
 }  // extern "C"

@@ -44,7 +44,7 @@ __device__ __forceinline__ void mma_u8s8(int32_t c[4], const uint32_t a[4],
 
 // t[0] s0 + t[1] s1 + t[2] s2 + t[3] s3, left to right, each step rounded
 // to nearest (no FMA contraction), as the plain versions' separate torch
-// ops round: the digit fold of the fused Grams (matvec.cu, gram_aat.cu)
+// ops round: the digit fold of the fused Grams (gram_prim.cu, gram_aat.cu)
 __device__ __forceinline__ float fold4(const int32_t t[4], const float s[4]) {
   float acc = __fmul_rn((float)t[0], s[0]);
 #pragma unroll

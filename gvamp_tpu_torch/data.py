@@ -449,9 +449,11 @@ class GenoBed:
 
           * under ``GVAMP_NO_FUSED_GRAM=1``;
           * in float64, whose dense plain products run on the CPU;
-          * when a block's band tile does not fit
-            ``matvec.GRAM_AAT_SMEM_BUDGET`` (Mpad above 237,072 on the 132
-            SMs of an H100; JAX's counterpart is the 80 MB VMEM budget
+          * when the words are not whole 16-row bands, or a block would
+            take more than ``matvec.GRAM_MAX_QUADS`` marker quads (Mpad
+            above 135,168 on the 132 SMs of an H100, the route's edge:
+            the kernel's ring of band tiles then no longer fits the 227 KB
+            of shared memory; JAX's counterpart is the 80 MB VMEM budget
             ``_GRAM_BAND_MAX_BYTES``).
 
         Complete genotypes run ``gram_i8a`` (b's contractions collapse to

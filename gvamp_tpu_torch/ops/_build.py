@@ -150,6 +150,8 @@ def library() -> ctypes.CDLL:
             lib.gvamp_gram_band_nw.restype = ctypes.c_int
             lib.gvamp_gram_smem.argtypes = [i64, i64]
             lib.gvamp_gram_smem.restype = i64
+            lib.gvamp_gram_scratch_ints.argtypes = [i64]
+            lib.gvamp_gram_scratch_ints.restype = i64
             lib.gvamp_gram_i8a.argtypes = [vp] * 8 + [i64] * 4 + [vp]
             lib.gvamp_gram_i8a.restype = ctypes.c_int
             lib.gvamp_gram_i8.argtypes = [vp] * 8 + [i64] * 4 + [vp]

@@ -1,8 +1,10 @@
 """Packed-genotype products of the PyTorch port: plain versions and the
 wrappers of the hand-written CUDA kernels (``csrc/matvec.cu``,
 ``csrc/fragments.cu`` for the four digit products ``axm_i8a``,
-``atxm_i8a``, ``axm_i8`` and ``atxm_i8``, and ``csrc/gram_aat.cu`` for the
-fused dual Grams ``gram_aat_i8a`` and ``gram_aat_i8``).
+``atxm_i8a``, ``axm_i8`` and ``atxm_i8``, ``csrc/gram_aat.cu`` for the
+fused dual Grams ``gram_aat_i8a`` and ``gram_aat_i8``, and
+``csrc/gram_prim.cu`` for the fused primal Grams ``gram_i8a`` and
+``gram_i8``).
 
 Counterpart of ``gvamp_tpu/ops/matvec.py`` for the linear main path.  The
 word layout is the same (word-major ``[Nw, Mpad]``, 16 samples per word,
@@ -98,12 +100,22 @@ GRAM_AAT_SMEM_BUDGET = 232_448
 GRAM_AAT_MAX_NW = 822
 
 # word rows per band of the fused primal Gram: z is requantised per band, so
-# the band height sets the numbers; shared by the CUDA kernel (kBandNw in
-# csrc/matvec.cu), the plain versions and the JAX parity tests (tnw=).  The
-# JAX package picks 64 at config B (_pick_tnw(Nw, 64)); here a block caches
-# the band's words of its marker range in shared memory, and 32 rows keep
-# that tile within the 227 KB budget at M=131,072 on 132 SMs.
-GRAM_BAND_NW = 32
+# the band height sets the numbers; shared by the CUDA kernel (kT in
+# csrc/gram_prim.cu), the plain versions and the JAX parity tests (tnw=).
+# The JAX package picks 64 at config B (_pick_tnw(Nw, 64)); here a block
+# keeps a ring of GRAM_RING band tiles of its marker range in shared
+# memory, and 16 rows keep three of them within the 227 KB budget at
+# M=131,072 on 132 SMs.
+GRAM_BAND_NW = 16
+# band tiles in the fused primal Gram's shared-memory ring (kRing): the
+# band being transposed, the next one, whose forward side has run, and the
+# one being loaded
+GRAM_RING = 3
+# marker quads one block of the fused primal Gram takes at most: one
+# 64-marker group per warp of its transpose side, whose running sums stay
+# in registers (kMaxRowWords / 4 in csrc/gram_prim.cu); Mpad up to 135,168
+# on 132 SMs
+GRAM_MAX_QUADS = 256
 # one persistent block per SM: the SM count of the card the words lie on,
 # and an H100's for words on the CPU (the routing test of fn_gram)
 GRAM_BLOCKS_H100 = 132
@@ -773,21 +785,28 @@ def gram_blocks(device: torch.device) -> int:
 
 
 def gram_smem_bytes(mpad: int, nblocks: int) -> int:
-    """Shared memory of one fused-primal-Gram block (csrc/matvec.cu
-    prim_smem_bytes): the band tile GRAM_BAND_NW x (its marker quads x 4)
-    words, the band's digits, the warps' max."""
+    """Shared memory of one fused-primal-Gram block (csrc/gram_prim.cu
+    prim_smem_bytes): the ring of GRAM_RING band tiles, GRAM_BAND_NW rows
+    of the block's 4 rq words each at a pitch of 4 rq + 24 words rounded
+    up to 32 (each row shifted by up to 24 words), the forward digit tile
+    (2 x 8 rows of 4 rq bytes rounded up to 128, plus 16), then 10,976
+    bytes of barriers, the forward tile, the band's digits and the
+    scales."""
     rq = -(-(mpad // 4) // nblocks)
-    return 4 * (GRAM_BAND_NW * 4 * rq + 4 * 4 * GRAM_BAND_NW + 16 + 4)
+    pitch = -(-(4 * rq + 24) // 32) * 32
+    dig_pitch = -(-(4 * rq) // 128) * 128 + 16
+    return (10_976 + 4 * GRAM_RING * GRAM_BAND_NW * pitch
+            + 2 * 8 * dig_pitch)
 
 
 def gram_fits(words: torch.Tensor) -> bool:
     """Whether the fused primal Gram takes these words: whole bands, whole
-    marker quads, and each block's band tile within GRAM_AAT_SMEM_BUDGET
-    (Mpad up to 237,072 on 132 SMs)."""
+    marker quads and at most GRAM_MAX_QUADS quads per block (Mpad up to
+    135,168 on 132 SMs; the block's shared memory then fits
+    GRAM_AAT_SMEM_BUDGET)."""
     nw, m = words.shape
     return (nw % GRAM_BAND_NW == 0 and m % 4 == 0
-            and gram_smem_bytes(m, gram_blocks(words.device))
-            <= GRAM_AAT_SMEM_BUDGET)
+            and -(-(m // 4) // gram_blocks(words.device)) <= GRAM_MAX_QUADS)
 
 
 # --------------------------------------------------------------------------
@@ -1183,32 +1202,88 @@ def gram_aat_i8(words: torch.Tensor, V: torch.Tensor, mave: torch.Tensor,
     return finish()
 
 
-def _gram_launch_checks(name: str, words, W, na, *vecs):
-    """Checks of the fused primal Grams' CUDA path; returns the library."""
+def gram_launch(name: str, words, W, na_planar, other):
+    """The checks and operands of one fused-primal-Gram launch of at most
+    one column chunk (64 columns for ``gram_i8a``, 32 for ``gram_i8``):
+    (kernel, arguments, finish).  ``other`` is colsum_u [B] for
+    ``gram_i8a`` and U [Mpad, B] for ``gram_i8``.  The kernel takes the
+    digits of W (and of -U, under W's shared scale) int8[4B, Mpad] with row
+    4b + d (the digit rows of _quant_rows / _quant_digits_pair reordered so
+    that a column's digits lie together), their scales f32[4, B], the mask
+    f32[4, Nb, B], a zeroed int32 scratch of counters and partial slots
+    (zero again after a launch), and adds into av (and bv) f32[B, Mpad],
+    zeroed here; ``gram_i8a`` also writes z f32[4, Nb, B].  ``finish()``
+    turns them, after the launch, into the wrapper's result (sv = colsum(z)
+    with the plain version's torch.sum).  The bare launch of
+    tools/profile_kernels.py uses it too."""
     _check_cuda(name, words, W, torch.float32)
     nw, m = words.shape
     if W.ndim != 2 or W.shape[0] != m:
         raise ValueError(f"{name}: W must be [{m}, B], got {list(W.shape)}")
-    if tuple(na.shape[:2]) != (4, 4 * nw) or na.ndim not in (2, 3) or (
-            na.ndim == 3 and na.shape[2] != W.shape[1]):
+    B = W.shape[1]
+    bmax = _BMAX_AXM_A if name == "gram_i8a" else _BMAX_AXM
+    if B > bmax:
+        raise ValueError(f"{name}: B={B} above the {bmax}-column chunk")
+    if name == "gram_i8" and other.shape != W.shape:
+        raise ValueError(f"gram_i8: W and U must have one shape, got "
+                         f"{list(W.shape)} and {list(other.shape)}")
+    if tuple(na_planar.shape[:2]) != (4, 4 * nw) or \
+            na_planar.ndim not in (2, 3) or (
+            na_planar.ndim == 3 and na_planar.shape[2] != B):
         raise ValueError(f"{name}: the mask must be [4, {4 * nw}] or "
-                         f"[4, {4 * nw}, B], got {list(na.shape)}")
-    for x in (na, *vecs):
+                         f"[4, {4 * nw}, B], got {list(na_planar.shape)}")
+    for x in (na_planar, other):
         _check_cuda(name, words, x, torch.float32)
     _check_bands(name, nw)
     nblocks = gram_blocks(words.device)
     if not gram_fits(words):
-        raise ValueError(f"{name}: {gram_smem_bytes(m, nblocks)} bytes of "
-                         f"band tile exceed GRAM_AAT_SMEM_BUDGET")
+        raise ValueError(f"{name}: Mpad={m} gives more than GRAM_MAX_QUADS="
+                         f"{GRAM_MAX_QUADS} marker quads to each of "
+                         f"{nblocks} blocks")
     _check_bound(name, 2 * m)
     _check_bound(name, 16 * GRAM_BAND_NW)
     from gvamp_tpu_torch.ops import _build
     lib = _build.library()
     if lib.gvamp_gram_band_nw() != GRAM_BAND_NW or \
             lib.gvamp_gram_smem(m, nblocks) != gram_smem_bytes(m, nblocks):
-        raise RuntimeError(f"{name}: csrc/matvec.cu and ops/matvec.py "
+        raise RuntimeError(f"{name}: csrc/gram_prim.cu and ops/matvec.py "
                            f"disagree on the band or its shared memory")
-    return lib, nblocks
+    dev = words.device
+
+    def rows(d8):
+        return d8.reshape(_NDIG, B, m).transpose(0, 1).reshape(
+            _NDIG * B, m).contiguous()
+
+    na = _mask_cols(na_planar, B)
+    scratch = torch.zeros(lib.gvamp_gram_scratch_ints(B), dtype=torch.int32,
+                          device=dev)
+    av = torch.zeros((B, m), dtype=torch.float32, device=dev)
+    if name == "gram_i8a":
+        w8t, ws = _quant_rows(W)
+        wd = rows(w8t)
+        wsc = _digit_scales(ws).contiguous()
+        cu = other.to(torch.float32).contiguous()
+        z = torch.empty((4, 4 * nw, B), dtype=torch.float32, device=dev)
+        args = (words.data_ptr(), wd.data_ptr(), wsc.data_ptr(),
+                cu.data_ptr(), na.data_ptr(), scratch.data_ptr(),
+                z.data_ptr(), av.data_ptr(), nw, m, B, nblocks)
+
+        # finish holds the operands, so that they live as long as a launch
+        # with ``args`` may read them
+        def finish(_operands=(wd, wsc, cu, na, scratch)):
+            return av.T, z.sum(dim=(0, 1))
+    else:
+        w8t, mu8t, ws = _quant_digits_pair(W, other)
+        wd, ud = rows(w8t), rows(mu8t)
+        wsc = _digit_scales(ws).contiguous()
+        bv = torch.zeros_like(av)
+        args = (words.data_ptr(), wd.data_ptr(), ud.data_ptr(),
+                wsc.data_ptr(), na.data_ptr(), scratch.data_ptr(),
+                av.data_ptr(), bv.data_ptr(), nw, m, B, nblocks)
+
+        def finish(_operands=(wd, ud, wsc, na, scratch)):
+            return av.T, bv.T
+    return getattr(lib, f"gvamp_{name}"), args, finish
 
 
 def gram_i8a(words: torch.Tensor, W: torch.Tensor, na_planar: torch.Tensor,
@@ -1225,22 +1300,9 @@ def gram_i8a(words: torch.Tensor, W: torch.Tensor, na_planar: torch.Tensor,
                             na_planar, colsum_u)
     if words.device.type == "cpu":
         return gram_i8a_ref(words, W, na_planar, colsum_u)
-    lib, nblocks = _gram_launch_checks("gram_i8a", words, W, na_planar,
-                                       colsum_u)
-    nw, m = words.shape
-    w8t, ws = _quant_rows(W)
-    wsc = _digit_scales(ws).contiguous()
-    na = _mask_cols(na_planar, B)
-    cu = colsum_u.to(torch.float32).contiguous()
-    dev = words.device
-    zacc = torch.zeros((3, _NDIG * B, 4, 4 * GRAM_BAND_NW), dtype=torch.int32,
-                       device=dev)
-    z = torch.empty((4, 4 * nw, B), dtype=torch.float32, device=dev)
-    av = torch.zeros((B, m), dtype=torch.float32, device=dev)
-    _launch("gram_i8a", lib.gvamp_gram_i8a, dev, words.data_ptr(),
-            w8t.data_ptr(), wsc.data_ptr(), cu.data_ptr(), na.data_ptr(),
-            zacc.data_ptr(), z.data_ptr(), av.data_ptr(), nw, m, B, nblocks)
-    return av.T, z.sum(dim=(0, 1))
+    fn, args, finish = gram_launch("gram_i8a", words, W, na_planar, colsum_u)
+    _launch("gram_i8a", fn, words.device, *args)
+    return finish()
 
 
 def gram_i8(words: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
@@ -1255,20 +1317,6 @@ def gram_i8(words: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
                             _BMAX_AXM, W, na_planar, U)
     if words.device.type == "cpu":
         return gram_i8_ref(words, W, U, na_planar)
-    if U.shape != W.shape:
-        raise ValueError(f"gram_i8: W and U must have one shape, got "
-                         f"{list(W.shape)} and {list(U.shape)}")
-    lib, nblocks = _gram_launch_checks("gram_i8", words, W, na_planar, U)
-    nw, m = words.shape
-    w8t, mu8t, ws = _quant_digits_pair(W, U)
-    wsc = _digit_scales(ws).contiguous()
-    na = _mask_cols(na_planar, B)
-    dev = words.device
-    zacc = torch.zeros((3, _NDIG * B, 4, 4 * GRAM_BAND_NW), dtype=torch.int32,
-                       device=dev)
-    av = torch.zeros((B, m), dtype=torch.float32, device=dev)
-    bv = torch.zeros_like(av)
-    _launch("gram_i8", lib.gvamp_gram_i8, dev, words.data_ptr(),
-            w8t.data_ptr(), mu8t.data_ptr(), wsc.data_ptr(), na.data_ptr(),
-            zacc.data_ptr(), av.data_ptr(), bv.data_ptr(), nw, m, B, nblocks)
-    return av.T, bv.T
+    fn, args, finish = gram_launch("gram_i8", words, W, na_planar, U)
+    _launch("gram_i8", fn, words.device, *args)
+    return finish()

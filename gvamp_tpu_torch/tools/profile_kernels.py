@@ -11,18 +11,23 @@ time: ``axm_i8``, ``axm_i8a``, ``atxm_i8`` and ``atxm_i8a`` at each width
 of ``WIDTHS`` and, where the words take them (NW up to
 ``matvec.GRAM_AAT_MAX_NW``, M whole 64-marker stripes: config X's shape
 is ``320 524288``), the fused dual Grams ``gram_aat_i8`` and
-``gram_aat_i8a`` there too, then ``ax``, ``atx`` and ``atx_a`` at B = 1.
-On the card each of these products is also timed as its bare launch: its
+``gram_aat_i8a`` there too, and where the words take those
+(``matvec.gram_fits``: NW whole 16-row bands, M up to 135,168 on 132 SMs;
+config B's shape is ``20480 131072``), the fused primal Grams ``gram_i8``
+and ``gram_i8a``, then ``ax``, ``atx`` and ``atx_a`` at B = 1.  On the
+card each of these products is also timed as its bare launch: its
 operands made once, outside the timed region, as the wrapper makes them
 (the digits quantised, the int32 outputs zeroed; for the dual Grams V's
-digits and scales, colsum(V) and the partial buffer); the first launch is
-finished as the wrapper finishes it (the fold; for the dual Grams the sum
-over the stripe groups and colsum(mave W)) and must equal the wrapper's
-result bit for bit (exit 1 if not).  The difference is the wrapper's own
-share.  The JAX tool's tile sweep (``tools/profile_kernels.py:81-93``)
-has no counterpart: the port's kernels take no tile arguments
-(``csrc/matvec.cu``, ``fragments.cu`` and ``gram_aat.cu`` fix their
-grids).
+digits and scales, colsum(V) and the partial buffer; for the primal ones
+W's (and -U's) digit rows and scales, the mask, the scratch and the
+zeroed outputs); the first launch is finished as the wrapper finishes it
+(the fold; for the dual Grams the sum over the stripe groups and
+colsum(mave W); for the primal ones colsum(z)) and must equal the
+wrapper's result bit for bit (exit 1 if not).  The difference is the
+wrapper's own share.  The JAX tool's tile sweep
+(``tools/profile_kernels.py:81-93``) has no counterpart: the port's
+kernels take no tile arguments (``csrc/matvec.cu``, ``fragments.cu``,
+``gram_aat.cu`` and ``gram_prim.cu`` fix their grids).
 """
 
 from __future__ import annotations
@@ -33,24 +38,31 @@ import sys
 import numpy as np
 import torch
 
-# the digit products of csrc/fragments.cu and the fused dual Grams of
-# csrc/gram_aat.cu, whose bare launch is timed
+# the digit products of csrc/fragments.cu, the fused dual Grams of
+# csrc/gram_aat.cu and the fused primal Grams of csrc/gram_prim.cu, whose
+# bare launch is timed
 DIGIT_PRODUCTS = ("axm_i8", "axm_i8a", "atxm_i8", "atxm_i8a")
 DUAL_GRAMS = ("gram_aat_i8", "gram_aat_i8a")
+PRIMAL_GRAMS = ("gram_i8", "gram_i8a")
 # their widths: the JAX tool's (tools/profile_kernels.py:68), then LOCO's
 # over 22 chromosomes (ops/pvals.py), the widest call of the engines
 WIDTHS = (1, 2, 4, 22)
 
 
-def bare_launch(name: str, words, W, U, V, mave=None, msig2=None):
-    """(launch, fold) for the digit product or dual Gram ``name`` on the
-    operands its wrapper would make from (W, U) or V (and mave, msig2):
-    ``launch()`` launches the kernel alone on operands made here;
-    ``fold()`` turns the outputs, after one launch, into the wrapper's
-    result."""
+def bare_launch(name: str, words, W, U, V, mave=None, msig2=None, na=None,
+                cu=None):
+    """(launch, fold) for the digit product or fused Gram ``name`` on the
+    operands its wrapper would make from (W, U) or V (and mave, msig2; for
+    the primal Grams the mask na and colsum_u cu): ``launch()`` launches
+    the kernel alone on operands made here; ``fold()`` turns the outputs,
+    after one launch, into the wrapper's result."""
     from gvamp_tpu_torch.ops import _build, matvec
     if name in DUAL_GRAMS:
         fn, args, finish = matvec.gram_aat_launch(name, words, V, mave, msig2)
+        return (lambda: matvec._launch(name, fn, words.device, *args)), finish
+    if name in PRIMAL_GRAMS:
+        fn, args, finish = matvec.gram_launch(
+            name, words, W, na, U if name == "gram_i8" else cu)
         return (lambda: matvec._launch(name, fn, words.device, *args)), finish
     nw, m = words.shape
     both = name in ("axm_i8", "atxm_i8")
@@ -113,6 +125,14 @@ def profile(device, nw: int, m: int, reps: int) -> int:
               f"whole {matvec.GRAM_AAT_STRIPE}-marker stripes (config X: "
               f"320 524288)", flush=True)
         mave = msig2 = None
+    if matvec.gram_fits(words):
+        names += PRIMAL_GRAMS
+    else:
+        print(f"{' and '.join(PRIMAL_GRAMS)}: not timed, NW={nw} is not "
+              f"whole {matvec.GRAM_BAND_NW}-row bands or M={m} gives a block "
+              f"more than GRAM_MAX_QUADS={matvec.GRAM_MAX_QUADS} quads "
+              f"(config B: 20480 131072)", flush=True)
+    na = t(rng.random((4, 4 * nw)) > 0.1)
 
     def rec(name, fn):
         ms = time_ms(fn, reps)
@@ -124,6 +144,7 @@ def profile(device, nw: int, m: int, reps: int) -> int:
         W = t(rng.standard_normal((m, B)))
         U = W * 0.01
         V = t(rng.standard_normal((4, 4 * nw, B)))
+        cu = t(rng.standard_normal(B))
         wrappers = {"axm_i8": lambda: matvec.axm_i8(words, W, U),
                     "axm_i8a": lambda: matvec.axm_i8a(words, W),
                     "atxm_i8": lambda: matvec.atxm_i8(words, V),
@@ -131,13 +152,16 @@ def profile(device, nw: int, m: int, reps: int) -> int:
                     "gram_aat_i8": lambda: matvec.gram_aat_i8(
                         words, V, mave, msig2),
                     "gram_aat_i8a": lambda: matvec.gram_aat_i8a(
-                        words, V, mave, msig2)}
+                        words, V, mave, msig2),
+                    "gram_i8": lambda: matvec.gram_i8(words, W, U, na),
+                    "gram_i8a": lambda: matvec.gram_i8a(words, W, na, cu)}
         for name in names:
             label = f"{name} B={B}" + (" (a-only)" * name.endswith("a"))
             ms = rec(label, wrappers[name])
             if device.type != "cuda":
                 continue
-            launch, fold = bare_launch(name, words, W, U, V, mave, msig2)
+            launch, fold = bare_launch(name, words, W, U, V, mave, msig2,
+                                       na, cu)
             launch()
             got, want = fold(), wrappers[name]()
             if isinstance(got, torch.Tensor):

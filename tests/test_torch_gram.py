@@ -28,7 +28,7 @@ CASES = [(32, 256, 1, False), (64, 512, 3, True), (32, 512, 70, False),
 # FMA contraction against the port's separate roundings): measured up to
 # 1.8e-7 of the largest entry at these cases
 PALLAS_TOL = 1e-6
-# against the two-pass composition: z is requantised per 32-row band here
+# against the two-pass composition: z is requantised per 16-row band here
 # and per column there, each ~127^-4 fine (tests/test_data_layer.py:357-377)
 TWO_PASS_TOL = 5e-6
 
@@ -100,16 +100,21 @@ def test_gram_refs_match_two_pass(nw, m, B, per_col):
 
 
 def test_band_height_and_budget():
-    """The band is one named constant (Nw must hold whole bands); the band
-    tile of a block must fit the shared-memory budget, which on 132 SMs
-    admits Mpad up to 237,072 (config B's 131,072 fits)."""
-    assert tmv.GRAM_BAND_NW == 32
-    words = torch.zeros((48, 512), dtype=torch.int32)
+    """The band is one named constant (Nw must hold whole bands); a block
+    takes at most GRAM_MAX_QUADS marker quads, whose ring of GRAM_RING band
+    tiles fits the shared-memory budget: Mpad up to 135,168 on 132 SMs
+    (config B's 131,072 fits, in 224,224 bytes)."""
+    assert tmv.GRAM_BAND_NW == 16 and tmv.GRAM_RING == 3
+    words = torch.zeros((40, 512), dtype=torch.int32)
     with pytest.raises(ValueError, match="band"):
         tmv.gram_i8a_ref(words, torch.ones((512, 1)),
-                         torch.ones((4, 192)), torch.zeros(1))
-    fits = lambda m: tmv.gram_smem_bytes(m, 132) <= tmv.GRAM_AAT_SMEM_BUDGET
-    assert fits(131_072) and fits(237_072) and not fits(237_076)
+                         torch.ones((4, 160)), torch.zeros(1))
+    def fits(m):
+        return tmv.gram_fits(torch.empty((32, m), dtype=torch.int32,
+                                         device="meta"))
+    assert fits(131_072) and fits(135_168) and not fits(135_172)
+    assert tmv.gram_smem_bytes(131_072, 132) == 224_224
+    assert tmv.gram_smem_bytes(135_168, 132) <= tmv.GRAM_AAT_SMEM_BUDGET
     meta = torch.empty((32, 240_000), dtype=torch.int32, device="meta")
     assert not tmv.gram_fits(meta)
     assert tmv.gram_fits(torch.empty((32, 131_072), dtype=torch.int32,
@@ -161,7 +166,7 @@ def test_fn_gram_matches_jax(miss, monkeypatch):
 
 def test_fn_gram_routing(monkeypatch):
     """fn_gram is off by default and under GVAMP_NO_FUSED_GRAM=1, None in
-    float64 and above the band tile's budget; else gram_i8a on complete
+    float64 and above the band tiles' budget; else gram_i8a on complete
     genotypes and gram_i8 on genotypes with missing calls (the routing of
     tests/test_round4.py:60-70)."""
     rng = np.random.default_rng(5)
@@ -188,7 +193,7 @@ def test_fn_gram_routing(monkeypatch):
     tm = TGenoBed.from_arrays(make_bed(codes_m), y_m, N=64, device="cpu")
     tm.fn_gram()(tm.op, X)
     assert calls == ["gram_i8a", "gram_i8"]
-    for m, fits in ((237_056, True), (237_568, False)):
+    for m, fits in ((134_656, True), (135_680, False)):
         words = torch.full((32, m), 0x55555555, dtype=torch.int32)
         g = TGenoBed.from_device_words(words, np.zeros(512), N=512,
                                        standardize_phen=False,

@@ -298,24 +298,25 @@ def test_kernel_check_and_bench_gram_pass_on_cpu(capsys):
 
 def test_profile_prints_one_row_per_kernel(capsys):
     """One row per kernel and width: the four digit products and, where the
-    words take them, the dual Grams; above GRAM_AAT_MAX_NW word rows the
-    dual Grams are named as not timed."""
+    words take them, the dual and the primal fused Grams; above
+    GRAM_AAT_MAX_NW word rows the dual Grams, and at word rows that are
+    not whole bands the primal ones, are named as not timed."""
     from gvamp_tpu_torch.tools import profile_kernels
     widths = [f"B={B}" for B in profile_kernels.WIDTHS]
-    for nw, dual in ((32, True), (823, False)):
+    for nw, fused in ((32, True), (823, False)):
         assert profile_kernels.main(["--device", "cpu", str(nw), "64" if
                                      nw > 32 else "4096", "1"]) == 0
         lines = capsys.readouterr().out.splitlines()
         rows = [ln for ln in lines if ln.rstrip().endswith("GB/s")]
         names = [ln.split()[0] for ln in rows]
         timed = profile_kernels.DIGIT_PRODUCTS + (
-            profile_kernels.DUAL_GRAMS * dual)
+            profile_kernels.DUAL_GRAMS + profile_kernels.PRIMAL_GRAMS) * fused
         assert len(rows) == len(timed) * len(widths) + 3
         for name in timed:
             assert [r.split()[1] for r in rows if r.split()[0] == name] \
                 == widths
         assert {"ax", "atx", "atx_a"} <= set(names)
-        assert any("not timed" in ln for ln in lines) is not dual
+        assert sum("not timed" in ln for ln in lines) == 2 * (not fused)
 
 
 def test_bench_gram_times_on_cpu(capsys):
