@@ -16,17 +16,19 @@ Phases, each of which raises on failure (exit code != 0):
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    with CUDA-event times of both: (a) all twenty-five at small shapes (the
    fused primal Grams with both mask forms and B above their column
-   chunks; the bf16-split products and atx_a also on Gaussian inputs
-   against float64 within kernel_check.TOL; the study kernels of
+   chunks; the bf16-split products and atx_a (csrc/matvec.cu's pair
+   table) also on Gaussian inputs against float64 within
+   kernel_check.TOL; the study kernels of
    ops/study.py also at Nw=300 and Mpad not a multiple of 512, the row
    sums stream_sum and stream at every threads x bytes-per-load
    configuration of bench_stream's sweep, v1_decode_a, v2_decode_ab and
    v3_bitcast on words of one code against their exact sums, v5_dot1,
    v6_fused_ab, v7_i8decode (both keys) and v8_atxm_vt at B = 1, 2 and 5
    and each shape's B, v7 also against axm_i8a on the words its byte rows
-   were expanded from; the four digit products of fragments.cu, axm_i8a,
-   atxm_i8a, axm_i8 and atxm_i8, also at the edges of their grids,
-   FRAGMENT_SHAPES: Nw = 7 and 300, Mpad = 8 and 1,000, B up to 22; the
+   were expanded from; the five digit products of fragments.cu, axm_i8a,
+   atxm_i8a, axm_i8, atxm_i8 and axm_i8s, also at the edges of their
+   grids, FRAGMENT_SHAPES: Nw = 7 and 300, Mpad = 8 and 1,000, B up to
+   22; the
    fused dual Grams of gram_aat.cu at theirs, GRAM_AAT_SHAPES: Nw = 7, 300
    and 822 (the route's edge), Mpad of one stripe and with a short last
    group of stripes, B up to 5; the fused primal Grams of gram_prim.cu at
@@ -39,7 +41,8 @@ Phases, each of which raises on failure (exit code != 0):
    and axm_i8a and atxm_i8a at B = 22 (LOCO's width on complete
    genotypes, 11 digit groups),
    (c) the general kernels, axm_i8s and the bf16-split products on the
-   whole config-Bm matrix at B = 1 and 2, and axm_i8 at B = 22;
+   whole config-Bm matrix at B = 1 and 2, and axm_i8 and axm_i8s at
+   B = 22;
    (d) the fused dual Grams on the whole config-X matrix (gram_aat_i8a)
    and config-Xm matrix (gram_aat_i8) at B = 1, 2 and 5, timed beside
    their two-pass composition, and ax there (dyadic inputs bit for bit,
@@ -54,7 +57,7 @@ Phases, each of which raises on failure (exit code != 0):
    3e, and v8_atxm_vt) on the whole config-B matrix and v6_fused_ab (B =
    2) on the whole config-Bm matrix, timed beside their plain versions
    and, for the first three, the one PyTorch call that computes the same
-   sum (torch.sum);
+   sum (torch.sum, in turns with the kernel over five rounds);
 4. the linear VAMP main path at config B of bench.py (N=327,680 x
    M=131,072, complete genotypes, 10.74 GB of packed words on the card):
    load, phenotype simulation and 10 iterations of linear.infer, with the
@@ -92,8 +95,9 @@ Phases, each of which raises on failure (exit code != 0):
    v6_fused_ab strays from axm_i8) and the round-2 candidates
    (bench_round2: v8_atxm_vt against atxm_i8a and v7_i8decode against
    axm_i8a, bit for bit at the timed shape).  No engine path launches
-   axm_bf16, atxm_bf16, axm_i8s, atx_a or the eleven study kernels; their
-   launches in the kernels line are those of this phase.
+   axm_bf16, atxm_bf16, axm_i8s, atx_a or the eleven study kernels
+   (phases 4-6 fail if one does); their launches in the kernels line are
+   those of this phase.
 
 The last two lines of standard output are one JSON object with the
 kernels' numbers (each with its bound on the card) and one with the
@@ -164,13 +168,15 @@ PRODUCT_KERNELS = tuple(n for n in KERNELS if n not in STUDY)
 # each kernel's entries in the ptxas report: a pattern that the mangled
 # names of every instantiation match (default "<name>_kernel"); the
 # fragment products, the dual Grams (gram_aat.cu) and the primal ones
-# (gram_prim.cu) one instantiation of their template each, by the plane
-# count <kBoth> / <kGeneral>; the row sums one per bytes per load, named
-# by <V, Decode, lanes>
-PTXAS_ENTRY = {"axm_i8a": "axm_i8_kernelILb0E",
+# (gram_prim.cu) one instantiation of their template each, by the forward
+# loop's form <kForm> (0 one plane, 1 two planes, 2 two planes in one sum)
+# or the plane count <kBoth> / <kGeneral>; the row sums one per bytes per
+# load, named by <V, Decode, lanes>
+PTXAS_ENTRY = {"axm_i8a": "axm_i8_kernelILi0E",
                "atxm_i8a": "atxm_i8_kernelILb0E",
-               "axm_i8": "axm_i8_kernelILb1E",
+               "axm_i8": "axm_i8_kernelILi1E",
                "atxm_i8": "atxm_i8_kernelILb1E",
+               "axm_i8s": "axm_i8_kernelILi2E",
                "gram_aat_i8a": "gram_aat_kernelILb0E",
                "gram_aat_i8": "gram_aat_kernelILb1E",
                "gram_i8a": "gram_prim_kernelILb0E",
@@ -196,9 +202,10 @@ GRAM_AAT_SOURCE = "gvamp_tpu_torch/csrc/gram_aat.cu"
 GRAM_PRIM_KERNELS = ("gram_i8a", "gram_i8")
 GRAM_PRIM_SOURCE = "gvamp_tpu_torch/csrc/gram_prim.cu"
 # the products whose mma fragments come straight from the decode: one
-# template per product (csrc/fragments.cu), instantiated for one plane
-# (complete genotypes) and for two (missing calls)
-FRAGMENT_KERNELS = ("axm_i8a", "atxm_i8a", "axm_i8", "atxm_i8")
+# template per direction (csrc/fragments.cu), instantiated for one plane
+# (complete genotypes), for two (missing calls) and, forward, for two
+# planes in one sum (axm_i8s)
+FRAGMENT_KERNELS = ("axm_i8a", "atxm_i8a", "axm_i8", "atxm_i8", "axm_i8s")
 FRAGMENT_SOURCE = "gvamp_tpu_torch/csrc/fragments.cu"
 SHAPES = [(32, 512, 1), (64, 1024, 2), (96, 1536, 5), (32, 2048, 17),
           (64, 512, 70)]
@@ -637,13 +644,20 @@ def check_study_codes() -> None:
         f"exact at Nw={nw} Mpad={m}")
 
 
+# rounds of a row sum and the torch.sum that computes the same sums, timed
+# in turns (phase 3s)
+SUM_ROUNDS = 5
+
+
 def phase_study_config_b(words, gen) -> dict:
     """The study row sums on the whole config-B matrix at their default
     launch configuration, bit for bit against their plain versions, with
     CUDA-event times of the kernel, the plain version and the PyTorch call
-    that computes the same sums (torch.sum; none for the decoding ones:
-    no PyTorch call reads packed words), then v5_dot1, v7_i8decode (both
-    keys) and v8_atxm_vt at B = 2 (no PyTorch call either).  Returns
+    that computes the same sums (torch.sum, in turns with the kernel over
+    SUM_ROUNDS rounds, each side's median kept, and whether the kernel
+    loses or wins by more than the rounds' spread; none for the decoding
+    ones: no PyTorch call reads packed words), then v5_dot1, v7_i8decode
+    (both keys) and v8_atxm_vt at B = 2 (no PyTorch call either).  Returns
     {name: (max_abs_err, ms, plain_ms, library_ms)}."""
     log("== phase 3s: study kernels vs plain versions, config-B words")
     from gvamp_tpu_torch.ops import study
@@ -670,8 +684,19 @@ def phase_study_config_b(words, gen) -> dict:
     out = {}
     for name, (fn, ref, lib) in cases.items():
         err = compare(name, f"config B full {nw}x{m}", (fn(),), (ref(),))
-        ms, plain = cuda_ms(fn, 5), cuda_ms(ref, 3)
-        lib_ms = cuda_ms(lib, 5) if lib else None
+        plain = cuda_ms(ref, 3)
+        if lib:
+            # kernel and torch.sum in turns, SUM_ROUNDS rounds; the medians
+            k_ms, l_ms = zip(*[(cuda_ms(fn, 5), cuda_ms(lib, 5))
+                               for _ in range(SUM_ROUNDS)])
+            ms, lib_ms = float(np.median(k_ms)), float(np.median(l_ms))
+            log(f"  {name} in turns with torch.sum: kernel "
+                f"{' '.join(f'{t:.3f}' for t in k_ms)} ms, torch.sum "
+                f"{' '.join(f'{t:.3f}' for t in l_ms)} ms: "
+                + ("loses" if min(k_ms) > max(l_ms) else "wins"
+                   if max(k_ms) < min(l_ms) else "within the spread"))
+        else:
+            ms, lib_ms = cuda_ms(fn, 5), None
         out[name] = (err, ms, plain, lib_ms)
         log(f"  config B full {nw}x{m} {name:12s} equal  max|err|={err:.3e}  "
             f"kernel {ms:8.3f} ms ({4 * nw * m / (ms * 1e6):7.1f} GB/s "
@@ -737,8 +762,9 @@ def phase_kernels_config_b(words, gen):
 def phase_kernels_config_bm(words, gen):
     """The general kernels, axm_i8s and the bf16-split products on the
     whole config-Bm matrix at B = 1 and 2 (the linear path's widths) and
-    axm_i8 at B = 22 (LOCO's forward product over 22 chromosomes, the
-    widest call of the path).  Returns {B: check_kernels result}."""
+    axm_i8 and axm_i8s at B = 22 (LOCO's forward product over 22
+    chromosomes, the widest call of the path; 11 digit groups).  Returns
+    {B: check_kernels result}."""
     log("== phase 3c: general kernels vs plain versions, config-Bm words")
     nw, m = words.shape
     general = ("axm_i8", "atxm_i8", "axm_i8s", "axm_bf16", "atxm_bf16")
@@ -747,7 +773,8 @@ def phase_kernels_config_bm(words, gen):
             for B in (1, 2)}
     full[BM_CHROMS] = check_kernels(words, BM_CHROMS, gen,
                                     f"config Bm full {nw}x{m}",
-                                    names=("axm_i8",), reps=3, plain_reps=1)
+                                    names=("axm_i8", "axm_i8s"), reps=3,
+                                    plain_reps=1)
     torch.cuda.empty_cache()
     return full
 
@@ -845,6 +872,17 @@ def check_launches(label, launches, used, unused=()):
     if any(launches[n] for n in unused):
         raise AssertionError(f"{label}: a kernel of {unused} launched: "
                              f"{launches}")
+    if not set(used) & set(TOOL_KERNELS):
+        check_no_tool_launches(label, launches)
+
+
+def check_no_tool_launches(label, launches):
+    """An engine path launches none of the kernels that only the tools
+    run (TOOL_KERNELS: the bf16-split products, axm_i8s, atx_a and the
+    study kernels)."""
+    if any(launches[n] for n in TOOL_KERNELS):
+        raise AssertionError(f"{label}: a tool-only kernel of "
+                             f"{TOOL_KERNELS} launched: {launches}")
 
 
 def phase_main_path(words):
@@ -1438,6 +1476,7 @@ def phase_card_vs_cpu(miss_rate, use_xxt=False, fused=False):
                     not matvec.LAUNCHES[gram]:
                 raise AssertionError(f"the card's run did not launch "
                                      f"{gram}: {matvec.LAUNCHES}")
+            check_no_tool_launches(f"card vs CPU, {dev}", matvec.LAUNCHES)
             p = None
             if miss_rate and not use_xxt and not fused:
                 p = (pvals.loo_pvals(g, state.z1, state.x1),
@@ -1515,6 +1554,8 @@ def phase_card_vs_cpu_probit(miss_rate, n_cov, fused=False):
             if dev == "cuda" and fused and not matvec.LAUNCHES[gram]:
                 raise AssertionError(f"the card's run did not launch "
                                      f"{gram}: {matvec.LAUNCHES}")
+            check_no_tool_launches(f"card vs CPU probit, {dev}",
+                                   matvec.LAUNCHES)
             out[dev] = x, hist
             log(f"  {dev}: {time.perf_counter() - t0:.2f} s")
     (x_c, h_c), (x_p, h_p) = out["cuda"], out["cpu"]
@@ -1574,7 +1615,7 @@ def phase_cli():
     from gvamp_tpu_torch.io import vecio
     from gvamp_tpu_torch import cli, linear
     from gvamp_tpu_torch.data import GenoBed
-    from gvamp_tpu_torch.ops import pvals
+    from gvamp_tpu_torch.ops import matvec, pvals
     N, M, n_it = 800, 240, 8
     with tempfile.TemporaryDirectory() as tmp:
         bed, phen, bim, beta = flagship_files(tmp, N, M)
@@ -1585,7 +1626,9 @@ def phase_cli():
                 "--probs", "0.95,0.05", "--vars", "0.0,0.0667",
                 "--store-pvals", "1", "--verbosity", "0",
                 "--out-dir", os.path.join(tmp, "out"), "--out-name", "demo"]
+        matvec.reset_launches()
         cli.main(args)
+        check_no_tool_launches("CLI linear", matvec.LAUNCHES)
         pre = os.path.join(tmp, "out", "demo")
         names = [f"{pre}{s}" for it in range(1, n_it + 1)
                  for s in (f"_it_{it}.bin", f"_r1_it_{it}.bin",
@@ -1648,6 +1691,7 @@ def phase_cli_xxt():
                   "0", "--out-dir", os.path.join(tmp, "out"), "--out-name",
                   "dual"])
         launches = dict(matvec.LAUNCHES)
+        check_no_tool_launches("CLI dual", launches)
         pre = os.path.join(tmp, "out", "dual")
         dump = vecio.read_bin_shard(f"{pre}_it_{n_it}.bin", M, 0)
         g = GenoBed.from_files(bed, phen, N=N, Mt=M, device="cuda")
@@ -1696,6 +1740,7 @@ def phase_cli_probit():
                   "0.0,0.0667", "--verbosity", "0", "--out-dir",
                   os.path.join(tmp, "out"), "--out-name", "cc"])
         launches = dict(matvec.LAUNCHES)
+        check_no_tool_launches("CLI bin_class", launches)
         pre = os.path.join(tmp, "out", "cc")
         names = [f"{pre}{s}" for it in range(1, n_it + 1)
                  for s in (f"_probit_it_{it}.bin", f"_probit_r1_it_{it}.bin",

@@ -1,36 +1,41 @@
 // Packed-genotype products of the PyTorch port whose tensor-core fragments
 // come straight from the SWAR decode, written by hand for Hopper (sm_90a):
-// the four digit products, axm_i8 and atxm_i8 on genotypes with missing
-// calls (both planes, a and b) and axm_i8a and atxm_i8a on complete
-// genotypes (the a-plane only).  Bound through the plain C interface of
-// gvamp_tpu_torch/ops/_build.py; the wrappers, their quantisation and fold
-// and the plain PyTorch versions are in gvamp_tpu_torch/ops/matvec.py.
+// the five digit products, axm_i8 and atxm_i8 on genotypes with missing
+// calls (both planes, a and b), axm_i8a and atxm_i8a on complete genotypes
+// (the a-plane only), and axm_i8s, the forward product whose two planes
+// share one digit scale and one int32 sum.  Bound through the plain C
+// interface of gvamp_tpu_torch/ops/_build.py; the wrappers, their
+// quantisation and fold and the plain PyTorch versions are in
+// gvamp_tpu_torch/ops/matvec.py.
 //
-// Layout and contract as in matvec.cu: words uint32[Nw, Mpad] word-major,
-// byte b of word row i holding the codes of planar rows (k, 4i+b); the
-// right-hand sides arrive as radix-127 int8 digit rows and the kernels
-// return exact int32 contractions, |sum| <= 254*K for a contraction of
-// length K (the wrappers keep it below 2^31).  Integer addition is exact
-// in any order, so the results equal the plain versions bit for bit
-// whatever the grid or the order of the atomics.
+// Layout as in matvec.cu: words uint32[Nw, Mpad] word-major, byte b of word row
+// i holding the codes of planar rows (k, 4i+b).  The digit contract
+// (gvamp_tpu/ops/matvec.py:441-512): the right-hand sides arrive as radix-127
+// int8 digit rows, quantised and later folded back to f32 by the wrapper, and
+// the kernels return exact int32 contractions, |sum| <= 254*K for a contraction
+// of length K (381*K for the shared sum; the wrappers keep it below 2^31).
+// Integer addition is exact in any order, so the results equal the plain
+// versions bit for bit whatever the grid or the order of the atomics.
 //
-// Each product is one loop with a compile-time plane count (kBoth): the
-// one-plane form is the two-plane one without the b-fields, their
-// accumulators, digit loads, mma and atomics, so the two contracts share
-// every lane map and cannot drift apart.  The kernels read every packed
-// word once per group of 8 digit rows (the mma's n), for both planes
-// together where there are two: once at B <= 2 (D <= 8 digit rows),
+// Each direction is one loop with a compile-time form: the transpose loop has a
+// plane count (kBoth), the forward loop a form (kOnePlane, kTwoPlanes,
+// kShared).  The one-plane form is the two-plane one without the b-fields,
+// their accumulators, digit loads, mma and atomics; the shared form is the
+// two-plane one with the b-plane's mma added into the a-plane's accumulators.
+// So the contracts share every lane map and cannot drift apart.  The kernels
+// read every packed word once per group of 8 digit rows (the mma's n), for both
+// planes together where there are two: once at B <= 2 (D <= 8 digit rows),
 // ceil(D/8) times in all.  A word's a-fields (and b-fields, swar.cuh) give,
-// plane by plane, registers of four values that are the A fragments of
-// mma.sync m16n8k32 (mma.cuh) as they stand; there is no shared memory and
-// no barrier.  Each plane goes to the top two bits of its bytes (plane64:
-// 64 times its value, u8 x s8 products), which costs the integer pipe a
-// mask and leaves the shift to the multiply-add pipe; the sums are then 64
-// times the true ones, exact in int32 while a part of the contraction stays
-// under kTxMaxSteps / kFwMaxSteps steps, and each part is shifted back
-// before it is added to the output.  Each lane loads 16-byte pieces of its
-// rows so that a row is read in 128-byte segments per step, the width at
-// which the register-direct study kernels (study.cu) ran near the read.
+// plane by plane, registers of four values that are the A fragments of mma.sync
+// m16n8k32 (mma.cuh) as they stand; there is no shared memory and no barrier.
+// Each plane goes to the top two bits of its bytes (plane64: 64 times its
+// value, u8 x s8 products), which costs the integer pipe a mask and leaves the
+// shift to the multiply-add pipe; the sums are then 64 times the true ones,
+// exact in int32 while a part of the contraction stays under kTxMaxSteps /
+// kFwMaxSteps / kFwSharedMaxSteps steps, and each part is shifted back before
+// it is added to the output.  Each lane loads 16-byte pieces of its rows so
+// that a row is read in 128-byte segments per step, the width at which the
+// register-direct study kernels (study.cu) ran near the read.
 // Digit groups of 8 rows spread over gridDim.z, the walk along the
 // contraction over gridDim.y; parts meet in atomicAdd on the zeroed output.
 // Rows past the end and digit rows past D re-read the last valid one and
@@ -238,15 +243,21 @@ atxm_i8_kernel(const uint32_t* __restrict__ words,  // [Nw, Mpad]
 // axm_i8: (za, zb)[d][k][p] = sum_m (a_k[m, p] * wdig[d][m],
 //                                   b_k[m, p] * udig[d][m])
 // axm_i8a: za[d][k][p] = sum_m a_k[m, p] * wdig[d][m]
+// axm_i8s: zt[d][k][p] = sum_m a_k[m, p] * wdig[d][m]
+//                              + b_k[m, p] * mudig[d][m]
 //
 // Replace axm_i8_pallas / _axm_i8_kernel (gvamp_tpu/ops/matvec.py:514-536,
 // 539), the forward product on genotypes with missing calls, and
-// axm_i8a_pallas / _axm_i8a_kernel and _axm_i8a_wide_kernel (:755-841,
-// 797; the TPU's orientation switch at D > 64 has no counterpart here),
-// its a-plane form on complete genotypes: words int32[Nw, Mpad], the
-// digits of W (and of U) int8[D, Mpad] each under its own scales
-// (matvec._quant_rows), so the a-plane and b-plane products stay apart:
-// int32[D, 4, 4*Nw] out per plane, |sum| <= 254*Mpad.
+// axm_i8a_pallas / _axm_i8a_kernel and _axm_i8a_wide_kernel (:755-841, 797;
+// the TPU's orientation switch at D > 64 has no counterpart here), its
+// a-plane form on complete genotypes: words int32[Nw, Mpad], the digits of W
+// (and of U) int8[D, Mpad] each under its own scales (matvec._quant_rows),
+// so the a-plane and b-plane products stay apart: int32[D, 4, 4*Nw] out per
+// plane, |sum| <= 254*Mpad.  And axm_i8s_pallas / _axm_i8s_kernel (:580-601,
+// 618), the shared-scale form: the digits of W and of -U under ONE scale per
+// column (matvec._quant_digits_pair), both planes' products in one int32[D,
+// 4, 4*Nw] sum that the wrapper folds once, |sum| <= (2*127 + 127)*Mpad =
+// 381*Mpad.
 //
 // Bound on this card: the one read of the words (3.21 ms at configs B and
 // Bm) for D <= 8.  On top of it each word costs two byte permutes (the
@@ -259,50 +270,74 @@ atxm_i8_kernel(const uint32_t* __restrict__ words,  // [Nw, Mpad]
 // words, so one register of four markers of one planar row needs the byte
 // transpose (transpose_quad).  A warp owns 8 word rows x 8 digit rows and
 // walks the markers 32 at a time (the mma's k): lane (g, t) loads 16 bytes
-// at each of markers m+4t and m+16+4t of word row i0+g (64 contiguous
-// bytes of each row per load instruction).  transpose_quad turns each load
-// into y[b], four markers of person 4(i0+g)+b, decoded into a-fields (and
+// at each of markers m+4t and m+16+4t of word row i0+g (64 contiguous bytes
+// of each row per load instruction).  transpose_quad turns each load into
+// y[b], four markers of person 4(i0+g)+b, decoded into a-fields (and
 // b-fields).  A word row holds 16 planar rows (b, k); m tile 2b+h takes row
-// (2h, 4(i0+g)+b) as fragment row g and (2h+1, 4(i0+g)+b) as row g+8, so
-// 8 tiles cover the 8 x 16 planar rows, with contraction index 4t+j =
-// marker m+4t+j and 16+4t+j = marker m+16+4t+j.  B fragments: the u32 of
-// digit row d0+g at markers m+4t and m+16+4t, of W for the a-plane tiles
-// and of U for the b-plane ones.  8 mma per step and plane type, 8 tiles
-// x 4 = 32 int32 per lane and type.  A block holds kFwGroups groups of 8
-// word rows; the kFwSplit warps of a group take its steps in turn (warp s
-// of the group steps j0+s, j0+s+kFwSplit, ...), so that together they read
-// kFwSplit x 128 contiguous bytes of each row at a time and share the
-// digit loads in L1; they meet in atomicAdd on the output.  (One warp per
-// 8 rows, each row read in 128-byte pieces far apart, ran slower on an
-// H100.)  Marker steps split over gridDim.y, in parts of at most
-// kFwMaxSteps, and digit groups of 8 rows over gridDim.z: the grid reads
-// each word once per digit group, ceil(D/8) times.  Whole steps load
-// unmasked; markers past Mpad (a multiple of 4) occur only in the last
-// step, whose masked form loads them as zero words against zero digits.
+// (2h, 4(i0+g)+b) as fragment row g and (2h+1, 4(i0+g)+b) as row g+8, so 8
+// tiles cover the 8 x 16 planar rows, with contraction index 4t+j = marker
+// m+4t+j and 16+4t+j = marker m+16+4t+j.  B fragments: the u32 of digit row
+// d0+g at markers m+4t and m+16+4t, of W for the a-plane tiles and of U (-U
+// in the shared form) for the b-plane ones.  8 mma per step and plane type,
+// 8 tiles x 4 = 32 int32 per lane and sum: the two-plane form keeps a set
+// per plane type, the shared form adds both planes' mma into one set, so it
+// holds half the sums and makes half the atomics.  Its two mma per tile
+// and step depend on each other, a chain the two-plane form does not
+// have; the shared form covers it with more warps: its one set fits 64
+// registers, 4 blocks (32 warps) per SM, it takes one step per loop
+// iteration, and every form issues a step's a-plane mma before its
+// b-plane ones.  (With 80 registers, 3 blocks per SM, two steps per
+// iteration and a tile's two mma back to back, the shared form ran slower
+// than the two-plane one on an H100.)  A block holds kFwGroups
+// groups of 8 word rows; the kFwSplit warps of a group take its steps in
+// turn (warp s of the group steps j0+s, j0+s+kFwSplit, ...), so that
+// together they read kFwSplit x 128 contiguous bytes of each row at a time
+// and share the digit loads in L1; they meet in atomicAdd on the output.
+// (One warp per 8 rows, each row read in 128-byte pieces far apart, ran
+// slower on an H100.)  Marker steps split over gridDim.y, in parts of at
+// most kFwMaxSteps (kFwSharedMaxSteps in the shared form), and digit groups
+// of 8 rows over gridDim.z: the grid reads each word once per digit group,
+// ceil(D/8) times.  Whole steps load unmasked; markers past Mpad (a multiple
+// of 4) occur only in the last step, whose masked form loads them as zero
+// words against zero digits.
 // --------------------------------------------------------------------------
 constexpr int kFwThreads = 256;
 constexpr int kFwGroups = 2;  // groups of 8 word rows per block
 constexpr int kFwSplit = kFwThreads / 32 / kFwGroups;  // warps per group
 constexpr int kFwStep = 32;  // markers per step
+// the forward loop's forms: the a-plane alone (axm_i8a), both planes into
+// sums of their own (axm_i8), both planes into one sum (axm_i8s)
+constexpr int kOnePlane = 0;
+constexpr int kTwoPlanes = 1;
+constexpr int kShared = 2;
 // steps per part that keep a part's scaled sum in int32: 32 terms (32
-// markers) per step and output, in either form (each output sums one
-// plane type; each warp of a group sums a kFwSplit-th of them, so its own
-// sum keeps room)
+// markers) per step and output, each at most kScaledTerm where an output
+// sums one plane type (each warp of a group sums a kFwSplit-th of them, so
+// its own sum keeps room) and 64 * (2*127 + 127) where it sums both
 constexpr int64_t kFwMaxSteps = INT32_MAX / (32 * kScaledTerm);
+constexpr int64_t kSharedTerm = (3 << kScaleShift) * 127;
+constexpr int64_t kFwSharedMaxSteps = INT32_MAX / (32 * kSharedTerm);
+
+// decodes (plane types) and sets of sums of each form
+template <int kForm>
+constexpr int kFwPlanes = kForm == kOnePlane ? 1 : 2;
+template <int kForm>
+constexpr int kFwSums = kForm == kTwoPlanes ? 2 : 1;
 
 // One step of 32 markers from marker m: lane (g, t) loads 16 bytes at m+4t
-// and m+16+4t of its word row and of its digit rows of W (and, with kBoth,
-// of U; the row pointers carry the 4t), decodes the planes and contracts
-// them into the 8 tiles of acc[0] (a-plane against W) and acc[1] (b-plane
-// against U).  With kMasked, markers past Mpad (m >= lane_mpad) load as
-// zero words against zero digits.
-template <bool kMasked, bool kBoth>
+// and m+16+4t of its word row and of its digit rows of W (and, with two
+// planes, of U or -U; the row pointers carry the 4t), decodes the planes
+// and contracts them into the 8 tiles of acc[0] (a-plane against W) and
+// acc[1] (b-plane against U) or, in the shared form, both into acc[0].
+// With kMasked, markers past Mpad (m >= lane_mpad) load as zero words
+// against zero digits.
+template <bool kMasked, int kForm>
 __device__ __forceinline__ void axm_i8_step(const uint32_t* row,
                                             const uint8_t* wd,
                                             const uint8_t* ud, int64_t m,
                                             int64_t lane_mpad,
                                             int32_t acc[][8][4]) {
-  constexpr int kTypes = kBoth ? 2 : 1;
+  constexpr int kTypes = kFwPlanes<kForm>;
   const bool l0 = !kMasked || m < lane_mpad;
   const bool l1 = !kMasked || m + 16 < lane_mpad;
   const uint4 x0 =
@@ -313,7 +348,7 @@ __device__ __forceinline__ void axm_i8_step(const uint32_t* row,
   uint32_t dig[kTypes][2];
   dig[0][0] = l0 ? __ldg(reinterpret_cast<const uint32_t*>(wd + m)) : 0u;
   dig[0][1] = l1 ? __ldg(reinterpret_cast<const uint32_t*>(wd + m + 16)) : 0u;
-  if constexpr (kBoth) {
+  if constexpr (kTypes == 2) {
     dig[1][0] = l0 ? __ldg(reinterpret_cast<const uint32_t*>(ud + m)) : 0u;
     dig[1][1] =
         l1 ? __ldg(reinterpret_cast<const uint32_t*>(ud + m + 16)) : 0u;
@@ -321,40 +356,49 @@ __device__ __forceinline__ void axm_i8_step(const uint32_t* row,
   uint32_t y0[4], y1[4];
   transpose_quad(x0, y0);
   transpose_quad(x1, y1);
+  // the a-fields (f0[b][0], f1[b][0]) and b-fields (f0[b][1], f1[b][1]) of
+  // y0[b], y1[b]
+  uint32_t f0[4][kTypes], f1[4][kTypes];
 #pragma unroll
   for (int b = 0; b < 4; ++b) {
-    // the a-fields (f0[0], f1[0]) and b-fields (f0[1], f1[1]) of y0, y1
-    uint32_t f0[kTypes], f1[kTypes];
-    f0[0] = swar_a_fields(y0[b]);
-    f1[0] = swar_a_fields(y1[b]);
-    if constexpr (kBoth) {
-      f0[1] = swar_b_fields(y0[b]);
-      f1[1] = swar_b_fields(y1[b]);
+    f0[b][0] = swar_a_fields(y0[b]);
+    f1[b][0] = swar_a_fields(y1[b]);
+    if constexpr (kTypes == 2) {
+      f0[b][1] = swar_b_fields(y0[b]);
+      f1[b][1] = swar_b_fields(y1[b]);
     }
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int p = 0; p < kTypes; ++p) {
-        // planes 2h (fragment row g) and 2h+1 (row g+8) of person byte b
-        const uint32_t a[4] = {plane64(f0[p], 2 * h),
-                               plane64(f0[p], 2 * h + 1),
-                               plane64(f1[p], 2 * h),
-                               plane64(f1[p], 2 * h + 1)};
-        mma_u8s8(acc[p][2 * b + h], a, dig[p][0], dig[p][1]);
-      }
   }
+  // the a-plane's 8 mma, then the b-plane's: in the shared form each
+  // b-plane mma adds to the tile its a-plane mma has just written, 8 mma
+  // later rather than at once
+#pragma unroll
+  for (int p = 0; p < kTypes; ++p)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // planes 2h (fragment row g) and 2h+1 (row g+8) of person byte b
+        const uint32_t a[4] = {plane64(f0[b][p], 2 * h),
+                               plane64(f0[b][p], 2 * h + 1),
+                               plane64(f1[b][p], 2 * h),
+                               plane64(f1[b][p], 2 * h + 1)};
+        mma_u8s8(acc[kForm == kShared ? 0 : p][2 * b + h], a, dig[p][0],
+                 dig[p][1]);
+      }
 }
 
-template <bool kBoth>
-__global__ void __launch_bounds__(kFwThreads)
+// Compiled for 4 resident blocks per SM (64 registers) in the forms with
+// one set of sums, 2 in the two-plane form with its two sets.
+template <int kForm>
+__global__ void __launch_bounds__(kFwThreads, kForm == kTwoPlanes ? 2 : 4)
 axm_i8_kernel(const uint32_t* __restrict__ words,  // [Nw, Mpad]
               const uint8_t* __restrict__ wdig,    // [D, Mpad]
-              const uint8_t* __restrict__ udig,    // [D, Mpad], kBoth
+              const uint8_t* __restrict__ udig,    // [D, Mpad], two planes
               int32_t* __restrict__ out_a,         // [D, 4, 4*Nw]
-              int32_t* __restrict__ out_b,         // [D, 4, 4*Nw], kBoth
+              int32_t* __restrict__ out_b,         // [D, 4, 4*Nw], kTwoPlanes
               int64_t nw, int64_t mpad, int64_t d_total,
               int64_t steps_per_part) {
-  constexpr int kTypes = kBoth ? 2 : 1;
+  constexpr int kSums = kFwSums<kForm>;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -371,12 +415,12 @@ axm_i8_kernel(const uint32_t* __restrict__ words,  // [Nw, Mpad]
   const uint32_t* row = words + imin(i0 + g, nw - 1) * mpad + 4 * t;
   const int64_t dr = imin(d0 + g, d_total - 1) * mpad + 4 * t;
   const uint8_t* wd = wdig + dr;
-  const uint8_t* ud = kBoth ? udig + dr : nullptr;
+  const uint8_t* ud = kForm == kOnePlane ? nullptr : udig + dr;
   const int64_t lane_mpad = mpad - 4 * t;
 
-  int32_t acc[kTypes][8][4];
+  int32_t acc[kSums][8][4];
 #pragma unroll
-  for (int p = 0; p < kTypes; ++p)
+  for (int p = 0; p < kSums; ++p)
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -385,11 +429,17 @@ axm_i8_kernel(const uint32_t* __restrict__ words,  // [Nw, Mpad]
   // whole steps with unmasked loads, then the partial last step, each
   // taken by the group's warp whose turn it is
   const int64_t jf = imin(j1, mpad / kFwStep);
+  if constexpr (kForm == kShared) {
+#pragma unroll 1
+    for (int64_t j = j0 + sub; j < jf; j += kFwSplit)
+      axm_i8_step<false, kForm>(row, wd, ud, j * kFwStep, lane_mpad, acc);
+  } else {
 #pragma unroll 2
-  for (int64_t j = j0 + sub; j < jf; j += kFwSplit)
-    axm_i8_step<false, kBoth>(row, wd, ud, j * kFwStep, lane_mpad, acc);
+    for (int64_t j = j0 + sub; j < jf; j += kFwSplit)
+      axm_i8_step<false, kForm>(row, wd, ud, j * kFwStep, lane_mpad, acc);
+  }
   if (jf < j1 && (jf - j0) % kFwSplit == sub)
-    axm_i8_step<true, kBoth>(row, wd, ud, jf * kFwStep, lane_mpad, acc);
+    axm_i8_step<true, kForm>(row, wd, ud, jf * kFwStep, lane_mpad, acc);
   // acc[p][2b + h][2*half + c] is planar row (2h + half, 4(i0 + g) + b),
   // digit row d0 + 2t + c
   const int64_t i = i0 + g;
@@ -408,7 +458,7 @@ axm_i8_kernel(const uint32_t* __restrict__ words,  // [Nw, Mpad]
         for (int half = 0; half < 2; ++half) {
           const int64_t o = (d * 4 + 2 * h + half) * nb + 4 * i + b;
 #pragma unroll
-          for (int p = 0; p < kTypes; ++p)
+          for (int p = 0; p < kSums; ++p)
             atomicAdd(out[p] + o,
                       acc[p][2 * b + h][2 * half + c] >> kScaleShift);
         }
@@ -447,23 +497,24 @@ int launch_atxm(const void* words, const void* vdig, void* out_a,
   return (int)cudaGetLastError();
 }
 
-// words int32[Nw, Mpad], wdig (and, with kBoth, udig) int8[D, Mpad], out_a
-// (and out_b) int32[D, 4, 4*Nw], zeroed
-template <bool kBoth>
+// words int32[Nw, Mpad], wdig (and, with two planes, udig) int8[D, Mpad],
+// out_a (and, with kTwoPlanes, out_b) int32[D, 4, 4*Nw], zeroed
+template <int kForm>
 int launch_axm(const void* words, const void* wdig, const void* udig,
                void* out_a, void* out_b, int64_t nw, int64_t mpad,
                int64_t d_total, void* stream) {
   if (bad_args(words, nw, mpad, d_total)) return (int)cudaErrorInvalidValue;
   int64_t target = 0;
-  if (const int e = dot_target(axm_i8_kernel<kBoth>, kFwThreads, 0, &target))
+  if (const int e = dot_target(axm_i8_kernel<kForm>, kFwThreads, 0, &target))
     return e;
   const int64_t rows = cdiv(nw, 8 * kFwGroups), groups = cdiv(d_total, 8);
   const int64_t steps = cdiv(mpad, kFwStep);
   const int64_t per_part =
-      imin(part_length(steps, rows * groups, target), kFwMaxSteps);
+      imin(part_length(steps, rows * groups, target),
+           kForm == kShared ? kFwSharedMaxSteps : kFwMaxSteps);
   const dim3 grid((unsigned)rows, (unsigned)cdiv(steps, per_part),
                   (unsigned)groups);
-  axm_i8_kernel<kBoth>
+  axm_i8_kernel<kForm>
       <<<grid, kFwThreads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const uint32_t*>(words),
           static_cast<const uint8_t*>(wdig),
@@ -497,15 +548,24 @@ int gvamp_atxm_i8a(const void* words, const void* vdig, void* out,
 int gvamp_axm_i8(const void* words, const void* wdig, const void* udig,
                  void* out_a, void* out_b, int64_t nw, int64_t mpad,
                  int64_t d_total, void* stream) {
-  return launch_axm<true>(words, wdig, udig, out_a, out_b, nw, mpad, d_total,
-                          stream);
+  return launch_axm<kTwoPlanes>(words, wdig, udig, out_a, out_b, nw, mpad,
+                                d_total, stream);
 }
 
 // the a-plane only: wdig int8[D, Mpad], out int32[D, 4, 4*Nw], zeroed
 int gvamp_axm_i8a(const void* words, const void* wdig, void* out, int64_t nw,
                   int64_t mpad, int64_t d_total, void* stream) {
-  return launch_axm<false>(words, wdig, nullptr, out, nullptr, nw, mpad,
-                           d_total, stream);
+  return launch_axm<kOnePlane>(words, wdig, nullptr, out, nullptr, nw, mpad,
+                               d_total, stream);
+}
+
+// the shared form: wdig / mudig int8[D, Mpad] (the digits of W and of -U
+// at one scale per column), out int32[D, 4, 4*Nw], zeroed
+int gvamp_axm_i8s(const void* words, const void* wdig, const void* mudig,
+                  void* out, int64_t nw, int64_t mpad, int64_t d_total,
+                  void* stream) {
+  return launch_axm<kShared>(words, wdig, mudig, out, nullptr, nw, mpad,
+                             d_total, stream);
 }
 
 }  // extern "C"

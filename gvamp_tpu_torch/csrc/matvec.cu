@@ -1,8 +1,8 @@
 // Packed-genotype products of the PyTorch port, written by hand for Hopper
-// (sm_90a), apart from the four digit products axm_i8a, atxm_i8a, axm_i8
-// and atxm_i8, whose tensor-core kernels are in fragments.cu, the fused
-// dual Grams gram_aat_i8a and gram_aat_i8 (gram_aat.cu) and the fused
-// primal Grams gram_i8a and gram_i8 (gram_prim.cu).  Bound
+// (sm_90a), apart from the five digit products axm_i8a, atxm_i8a, axm_i8,
+// atxm_i8 and axm_i8s, whose tensor-core kernels are in fragments.cu, the
+// fused dual Grams gram_aat_i8a and gram_aat_i8 (gram_aat.cu) and the
+// fused primal Grams gram_i8a and gram_i8 (gram_prim.cu).  Bound
 // through a plain C interface (ctypes, see gvamp_tpu_torch/ops/_build.py);
 // the wrappers are in gvamp_tpu_torch/ops/matvec.py, beside the plain
 // PyTorch versions the kernels are checked against.
@@ -12,17 +12,16 @@
 // planar rows (k, 4i+b), k = bit pair.  The SWAR decode of plane k turns a
 // word into a u32 whose byte b is the dosage {2,0,1,0}[code] of row 4i+b,
 // which is exactly the byte order of four int8 digits packed into one
-// int32, so each product step is one __dp4a.
+// int32.
 //
-// The digit contract (gvamp_tpu/ops/matvec.py:441-512): right-hand sides
-// arrive as radix-127 int8 digits, quantised and later folded back to f32
-// by the wrapper.  The kernels are pure integer contractions.  |sum| is at
-// most 254 * K for a contraction of length K, which the wrappers keep below
-// 2^31; integer addition is exact in any order, so the atomics below leave
-// the results deterministic.
+// The kernels here are f32 products of one or a few right-hand-side
+// columns (the digit products, which contract radix-127 int8 digits
+// exactly in int32, are in fragments.cu).  Each block writes its own
+// partial rows, which the wrapper sums in a fixed order, so the results do
+// not depend on scheduling.
 //
 // Every launch returns cudaGetLastError(), and the wrapper raises on a
-// non-zero code.  A kernel allocates nothing: the wrapper passes zeroed
+// non-zero code.  A kernel allocates nothing: the wrapper passes the
 // outputs.  Indices are 64-bit: a full-size matrix holds more than 2^31
 // words.
 
@@ -36,17 +35,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTileRows = 256;   // word rows of right-hand side per smem tile
-constexpr int kTileQuads = 256;  // marker quads of digits per smem tile
 constexpr int kWarps = kThreads / 32;
 // blocks to aim for: several waves of 132 SMs at 8 resident blocks each
 constexpr int64_t kTargetBlocks = 132 * 8 * 4;
-
-// Sum v over the warp's 32 lanes; lane 0 holds the total.
-__device__ __forceinline__ int32_t warp_sum(int32_t v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // Split `n` rows (or quads) into bands so that `other` blocks times the band
 // count reaches kTargetBlocks; returns the band length, a multiple of `unit`.
@@ -59,110 +50,13 @@ int64_t band_length(int64_t n, int64_t other, int64_t unit) {
 }
 
 // --------------------------------------------------------------------------
-// axm_i8s: zt[d][k][p] = sum_m a_k[m, p] * wdig[d][m] + b_k[m, p] * mudig[d][m]
-//
-// Replaces axm_i8s_pallas / _axm_i8s_kernel (gvamp_tpu/ops/matvec.py:
-// 580-648): the forward product on genotypes with missing calls with W and
-// -U quantised at ONE shared scale per column (_quant_digits_pair), so both
-// planes add into one int32 sum and the wrapper folds once.  |sum| is at
-// most (2 * 127 + 127) * M = 381 * M, which the wrapper keeps below 2^31.
-// Bound on this card: one read of the packed bytes per group of DT digit
-// rows, plus the byte transposes, two SWAR decodes and 2*16*DT __dp4a per
-// 16-byte load.
-// Design: one warp per word row.  A lane loads four neighbouring marker
-// words as one 16-byte load and transposes their bytes (transpose_quad),
-// so that the SWAR decode of y[b] holds row (k, 4i+b) of four markers,
-// one __dp4a operand against their packed digits.  Both digit tiles sit
-// in shared memory; a warp reduction and one atomicAdd per sum finish the
-// row.  One set of lane sums, 16*DT int32, so DT = 4 digit rows per read
-// of the words.
-// --------------------------------------------------------------------------
-constexpr int kAxmI8sDT = 4;
-
-__global__ void __launch_bounds__(kThreads)
-axm_i8s_kernel(const uint32_t* __restrict__ words,
-               const int32_t* __restrict__ wdig,   // int32 view [D, Mpad/4]
-               const int32_t* __restrict__ mudig,  // int32 view [D, Mpad/4]
-               int32_t* __restrict__ out,          // [D, 4, 4*Nw]
-               int64_t nw, int64_t mpad, int64_t d_total,
-               int64_t quads_per_band) {
-  constexpr int DT = kAxmI8sDT;
-  __shared__ int32_t sw[DT][kTileQuads];
-  __shared__ int32_t su[DT][kTileQuads];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kWarps + warp;
-  const int64_t nq = mpad / 4;
-  const int64_t q_begin = (int64_t)blockIdx.y * quads_per_band;
-  const int64_t q_end = imin(nq, q_begin + quads_per_band);
-  const int64_t d0 = (int64_t)blockIdx.z * DT;
-
-  int32_t acc[DT][16];  // [d][k * 4 + b]
-#pragma unroll
-  for (int d = 0; d < DT; ++d)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[d][j] = 0;
-
-  const uint4* wrow =
-      reinterpret_cast<const uint4*>(words + (row < nw ? row : 0) * mpad);
-  for (int64_t qt = q_begin; qt < q_end; qt += kTileQuads) {
-    const int nqt = (int)imin((int64_t)kTileQuads, q_end - qt);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < DT * kTileQuads; idx += kThreads) {
-      const int d = idx / kTileQuads;
-      const int q = idx % kTileQuads;
-      int32_t w = 0, u = 0;
-      if (q < nqt && d0 + d < d_total) {
-        w = wdig[(d0 + d) * nq + qt + q];
-        u = mudig[(d0 + d) * nq + qt + q];
-      }
-      sw[d][q] = w;
-      su[d][q] = u;
-    }
-    __syncthreads();
-    if (row < nw) {
-      for (int q = lane; q < nqt; q += 32) {
-        uint32_t y[4];
-        transpose_quad(__ldg(wrow + qt + q), y);
-        int32_t wd[DT], ud[DT];
-#pragma unroll
-        for (int d = 0; d < DT; ++d) {
-          wd[d] = sw[d][q];
-          ud[d] = su[d][q];
-        }
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int a = (int)swar_a(y[b], k);
-            const int nm = (int)swar_b(y[b], k);
-#pragma unroll
-            for (int d = 0; d < DT; ++d)
-              acc[d][k * 4 + b] =
-                  __dp4a(nm, ud[d], __dp4a(a, wd[d], acc[d][k * 4 + b]));
-          }
-      }
-    }
-  }
-  if (row >= nw) return;  // after the last __syncthreads of the block
-  const int64_t nb = 4 * nw;
-#pragma unroll
-  for (int d = 0; d < DT; ++d) {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int32_t v = warp_sum(acc[d][j]);
-      if (lane == 0 && d0 + d < d_total)
-        atomicAdd(out + ((d0 + d) * 4 + j / 4) * nb + 4 * row + j % 4, v);
-    }
-  }
-}
-
-// --------------------------------------------------------------------------
 // atx: (av[m], bv[m]) = sum_{k, p} (a_k, b_k)[m, p] * v[k, p] in f32
 //
 // Replaces atx_pallas / _atx_kernel (gvamp_tpu/ops/matvec.py:266, 287).  It
 // runs once at load, for the completeness check (GenoBed.geno_complete).
-// Bound on this card: one read of the packed bytes, 32 float FMAs per word.
+// Bound on this card: one read of the packed bytes, 32 float FMAs per word
+// and their 32 byte-to-float conversions, which a pipe of 16 per clock and
+// SM sets the pace of (atx_a below is the design without them).
 // Design: one thread per marker column (coalesced word reads), the planar
 // vector of a band of rows in shared memory.  Row bands spread over
 // gridDim.y; each band writes its own partial row and the wrapper sums the
@@ -177,13 +71,11 @@ __device__ __forceinline__ float byte_f(uint32_t x, int j) {
   return (float)((x >> (8 * j)) & 0xffu);
 }
 
-// the body of atx_kernel (kBoth) and atx_a_kernel
-template <bool kBoth>
-__device__ __forceinline__ void
-atx_rows(const uint32_t* __restrict__ words,
-         const float* __restrict__ v,  // [4, 4*Nw]
-         float* __restrict__ out,      // [kBoth ? 2 : 1, bands, Mpad]
-         int64_t nw, int64_t mpad, int64_t rows_per_band) {
+__global__ void __launch_bounds__(kThreads)
+atx_kernel(const uint32_t* __restrict__ words,
+           const float* __restrict__ v,  // [4, 4*Nw]
+           float* __restrict__ out,      // [2, bands, Mpad]
+           int64_t nw, int64_t mpad, int64_t rows_per_band) {
   __shared__ float sv[4][4 * kTileRows];
   const int64_t m = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   const int64_t nb = 4 * nw;
@@ -207,32 +99,28 @@ atx_rows(const uint32_t* __restrict__ words,
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           const uint32_t a = swar_a(w, k);
-          const uint32_t b = kBoth ? swar_b(w, k) : 0u;
+          const uint32_t b = swar_b(w, k);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const float vv = sv[k][4 * r + j];
             ta = fmaf(byte_f(a, j), vv, ta);
-            if (kBoth) tb = fmaf(byte_f(b, j), vv, tb);
+            tb = fmaf(byte_f(b, j), vv, tb);
           }
         }
         av += (double)ta;
-        if (kBoth) bv += (double)tb;
+        bv += (double)tb;
       }
     }
   }
   if (m < mpad) {
     const int64_t bands = gridDim.y;
     out[(int64_t)blockIdx.y * mpad + m] = (float)av;
-    if (kBoth) out[(bands + blockIdx.y) * mpad + m] = (float)bv;
+    out[(bands + blockIdx.y) * mpad + m] = (float)bv;
   }
 }
 
-// atx: (av, bv), replaces atx_pallas (gvamp_tpu/ops/matvec.py:287)
-__global__ void __launch_bounds__(kThreads)
-atx_kernel(const uint32_t* __restrict__ words, const float* __restrict__ v,
-           float* __restrict__ out, int64_t nw, int64_t mpad,
-           int64_t rows_per_band) {
-  atx_rows<true>(words, v, out, nw, mpad, rows_per_band);
+int64_t atx_rows_per_band(int64_t nw, int64_t mpad) {
+  return band_length(nw, cdiv(mpad, kThreads), kTileRows);
 }
 
 // --------------------------------------------------------------------------
@@ -240,19 +128,135 @@ atx_kernel(const uint32_t* __restrict__ words, const float* __restrict__ v,
 //
 // Replaces atx_a_pallas / _atx_a_kernel (gvamp_tpu/ops/matvec.py:1523-1540):
 // atx without the b-side, which the caller takes as sum(v) on complete
-// genotypes.  Bound on this card: one read of the packed bytes, 16 float
-// FMAs and their byte conversions per word.  Design: atx's, one partial row
-// per row band, summed by the wrapper in a fixed order.
+// genotypes.  Bound on this card: one read of the packed bytes (3.21 ms at
+// config B).  atx's loop spends 16 byte-to-float conversions per word on
+// the a-side alone, a pipe of 16 per clock and SM: near 11 ms at config B.
+// Design: no conversion per element.  Each byte b of word row i holds
+// planes 0-3 of person 4i+b, its low nibble planes 0 and 1, its high
+// nibble planes 2 and 3.  For each word row of a tile of kAtxRows the
+// block builds in shared memory the pair table
+//   T[r][2b + h][c] = dose(c & 3) v[2h][4i+b] + dose(c >> 2) v[2h+1][4i+b]
+// for the 16 nibbles c (dose = {2, 0, 1, 0}[code], one f32 rounding), 128
+// floats per word row, so that a word's a-side product is 8 table lookups.
+// The nibble times 4 is byte b of (w << 2) & 0x3C3C3C3C (h = 0) or of
+// (w >> 2) & 0x3C3C3C3C (h = 1); one __byte_perm puts it under the row's
+// table offset (a multiple of 512), so a lookup is one permute and one
+// shared load, with the table's place in the row an immediate offset.  A
+// warp's lanes look up one 16-entry table at once, which lies in 16
+// banks: no bank conflict.  A thread takes 4 markers with one 16-byte
+// load per word row (a warp reads 512 contiguous bytes of each row); per
+// word 8 loads from shared memory, 7 f32 adds in a fixed tree, ((T00 +
+// T01) + (T10 + T11)) + ((T20 + T21) + (T30 + T31)) (Tbh: byte b, nibble
+// h), and one double add: the word-row sums meet in double, as in atx
+// (an f32 running sum over 64 rows errs 7.6e-7 of the largest entry).  The
+// tables are double-buffered: the block builds tile t+1's while it reads
+// tile t's, one barrier per tile.  Row bands of whole tiles spread over
+// gridDim.y and write their own partial rows; the wrapper sums the
+// partials in a fixed order.  On dyadic v (multiples of 1/8) every table
+// entry and sum is exact, so the result equals the plain version's bit
+// for bit.
 // --------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-atx_a_kernel(const uint32_t* __restrict__ words, const float* __restrict__ v,
-             float* __restrict__ out, int64_t nw, int64_t mpad,
-             int64_t rows_per_band) {
-  atx_rows<false>(words, v, out, nw, mpad, rows_per_band);
+constexpr int kAtxRows = 32;  // word rows per table tile
+constexpr int kAtxTable = 128;  // floats per word row: 8 nibbles x 16
+constexpr int kAtxMarkers = 4 * kThreads;  // markers per block
+
+// Tile rows [0, rows) from word row i0: entry (r, j = 2b + h, c) of T.
+__device__ __forceinline__ void atx_a_table(const float* __restrict__ v,
+                                            int64_t nb, int64_t i0, int rows,
+                                            float (*tab)[kAtxTable]) {
+  for (int e = threadIdx.x; e < rows * kAtxTable; e += kThreads) {
+    const int r = e / kAtxTable, j = (e / 16) % 8, c = e % 16;
+    const int b = j >> 1, h = j & 1;
+    const int64_t p = 4 * (i0 + r) + b;
+    const float v0 = __ldg(v + 2 * h * nb + p);
+    const float v1 = __ldg(v + (2 * h + 1) * nb + p);
+    // dose {2, 0, 1, 0}[code] of the nibble's two codes
+    const float d0 = (c & 1) ? 0.f : ((c & 2) ? 1.f : 2.f);
+    const float d1 = (c & 4) ? 0.f : ((c & 8) ? 1.f : 2.f);
+    tab[r][j * 16 + c] = __fadd_rn(__fmul_rn(d0, v0), __fmul_rn(d1, v1));
+  }
 }
 
-int64_t atx_rows_per_band(int64_t nw, int64_t mpad) {
-  return band_length(nw, cdiv(mpad, kThreads), kTileRows);
+// The a-side product of one word against its row's tables at byte offset
+// `off` of the tile (a multiple of 512): 8 lookups, summed in a fixed tree.
+__device__ __forceinline__ float atx_a_word(uint32_t w, uint32_t off,
+                                            const char* tab) {
+  const uint32_t lo = (w << 2) & 0x3C3C3C3Cu;  // 4 x nibble 0 of each byte
+  const uint32_t hi = (w >> 2) & 0x3C3C3C3Cu;  // 4 x nibble 1
+  float t[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    // off with its low byte replaced by byte b of lo / hi
+    const uint32_t i_lo = __byte_perm(lo, off, 0x7650 + b);
+    const uint32_t i_hi = __byte_perm(hi, off, 0x7650 + b);
+    t[b] = __fadd_rn(
+        *reinterpret_cast<const float*>(tab + i_lo + 64 * (2 * b)),
+        *reinterpret_cast<const float*>(tab + i_hi + 64 * (2 * b + 1)));
+  }
+  return __fadd_rn(__fadd_rn(t[0], t[1]), __fadd_rn(t[2], t[3]));
+}
+
+__global__ void __launch_bounds__(kThreads)
+atx_a_kernel(const uint32_t* __restrict__ words,
+             const float* __restrict__ v,  // [4, 4*Nw]
+             float* __restrict__ out,      // [bands, Mpad]
+             int64_t nw, int64_t mpad, int64_t rows_per_band) {
+  __shared__ __align__(512) float tab[2][kAtxRows][kAtxTable];
+  const int64_t m = (int64_t)blockIdx.x * kAtxMarkers + 4 * threadIdx.x;
+  const bool live = m < mpad;  // Mpad is a multiple of 4
+  const int64_t nb = 4 * nw;
+  const int64_t r_begin = (int64_t)blockIdx.y * rows_per_band;
+  const int64_t r_end = imin(nw, r_begin + rows_per_band);
+  const int tiles = (int)((r_end - r_begin + kAtxRows - 1) / kAtxRows);
+  double acc[4] = {0.0, 0.0, 0.0, 0.0};
+  atx_a_table(v, nb, r_begin, (int)imin(kAtxRows, r_end - r_begin), tab[0]);
+  __syncthreads();
+  for (int t = 0; t < tiles; ++t) {
+    const int64_t t0 = r_begin + (int64_t)t * kAtxRows;
+    // the next tile's tables into the other buffer, whose last readers
+    // passed the barrier that closed tile t-1
+    if (t + 1 < tiles)
+      atx_a_table(v, nb, t0 + kAtxRows,
+                  (int)imin(kAtxRows, r_end - t0 - kAtxRows),
+                  tab[(t + 1) & 1]);
+    if (live) {
+      const int rows = (int)imin(kAtxRows, r_end - t0);
+      const uint4* col = reinterpret_cast<const uint4*>(words + t0 * mpad + m);
+      const int64_t stride = mpad / 4;  // uint4 per word row
+      const char* tb = reinterpret_cast<const char*>(tab[t & 1]);
+      int r = 0;
+      for (; r + 4 <= rows; r += 4) {
+        uint4 x[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) x[u] = __ldg(col + (r + u) * stride);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const uint32_t off = (uint32_t)(r + u) * (4 * kAtxTable);
+          acc[0] += (double)atx_a_word(x[u].x, off, tb);
+          acc[1] += (double)atx_a_word(x[u].y, off, tb);
+          acc[2] += (double)atx_a_word(x[u].z, off, tb);
+          acc[3] += (double)atx_a_word(x[u].w, off, tb);
+        }
+      }
+      for (; r < rows; ++r) {
+        const uint4 x = __ldg(col + r * stride);
+        const uint32_t off = (uint32_t)r * (4 * kAtxTable);
+        acc[0] += (double)atx_a_word(x.x, off, tb);
+        acc[1] += (double)atx_a_word(x.y, off, tb);
+        acc[2] += (double)atx_a_word(x.z, off, tb);
+        acc[3] += (double)atx_a_word(x.w, off, tb);
+      }
+    }
+    __syncthreads();
+  }
+  if (live)
+    *reinterpret_cast<float4*>(out + (int64_t)blockIdx.y * mpad + m) =
+        make_float4((float)acc[0], (float)acc[1], (float)acc[2],
+                    (float)acc[3]);
+}
+
+int64_t atx_a_rows_per_band(int64_t nw, int64_t mpad) {
+  return band_length(nw, cdiv(mpad, kAtxMarkers), kAtxRows);
 }
 
 // --------------------------------------------------------------------------
@@ -263,9 +267,9 @@ int64_t atx_rows_per_band(int64_t nw, int64_t mpad) {
 // (GenoBed.compute_people_statistics).  Bound on this card: one read of
 // the packed bytes and 32 float FMAs (with their byte-to-float
 // conversions) per word, so the conversions, not HBM, set its pace.
-// Design: axm_i8s's (one warp per word row, 16-byte loads of four marker
-// words, the __byte_perm transpose, lanes striding over the marker quads
-// of a band); each lane keeps one f32 sum per (plane k, byte b) and the
+// Design: one warp per word row, 16-byte loads of four marker words, the
+// __byte_perm transpose (transpose_quad), lanes striding over the marker
+// quads of a band; each lane keeps one f32 sum per (plane k, byte b) and the
 // warp sums them with a fixed shuffle tree.  Marker bands spread over
 // gridDim.y and write their own partial rows; the wrapper sums the
 // partials in a fixed order, so the result does not depend on scheduling.
@@ -579,27 +583,24 @@ int gvamp_ax(const void* words, const void* w, const void* u, void* out,
   return (int)cudaGetLastError();
 }
 
+// number of row bands the atx_a launch uses: the wrapper sizes its partial
+// output [bands, Mpad] with it
+int64_t gvamp_atx_a_parts(int64_t nw, int64_t mpad) {
+  return cdiv(nw, atx_a_rows_per_band(nw, mpad));
+}
+
 int gvamp_atx_a(const void* words, const void* v, void* out, int64_t nw,
                 int64_t mpad, void* stream) {
-  const int64_t rows = atx_rows_per_band(nw, mpad);
-  const dim3 grid((unsigned)cdiv(mpad, kThreads), (unsigned)cdiv(nw, rows), 1);
+  if (nw <= 0 || mpad <= 0 || mpad % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(words) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t rows = atx_a_rows_per_band(nw, mpad);
+  const dim3 grid((unsigned)cdiv(mpad, kAtxMarkers), (unsigned)cdiv(nw, rows),
+                  1);
   atx_a_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<const float*>(v),
       static_cast<float*>(out), nw, mpad, rows);
-  return (int)cudaGetLastError();
-}
-
-int gvamp_axm_i8s(const void* words, const void* wdig, const void* mudig,
-                  void* out, int64_t nw, int64_t mpad, int64_t d_total,
-                  void* stream) {
-  const int64_t nx = cdiv(nw, kWarps);
-  const int64_t nz = cdiv(d_total, kAxmI8sDT);
-  const int64_t quads = band_length(mpad / 4, nx * nz, kTileQuads);
-  const dim3 grid((unsigned)nx, (unsigned)cdiv(mpad / 4, quads), (unsigned)nz);
-  axm_i8s_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<const int32_t*>(wdig),
-      static_cast<const int32_t*>(mudig), static_cast<int32_t*>(out), nw, mpad,
-      d_total, quads);
   return (int)cudaGetLastError();
 }
 

@@ -252,7 +252,7 @@ int row_sum(const void* words, void* out, int64_t nw, int64_t mpad,
 //
 // Replaces `v5_dot1` / _v5_kernel (tools/bench_variants.py:164, 179) and
 // `v6_fused_ab` / _v6_kernel (:199, 215) with the contracts of axm_i8a and
-// axm_i8s (matvec.cu): int32[D, 4, 4*Nw], digit rows int8[D, Mpad] (mudig:
+// axm_i8s (fragments.cu): int32[D, 4, 4*Nw], digit rows int8[D, Mpad] (mudig:
 // the digits of -U under W's joint scale), |sum| <= 254*Mpad (381*Mpad for
 // v6), which the wrappers keep below 2^31.
 //

@@ -1,10 +1,10 @@
 """Packed-genotype products of the PyTorch port: plain versions and the
 wrappers of the hand-written CUDA kernels (``csrc/matvec.cu``,
-``csrc/fragments.cu`` for the four digit products ``axm_i8a``,
-``atxm_i8a``, ``axm_i8`` and ``atxm_i8``, ``csrc/gram_aat.cu`` for the
-fused dual Grams ``gram_aat_i8a`` and ``gram_aat_i8``, and
-``csrc/gram_prim.cu`` for the fused primal Grams ``gram_i8a`` and
-``gram_i8``).
+``csrc/fragments.cu`` for the five digit products ``axm_i8a``,
+``atxm_i8a``, ``axm_i8``, ``atxm_i8`` and ``axm_i8s``,
+``csrc/gram_aat.cu`` for the fused dual Grams ``gram_aat_i8a`` and
+``gram_aat_i8``, and ``csrc/gram_prim.cu`` for the fused primal Grams
+``gram_i8a`` and ``gram_i8``).
 
 Counterpart of ``gvamp_tpu/ops/matvec.py`` for the linear main path.  The
 word layout is the same (word-major ``[Nw, Mpad]``, 16 samples per word,
@@ -1020,8 +1020,8 @@ def atx_a(words: torch.Tensor, v_planar: torch.Tensor) -> torch.Tensor:
     v = v_planar.contiguous()  # the kernel reads v itself
     from gvamp_tpu_torch.ops import _build
     lib = _build.library()
-    out = torch.empty((lib.gvamp_atx_parts(nw, m), m), dtype=torch.float32,
-                      device=words.device)
+    out = torch.empty((lib.gvamp_atx_a_parts(nw, m), m),
+                      dtype=torch.float32, device=words.device)
     _launch("atx_a", lib.gvamp_atx_a, words.device, words.data_ptr(),
             v.data_ptr(), out.data_ptr(), nw, m)
     # the per-band partial rows meet here, in a fixed order: deterministic

@@ -10,11 +10,11 @@ and ``gram_aat_i8a`` against their two-pass compositions and ``axm_i8s``
 against ``axm_i8`` at NW=64 x M=2,048, B=2, with the JAX tool's tolerances.
 The timing (default NW=6,400 x M=65,536, 1.68 GB packed, B=2) gives each
 fused kernel beside its two-pass composition, and ``axm_i8s`` beside
-``axm_i8``, with packed GB/s ("eff" counts the two reads of the words a
-composition makes).  The fused dual Grams refuse N above 13,152
-(``matvec.GRAM_AAT_MAX_NW`` word rows, the route's edge), so where NW
-exceeds that they are timed at N=5,120 (config X's N) over as many
-markers as give the same packed bytes.
+``axm_i8`` at B = 1 and 2 (``AXM_WIDTHS``), with packed GB/s ("eff"
+counts the two reads of the words a composition makes).  The fused dual
+Grams refuse N above 13,152 (``matvec.GRAM_AAT_MAX_NW`` word rows, the
+route's edge), so where NW exceeds that they are timed at N=5,120 (config
+X's N) over as many markers as give the same packed bytes.
 
 Times are CUDA events around single calls (``common.cuda_ms``, the median
 of ``--reps``).  The burst-marginal method of ``tools/bench_burst.py`` is
@@ -31,6 +31,9 @@ import numpy as np
 import torch
 
 B_TIMED = 2
+# the widths of the axm_i8s / axm_i8 lines (at most B_TIMED): the linear
+# path's forward products (B = 2 with z1 = A x1, B = 1 in CG)
+AXM_WIDTHS = (1, 2)
 
 
 def check(name, got, want, tol=1e-5) -> bool:
@@ -137,8 +140,9 @@ def _dual_shape(nw, m):
 
 
 def timing(device, nw, m, reps) -> None:
-    """Prints each fused kernel and axm_i8s beside its two-pass counterpart
-    at B_TIMED: ms and packed GB/s per call."""
+    """Prints each fused kernel beside its two-pass counterpart at B_TIMED
+    and axm_i8s beside axm_i8 at AXM_WIDTHS: ms and packed GB/s per
+    call."""
     from gvamp_tpu_torch.ops import matvec
     from gvamp_tpu_torch.tools.common import (complete_words, random_words,
                                               timer)
@@ -164,8 +168,12 @@ def timing(device, nw, m, reps) -> None:
     wm = random_words(gen, nw, m, device)
     rec("comp miss (axm + atxm)", lambda: comp_m(wm, W, U, na), gb, 2.0)
     rec("gram_i8", lambda: matvec.gram_i8(wm, W, U, na), gb)
-    rec("axm_i8 (missing calls)", lambda: matvec.axm_i8(wm, W, U), gb)
-    rec("axm_i8s (shared accumulator)", lambda: matvec.axm_i8s(wm, W, U), gb)
+    for B in AXM_WIDTHS:
+        Wb, Ub = W[:, :B], U[:, :B]
+        rec(f"axm_i8 (missing calls) B={B}",
+            lambda: matvec.axm_i8(wm, Wb, Ub), gb)
+        rec(f"axm_i8s (shared accumulator) B={B}",
+            lambda: matvec.axm_i8s(wm, Wb, Ub), gb)
     del wm, W, mave, msig2, U, na, cu, V
 
     nwd, md = _dual_shape(nw, m)

@@ -8,13 +8,15 @@ A fragments (each plane at the top of its bytes, 64 times its value), the
 mma.sync m16n8k32 u8 x s8 -> s32 semantics (the PTX fragment layout), the
 parts of the contraction (int32 sums, shifted back by 6 at each part's
 end) and the index each C fragment is added to.  Like the kernels, each
-emulator has a compile-time plane count: both planes for the products on
+emulator has a compile-time form: both planes for the products on
 genotypes with missing calls (axm_i8, atxm_i8), the a-plane alone for those
-on complete genotypes (axm_i8a, atxm_i8a).  Its integers must equal the
+on complete genotypes (axm_i8a, atxm_i8a), and, forward, both planes into
+one sum (axm_i8s, W and -U under one scale).  Its integers must equal the
 port's plain versions (axm_i8_int_ref, atxm_i8_int_ref, axm_i8a_int_ref,
-atxm_i8a_int_ref) and the JAX package's kernel bodies in interpret mode;
-folded, they must match axm_i8_pallas / atxm_i8_pallas / axm_i8a_pallas /
-atxm_i8a_pallas as tests/test_torch_matvec.py holds the port's wrappers.
+atxm_i8a_int_ref, axm_i8s_int_ref) and the JAX package's kernel bodies in
+interpret mode; folded, they must match axm_i8_pallas / atxm_i8_pallas /
+axm_i8a_pallas / atxm_i8a_pallas / axm_i8s_pallas as
+tests/test_torch_matvec.py holds the port's wrappers.
 The shapes are the edges the kernels' grids must cover:
 Nw not a multiple of 8 or of a block's rows, Mpad not a multiple of a
 step, D not a multiple of 8, and B = 22 (11 digit groups); at the
@@ -35,6 +37,7 @@ from gvamp_tpu_torch.ops import matvec as tmv
 from test_torch_matvec import (FOLD_TOL, _close, _jax_atxm_i8_int,
                                _jax_atxm_int, _jax_axm_i8_int, _jax_axm_int,
                                _t, _words)
+from test_torch_tools import _jax_axm_i8s_int
 
 M1, M3, M5 = 0x01010101, 0x03030303, 0x55555555
 
@@ -44,6 +47,9 @@ SCALED_TERM = (2 << SCALE_SHIFT) * 127
 FW_STEP, FW_SPLIT = 32, 4            # axm_i8: markers per step, warps per
 #                                      group of 8 word rows
 FW_MAX_STEPS = (2**31 - 1) // (32 * SCALED_TERM)
+# axm_i8s: both planes in one sum, each term at most 64 x (2*127 + 127)
+SHARED_TERM = (3 << SCALE_SHIFT) * 127
+FW_SHARED_MAX_STEPS = (2**31 - 1) // (32 * SHARED_TERM)
 TX_THREADS, TX_LOADS = 256, 2        # atxm_i8: threads, loads per row
 TX_WARP_MARKERS = 32 * TX_LOADS
 TX_MARKERS = TX_WARP_MARKERS * (TX_THREADS // 32)
@@ -138,20 +144,28 @@ def _parts(steps, per_part):
     return [(lo, min(steps, lo + per_part)) for lo in range(0, steps, per_part)]
 
 
-def emulate_axm_i8(words, w8t, u8t=None, per_part=FW_MAX_STEPS, both=True):
-    """axm_i8_kernel<both>'s integers, (za, zb) int64[D, 4, 4*Nw] or, with
-    ``both`` false (axm_i8a, no U), (za,): groups of 8 word rows x 8 digit
-    rows walking 32 markers per step, the group's FW_SPLIT warps taking the
-    steps of a part in turn, lane (g, t) loading 16 bytes at m+4t and
-    m+16+4t of word row i0+g and the u32 of digit row d0+g there; each
-    warp's int32 sums of a part, shifted back, are added to the output."""
+def emulate_axm_i8(words, w8t, u8t=None, per_part=None, both=True,
+                   shared=False):
+    """axm_i8_kernel<kForm>'s integers, (za, zb) int64[D, 4, 4*Nw] or, with
+    ``both`` false (axm_i8a, no U), (za,), or, with ``shared`` (axm_i8s, U
+    the digits of -U), (zt,) where both planes add into one set of sums:
+    groups of 8 word rows x 8 digit rows walking 32 markers per step, the
+    group's FW_SPLIT warps taking the steps of a part (FW_MAX_STEPS, or
+    FW_SHARED_MAX_STEPS in the shared form) in turn, lane (g, t) loading 16
+    bytes at m+4t and m+16+4t of word row i0+g and the u32 of digit row
+    d0+g there; each warp's int32 sums of a part, shifted back, are added
+    to the output."""
     nw, mpad = words.shape
     D = w8t.shape[0]
     w = words.astype(np.int64)
     nb = 4 * nw
-    # (decode, digits) of each plane type the kernel accumulates
-    types = [(swar_a_fields, w8t)] + [(swar_b_fields, u8t)] * both
-    outs = [np.zeros((D, 4, nb), np.int64) for _ in types]
+    if per_part is None:
+        per_part = FW_SHARED_MAX_STEPS if shared else FW_MAX_STEPS
+    # (decode, digits) of each plane type the kernel accumulates, and the
+    # set of sums each adds into
+    types = [(swar_a_fields, w8t)] + [(swar_b_fields, u8t)] * (both or shared)
+    sums = [0] * len(types) if shared else list(range(len(types)))
+    outs = [np.zeros((D, 4, nb), np.int64) for _ in range(max(sums) + 1)]
     # every group (i0) and digit group (d0): batch axes
     i0 = np.arange(0, nw, 8)
     d0 = np.arange(0, D, 8)
@@ -167,7 +181,7 @@ def emulate_axm_i8(words, w8t, u8t=None, per_part=FW_MAX_STEPS, both=True):
     ii = i0[:, None, None] + G[None, :, None]                     # [W, 32, 1]
     for lo, hi in _parts(-(-mpad // FW_STEP), per_part):
         accs = [np.zeros((FW_SPLIT, len(i0), len(d0), 8, 32, 4), np.int64)
-                for _ in types]
+                for _ in outs]
         for j in range(lo, hi):
             sub, m = (j - lo) % FW_SPLIT, j * FW_STEP
             cols = [m + 4 * T, m + 16 + 4 * T]                    # [32] each
@@ -187,7 +201,8 @@ def emulate_axm_i8(words, w8t, u8t=None, per_part=FW_MAX_STEPS, both=True):
             y0, y1 = transpose_quad(x[0]), transpose_quad(x[1])    # [W,32,4]
             for b in range(4):
                 for h in range(2):
-                    for (dec, _), acc, dgt in zip(types, accs, dig):
+                    for (dec, _), p, dgt in zip(types, sums, dig):
+                        acc = accs[p]
                         f0, f1 = dec(y0[..., b]), dec(y1[..., b])
                         a = np.stack([plane64(f0, 2 * h),
                                       plane64(f0, 2 * h + 1),
@@ -425,6 +440,33 @@ def test_atxm_i8a_lane_map_matches_refs(nw, m, B):
            jmv.atxm_i8a_pallas(jnp.asarray(words), jnp.asarray(V)), FOLD_TOL)
 
 
+# the shared form at the shapes of the lane-map tests above: CASES and the
+# edges of FRAGMENT_SHAPES (Nw 7 / 300, Mpad 8 / 1,000, B 1 / 2 / 22)
+SHARED_CASES = CASES + [(300, 1000, 1)]
+
+
+@pytest.mark.parametrize("nw,m,B", SHARED_CASES)
+def test_axm_i8s_lane_map_matches_refs(nw, m, B):
+    """axm_i8_kernel<kShared>'s loop (axm_i8s), emulated: the a-plane
+    against W's digits and the b-plane against -U's, added into one set of
+    sums, equal axm_i8s_int_ref and the JAX _axm_i8s_kernel body exactly;
+    folded once, within FOLD_TOL of axm_i8s_pallas."""
+    rng = np.random.default_rng(nw * 19 + m + B)
+    words = _words(rng, nw, m)
+    W = rng.standard_normal((m, B)).astype(np.float32)
+    U = (rng.standard_normal((m, B)) * 1.5).astype(np.float32)
+    w8t, mu8t, ws = tmv._quant_digits_pair(torch.from_numpy(W),
+                                           torch.from_numpy(U))
+    (zt,) = emulate_axm_i8(words, w8t.numpy(), mu8t.numpy(), shared=True)
+    np.testing.assert_array_equal(zt, tmv.axm_i8s_int_ref(_t(words), w8t,
+                                                          mu8t).numpy())
+    np.testing.assert_array_equal(zt, np.asarray(_jax_axm_i8s_int(
+        words, w8t.numpy(), mu8t.numpy())))
+    _close(tmv._fold_digits_zt(torch.from_numpy(zt).to(torch.int32), ws, B),
+           jmv.axm_i8s_pallas(jnp.asarray(words), jnp.asarray(W),
+                              jnp.asarray(U)), FOLD_TOL)
+
+
 def test_axm_i8a_one_launch_equals_its_column_chunks():
     """axm_i8a makes one launch for any B, where the JAX wrapper chunks the
     columns at _BMAX_AXM_A: at B = 70 (35 digit groups over gridDim.z) the
@@ -451,17 +493,22 @@ def test_axm_i8a_one_launch_equals_its_column_chunks():
                                        for c in chunks], dim=2))
 
 
-def test_part_caps_are_the_longest_that_fit_int32():
-    """A part of FW_MAX_STEPS / TX_MAX_STEPS steps at the largest terms (64
-    x 2 x 127, 32 per output and step in axm_i8, 128 in atxm_i8) stays
-    inside int32, one step more would not."""
-    for per_step, cap in ((32, FW_MAX_STEPS), (128, TX_MAX_STEPS)):
-        assert cap * per_step * SCALED_TERM < 2**31
-        assert (cap + 1) * per_step * SCALED_TERM >= 2**31
+@pytest.mark.parametrize("per_step,term,cap", [
+    (32, SCALED_TERM, FW_MAX_STEPS), (128, SCALED_TERM, TX_MAX_STEPS),
+    (32, SHARED_TERM, FW_SHARED_MAX_STEPS)],
+    ids=["axm_i8", "atxm_i8", "axm_i8s"])
+def test_part_caps_are_the_longest_that_fit_int32(per_step, term, cap):
+    """A part of FW_MAX_STEPS / TX_MAX_STEPS / FW_SHARED_MAX_STEPS steps at
+    the largest terms (64 x 2 x 127 for one plane type, 32 per output and
+    step in axm_i8, 128 in atxm_i8; 64 x (2 x 127 + 127) for both planes in
+    one sum, 32 per output and step in axm_i8s) stays inside int32, one
+    step more would not."""
+    assert cap * per_step * term < 2**31
+    assert (cap + 1) * per_step * term >= 2**31
 
 
 @pytest.mark.parametrize("kernel", ["axm_i8", "atxm_i8", "axm_i8a",
-                                    "atxm_i8a"])
+                                    "atxm_i8a", "axm_i8s"])
 def test_largest_sums_stay_exact_in_the_longest_part(kernel):
     """Every call a = 2 (code 00) against digits of 127: the a-plane sums
     are the largest the words allow, 64 times them would leave int32, and a
@@ -471,8 +518,22 @@ def test_largest_sums_stay_exact_in_the_longest_part(kernel):
     part's sums are per plane type, so one cap serves both forms.
     atxm_i8's one warp per output would leave int32 in one part; axm_i8's
     group of FW_SPLIT warps takes a part's steps in turn, so its cap holds
-    with room."""
+    with room.  The shared form (axm_i8s) adds b = 1 against digits of 127
+    into the same sums, every term 64 x 381, over a few steps more than its
+    own, shorter cap: equal to axm_i8s_int_ref too."""
     both = not kernel.endswith("a")
+    if kernel == "axm_i8s":
+        nw, m = 9, 32 * FW_SHARED_MAX_STEPS + 100
+        words = np.zeros((nw, m), np.uint32)
+        d8 = np.full((1, m), 127, np.int8)
+        got = emulate_axm_i8(words, d8, d8, shared=True)
+        want = (tmv.axm_i8s_int_ref(_t(words), torch.from_numpy(d8),
+                                    torch.from_numpy(d8)),)
+        assert len(got) == 1
+        np.testing.assert_array_equal(got[0], want[0].numpy())
+        assert int(want[0].abs().max()) == 381 * m
+        assert int(want[0].abs().max()) << SCALE_SHIFT >= 2**31
+        return
     if kernel.startswith("axm"):
         nw, m = 9, 32 * FW_MAX_STEPS + 100
         words = np.zeros((nw, m), np.uint32)
@@ -503,22 +564,25 @@ def test_largest_sums_stay_exact_in_the_longest_part(kernel):
 def test_chip_smoke_ptxas_entries_split_the_instantiations(monkeypatch):
     """chip_smoke's no-spill check reads each fragment product's own
     instantiation of the two templates: against the mangled names of
-    axm_i8_kernel<kBoth> and atxm_i8_kernel<kBoth> (and of the other
-    kernels of the report), the pattern of each of the four keys matches
-    exactly one name, its own, and every instantiation is some key's."""
+    axm_i8_kernel<kForm> (one plane, two planes, two planes in one sum) and
+    atxm_i8_kernel<kBoth> (and of the other kernels of the report), the
+    pattern of each of the five keys matches exactly one name, its own, and
+    every instantiation is some key's."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     monkeypatch.syspath_prepend(repo)
     smoke = importlib.import_module("chip_smoke")
     ns = "_ZN45_GLOBAL__N__5b2f9e1c_12_fragments_cu_8d1e0f3a"
 
-    def mangled(kernel, both):
-        return f"{ns}{len(kernel)}{kernel}ILb{int(both)}EEEvPKjPKhS5_PiS6_llll"
+    def mangled(kernel, arg):
+        return f"{ns}{len(kernel)}{kernel}IL{arg}EEEvPKjPKhS5_PiS6_llll"
 
-    own = {"axm_i8a": mangled("axm_i8_kernel", False),
-           "axm_i8": mangled("axm_i8_kernel", True),
-           "atxm_i8a": mangled("atxm_i8_kernel", False),
-           "atxm_i8": mangled("atxm_i8_kernel", True)}
-    others = ["_ZN12_GLOBAL__N_114axm_i8s_kernelEPKjPKiS3_Pilll",
+    own = {"axm_i8a": mangled("axm_i8_kernel", "i0"),
+           "axm_i8": mangled("axm_i8_kernel", "i1"),
+           "axm_i8s": mangled("axm_i8_kernel", "i2"),
+           "atxm_i8a": mangled("atxm_i8_kernel", "b0"),
+           "atxm_i8": mangled("atxm_i8_kernel", "b1")}
+    others = ["_ZN12_GLOBAL__N_112atx_a_kernelEPKjPKfPflll",
+              "_ZN12_GLOBAL__N_110atx_kernelEPKjPKfPflll",
               "_ZN12_GLOBAL__N_115gram_aat_kernelILb0EEEvPKjPKfS3_S3_Pfll",
               "_ZN12_GLOBAL__N_115i8decode_kernelEPKaPKhPilll"]
     assert set(smoke.FRAGMENT_KERNELS) == set(own)

@@ -332,3 +332,43 @@ def test_bench_gram_times_on_cpu(capsys):
         assert f"\n{name} " in out, name
     assert bench_gram._dual_shape(6400, 65536) == (320, 1_310_720)
     assert bench_gram._dual_shape(64, 1024) == (64, 1024)
+
+
+SASS_LISTING = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_112atx_a_kernelEPKjPKfPflll
+\t.headerflags\t@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;            /* 0x0 */
+        /*0010*/                   PRMT R2, R3, 0x7650, R4 ;         /* 0x0 */
+        /*0020*/                   LDS.128 R8, [R2+0x40] ;           /* 0x0 */
+        /*0030*/                   FADD R6, R5, R6 ;                 /* 0x0 */
+        /*0040*/               @!P0 BRA 0x10 ;                       /* 0x0 */
+        /*0050*/                   EXIT ;                            /* 0x0 */
+        /*0060*/                   BRA 0x60;                         /* 0x0 */
+\t\tFunction : _ZN12_GLOBAL__N_110atx_kernelEPKjPKfPflll
+        /*0000*/                   I2F.U32 R1, R2 ;                  /* 0x0 */
+        /*0010*/                   EXIT ;                            /* 0x0 */
+"""
+
+
+def test_sass_count_splits_functions_and_loops(tmp_path, capsys):
+    """sass_count: the functions matching a pattern, each loop closed by a
+    backward branch (not the branch to itself after EXIT), opcodes by
+    family, counts divided by --per."""
+    from gvamp_tpu_torch.tools import sass_count
+    found = sass_count.count(SASS_LISTING, "atx_a_kernel")
+    assert list(found) == ["_ZN12_GLOBAL__N_112atx_a_kernelEPKjPKfPflll"]
+    length, bodies = found["_ZN12_GLOBAL__N_112atx_a_kernelEPKjPKfPflll"]
+    assert length == 7
+    assert [(lo, hi) for lo, hi, _ in bodies] == [(0x10, 0x40)]
+    assert bodies[0][2] == {"PRMT": 1, "LDS": 1, "FADD": 1, "BRA": 1}
+    assert set(sass_count.count(SASS_LISTING, "atx_")) == {
+        "_ZN12_GLOBAL__N_112atx_a_kernelEPKjPKfPflll",
+        "_ZN12_GLOBAL__N_110atx_kernelEPKjPKfPflll"}
+    path = tmp_path / "k.sass"
+    path.write_text(SASS_LISTING)
+    assert sass_count.main([str(path), "atx_a_kernel", "--per", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "4 instructions, 2 per 2: PRMT 0.5, LDS 0.5, FADD 0.5, BRA 0.5" \
+        in out
+    assert sass_count.main([str(path), "gram_kernel"]) == 1
