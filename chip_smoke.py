@@ -4,6 +4,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # phases 1-3a: build and check
+    python3 chip_smoke.py --single-vector  # phase 1, the build, phase 3v
 
 Phases, each of which raises on failure (exit code != 0):
 
@@ -16,8 +17,8 @@ Phases, each of which raises on failure (exit code != 0):
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    with CUDA-event times of both: (a) all twenty-five at small shapes (the
    fused primal Grams with both mask forms and B above their column
-   chunks; the bf16-split products and atx_a (csrc/matvec.cu's pair
-   table) also on Gaussian inputs against float64 within
+   chunks; the bf16-split products, atx and atx_a (csrc/matvec.cu's
+   tables) also on Gaussian inputs against float64 within
    kernel_check.TOL; the study kernels of
    ops/study.py also at Nw=300 and Mpad not a multiple of 512, the row
    sums stream_sum and stream at every threads x bytes-per-load
@@ -36,8 +37,9 @@ Phases, each of which raises on failure (exit code != 0):
    a short last block, Mpad 135,168 (the route's edge on 132 SMs), B from
    1 to 5 and 70),
    (b) the a-only kernels, atx, atx_a and the bf16-split products on the
-   whole config-B matrix at B = 1 and 2 (the bf16 ones and atx_a also on
-   Gaussian inputs against their plain versions within BF16_PLAIN_TOL),
+   whole config-B matrix at B = 1 and 2 (the bf16 ones, atx and atx_a
+   also on Gaussian inputs against their plain versions within
+   BF16_PLAIN_TOL),
    and axm_i8a and atxm_i8a at B = 22 (LOCO's width on complete
    genotypes, 11 digit groups),
    (c) the general kernels, axm_i8s and the bf16-split products on the
@@ -47,6 +49,9 @@ Phases, each of which raises on failure (exit code != 0):
    and config-Xm matrix (gram_aat_i8) at B = 1, 2 and 5, timed beside
    their two-pass composition, and ax there (dyadic inputs bit for bit,
    the statistics' real inputs to a stated tolerance);
+   (v) with --single-vector and nothing else: atx and atx_a on the whole
+   config-B matrix and ax on the config-X one, checked as in (b) and (d)
+   and timed, for comparing two trees in turns;
    (e) the fused primal Grams on the whole config-B matrix (gram_i8a) and
    config-Bm matrix (gram_i8) at B = 1 and 2, timed through the wrapper
    and as the bare launch beside their two-pass composition, with packed
@@ -167,12 +172,15 @@ STUDY = STUDY_KERNELS + tuple(STUDY_PRODUCTS)
 PRODUCT_KERNELS = tuple(n for n in KERNELS if n not in STUDY)
 # each kernel's entries in the ptxas report: a pattern that the mangled
 # names of every instantiation match (default "<name>_kernel"); the
-# fragment products, the dual Grams (gram_aat.cu) and the primal ones
-# (gram_prim.cu) one instantiation of their template each, by the forward
-# loop's form <kForm> (0 one plane, 1 two planes, 2 two planes in one sum)
-# or the plane count <kBoth> / <kGeneral>; the row sums one per bytes per
-# load, named by <V, Decode, lanes>
-PTXAS_ENTRY = {"axm_i8a": "axm_i8_kernelILi0E",
+# fragment products, the dual Grams (gram_aat.cu), the primal ones
+# (gram_prim.cu) and atx / atx_a (matvec.cu) one instantiation of their
+# template each, by the forward loop's form <kForm> (0 one plane, 1 two
+# planes, 2 two planes in one sum) or the plane count <kBoth> /
+# <kGeneral>; the row sums one per bytes per load, named by <V, Decode,
+# lanes>
+PTXAS_ENTRY = {"atx": "atx_kernelILb1E",
+               "atx_a": "atx_kernelILb0E",
+               "axm_i8a": "axm_i8_kernelILi0E",
                "atxm_i8a": "atxm_i8_kernelILb0E",
                "axm_i8": "axm_i8_kernelILi1E",
                "atxm_i8": "atxm_i8_kernelILb1E",
@@ -457,8 +465,9 @@ def check_kernels(words, B, gen, label, names=PRODUCT_KERNELS, count=None,
 # (f32 sums of the same exact terms in other orders; relative to the
 # largest entry).  BF16_PLAIN_TOL was set from the first H100 run: axm_bf16
 # 6.7e-7 (B=1) and 8.8e-7 (B=2), atxm_bf16 4.2e-7, atx_a 8.4e-8 (PERF.md),
-# with room for other summation orders on another card
-GAUSSIAN_KERNELS = ("atx_a", "axm_bf16", "atxm_bf16")
+# with room for other summation orders on another card; atx, whose a-side
+# is atx_a's and whose b-side sums the same way, joined them later
+GAUSSIAN_KERNELS = ("atx", "atx_a", "axm_bf16", "atxm_bf16")
 BF16_PLAIN_TOL = 5e-6
 
 
@@ -476,6 +485,10 @@ def check_gaussian(words, B, gen, label, against, tol,
     V = torch.randn((4, 4 * nw, B), generator=gen, device=dev)
     f64 = against == "float64"
     cases = {
+        "atx": (lambda: matvec.atx(words, V[..., 0]),
+                lambda: matvec.atx_ref(words, V[..., 0],
+                                       torch.float64 if f64 else
+                                       torch.float32)),
         "atx_a": (lambda: (matvec.atx_a(words, V[..., 0]),),
                   lambda: (matvec.atx_ref(words, V[..., 0], torch.float64)[0]
                            if f64 else matvec.atx_a_ref(words, V[..., 0]),)),
@@ -748,7 +761,7 @@ def phase_kernels_config_b(words, gen):
             for B in (1, 2)}
     for B in (1, 2):
         check_gaussian(words, B, gen, label, "plain", BF16_PLAIN_TOL,
-                       names=bf16 + ("atx_a",) * (B == 1))
+                       names=bf16 + ("atx", "atx_a") * (B == 1))
     # a generator of its own, so that the draws of ``gen`` stay those the
     # engine phases' limits were set on
     wide_gen = torch.Generator(device="cuda")
@@ -1240,6 +1253,17 @@ def phase_kernels_config_x(words, words_m, gen):
             out[f"{name} two-pass B={B}"] = t_two
     out.update(check_kernels(words, 1, gen, f"config X full {nw}x{m}",
                              names=("ax",), reps=5, plain_reps=1))
+    check_ax_real(words, gen)
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_ax_real(words, gen) -> None:
+    """ax on the people statistics' real inputs (w = msig, u = mave msig)
+    against its plain version, within AX_REAL_TOL of the largest sum of
+    |terms|."""
+    from gvamp_tpu_torch.ops import matvec
+    m = words.shape[1]
     msig = torch.rand((m,), generator=gen, device="cuda") * 1.5 + 0.5
     mave = torch.rand((m,), generator=gen, device="cuda") * 2
     got = matvec.ax(words, msig, mave * msig)
@@ -1250,8 +1274,36 @@ def phase_kernels_config_x(words, words_m, gen):
         f"|terms| = {err:.2e} (limit {AX_REAL_TOL:g})")
     if not err <= AX_REAL_TOL:
         raise AssertionError("ax differs from its plain version")
+
+
+def phase_single_vector() -> None:
+    """atx and atx_a on the whole config-B matrix and ax on the config-X
+    one, each against its plain version as the full run checks them (bit
+    for bit on dyadic inputs, atx's bv on v = 1 against the non-missing
+    count, atx and atx_a on Gaussian v within BF16_PLAIN_TOL, ax on the
+    statistics' inputs within AX_REAL_TOL) and timed through the wrapper,
+    on instances of their own seed.  It uses only functions that every
+    tree of the port since PR 14 has, so a copy of this file in another
+    tree (a parent unpacked with git archive) times that tree's kernels:
+    run it in the two trees in turns."""
+    log("== phase 3v: the single-vector products, config-B and config-X "
+        "words")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    words = synth_words(gen, False, CFG_B_N, CFG_B_M)
+    nw, m = words.shape
+    label = f"config B full {nw}x{m}"
+    check_kernels(words, 1, gen, label, names=("atx", "atx_a"),
+                  count=16 * nw, reps=9, plain_reps=1)
+    check_gaussian(words, 1, gen, label, "plain", BF16_PLAIN_TOL,
+                   names=("atx", "atx_a"))
+    del words
     torch.cuda.empty_cache()
-    return out
+    words = synth_words(gen, False, CFG_X_N, CFG_X_M)
+    nw, m = words.shape
+    check_kernels(words, 1, gen, f"config X full {nw}x{m}", names=("ax",),
+                  reps=9, plain_reps=1)
+    check_ax_real(words, gen)
 
 
 # corr(x_hat, beta) and R2_train_1 after 10 dual iterations at config X and
@@ -1838,9 +1890,19 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks on small shapes")
+    ap.add_argument("--single-vector", action="store_true",
+                    help="only build and phase 3v: atx and atx_a at config "
+                         "B, ax at config X, checked and timed")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     phase_environment()
+    if args.single_vector:
+        from gvamp_tpu_torch.ops import _build
+        log(f"kernels: {_build.library()._name}")
+        phase_single_vector()
+        log(f"single-vector run: phase 3v passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return
     phase_build()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)

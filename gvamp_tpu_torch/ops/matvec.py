@@ -830,8 +830,9 @@ def _check_cuda(name: str, words: torch.Tensor, rhs: torch.Tensor,
     if rhs.dtype != rhs_dtype:
         raise ValueError(f"{name}: right-hand side must be {rhs_dtype}, got "
                          f"{rhs.dtype} (float64 has no kernel in this port)")
-    # the kernels read the words and the digit tensors the wrappers make
-    # (contiguous, freshly allocated), never the right-hand side itself
+    # the kernels read the words, the digit tensors the wrappers make
+    # (contiguous, freshly allocated) and, for the single-vector products,
+    # the vectors once the wrappers have made them contiguous
     if not words.is_contiguous() or words.data_ptr() % 16:
         raise ValueError(f"{name}: words must be contiguous and 16-byte "
                          f"aligned")
@@ -952,6 +953,33 @@ def atxm_i8(words: torch.Tensor, V: torch.Tensor):
     return _fold_digits_t(av, s0, B), _fold_digits_t(bv, s0, B)
 
 
+def atx_launch(name: str, words: torch.Tensor, v_planar: torch.Tensor):
+    """The checks and operands of one ``atx`` (both sides) or ``atx_a``
+    (a-side) launch: (kernel, arguments, finish).  The kernel writes one
+    f32 partial row per row band; ``finish()`` sums them, after the launch,
+    in a fixed order.  The bare launch of tools/profile_kernels.py uses it
+    too."""
+    _check_cuda(name, words, v_planar, torch.float32)
+    nw, m = words.shape
+    if tuple(v_planar.shape) != (4, 4 * nw):
+        raise ValueError(f"{name}: v must be [4, {4 * nw}], got "
+                         f"{list(v_planar.shape)}")
+    v = v_planar.contiguous()  # the kernel reads v itself
+    from gvamp_tpu_torch.ops import _build
+    lib = _build.library()
+    out = torch.empty((2 if name == "atx" else 1, lib.gvamp_atx_parts(nw, m),
+                       m), dtype=torch.float32, device=words.device)
+    args = (words.data_ptr(), v.data_ptr(), out.data_ptr(), nw, m)
+
+    # finish holds v, so that it lives as long as a launch may read it; the
+    # per-band partial rows meet here, in a fixed order: deterministic
+    def finish(_operands=(v,)):
+        s = out.sum(dim=1)
+        return (s[0], s[1]) if name == "atx" else s[0]
+
+    return getattr(lib, f"gvamp_{name}"), args, finish
+
+
 def atx(words: torch.Tensor, v_planar: torch.Tensor):
     """(A_a^T v, A_b^T v) -> f32[Mpad] x2 for one planar vector v[4, Nb].
 
@@ -962,27 +990,38 @@ def atx(words: torch.Tensor, v_planar: torch.Tensor):
                          f"are exact counts only below 2**24")
     if words.device.type == "cpu":
         return atx_ref(words, v_planar, torch.float32)
-    _check_cuda("atx", words, v_planar, torch.float32)
+    fn, args, finish = atx_launch("atx", words, v_planar)
+    _launch("atx", fn, words.device, *args)
+    return finish()
+
+
+def ax_launch(words: torch.Tensor, w: torch.Tensor, u: torch.Tensor):
+    """The checks and operands of one ``ax`` launch: (kernel, arguments,
+    finish), as ``atx_launch``.  The kernel reads w and u in marker pairs
+    (8-byte loads): a vector that is contiguous and 8-byte aligned is read
+    in place, any other through a contiguous copy."""
+    _check_cuda("ax", words, w, torch.float32)
+    _check_cuda("ax", words, u, torch.float32)
     nw, m = words.shape
-    if tuple(v_planar.shape) != (4, 4 * nw):
-        raise ValueError(f"atx: v must be [4, {4 * nw}], got "
-                         f"{list(v_planar.shape)}")
-    v = v_planar.contiguous()  # the kernel reads v itself
+    if tuple(w.shape) != (m,) or tuple(u.shape) != (m,):
+        raise ValueError(f"ax: w and u must be [{m}], got {list(w.shape)} "
+                         f"and {list(u.shape)}")
+    wc, uc = (x if x.is_contiguous() and x.data_ptr() % 8 == 0
+              else x.clone(memory_format=torch.contiguous_format)
+              for x in (w, u))
     from gvamp_tpu_torch.ops import _build
     lib = _build.library()
-    parts = lib.gvamp_atx_parts(nw, m)
-    out = torch.empty((2, parts, m), dtype=torch.float32, device=words.device)
-    _launch("atx", lib.gvamp_atx, words.device, words.data_ptr(),
-            v.data_ptr(), out.data_ptr(), nw, m)
-    # the per-band partial sums meet here, in a fixed order: deterministic
-    av, bv = out.sum(dim=1)
-    return av, bv
+    out = torch.empty((lib.gvamp_ax_parts(nw, m), 4, 4 * nw),
+                      dtype=torch.float32, device=words.device)
+    args = (words.data_ptr(), wc.data_ptr(), uc.data_ptr(), out.data_ptr(),
+            nw, m)
 
+    # finish holds the vectors read, as atx_launch's holds v; the per-band
+    # partial rows meet here, in a fixed order: deterministic
+    def finish(_operands=(wc, uc)):
+        return out.sum(dim=0)
 
-def _aligned(x: torch.Tensor) -> torch.Tensor:
-    """A contiguous float32 copy in fresh (16-byte aligned) memory: the
-    ax kernel reads w and u with 16-byte loads."""
-    return x.to(torch.float32).clone(memory_format=torch.contiguous_format)
+    return lib.gvamp_ax, args, finish
 
 
 def ax(words: torch.Tensor, w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -990,21 +1029,9 @@ def ax(words: torch.Tensor, w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     single-vector product of the people statistics)."""
     if words.device.type == "cpu":
         return ax_ref(words, w, u, torch.float32)
-    _check_cuda("ax", words, w, torch.float32)
-    _check_cuda("ax", words, u, torch.float32)
-    nw, m = words.shape
-    if tuple(w.shape) != (m,) or tuple(u.shape) != (m,):
-        raise ValueError(f"ax: w and u must be [{m}], got {list(w.shape)} "
-                         f"and {list(u.shape)}")
-    wc, uc = _aligned(w), _aligned(u)
-    from gvamp_tpu_torch.ops import _build
-    lib = _build.library()
-    out = torch.empty((lib.gvamp_ax_parts(nw, m), 4, 4 * nw),
-                      dtype=torch.float32, device=words.device)
-    _launch("ax", lib.gvamp_ax, words.device, words.data_ptr(),
-            wc.data_ptr(), uc.data_ptr(), out.data_ptr(), nw, m)
-    # the per-band partial rows meet here, in a fixed order: deterministic
-    return out.sum(dim=0)
+    fn, args, finish = ax_launch(words, w, u)
+    _launch("ax", fn, words.device, *args)
+    return finish()
 
 
 def atx_a(words: torch.Tensor, v_planar: torch.Tensor) -> torch.Tensor:
@@ -1012,20 +1039,9 @@ def atx_a(words: torch.Tensor, v_planar: torch.Tensor) -> torch.Tensor:
     genotypes the caller takes the b-side as sum(v)."""
     if words.device.type == "cpu":
         return atx_a_ref(words, v_planar)
-    _check_cuda("atx_a", words, v_planar, torch.float32)
-    nw, m = words.shape
-    if tuple(v_planar.shape) != (4, 4 * nw):
-        raise ValueError(f"atx_a: v must be [4, {4 * nw}], got "
-                         f"{list(v_planar.shape)}")
-    v = v_planar.contiguous()  # the kernel reads v itself
-    from gvamp_tpu_torch.ops import _build
-    lib = _build.library()
-    out = torch.empty((lib.gvamp_atx_a_parts(nw, m), m),
-                      dtype=torch.float32, device=words.device)
-    _launch("atx_a", lib.gvamp_atx_a, words.device, words.data_ptr(),
-            v.data_ptr(), out.data_ptr(), nw, m)
-    # the per-band partial rows meet here, in a fixed order: deterministic
-    return out.sum(dim=0)
+    fn, args, finish = atx_launch("atx_a", words, v_planar)
+    _launch("atx_a", fn, words.device, *args)
+    return finish()
 
 
 def axm_i8s(words: torch.Tensor, W: torch.Tensor,

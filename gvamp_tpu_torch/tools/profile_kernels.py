@@ -20,9 +20,11 @@ operands made once, outside the timed region, as the wrapper makes them
 (the digits quantised, the int32 outputs zeroed; for the dual Grams V's
 digits and scales, colsum(V) and the partial buffer; for the primal ones
 W's (and -U's) digit rows and scales, the mask, the scratch and the
-zeroed outputs); the first launch is finished as the wrapper finishes it
-(the fold; for the dual Grams the sum over the stripe groups and
-colsum(mave W); for the primal ones colsum(z)) and must equal the
+zeroed outputs; for ``ax``, ``atx`` and ``atx_a`` the partial rows); the
+first launch is finished as the wrapper finishes it (the fold; for the
+dual Grams the sum over the stripe groups and colsum(mave W); for the
+primal ones colsum(z); for the single-vector products the sum of the
+partial rows) and must equal the
 wrapper's result bit for bit (exit 1 if not).  The difference is the
 wrapper's own share.  The JAX tool's tile sweep
 (``tools/profile_kernels.py:81-93``) has no counterpart: the port's
@@ -140,6 +142,28 @@ def profile(device, nw: int, m: int, reps: int) -> int:
               flush=True)
         return ms
 
+    def beside_bare(label, wrapper, bare):
+        """Times ``wrapper`` and, on the card, the bare launch of
+        ``bare()`` = (launch, fold) beside it; returns 1 if the bare
+        launch's folded result differs from the wrapper's, else 0."""
+        ms = rec(label, wrapper)
+        if device.type != "cuda":
+            return 0
+        launch, fold = bare()
+        launch()
+        got, want = fold(), wrapper()
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        fault = not all(torch.equal(g, w) for g, w in zip(got, want))
+        if fault:
+            print(f"FAULT {label}: the bare launch differs from the wrapper",
+                  flush=True)
+        del got, want
+        ms_bare = rec(f"{label} kernel alone", launch)
+        print(f"{label}: wrapper's own share {ms - ms_bare:.3f} ms "
+              f"({(ms - ms_bare) / ms:.1%} of {ms:.3f} ms)", flush=True)
+        return int(fault)
+
     for B in WIDTHS:
         W = t(rng.standard_normal((m, B)))
         U = W * 0.01
@@ -156,31 +180,34 @@ def profile(device, nw: int, m: int, reps: int) -> int:
                     "gram_i8": lambda: matvec.gram_i8(words, W, U, na),
                     "gram_i8a": lambda: matvec.gram_i8a(words, W, na, cu)}
         for name in names:
-            label = f"{name} B={B}" + (" (a-only)" * name.endswith("a"))
-            ms = rec(label, wrappers[name])
-            if device.type != "cuda":
-                continue
-            launch, fold = bare_launch(name, words, W, U, V, mave, msig2,
-                                       na, cu)
-            launch()
-            got, want = fold(), wrappers[name]()
-            if isinstance(got, torch.Tensor):
-                got, want = (got,), (want,)
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                print(f"FAULT {name} B={B}: the bare launch differs from "
-                      f"the wrapper", flush=True)
-                faults += 1
-            del got, want
-            bare = rec(f"{name} B={B} kernel alone", launch)
-            print(f"{name} B={B}: wrapper's own share {ms - bare:.3f} ms "
-                  f"({(ms - bare) / ms:.1%} of {ms:.3f} ms)", flush=True)
+            faults += beside_bare(
+                f"{name} B={B}" + (" (a-only)" * name.endswith("a")),
+                wrappers[name],
+                lambda: bare_launch(name, words, W, U, V, mave, msig2, na,
+                                    cu))
     w1 = t(rng.standard_normal(m))
     u1 = w1 * 0.01
     v1 = t(rng.standard_normal((4, 4 * nw)))
-    rec("ax (f32, B=1)", lambda: matvec.ax(words, w1, u1))
-    rec("atx (f32, B=1)", lambda: matvec.atx(words, v1))
-    rec("atx_a (f32, B=1, a-only)", lambda: matvec.atx_a(words, v1))
+    singles = {"ax (f32, B=1)": ("ax", lambda: matvec.ax(words, w1, u1),
+                                 lambda: matvec.ax_launch(words, w1, u1)),
+               "atx (f32, B=1)": ("atx", lambda: matvec.atx(words, v1),
+                                  lambda: matvec.atx_launch("atx", words,
+                                                            v1)),
+               "atx_a (f32, B=1, a-only)": (
+                   "atx_a", lambda: matvec.atx_a(words, v1),
+                   lambda: matvec.atx_launch("atx_a", words, v1))}
+    for label, (name, wrapper, operands) in singles.items():
+        faults += beside_bare(label, wrapper,
+                              lambda: single_launch(name, words, operands))
     return 1 if faults else 0
+
+
+def single_launch(name: str, words, operands):
+    """(launch, fold) for the single-vector product ``name`` from
+    ``operands()`` = (kernel, arguments, finish) of its launch helper."""
+    from gvamp_tpu_torch.ops import matvec
+    fn, args, finish = operands()
+    return (lambda: matvec._launch(name, fn, words.device, *args)), finish
 
 
 def main(argv=None) -> int:

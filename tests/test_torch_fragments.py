@@ -567,7 +567,8 @@ def test_chip_smoke_ptxas_entries_split_the_instantiations(monkeypatch):
     axm_i8_kernel<kForm> (one plane, two planes, two planes in one sum) and
     atxm_i8_kernel<kBoth> (and of the other kernels of the report), the
     pattern of each of the five keys matches exactly one name, its own, and
-    every instantiation is some key's."""
+    every instantiation is some key's; so do the keys of atx_kernel<kBoth>'s
+    two instantiations, atx_a and atx."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     monkeypatch.syspath_prepend(repo)
     smoke = importlib.import_module("chip_smoke")
@@ -581,12 +582,13 @@ def test_chip_smoke_ptxas_entries_split_the_instantiations(monkeypatch):
            "axm_i8s": mangled("axm_i8_kernel", "i2"),
            "atxm_i8a": mangled("atxm_i8_kernel", "b0"),
            "atxm_i8": mangled("atxm_i8_kernel", "b1")}
-    others = ["_ZN12_GLOBAL__N_112atx_a_kernelEPKjPKfPflll",
-              "_ZN12_GLOBAL__N_110atx_kernelEPKjPKfPflll",
+    others = ["_ZN12_GLOBAL__N_110atx_kernelILb0EEEvPKjPKfPflll",
+              "_ZN12_GLOBAL__N_110atx_kernelILb1EEEvPKjPKfPflll",
               "_ZN12_GLOBAL__N_115gram_aat_kernelILb0EEEvPKjPKfS3_S3_Pfll",
               "_ZN12_GLOBAL__N_115i8decode_kernelEPKaPKhPilll"]
     assert set(smoke.FRAGMENT_KERNELS) == set(own)
-    for key, name in own.items():
+    for key, name in [*own.items(), ("atx_a", others[0]),
+                      ("atx", others[1])]:
         hits = [n for n in [*own.values(), *others]
                 if re.search(smoke.PTXAS_ENTRY[key], n)]
         assert hits == [name], key
