@@ -5,21 +5,22 @@ Run from the repository root on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # phases 1-3a: build and check
     python3 chip_smoke.py --single-vector  # phase 1, the build, phase 3v
+    python3 chip_smoke.py --bf16-split     # phase 1, the build, phase 3w
 
 Phases, each of which raises on failure (exit code != 0):
 
 1. environment: torch / CUDA / nvcc / triton versions and the card's name
    and power limit; TF32 off for every float32 product;
 2. build the CUDA kernels (gvamp_tpu_torch/csrc/matvec.cu, fragments.cu,
-   gram_aat.cu, gram_prim.cu and study.cu, one nvcc each, started
-   together); the ptxas
+   bf16_split.cu, gram_aat.cu, gram_prim.cu and study.cu, one nvcc each,
+   started together); the ptxas
    report must show no spill store in any instantiation of any kernel;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    with CUDA-event times of both: (a) all twenty-five at small shapes (the
    fused primal Grams with both mask forms and B above their column
-   chunks; the bf16-split products, atx and atx_a (csrc/matvec.cu's
-   tables) also on Gaussian inputs against float64 within
-   kernel_check.TOL; the study kernels of
+   chunks; the bf16-split products (csrc/bf16_split.cu's bf16 tensor-core
+   chains), atx and atx_a (csrc/matvec.cu's tables) also on Gaussian
+   inputs against float64 within kernel_check.TOL; the study kernels of
    ops/study.py also at Nw=300 and Mpad not a multiple of 512, the row
    sums stream_sum and stream at every threads x bytes-per-load
    configuration of bench_stream's sweep, v1_decode_a, v2_decode_ab and
@@ -29,7 +30,7 @@ Phases, each of which raises on failure (exit code != 0):
    were expanded from; the five digit products of fragments.cu, axm_i8a,
    atxm_i8a, axm_i8, atxm_i8 and axm_i8s, also at the edges of their
    grids, FRAGMENT_SHAPES: Nw = 7 and 300, Mpad = 8 and 1,000, B up to
-   22; the
+   22, and the bf16-split products there too (also against float64); the
    fused dual Grams of gram_aat.cu at theirs, GRAM_AAT_SHAPES: Nw = 7, 300
    and 822 (the route's edge), Mpad of one stripe and with a short last
    group of stripes, B up to 5; the fused primal Grams of gram_prim.cu at
@@ -52,6 +53,12 @@ Phases, each of which raises on failure (exit code != 0):
    (v) with --single-vector and nothing else: atx and atx_a on the whole
    config-B matrix and ax on the config-X one, checked as in (b) and (d)
    and timed, for comparing two trees in turns;
+   (w) with --bf16-split and nothing else: axm_bf16 and atxm_bf16 at B =
+   1 and 2 on the whole config-B and config-Bm matrices, checked as in (b)
+   and (c) (dyadic inputs bit for bit, Gaussian inputs within
+   BF16_PLAIN_TOL of their plain versions) and timed, for comparing two
+   trees in turns, and on config B their error against float64 at the
+   full contraction length printed beside the plain versions';
    (e) the fused primal Grams on the whole config-B matrix (gram_i8a) and
    config-Bm matrix (gram_i8) at B = 1 and 2, timed through the wrapper
    and as the bare launch beside their two-pass composition, with packed
@@ -215,6 +222,10 @@ GRAM_PRIM_SOURCE = "gvamp_tpu_torch/csrc/gram_prim.cu"
 # planes in one sum (axm_i8s)
 FRAGMENT_KERNELS = ("axm_i8a", "atxm_i8a", "axm_i8", "atxm_i8", "axm_i8s")
 FRAGMENT_SOURCE = "gvamp_tpu_torch/csrc/fragments.cu"
+# the bf16-split products on bf16 tensor cores, their A fragments the
+# decoded fields masked to one plane
+BF16_KERNELS = ("axm_bf16", "atxm_bf16")
+BF16_SOURCE = "gvamp_tpu_torch/csrc/bf16_split.cu"
 SHAPES = [(32, 512, 1), (64, 1024, 2), (96, 1536, 5), (32, 2048, 17),
           (64, 512, 70)]
 # the edges of the fragment kernels' grids beyond SHAPES, checked for those
@@ -539,6 +550,15 @@ def phase_kernels_small(gen, study_gen):
         check_kernels(random_words(edge_gen, nw, m), B, edge_gen,
                       f"Nw={nw} Mpad={m}", names=GRAM_PRIM_KERNELS,
                       plain_reps=1)
+    # the bf16-split products at the edges of their grids too: a last step
+    # reaching past Mpad (8, 1,000), row groups past Nw (7, 300), 11 column
+    # groups (B = 22)
+    for nw, m, B in FRAGMENT_SHAPES:
+        words = random_words(edge_gen, nw, m)
+        check_kernels(words, B, edge_gen, f"Nw={nw} Mpad={m}",
+                      names=BF16_KERNELS)
+        check_gaussian(words, B, edge_gen, f"Nw={nw} Mpad={m}", "float64",
+                       kernel_check.TOL, names=BF16_KERNELS)
 
 
 # small shapes of the study kernels beyond SHAPES: rows past a multiple of
@@ -1306,6 +1326,63 @@ def phase_single_vector() -> None:
     check_ax_real(words, gen)
 
 
+def bf16_float64_slices(words, B, gen, label) -> None:
+    """The bf16-split products on the whole matrix against float64 on a
+    slice of their outputs (the first 64 word rows' people for axm_bf16,
+    the first 1,024 markers for atxm_bf16), Gaussian inputs: their error
+    at the full contraction length, printed beside the plain versions'
+    (kernel_check holds the small shapes to its limit)."""
+    from gvamp_tpu_torch.ops import matvec
+    nw, m = words.shape
+    dev = words.device
+    W = torch.randn((m, B), generator=gen, device=dev)
+    U = torch.randn((m, B), generator=gen, device=dev) * 0.1
+    V = torch.randn((4, 4 * nw, B), generator=gen, device=dev)
+    rows, cols = words[:64].contiguous(), words[:, :1024].contiguous()
+
+    def rel(x, ref):
+        return float((x.double() - ref).abs().max() / ref.abs().max())
+
+    z64 = matvec.axm_ref(rows, W, U, torch.float64)
+    fw = (rel(matvec.axm_bf16(words, W, U)[:, :256], z64),
+          rel(matvec.axm_bf16_ref(rows, W, U), z64))
+    r64 = matvec.atxm_ref(cols, V, torch.float64)
+    tx = (max(rel(x[:1024], r) for x, r in zip(matvec.atxm_bf16(words, V),
+                                                 r64)),
+          max(rel(x, r) for x, r in zip(matvec.atxm_bf16_ref(cols, V), r64)))
+    log(f"  {label:>22s} B={B:<3d} against float64 at the full contraction "
+        f"length: axm_bf16 {fw[0]:.3e} (plain {fw[1]:.3e}), atxm_bf16 "
+        f"{tx[0]:.3e} (plain {tx[1]:.3e})")
+
+
+def phase_bf16_split() -> None:
+    """axm_bf16 and atxm_bf16 at B = 1 and 2 on the whole config-B and
+    config-Bm matrices, each against its plain version as the full run
+    checks them (bit for bit on dyadic inputs, within BF16_PLAIN_TOL on
+    Gaussian inputs) and timed through the wrapper, on instances of their
+    own seed; on config B also against float64 at the full contraction
+    length (bf16_float64_slices, a measurement, no limit).  It uses only
+    functions that every tree of the port since PR 5 has, so a copy of this
+    file in another tree (a parent unpacked with git archive) times that
+    tree's kernels: run it in the two trees in turns."""
+    log("== phase 3w: the bf16-split products, config-B and config-Bm words")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for missing in (False, True):
+        words = synth_words(gen, missing, CFG_B_N, CFG_B_M)
+        nw, m = words.shape
+        label = f"config {'Bm' if missing else 'B'} full {nw}x{m}"
+        for B in (1, 2):
+            check_kernels(words, B, gen, label, names=BF16_KERNELS, reps=9,
+                          plain_reps=1)
+            check_gaussian(words, B, gen, label, "plain", BF16_PLAIN_TOL,
+                           names=BF16_KERNELS)
+            if not missing:
+                bf16_float64_slices(words, B, gen, label)
+        del words
+        torch.cuda.empty_cache()
+
+
 # corr(x_hat, beta) and R2_train_1 after 10 dual iterations at config X and
 # at config Xm; set from the first H100 run of this phase (X 0.38174 and
 # 0.5568 in dual, dual two-pass and primal mode alike, Xm 0.35720 and
@@ -1876,7 +1953,8 @@ def kernel_rows(numbers):
         rows.append({
             "name": n, "route": "cuda",
             "source": (STUDY_SOURCE if n in STUDY else FRAGMENT_SOURCE
-                       if n in FRAGMENT_KERNELS else GRAM_AAT_SOURCE
+                       if n in FRAGMENT_KERNELS else BF16_SOURCE
+                       if n in BF16_KERNELS else GRAM_AAT_SOURCE
                        if n in GRAM_AAT_KERNELS else GRAM_PRIM_SOURCE
                        if n in GRAM_PRIM_KERNELS else SOURCE),
             "replaces": REPLACES[n], "launches": launches,
@@ -1893,6 +1971,9 @@ def main(argv=None):
     ap.add_argument("--single-vector", action="store_true",
                     help="only build and phase 3v: atx and atx_a at config "
                          "B, ax at config X, checked and timed")
+    ap.add_argument("--bf16-split", action="store_true",
+                    help="only build and phase 3w: axm_bf16 and atxm_bf16 "
+                         "at configs B and Bm, checked and timed")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     phase_environment()
@@ -1901,6 +1982,13 @@ def main(argv=None):
         log(f"kernels: {_build.library()._name}")
         phase_single_vector()
         log(f"single-vector run: phase 3v passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return
+    if args.bf16_split:
+        from gvamp_tpu_torch.ops import _build
+        log(f"kernels: {_build.library()._name}")
+        phase_bf16_split()
+        log(f"bf16-split run: phase 3w passed in "
             f"{time.perf_counter() - t_start:.1f} s")
         return
     phase_build()

@@ -1,8 +1,9 @@
 // Packed-genotype products of the PyTorch port, written by hand for Hopper
 // (sm_90a), apart from the five digit products axm_i8a, atxm_i8a, axm_i8,
 // atxm_i8 and axm_i8s, whose tensor-core kernels are in fragments.cu, the
-// fused dual Grams gram_aat_i8a and gram_aat_i8 (gram_aat.cu) and the
-// fused primal Grams gram_i8a and gram_i8 (gram_prim.cu).  Bound
+// bf16-split products axm_bf16 and atxm_bf16 (bf16_split.cu), the fused
+// dual Grams gram_aat_i8a and gram_aat_i8 (gram_aat.cu) and the fused
+// primal Grams gram_i8a and gram_i8 (gram_prim.cu).  Bound
 // through a plain C interface (ctypes, see gvamp_tpu_torch/ops/_build.py);
 // the wrappers are in gvamp_tpu_torch/ops/matvec.py, beside the plain
 // PyTorch versions the kernels are checked against.
@@ -14,15 +15,14 @@
 // which is exactly the byte order of four int8 digits packed into one
 // int32.
 //
-// The kernels here are f32 products of one or a few right-hand-side
-// columns (the digit products, which contract radix-127 int8 digits
-// exactly in int32, are in fragments.cu).  The single-vector ones, atx,
-// atx_a and ax, convert no byte to float: they look up sums of the
-// right-hand side, built per word row (atx, atx_a) or per marker pair (ax)
-// into shared memory, with a nibble of the words as the index.  The
-// bf16-split ones, axm_bf16 and atxm_bf16, convert and multiply.  Each
-// block writes its own partial rows, which the wrapper sums in a fixed
-// order, so the results do not depend on scheduling.
+// The kernels here are the f32 products of one right-hand-side column, atx,
+// atx_a and ax (the digit products, which contract radix-127 int8 digits
+// exactly in int32, are in fragments.cu; the bf16-split products, on bf16
+// tensor cores, in bf16_split.cu).  They convert no byte to float: they
+// look up sums of the right-hand side, built per word row (atx, atx_a) or
+// per marker pair (ax) into shared memory, with a nibble of the words as
+// the index.  Each block writes its own partial rows, which the wrapper
+// sums in a fixed order, so the results do not depend on scheduling.
 //
 // Every launch returns cudaGetLastError(), and the wrapper raises on a
 // non-zero code.  A kernel allocates nothing: the wrapper passes the
@@ -507,230 +507,6 @@ int64_t ax_markers_per_band(int64_t nw, int64_t mpad) {
   return cdiv(cdiv(mpad, bands), kAxStep) * kAxStep;
 }
 
-// --------------------------------------------------------------------------
-// The bf16-split products.  The wrapper splits each f32 right-hand side x
-// into three bf16 parts hi, mid and lo (x ~= hi + mid + lo; _split_hi_lo in
-// ops/matvec.py, as gvamp_tpu/ops/matvec.py:115-132).  A decoded a in
-// {0,1,2} or b in {0,1} times a bf16 value is exact in f32, so a product
-// per part with f32 sums is the function of the TPU's bf16 x bf16 -> f32
-// MXU dots; only the order of the f32 sums differs.  Each part keeps its
-// own sums, and the parts meet as (hi + mid) + lo, as the TPU kernels add
-// them.  The kernels read the parts' bf16 bits; bf16 -> f32 is a shift.
-// --------------------------------------------------------------------------
-constexpr int kParts = 3;
-
-__device__ __forceinline__ float byte_f(uint32_t x, int j) {
-  return (float)((x >> (8 * j)) & 0xffu);
-}
-
-__device__ __forceinline__ float bf16_low(uint32_t x) {
-  return __uint_as_float(x << 16);
-}
-
-__device__ __forceinline__ float bf16_high(uint32_t x) {
-  return __uint_as_float(x & 0xffff0000u);
-}
-
-// --------------------------------------------------------------------------
-// axm_bf16: z[c][k][p] = sum over parts, (hi + mid) + lo, of
-//   sum_m a_k[m, p] * w_part[c][m] - b_k[m, p] * u_part[c][m]
-//
-// Replaces axm_pallas / _axm_kernel (gvamp_tpu/ops/matvec.py:319-373).
-// Bound on this card: one read of the packed bytes per column, then 2 * 3
-// float FMAs per decoded byte (a-side and b-side, three parts) and the
-// byte conversions: CUDA cores, not HBM, set its pace.
-// Design: one warp per word row, 16-byte loads of four marker words, the
-// __byte_perm transpose (transpose_quad), lanes striding over the marker
-// quads of a band; one column per gridDim.z, so a lane keeps 16 * 3 f32
-// sums (plane k, byte b, part) and re-reads the words per column.  The
-// four markers' parts of w and u are one 8-byte load each.  The 8
-// products of a quad for one sum meet in a local sum before they join the
-// lane's running sum, which keeps the long running sums' rounding down.  A
-// shuffle tree sums the lanes, the parts meet as (hi + mid) + lo, and each
-// marker band writes its own partial rows; the wrapper sums the partials
-// in a fixed order.
-// --------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-axm_bf16_kernel(const uint32_t* __restrict__ words,
-                const uint2* __restrict__ w2,  // bf16 [3, B, Mpad] as uint2 quads
-                const uint2* __restrict__ u2,  // bf16 [3, B, Mpad]
-                float* __restrict__ out,       // [bands, B, 4, 4*Nw]
-                int64_t nw, int64_t mpad, int64_t ncols,
-                int64_t quads_per_band) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * kWarps + warp;
-  if (row >= nw) return;  // the kernel has no __syncthreads
-  const int64_t c = blockIdx.z;
-  const int64_t nq = mpad / 4;
-  const int64_t q_begin = (int64_t)blockIdx.y * quads_per_band;
-  const int64_t q_end = imin(nq, q_begin + quads_per_band);
-  float acc[16][kParts];  // [k * 4 + b][part]
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int p = 0; p < kParts; ++p) acc[j][p] = 0.f;
-  const uint4* wrow = reinterpret_cast<const uint4*>(words + row * mpad);
-  for (int64_t q = q_begin + lane; q < q_end; q += 32) {
-    uint32_t y[4];
-    transpose_quad(__ldg(wrow + q), y);
-    float ww[kParts][4], nu[kParts][4];
-#pragma unroll
-    for (int p = 0; p < kParts; ++p) {
-      const uint2 x = __ldg(w2 + (p * ncols + c) * nq + q);
-      const uint2 xu = __ldg(u2 + (p * ncols + c) * nq + q);
-      ww[p][0] = bf16_low(x.x);
-      ww[p][1] = bf16_high(x.x);
-      ww[p][2] = bf16_low(x.y);
-      ww[p][3] = bf16_high(x.y);
-      nu[p][0] = -bf16_low(xu.x);
-      nu[p][1] = -bf16_high(xu.x);
-      nu[p][2] = -bf16_low(xu.y);
-      nu[p][3] = -bf16_high(xu.y);
-    }
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const uint32_t a = swar_a(y[b], k);
-        const uint32_t nm = swar_b(y[b], k);
-        float t[kParts] = {0.f, 0.f, 0.f};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float fa = byte_f(a, j);
-          const float fb = byte_f(nm, j);
-#pragma unroll
-          for (int p = 0; p < kParts; ++p) {
-            t[p] = fmaf(fa, ww[p][j], t[p]);
-            t[p] = fmaf(fb, nu[p][j], t[p]);
-          }
-        }
-#pragma unroll
-        for (int p = 0; p < kParts; ++p) acc[k * 4 + b][p] += t[p];
-      }
-  }
-  const int64_t nb = 4 * nw;
-  float* o = out + ((int64_t)blockIdx.y * ncols + c) * 4 * nb;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    float s[kParts];
-#pragma unroll
-    for (int p = 0; p < kParts; ++p) {
-      s[p] = acc[j][p];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        s[p] += __shfl_down_sync(0xffffffffu, s[p], off);
-    }
-    if (lane == 0) o[(j / 4) * nb + 4 * row + j % 4] = (s[0] + s[1]) + s[2];
-  }
-}
-
-int64_t axm_bf16_quads_per_band(int64_t nw, int64_t mpad, int64_t ncols) {
-  return band_length(mpad / 4, cdiv(nw, kWarps) * ncols, 32);
-}
-
-// --------------------------------------------------------------------------
-// atxm_bf16: (av, bv)[c][m] = sum over parts, (hi + mid) + lo, of
-//   sum_{k, p} (a_k, b_k)[m, p] * v_part[k, p, c]
-//
-// Replaces atxm_pallas / _atxm_kernel (gvamp_tpu/ops/matvec.py:376-435).
-// Bound on this card: one read of the packed bytes per group of CG
-// columns, then 2 * 3 * CG float FMAs per decoded byte (both planes, three
-// parts) and their operands from shared memory.
-// Design: one thread per marker column (the band's planar V parts in
-// shared memory as f32, row bands over gridDim.y writing their own partial
-// rows, summed by the wrapper in a fixed order).  2 sides x 3 parts x 64
-// columns would be too many sums for registers, so a block takes a group
-// of CG columns (gridDim.z walks the groups and re-reads the words); each
-// thread keeps 2 * 3 * CG sums.  As in atx, a word row's products meet in
-// f32 and the row sums in double.  The shared tile holds kBfTileRows word
-// rows: 4 planes x 4 * 64 samples x 3 * CG floats (24 KB at CG = 2).
-// --------------------------------------------------------------------------
-constexpr int kBfTileRows = 64;
-
-int atxm_bf16_group(int64_t ncols) { return ncols == 1 ? 1 : 2; }
-
-template <int CG>
-__global__ void __launch_bounds__(kThreads)
-atxm_bf16_kernel(const uint32_t* __restrict__ words,
-                 const uint16_t* __restrict__ v2,  // bf16 [4, Nb, 3 * B]
-                 float* __restrict__ out,          // [2, bands, B, Mpad]
-                 int64_t nw, int64_t mpad, int64_t ncols,
-                 int64_t rows_per_band) {
-  constexpr int E = kParts * CG;  // sums per side: [part][column]
-  __shared__ float sv[4][4 * kBfTileRows][E];
-  const int64_t m = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  const int64_t nb = 4 * nw;
-  const int64_t c0 = (int64_t)blockIdx.z * CG;
-  const int64_t r_begin = (int64_t)blockIdx.y * rows_per_band;
-  const int64_t r_end = imin(nw, r_begin + rows_per_band);
-  double acc_a[E], acc_b[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) acc_a[e] = acc_b[e] = 0.0;
-  for (int64_t t0 = r_begin; t0 < r_end; t0 += kBfTileRows) {
-    const int rows = (int)imin((int64_t)kBfTileRows, r_end - t0);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < 4 * 4 * kBfTileRows * E; idx += kThreads) {
-      const int k = idx / (4 * kBfTileRows * E);
-      const int s = (idx / E) % (4 * kBfTileRows);
-      const int e = idx % E;
-      const int64_t col = c0 + e % CG;
-      float v = 0.f;
-      if (s < 4 * rows && col < ncols)
-        v = __uint_as_float(
-            (uint32_t)v2[(k * nb + 4 * t0 + s) * kParts * ncols + (e / CG) * ncols + col]
-            << 16);
-      sv[k][s][e] = v;
-    }
-    __syncthreads();
-    if (m < mpad) {
-      const uint32_t* colw = words + t0 * mpad + m;
-      for (int r = 0; r < rows; ++r) {
-        const uint32_t w = __ldg(colw + (int64_t)r * mpad);
-        float ta[E], tb[E];
-#pragma unroll
-        for (int e = 0; e < E; ++e) ta[e] = tb[e] = 0.f;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const uint32_t a = swar_a(w, k);
-          const uint32_t b = swar_b(w, k);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float fa = byte_f(a, j);
-            const float fb = byte_f(b, j);
-#pragma unroll
-            for (int e = 0; e < E; ++e) {
-              const float vv = sv[k][4 * r + j][e];
-              ta[e] = fmaf(fa, vv, ta[e]);
-              tb[e] = fmaf(fb, vv, tb[e]);
-            }
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < E; ++e) {
-          acc_a[e] += (double)ta[e];
-          acc_b[e] += (double)tb[e];
-        }
-      }
-    }
-  }
-  if (m >= mpad) return;  // after the last __syncthreads of the block
-  const int64_t bands = gridDim.y;
-#pragma unroll
-  for (int cc = 0; cc < CG; ++cc) {
-    if (c0 + cc >= ncols) continue;
-    const float za = ((float)acc_a[cc] + (float)acc_a[CG + cc]) + (float)acc_a[2 * CG + cc];
-    const float zb = ((float)acc_b[cc] + (float)acc_b[CG + cc]) + (float)acc_b[2 * CG + cc];
-    out[((int64_t)blockIdx.y * ncols + c0 + cc) * mpad + m] = za;
-    out[((bands + blockIdx.y) * ncols + c0 + cc) * mpad + m] = zb;
-  }
-}
-
-int64_t atxm_bf16_rows_per_band(int64_t nw, int64_t mpad, int64_t ncols) {
-  const int64_t groups = cdiv(ncols, atxm_bf16_group(ncols));
-  return band_length(nw, cdiv(mpad, kThreads) * groups, kBfTileRows);
-}
-
 }  // namespace
 
 extern "C" {
@@ -770,48 +546,6 @@ int gvamp_ax(const void* words, const void* w, const void* u, void* out,
   ax_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<const float2*>(w),
       static_cast<const float2*>(u), static_cast<float*>(out), nw, mpad, band);
-  return (int)cudaGetLastError();
-}
-
-// number of marker bands the axm_bf16 launch uses: the wrapper sizes its
-// partial output [bands, B, 4, 4*Nw] with it
-int64_t gvamp_axm_bf16_parts(int64_t nw, int64_t mpad, int64_t ncols) {
-  return cdiv(mpad / 4, axm_bf16_quads_per_band(nw, mpad, ncols));
-}
-
-int gvamp_axm_bf16(const void* words, const void* w2, const void* u2,
-                   void* out, int64_t nw, int64_t mpad, int64_t ncols,
-                   void* stream) {
-  const int64_t quads = axm_bf16_quads_per_band(nw, mpad, ncols);
-  const dim3 grid((unsigned)cdiv(nw, kWarps), (unsigned)cdiv(mpad / 4, quads),
-                  (unsigned)ncols);
-  axm_bf16_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(words), static_cast<const uint2*>(w2),
-      static_cast<const uint2*>(u2), static_cast<float*>(out), nw, mpad, ncols,
-      quads);
-  return (int)cudaGetLastError();
-}
-
-// number of row bands the atxm_bf16 launch uses: the wrapper sizes its
-// partial output [2, bands, B, Mpad] with it
-int64_t gvamp_atxm_bf16_parts(int64_t nw, int64_t mpad, int64_t ncols) {
-  return cdiv(nw, atxm_bf16_rows_per_band(nw, mpad, ncols));
-}
-
-int gvamp_atxm_bf16(const void* words, const void* v2, void* out, int64_t nw,
-                    int64_t mpad, int64_t ncols, void* stream) {
-  const int64_t rows = atxm_bf16_rows_per_band(nw, mpad, ncols);
-  const int cg = atxm_bf16_group(ncols);
-  const dim3 grid((unsigned)cdiv(mpad, kThreads), (unsigned)cdiv(nw, rows),
-                  (unsigned)cdiv(ncols, cg));
-  const auto* w = static_cast<const uint32_t*>(words);
-  const auto* v = static_cast<const uint16_t*>(v2);
-  auto* o = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (cg == 1)
-    atxm_bf16_kernel<1><<<grid, kThreads, 0, s>>>(w, v, o, nw, mpad, ncols, rows);
-  else
-    atxm_bf16_kernel<2><<<grid, kThreads, 0, s>>>(w, v, o, nw, mpad, ncols, rows);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
-// The int8 mma.sync of the port's tensor-core kernels (study.cu,
-// fragments.cu, gram_aat.cu), the integer and grid helpers of every
-// source, and the f32 fold of the fused Grams' digit sums.
+// The mma.sync of the port's tensor-core kernels: int8 (study.cu,
+// fragments.cu, gram_aat.cu, gram_prim.cu) and bf16 (bf16_split.cu); the
+// integer and grid helpers of every source, and the f32 fold of the fused
+// Grams' digit sums.
 
 #pragma once
 
@@ -40,6 +41,34 @@ __device__ __forceinline__ void mma_u8s8(int32_t c[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b on the tensor cores: m16n8k16, bf16 x bf16 -> f32.  Lane (g,
+// t) holds A rows g (a[0], a[2]) and g+8 (a[1], a[3]) at contraction
+// indices 2t, 2t+1 (a[0], a[1]) and 2t+8, 2t+9 (a[2], a[3]), two bf16 per
+// register, the lower index in the low half; B column g at 2t, 2t+1 (b0)
+// and 2t+8, 2t+9 (b1); C rows g (c[0], c[1]) and g+8 (c[2], c[3]) at
+// columns 2t and 2t+1.  Products of bf16 values are exact in f32; how the
+// tensor cores add them to c is not IEEE round-to-nearest (bf16_split.cu
+// keeps its chains short for that).  With kZero, c is written, not read:
+// the first mma of a chain.
+template <bool kZero = false>
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  if constexpr (kZero) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+        : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+          "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
 // t[0] s0 + t[1] s1 + t[2] s2 + t[3] s3, left to right, each step rounded

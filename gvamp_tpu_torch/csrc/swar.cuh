@@ -1,6 +1,6 @@
 // The SWAR decode of packed genotype words, shared by every kernel of the
-// port (matvec.cu, study.cu, fragments.cu) so that all of them decode with
-// the same code.
+// port (matvec.cu, study.cu, fragments.cu, bf16_split.cu and the fused
+// Grams) so that all of them decode with the same code.
 //
 // A word holds 16 samples as 2-bit codes; byte b of word-row i holds the
 // codes of planar rows (k, 4i+b), k = bit pair.  swar_a(w, k) turns plane k

@@ -164,7 +164,7 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [i64] * 3
                 fn.restype = i64
-            lib.gvamp_axm_bf16.argtypes = [vp] * 4 + [i64] * 3 + [vp]
+            lib.gvamp_axm_bf16.argtypes = [vp] * 3 + [i64] * 3 + [vp]
             lib.gvamp_axm_bf16.restype = ctypes.c_int
             lib.gvamp_atxm_bf16.argtypes = [vp] * 3 + [i64] * 3 + [vp]
             lib.gvamp_atxm_bf16.restype = ctypes.c_int

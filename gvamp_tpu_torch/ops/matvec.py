@@ -2,9 +2,10 @@
 wrappers of the hand-written CUDA kernels (``csrc/matvec.cu``,
 ``csrc/fragments.cu`` for the five digit products ``axm_i8a``,
 ``atxm_i8a``, ``axm_i8``, ``atxm_i8`` and ``axm_i8s``,
-``csrc/gram_aat.cu`` for the fused dual Grams ``gram_aat_i8a`` and
-``gram_aat_i8``, and ``csrc/gram_prim.cu`` for the fused primal Grams
-``gram_i8a`` and ``gram_i8``).
+``csrc/bf16_split.cu`` for the bf16-split products ``axm_bf16`` and
+``atxm_bf16``, ``csrc/gram_aat.cu`` for the fused dual Grams
+``gram_aat_i8a`` and ``gram_aat_i8``, and ``csrc/gram_prim.cu`` for the
+fused primal Grams ``gram_i8a`` and ``gram_i8``).
 
 Counterpart of ``gvamp_tpu/ops/matvec.py`` for the linear main path.  The
 word layout is the same (word-major ``[Nw, Mpad]``, 16 samples per word,
@@ -78,7 +79,7 @@ _NDIG = 4
 _BMAX_AXM = 32
 _BMAX_AXM_A = 64
 # column chunk of the bf16-split products (gvamp_tpu/ops/matvec.py:466); the
-# wrappers keep it, the CUDA kernels take one column per grid step
+# wrappers keep it
 _BMAX_BF16 = 64
 
 # markers per stripe of the fused dual Gram: the kernel's work unit and its
@@ -275,10 +276,15 @@ def _split_hi_lo(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([hi, mid, lo], dim=dim)
 
 
+def _sum_parts3(hi, mid, lo):
+    """The three part products added as the TPU kernels add them: (hi +
+    mid) + lo."""
+    return (hi + mid) + lo
+
+
 def _sum_parts(d: torch.Tensor, B: int) -> torch.Tensor:
-    """The three part products [..., 3B] added as the TPU kernels add them:
-    (hi + mid) + lo -> [..., B]."""
-    return d[..., :B] + d[..., B:2 * B] + d[..., 2 * B:]
+    """The three part products [..., 3B] -> [..., B], (hi + mid) + lo."""
+    return _sum_parts3(d[..., :B], d[..., B:2 * B], d[..., 2 * B:])
 
 
 def axm_bf16_ref(words, W, U):
@@ -1072,10 +1078,121 @@ def axm_i8s(words: torch.Tensor, W: torch.Tensor,
     return _fold_digits_zt(zt, ws, W.shape[1])
 
 
+def bf16_group(B: int) -> int:
+    """Columns per group of the bf16-split kernels at width B (group_cols
+    in csrc/bf16_split.cu): the mma's 8 n hold the three parts of 1 column
+    at B = 1 and of 2 columns otherwise, one group per gridDim.z."""
+    return 1 if B == 1 else 2
+
+
+def _pad_cols(x: torch.Tensor, cg: int) -> torch.Tensor:
+    """x [..., B] with zero columns up to whole groups of ``cg``."""
+    B = x.shape[-1]
+    return torch.nn.functional.pad(x, (0, -(-B // cg) * cg - B))
+
+
+# each quad of markers (people) as the bf16-split kernels' B fragments
+# hold it: an A register of theirs pairs a quad's values 0 and 2, or 1 and 3
+_BF16_QUAD = [0, 2, 1, 3]
+
+
+def _pow2(n: torch.Tensor) -> torch.Tensor:
+    """2^n as float32 for integers n in [-126, 127], exact: the exponent
+    bits."""
+    return ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def _times_pow2(x: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """x 2^n, exact (barring overflow and subnormal results), for integers
+    n in [-252, 254] broadcast against x: two factors within f32's range."""
+    h = torch.div(n, 2, rounding_mode="floor")
+    return x * _pow2(h) * _pow2(n - h)
+
+
+def bf16_exponents(*xs: torch.Tensor) -> torch.Tensor:
+    """Per column (the last dimension): the exponent E with max |x| < 2^E
+    over the xs (0 for a zero column), clamped to [-125, 128].  The
+    bf16-split kernels read their A fragments as bf16 values a 4^k 2^-133
+    (csrc/bf16_split.cu), so the wrappers scale each column of the
+    right-hand side by 2^(127 - E), its largest value just below 2^127,
+    and the results by 2^(E + 6): both exact, and every product and
+    partial sum between lies in f32's normal range, rounding as the
+    unscaled one does."""
+    m = torch.stack([x.abs().reshape(-1, x.shape[-1]).amax(0) for x in xs])
+    return torch.frexp(m.amax(0))[1].clamp(-125, 128)
+
+
+def bf16_fold_z(out: torch.Tensor, B: int, E: torch.Tensor) -> torch.Tensor:
+    """``axm_bf16``'s partial rows f32 [P, G, 3, cg, 4, Nb] -> [4, Nb, B]:
+    the marker parts summed in a fixed order (deterministic), then the
+    parts as (hi + mid) + lo, the padding columns dropped and each column
+    scaled back by 2^(E + 6)."""
+    s = out.sum(dim=0)
+    z = _sum_parts3(s[:, 0], s[:, 1], s[:, 2])    # [G, cg, 4, Nb]
+    z = z.reshape(-1, *z.shape[2:])[:B].permute(1, 2, 0)
+    return _times_pow2(z, E + 6).contiguous()
+
+
+def bf16_fold_v(out: torch.Tensor, B: int, E: torch.Tensor):
+    """``atxm_bf16``'s partial rows f32 [2, P, G, 3, cg, Mpad] -> (av, bv)
+    f32 [Mpad, B] each, summed and scaled back as ``bf16_fold_z`` does."""
+    s = out.sum(dim=1)
+    r = _sum_parts3(s[:, :, 0], s[:, :, 1], s[:, :, 2])  # [2, G, cg, Mpad]
+    av, bv = _times_pow2(r.reshape(2, -1, r.shape[-1])[:, :B].transpose(1, 2),
+                         E + 6)
+    return av, bv
+
+
+def axm_bf16_operands(W: torch.Tensor, U: torch.Tensor, cg: int):
+    """The forward kernel's right-hand side, bf16 [G, 3 cg, Mpad/4, 2, 4],
+    and E: row p*cg + c of group z holds part p (hi, mid, lo) of column
+    z*cg + c of W 2^s and of -U 2^s (s = 127 - E per column,
+    ``bf16_exponents`` of W and U together), interleaved per marker quad (a
+    lane's fragments of both are one 16-byte copy), each quad in the order
+    0, 2, 1, 3; zero columns pad B to G*cg."""
+    E = bf16_exponents(W, U)
+    M = W.shape[0]
+    w2, u2 = (_split_hi_lo(_pad_cols(_times_pow2(x, 127 - E), cg), 1)
+              for x in (W, -U))                   # [M, 3 G cg] each
+    G = w2.shape[1] // (3 * cg)
+    rows = torch.stack([w2, u2]).reshape(2, M // 4, 4, 3, G, cg)
+    return (rows[:, :, _BF16_QUAD].permute(4, 3, 5, 1, 0, 2)
+            .reshape(G, 3 * cg, M // 4, 2, 4).contiguous(), E)
+
+
+def atxm_bf16_operands(V: torch.Tensor, cg: int):
+    """The transpose kernel's right-hand side, bf16 [G, 3 cg, Nb/4, 4, 4],
+    and E: row p*cg + c of group z holds part p of column z*cg + c of V's
+    plane k times 2^(s - 2k) (s = 127 - E per column; the A values of plane
+    k carry 4^k), the 4 planes of a person quad together (32 contiguous
+    bytes a lane and row set), each quad in the order 0, 2, 1, 3; zero
+    columns pad B to G*cg."""
+    E = bf16_exponents(V)
+    k = torch.arange(4, device=V.device).view(4, 1, 1)
+    v2 = _split_hi_lo(_pad_cols(_times_pow2(V, 127 - E - 2 * k), cg), 2)
+    nb = V.shape[1]
+    G = v2.shape[2] // (3 * cg)
+    planes = v2.reshape(4, nb // 4, 4, 3, G, cg)[:, :, _BF16_QUAD]
+    return (planes.permute(4, 3, 5, 1, 0, 2)
+            .reshape(G, 3 * cg, nb // 4, 4, 4).contiguous(), E)
+
+
+def _bf16_parts(lib_parts, name: str, nw: int, m: int, B: int) -> int:
+    parts = lib_parts(nw, m, B)
+    if parts <= 0:
+        raise RuntimeError(f"{name}: grid query failed with CUDA error "
+                           f"{-parts}")
+    return parts
+
+
 def axm_bf16(words: torch.Tensor, W: torch.Tensor,
              U: torch.Tensor) -> torch.Tensor:
     """A_a @ W - A_b @ U -> f32[4, Nb, B] from the three bf16 parts of W
-    and U; columns in chunks of ``_BMAX_BF16``, as ``axm_pallas``."""
+    and U; columns in chunks of ``_BMAX_BF16``, as ``axm_pallas``.
+
+    The kernel writes one partial row set per part of the markers and per
+    part (hi, mid, lo); they meet here in a fixed order, the parts last as
+    (hi + mid) + lo."""
     B = W.shape[1]
     if B > _BMAX_BF16:
         return torch.cat([axm_bf16(words, W[:, lo:lo + _BMAX_BF16],
@@ -1089,18 +1206,17 @@ def axm_bf16(words: torch.Tensor, W: torch.Tensor,
     if W.ndim != 2 or W.shape[0] != m or U.shape != W.shape:
         raise ValueError(f"axm_bf16: W and U must be [{m}, B], got "
                          f"{list(W.shape)} and {list(U.shape)}")
-    # bf16 [3B, Mpad]: row p*B + c is part p of column c, a marker quad one
-    # 8-byte load
-    w2 = _split_hi_lo(W, 1).T.contiguous()
-    u2 = _split_hi_lo(U, 1).T.contiguous()
+    cg = bf16_group(B)
+    # the parts of W and of -U (negating a bf16 part is exact): one sum
+    rhs, E = axm_bf16_operands(W, U, cg)
     from gvamp_tpu_torch.ops import _build
     lib = _build.library()
-    out = torch.empty((lib.gvamp_axm_bf16_parts(nw, m, B), B, 4, 4 * nw),
+    P = _bf16_parts(lib.gvamp_axm_bf16_parts, "axm_bf16", nw, m, B)
+    out = torch.empty((P, rhs.shape[0], 3, cg, 4, 4 * nw),
                       dtype=torch.float32, device=words.device)
     _launch("axm_bf16", lib.gvamp_axm_bf16, words.device, words.data_ptr(),
-            w2.data_ptr(), u2.data_ptr(), out.data_ptr(), nw, m, B)
-    # the per-band partial rows meet here, in a fixed order: deterministic
-    return out.sum(dim=0).permute(1, 2, 0).contiguous()
+            rhs.data_ptr(), out.data_ptr(), nw, m, B)
+    return bf16_fold_z(out, B, E)
 
 
 def atxm_bf16(words: torch.Tensor, V: torch.Tensor):
@@ -1118,16 +1234,17 @@ def atxm_bf16(words: torch.Tensor, V: torch.Tensor):
     if V.ndim != 3 or V.shape[:2] != (4, 4 * nw):
         raise ValueError(f"atxm_bf16: V must be [4, {4 * nw}, B], got "
                          f"{list(V.shape)}")
-    v2 = _split_hi_lo(V, 2).contiguous()  # bf16 [4, Nb, 3B]
+    cg = bf16_group(B)
+    v2, E = atxm_bf16_operands(V, cg)
     from gvamp_tpu_torch.ops import _build
     lib = _build.library()
-    out = torch.empty((2, lib.gvamp_atxm_bf16_parts(nw, m, B), B, m),
-                      dtype=torch.float32, device=words.device)
+    P = _bf16_parts(lib.gvamp_atxm_bf16_parts, "atxm_bf16", nw, m, B)
+    G = v2.shape[0]
+    out = torch.empty((2, P, G, 3, cg, m), dtype=torch.float32,
+                      device=words.device)
     _launch("atxm_bf16", lib.gvamp_atxm_bf16, words.device, words.data_ptr(),
             v2.data_ptr(), out.data_ptr(), nw, m, B)
-    # the per-band partial rows meet here, in a fixed order: deterministic
-    av, bv = out.sum(dim=1)
-    return av.T, bv.T
+    return bf16_fold_v(out, B, E)
 
 
 def gram_aat_launch(name: str, words, V, mave, msig2):
