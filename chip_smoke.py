@@ -30,7 +30,9 @@ Phases, each of which raises on failure (exit code != 0):
    were expanded from; the five digit products of fragments.cu, axm_i8a,
    atxm_i8a, axm_i8, atxm_i8 and axm_i8s, also at the edges of their
    grids, FRAGMENT_SHAPES: Nw = 7 and 300, Mpad = 8 and 1,000, B up to
-   22, and the bf16-split products there too (also against float64); the
+   22, the four of the engines also at deflation's width, B = 128 (Nw =
+   300, DEFLATE_SHAPES), and the bf16-split products there too (also
+   against float64); the
    fused dual Grams of gram_aat.cu at theirs, GRAM_AAT_SHAPES: Nw = 7, 300
    and 822 (the route's edge), Mpad of one stripe and with a short last
    group of stripes, B up to 5; the fused primal Grams of gram_prim.cu at
@@ -86,16 +88,32 @@ Phases, each of which raises on failure (exit code != 0):
    Xm (1.56% missing), 10 iterations each through the fused dual Gram
    (ax twice for the people statistics), the X problem again under
    GVAMP_NO_FUSED_GRAM=1 (the same trajectory) and in primal mode;
+   4h. the Huber engine (robust.infer) at config B on a heavy-tailed
+   phenotype (tools/bench_huber.py's: y = A (sqrt(N) beta) + 0.5 t(3)),
+   RobustConfig(rho=0.15, stab_gamma=1.0), 10 iterations with SLQ, then
+   10 with deflate_k=128 after timing top_eigs alone (9 Gram passes at B =
+   128), each iteration's ms, CG count, host syncs, deltaH, tau1 / tau2
+   and corr(x_hat, beta) printed, the launch counters proving that the CG
+   ran axm_i8a / atxm_i8a and no other product kernel; then 5 iterations
+   at config Bm through axm_i8 / atxm_i8;
    4n. the p-value moments at N=327,680 against a float64 oracle;
 5. the same small problem on the card and on the CPU (plain versions),
    complete and with 2% missing calls (then with LOO and LOCO p-values),
    primal and dual, linear with the fused primal Gram, and probit
    (complete; 2% missing with 2 covariates, two-pass and fused), which must
    agree to the f32 tolerances of tests/test_torch_{linear,probit}.py;
+   5h. the Huber engine likewise (N=2,000 x M=4,096, complete, 2% missing
+   and complete with deflate_k=8, 6 iterations): finite, the same deltaH
+   grid point at every iteration, and x1 and the scalars within
+   HUBER_CARD_CPU_XTOL / _RTOL at the iterations before the JAX package's
+   own float32-against-float64 spread grows (tests/huber_spread.py);
 6. the CLI (`--run-mode infere --model linear --store-pvals 1` with a
    .bim) on the flagship recipe of the README's port section, then with
    `--use-XXT-denoiser 1` (6x) and as `--model bin_class --cov-file --C 2`
-   on a binary phenotype (6p);
+   on a binary phenotype (6p); 6r: for `--model robust`, linear and
+   bin_class, 3 iterations with `--checkpoint`, then `--run-mode restart
+   --resume` for 3 more, whose iteration-6 dump must equal a 6-iteration
+   run's bit for bit, and the linear `restart --estimate-file`;
 7. the port's tools on the card, each of whose ``main([])`` must return 0:
    the kernel check against float64 (gvamp_tpu_torch.tools.kernel_check,
    with the fused Grams' correctness), the fused-Gram study (bench_gram),
@@ -252,6 +270,10 @@ GRAM_AAT_SHAPES = [(7, 64, 1), (7, 704, 5), (300, 576, 2), (300, 1216, 3),
 GRAM_PRIM_SHAPES = [(16, 512, 1), (32, 1004, 2), (48, 4204, 3),
                     (32, 2048, 4), (16, 135_168, 5), (32, 135_156, 2),
                     (64, 512, 70)]
+# deflation's width: the digit products that top_eigs runs at B =
+# deflate_k (128 in phase 4h), on a FRAGMENT_SHAPES entry
+DEFLATE_KERNELS = ("axm_i8a", "atxm_i8a", "axm_i8", "atxm_i8")
+DEFLATE_SHAPES = [(300, 1000, 128)]
 SLICE_M = 2048
 # corr(x_hat, beta) and R2_train_1 after 10 iterations at config B and at
 # config Bm; set from the first H100 runs of this script (config B 0.99590
@@ -559,6 +581,12 @@ def phase_kernels_small(gen, study_gen):
                       names=BF16_KERNELS)
         check_gaussian(words, B, edge_gen, f"Nw={nw} Mpad={m}", "float64",
                        kernel_check.TOL, names=BF16_KERNELS)
+    # the digit products at deflation's width (top_eigs' Gram passes at
+    # B = deflate_k): 64 digit groups over gridDim.z
+    for nw, m, B in DEFLATE_SHAPES:
+        check_kernels(random_words(edge_gen, nw, m), B, edge_gen,
+                      f"Nw={nw} Mpad={m}", names=DEFLATE_KERNELS,
+                      plain_reps=1)
 
 
 # small shapes of the study kernels beyond SHAPES: rows past a multiple of
@@ -1078,6 +1106,116 @@ def phase_probit_b(geno, problem):
                  runs["two-pass"], ("gam1", "gam2", "tau1", "tau2",
                                     "alpha2"))
     return counts["two-pass"], counts["fused"]
+
+
+# Huber at config B and Bm (phase 4h): tools/bench_huber.py's phenotype
+# (bench.py's prior, y = A (sqrt(N) beta) + 0.5 t(3)), RobustConfig(rho =
+# 0.15, stab_gamma = 1.0) with SLQ, then with deflate_k = HUBER_DEFLATE_K
+# (bench_huber's slq+d128).  HUBER_CORR_MIN, on corr(x_hat, beta) after
+# the last iteration: the first H100 run read 0.8739 (SLQ) and 0.8745
+# (deflated) at config B after 10 and 0.9249 at config Bm after 5 (the
+# trajectory peaks at 0.994 at iteration 2, then falls as tau1 climbs);
+# room for f32 rounding and another card, well above JAX's own test_robust
+# floor (0.6 at N=1,500 x M=300)
+HUBER_CORR_MIN = 0.85
+HUBER_DEFLATE_K = 128
+HUBER_BM_ITERS = 5
+HUBER_KEYS = ("gam1", "gam2", "tau1", "tau2", "alpha2", "deltaH")
+
+
+def huber_phenotype(geno, beta, rng):
+    """y = A (sqrt(N) beta) + 0.5 t(3) on ``geno``'s device
+    (tools/bench_huber.py's recipe)."""
+    x = geno.pad_m(beta * np.sqrt(geno.N))
+    g = geno.deplanarize(geno.ax(x))[: geno.N]
+    return g + rng.standard_t(3.0, geno.N) * 0.5
+
+
+def run_huber(geno, beta, vars_t, probs_t, label, cfg):
+    """robust.infer on ``geno``; prints each iteration's wall ms, CG count,
+    host syncs, deltaH, tau1 / tau2 and corr(x_hat, beta), the set-up
+    seconds and the peak memory, and checks that every value is finite and
+    the last corr reaches HUBER_CORR_MIN.  Returns (x_hat, history)."""
+    from gvamp_tpu_torch import robust
+    corrs = []
+
+    def corr_cb(it, state, m, g):
+        x = state.x1[: g.M].cpu().numpy()
+        corrs.append(float(np.corrcoef(x, beta)[0, 1]) if x.std() > 0
+                     else 0.0)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    x_hat, _, hist = robust.infer(geno, cfg, probs_t, vars_t, verbose=False,
+                                  callbacks=[corr_cb])
+    t_all = time.perf_counter() - t0
+    t_iters = sum(h["wall_ms"] for h in hist) / 1e3
+    what = "deflation basis, " if cfg.deflate_k else ""
+    log(f"  {label}: infer set-up ({what}SLQ basis, probe) "
+        f"{t_all - t_iters:.2f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("  it    wall_ms   cg  syncs    deltaH        tau1        tau2"
+        "        gam1    alpha2    corr")
+    for h, c in zip(hist, corrs):
+        log(f"  {h['it']:2d} {h['wall_ms']:10.2f} {h['cg_iters']:4d} "
+            f"{h['host_syncs']:6d} {float(h['deltaH']):9.3g} "
+            f"{float(h['tau1']):11.5g} {float(h['tau2']):11.5g} "
+            f"{float(h['gam1']):11.5g} {float(h['alpha2']):9.4g} "
+            f"{c:7.4f}")
+    log(f"  {label}: {len(hist)} iterations in {t_iters:.2f} s, median "
+        f"{np.median([h['wall_ms'] for h in hist]):.2f} ms/it, CG "
+        f"{sum(h['cg_iters'] for h in hist)} in all")
+    if not (np.isfinite(x_hat).all() and all(
+            np.isfinite(float(h[k])) for h in hist for k in HUBER_KEYS)):
+        raise AssertionError(f"{label}: non-finite values")
+    if len(hist) != cfg.max_iter:
+        raise AssertionError(f"{label}: {len(hist)} iterations, expected "
+                             f"{cfg.max_iter}")
+    if not corrs[-1] >= HUBER_CORR_MIN:
+        raise AssertionError(f"{label}: corr(x_hat, beta) {corrs[-1]:.4f} < "
+                             f"{HUBER_CORR_MIN}")
+    return x_hat, hist
+
+
+def phase_huber(geno, problem, label, complete, n_it, deflate_ks):
+    """The Huber engine on ``geno`` (phase 4h): a heavy-tailed phenotype,
+    n_it iterations for each deflate_k of ``deflate_ks``, each with the
+    launch counters proving that its CG ran the a-only digit products
+    (complete) or the general ones and no other product kernel; a deflated
+    run first times top_eigs alone.  Returns {deflate_k: launch counts}."""
+    log(f"== phase 4h: Huber VAMP at {label}, deflate_k {deflate_ks}")
+    from gvamp_tpu_torch import linear, robust
+    from gvamp_tpu_torch.ops import matvec
+    beta, vars_t, probs_t = problem[:3]
+    t0 = time.perf_counter()
+    geno.set_phen(huber_phenotype(geno, beta, np.random.default_rng(3)))
+    torch.cuda.synchronize()
+    log(f"  heavy-tailed phenotype: simulation + statistics "
+        f"{time.perf_counter() - t0:.2f} s")
+    used = ("axm_i8a", "atxm_i8a") if complete else ("axm_i8", "atxm_i8")
+    unused = tuple(n for n in PRODUCT_KERNELS if n not in used)
+    counts = {}
+    for k in deflate_ks:
+        cfg = robust.RobustConfig(max_iter=n_it, rho=0.15, stab_gamma=1.0,
+                                  stop_criteria_thr=0.0, deflate_k=k)
+        name = f"{label} Huber" + (f" deflate_k={k}" if k else "")
+        if k:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            V, lam = linear.make_deflation(geno, cfg)
+            torch.cuda.synchronize()
+            log(f"  top_eigs k={k} ({cfg.deflate_iters + 1} Gram passes at "
+                f"B={k}): {time.perf_counter() - t0:.2f} s, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+                f"lam[0] {float(lam[0]):.6g}, lam[{k - 1}] "
+                f"{float(lam[-1]):.6g}")
+            del V, lam
+        matvec.reset_launches()
+        run_huber(geno, beta, vars_t, probs_t, name, cfg)
+        counts[k] = dict(matvec.LAUNCHES)
+        check_launches(name, counts[k], used, unused)
+    return counts
 
 
 def pvals_in_range(p) -> bool:
@@ -1716,6 +1854,97 @@ def phase_card_vs_cpu_probit(miss_rate, n_cov, fused=False):
         f"cpu {[h['cg_iters'] for h in h_p]}")
 
 
+# Huber card vs CPU (phase 5h): N=2,000 x M=4,096 (M > N), where the
+# Huber dynamics themselves are unstable.  On these problems the JAX
+# package's own float32 run is within 1.6e-6 of max|x1| of its float64 run
+# at iterations 1-2 and its scalars within 1.9e-6 at iteration 1; from
+# there alpha2 meets its clip at 1 - 100 eps of the dtype, and from
+# iteration 3 x1 is 0.2-1.2 off, tau1 at GAMMA_MIN (tests/huber_spread.py).
+# So x1 is held to HUBER_CARD_CPU_XTOL at iterations 1-2 and the scalars to
+# HUBER_CARD_CPU_RTOL at iteration 1, ten times those spreads; at every
+# iteration deltaH must pick the same grid point on both sides and every
+# value must be finite; the later differences are printed.  First H100
+# run (after slq.nodes_weights moved to float64): the scalars within
+# 1.1e-6 at iteration 1, x1 within 6.1e-7 at iteration 2, and 1.1e-3 to
+# 3.8e-3 from iteration 3 on
+HUBER_CARD_CPU_XTOL, HUBER_CARD_CPU_RTOL = 2e-5, 2e-5
+HUBER_CARD_CPU_X_ITERS, HUBER_CARD_CPU_S_ITERS = 2, 1
+HUBER_CARD_CPU_CASES = [(0.0, 0), (0.02, 0), (0.0, 8)]
+
+
+def phase_card_vs_cpu_huber(miss_rate, deflate_k):
+    """The Huber engine on the card and on the CPU (plain versions) from
+    the same data, probe, deflation start block and Monte-Carlo draws (all
+    from CPU generators): N=2,000 x M=4,096, f32, 6 iterations."""
+    label = "complete" if miss_rate == 0 else f"{miss_rate:.0%} missing"
+    label += f", deflate_k={deflate_k}" if deflate_k else ""
+    log(f"== phase 5h: Huber card vs CPU, N=2000 x M=4096, 6 iterations, "
+        f"{label}")
+    from gvamp_tpu_torch import robust
+    from gvamp_tpu_torch.data import GenoBed
+    from gvamp_tpu_torch.ops import matvec
+    N, M = 2000, 4096
+    cfg = robust.RobustConfig(max_iter=6, rho=0.3, seed=5,
+                              stop_criteria_thr=0.0, deflate_k=deflate_k)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        bed, beta, vars_t, probs_t, rng = small_problem(tmp, 6, N, M,
+                                                        miss_rate)
+        y = None
+        for dev in ("cuda", "cpu"):
+            g = GenoBed.from_files(bed, None, N=N, Mt=M, device=dev,
+                                   standardize_phen=False)
+            if y is None:
+                y = huber_phenotype(g, beta, rng)
+            g.set_phen(y)
+            t0 = time.perf_counter()
+            matvec.reset_launches()
+            xs = []
+            x, _, hist = robust.infer(
+                g, cfg, probs_t, vars_t, verbose=False,
+                callbacks=[lambda it, s, m, g_: xs.append(
+                    s.x1.double().cpu().numpy())])
+            check_no_tool_launches(f"Huber card vs CPU, {dev}",
+                                   matvec.LAUNCHES)
+            out[dev] = x, hist, xs
+            log(f"  {dev}: {time.perf_counter() - t0:.2f} s")
+    (x_c, h_c, xs_c), (x_p, h_p, xs_p) = out["cuda"], out["cpu"]
+    scalars = ("gam1", "gam2", "tau1", "tau2", "alpha2")
+    for dev, h in (("card", h_c), ("cpu", h_p)):
+        for x in h:
+            log(f"  {dev} it {x['it']}: " + " ".join(
+                f"{k}={float(x[k]):.7g}" for k in HUBER_KEYS)
+                + f" cg={x['cg_iters']}")
+    if not all(np.isfinite(v).all() for v in (x_c, x_p)) or not all(
+            np.isfinite(float(x[k])) for h in (h_c, h_p) for x in h
+            for k in HUBER_KEYS):
+        raise AssertionError("non-finite Huber values")
+    d_c = [float(h["deltaH"]) for h in h_c]
+    d_p = [float(h["deltaH"]) for h in h_p]
+    log(f"  deltaH per iteration: card {d_c}, cpu {d_p}")
+    if d_c != d_p:
+        raise AssertionError(f"card and CPU pick different deltaH grid "
+                             f"points: {d_c} against {d_p}")
+    for i, (a, b) in enumerate(zip(xs_c, xs_p)):
+        dx = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+        rel = {k: abs(float(h_c[i][k]) - float(h_p[i][k]))
+               / abs(float(h_p[i][k])) for k in scalars}
+        held_x = i < HUBER_CARD_CPU_X_ITERS
+        held_s = i < HUBER_CARD_CPU_S_ITERS
+        log(f"  it {i + 1}: max|x1 card - x1 cpu| / max|x1| = {dx:.3e}"
+            + (f" (limit {HUBER_CARD_CPU_XTOL:g})" if held_x else "")
+            + "; relative " + ", ".join(f"{k} {v:.2e}"
+                                        for k, v in rel.items())
+            + (f" (limit {HUBER_CARD_CPU_RTOL:g})" if held_s else ""))
+        if (held_x and not dx <= HUBER_CARD_CPU_XTOL) or (
+                held_s and not max(rel.values()) <= HUBER_CARD_CPU_RTOL):
+            raise AssertionError(f"card and CPU Huber runs disagree at "
+                                 f"iteration {i + 1}")
+    log(f"  corr(x_hat, beta) card {float(np.corrcoef(x_c, beta)[0, 1]):.5f}"
+        f" cpu {float(np.corrcoef(x_p, beta)[0, 1]):.5f}; cg_iters card "
+        f"{[h['cg_iters'] for h in h_c]} cpu {[h['cg_iters'] for h in h_p]}")
+
+
 def flagship_files(tmp, N, M):
     """The flagship data of the README's port section in ``tmp``: N x M with
     2% missing calls, a .bim over 4 chromosomes and a simulated phenotype;
@@ -1898,6 +2127,89 @@ def phase_cli_probit():
         raise AssertionError("the probit CLI flow missed its expectations")
 
 
+def phase_cli_restart():
+    """--checkpoint and --run-mode restart through the CLI on the card, on
+    the flagship genotypes (2% missing calls): for --model robust, linear
+    and bin_class, 3 iterations with --checkpoint, then restart --resume for
+    3 more, whose iteration-6 dump must equal a 6-iteration run's bit for
+    bit; then the linear estimate-file restart (r1 from the 3-iteration
+    dump, --gam1-init / --gamw-init), its dump equal to a library run."""
+    log("== phase 6r: CLI --checkpoint and --run-mode restart, 2% missing")
+    from gvamp_tpu_torch import cli, linear, sim
+    from gvamp_tpu_torch.data import GenoBed
+    from gvamp_tpu_torch.io import plink, vecio
+    from gvamp_tpu_torch.ops import matvec
+    N, M = 800, 240
+    prior = ["--probs", "0.95,0.05", "--vars", "0.0,0.0667"]
+    with tempfile.TemporaryDirectory() as tmp:
+        bed, phen, _, beta = flagship_files(tmp, N, M)
+        g = GenoBed.from_files(bed, None, N=N, Mt=M, device="cuda",
+                               standardize_phen=False)
+        rng = np.random.default_rng(8)
+        phens = {"linear": phen,
+                 "robust": os.path.join(tmp, "robust.phen"),
+                 "bin_class": os.path.join(tmp, "cc.phen")}
+        plink.write_phen(phens["robust"], huber_phenotype(g, beta, rng))
+        plink.write_phen(phens["bin_class"], sim.simulate_probit_phenotype(
+            g, beta, 0.2, rng))
+        out = os.path.join(tmp, "out")
+        ck = os.path.join(tmp, "ck.npz")
+        for model in ("robust", "linear", "bin_class"):
+            base = ["--device", "cuda", "--model", model, "--bed-file", bed,
+                    "--phen-files", phens[model], "--N", str(N), "--Mt",
+                    str(M), "--rho", "0.3", "--stop-criteria-thr", "0",
+                    "--verbosity", "0", "--out-dir", out] + prior
+            if model == "bin_class":
+                base += ["--probit-var", "0.2"]
+            matvec.reset_launches()
+            cli.main(["--run-mode", "infere", "--iterations", "6",
+                      "--out-name", f"{model}_full"] + base)
+            cli.main(["--run-mode", "infere", "--iterations", "3",
+                      "--checkpoint", ck, "--out-name", f"{model}_part"]
+                     + base)
+            t0 = time.perf_counter()
+            cli.main(["--run-mode", "restart", "--resume", ck,
+                      "--iterations", "3", "--out-name", f"{model}_part"]
+                     + base)
+            t_resume = time.perf_counter() - t0
+            launches = dict(matvec.LAUNCHES)
+            check_launches(f"CLI {model} restart", launches,
+                           ("axm_i8", "atxm_i8"), ("axm_i8a", "atxm_i8a"))
+            tag = cli._TAGS[model]
+            full = vecio.read_bin_shard(
+                os.path.join(out, f"{model}_full{tag}_it_6.bin"), M, 0)
+            part = vecio.read_bin_shard(
+                os.path.join(out, f"{model}_part{tag}_it_6.bin"), M, 0)
+            d = float(np.abs(part - full).max())
+            log(f"  {model}: resumed run {t_resume:.2f} s; iteration-6 dump "
+                f"of 3 + checkpoint + 3 against 6 in one run: max|diff| "
+                f"{d:.3e}, equal: {np.array_equal(part, full)}; corr(x_hat, "
+                f"beta) {float(np.corrcoef(full, beta)[0, 1]):.5f}")
+            if not (np.isfinite(full).all() and np.array_equal(part, full)):
+                raise AssertionError(f"CLI {model}: the resumed run differs "
+                                     f"from the uninterrupted one")
+        est = os.path.join(out, "linear_part_it_3.bin")
+        cli.main(["--device", "cuda", "--run-mode", "restart",
+                  "--estimate-file", est, "--gam1-init", "0.5",
+                  "--gamw-init", "1.7", "--model", "linear", "--bed-file",
+                  bed, "--phen-files", phen, "--N", str(N), "--Mt", str(M),
+                  "--rho", "0.3", "--iterations", "3", "--verbosity", "0",
+                  "--out-dir", out, "--out-name", "re"] + prior)
+        dump = vecio.read_bin_shard(os.path.join(out, "re_it_3.bin"), M, 0)
+        g = GenoBed.from_files(bed, phen, N=N, Mt=M, device="cuda")
+        x_lib, _, _ = linear.infer(
+            g, linear.VampConfig(max_iter=3, rho=0.3, gam1_init=0.5,
+                                 gamw_init=1.7), [0.95, 0.05], [0.0, 0.0667],
+            verbose=False, r1_init=vecio.read_estimate(est, M, 0))
+    d = float(np.abs(dump - x_lib).max() / np.abs(x_lib).max())
+    log(f"  linear restart from an estimate file: max|dump - library x1| / "
+        f"max|x1| = {d:.3e}; corr(x_hat, beta) "
+        f"{float(np.corrcoef(dump, beta)[0, 1]):.5f}")
+    if not (np.isfinite(dump).all() and d < 1e-6):
+        raise AssertionError("the estimate-file restart differs from the "
+                             "library run")
+
+
 # the kernels that only the tools launch (phase 7), and the tools
 TOOL_KERNELS = ("axm_bf16", "atxm_bf16", "axm_i8s", "atx_a") + STUDY
 TOOLS = ("kernel_check", "bench_gram", "profile_kernels", "bench_stream",
@@ -2013,6 +2325,8 @@ def main(argv=None):
     launches, geno, problem = phase_main_path(words)
     launches_f = phase_fused_linear("config B", geno, problem, True)
     launches_p, launches_pf = phase_probit_b(geno, problem)
+    launches_h = phase_huber(geno, problem, "config B", True, CFG_B_ITERS,
+                             (0, HUBER_DEFLATE_K))
     del words, geno
     torch.cuda.empty_cache()
     # config Bm: the general kernels, the fused general Gram, p-values
@@ -2024,6 +2338,8 @@ def main(argv=None):
     full_gm = phase_kernels_gram(words, gen, False)
     launches_m, geno, problem = phase_config_bm(words)
     launches_mf = phase_fused_linear("config Bm", geno, problem, False)
+    launches_hm = phase_huber(geno, problem, "config Bm", False,
+                              HUBER_BM_ITERS, (0,))
     del words, geno
     torch.cuda.empty_cache()
     words = synth_words(gen, False, CFG_X_N, CFG_X_M)
@@ -2041,9 +2357,12 @@ def main(argv=None):
     phase_card_vs_cpu_probit(0.0, 0)
     phase_card_vs_cpu_probit(0.02, 2)
     phase_card_vs_cpu_probit(0.02, 2, fused=True)
+    for miss_rate, deflate_k in HUBER_CARD_CPU_CASES:
+        phase_card_vs_cpu_huber(miss_rate, deflate_k)
     phase_cli()
     phase_cli_xxt()
     phase_cli_probit()
+    phase_cli_restart()
     launches_t = phase_tools()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # times at B = 1 on the whole matrix of the path that runs the kernel:
@@ -2084,6 +2403,11 @@ def main(argv=None):
     kernels = kernel_rows(numbers)
     log(f"probit at config B: launches two-pass {launches_p}, fused "
         f"{launches_pf}")
+    for label, counts in (("config B", launches_h), ("config Bm",
+                                                     launches_hm)):
+        for k, c in counts.items():
+            log(f"Huber at {label}, deflate_k={k}: launches "
+                + ", ".join(f"{n} {c[n]}" for n in DEFLATE_KERNELS))
     log(smi())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

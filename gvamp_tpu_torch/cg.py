@@ -1,10 +1,11 @@
 """Warm-started Jacobi-preconditioned block conjugate gradient (marker space).
 
-Port of ``gvamp_tpu/cg.py`` but deflation: ``solve_block`` with its rider
-and its forward-product tracking (the z-model engines' z2 = A x2), the
-tracked and secant-extrapolated warm starts, the exit Gram identity, and
-the LMMSE operator (two passes, or the fused Gram where ``fn_gram`` gives
-one).  The solver's ``lax.while_loop``
+Port of ``gvamp_tpu/cg.py``: ``solve_block`` with its rider, its
+forward-product tracking (the z-model engines' z2 = A x2) and an optional
+preconditioner in place of Jacobi, the tracked and secant-extrapolated
+warm starts, the exit Gram identity, the LMMSE operator (two passes, or
+the fused Gram where ``fn_gram`` gives one), and spectral deflation
+(``top_eigs`` and ``make_deflated_precond``).  The solver's ``lax.while_loop``
 is a Python loop: its exit test reads the per-column done flags on the host,
 one counted sync per CG iteration (``gvamp_tpu_torch.sync``); the
 ``lax.cond`` of ``tracked_warm_start`` is one more sync per solve.  Column
@@ -49,6 +50,8 @@ def solve_block(
                               # tracks zmu = A mu[:, 0] through the
                               # recursion (zmu += alpha_0 A p_0)
     zmu0: Optional[torch.Tensor] = None,  # A @ mu_start[:, 0] (fwd_mult)
+    precond=None,             # R[M, B] -> Z[M, B], replaces the Jacobi step
+                              # (make_deflated_precond)
 ) -> CGResult:
     """Batched CG: each column runs its own recursion, every iteration costs
     one wide pass; converged columns freeze (alpha = 0) while the rest keep
@@ -67,6 +70,9 @@ def solve_block(
 
     def apply_m(r):
         return r / diag_c
+
+    if precond is not None:
+        apply_m = precond
 
     if r0 is None:
         r0 = V if start_zero else V - mult_block(mu_start)
@@ -246,3 +252,53 @@ def jacobi_diag(tau, gam2, N):
     """tau (N-1)/N + gam2: the LMMSE operator's diagonal under marker
     standardisation (reference vamp.cpp:1137-1139)."""
     return tau * (N - 1.0) / N + gam2
+
+
+def top_eigs(mult_ata, m: int, k: int, seed: int = 1, n_iter: int = 8,
+             dtype=torch.float32, device="cpu", V0=None):
+    """Top-k eigenpairs of the fixed Gram S = A^T A by orthogonal (block
+    power) iteration (``gvamp_tpu/cg.py:438-476``): k columns ride each
+    wide pass, n_iter + 1 passes in all.  ``mult_ata(V[m, k])`` applies S.
+    The start block V0 [m, k], unless given (parity tests pass JAX's), is
+    drawn from a CPU generator seeded by the probe's rule
+    (``linear.make_bern_probe``) with the low word 2^32 - 9 in place of the
+    shard offset (JAX folds 7 into ``key(seed)``, a stream torch cannot
+    reproduce).  The QR factorisations and the skinny products are torch
+    calls, as the JAX package computes them outside any kernel.  Returns
+    (V [m, k] orthonormal, lam [k])."""
+    if V0 is None:
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(((seed & 0xFFFFFFFF) << 32) | 0xFFFFFFF7)
+        V0 = torch.randn((m, k), generator=gen, dtype=dtype)
+    if not isinstance(V0, torch.Tensor):
+        V0 = torch.tensor(V0)
+    V = V0.to(dtype=dtype, device=device)
+    V, _ = torch.linalg.qr(V)
+    for _ in range(n_iter):
+        V, _ = torch.linalg.qr(mult_ata(V))
+    lam = (V * mult_ata(V)).sum(dim=0)
+    return V, lam
+
+
+def make_deflated_precond(V, lam, tau, gam2, diag):
+    """Deflation preconditioner for Q = tau S + gam2 I from top eigenpairs
+    of S (``gvamp_tpu/cg.py:479-507``): the exact inverse on span(V),
+    Jacobi on the complement,
+
+        M^{-1} r = V ((V^T r) / (tau lam + gam2)) + (r - V V^T r) / diag.
+
+    ``tau`` / ``gam2`` scalars, or per-column [B] vectors (one operator
+    per column over the shared V, lam)."""
+    tau = torch.as_tensor(tau, dtype=lam.dtype, device=lam.device)
+    gam2 = torch.as_tensor(gam2, dtype=lam.dtype, device=lam.device)
+    if tau.ndim or gam2.ndim:
+        inv_eig = 1.0 / (tau.reshape(1, -1) * lam[:, None]
+                         + gam2.reshape(1, -1))        # [k, B]
+    else:
+        inv_eig = (1.0 / (tau * lam + gam2))[:, None]  # [k, 1]
+
+    def apply(r):
+        c = V.T @ r
+        return V @ (c * inv_eig) + (r - V @ c) / diag
+
+    return apply

@@ -1,14 +1,146 @@
-"""Run-end scalar histories of the port (``gvamp_tpu/ckpt.py:175-184``).
+"""Full-state checkpoints and run-end scalar histories of the port.
 
-Only ``write_scalar_history`` is here: the full-state checkpoints
-(``--checkpoint`` / ``--resume``) are ROADMAP.md Queue 1 item 4.
+Port of ``gvamp_tpu/ckpt.py:76-184``.  A checkpoint is one ``.npz``: an
+``f_<field>`` array per state field and a ``_meta`` JSON with ``fields``,
+``it``, ``model`` and the engine's ``cfg``.  The Huber state's CPU
+generator is stored as its ``get_state()`` bytes and listed under
+``gen_fields`` (a key of the port; JAX's typed PRNG keys are listed under
+``key_fields``).  ``load_state`` reads the port's own checkpoints and the
+linear and probit ones the JAX package writes.
 """
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
+import torch
 
 from gvamp_tpu_torch.io import vecio
+
+# CG warm-start fields added to the JAX states after early checkpoints
+# were written: a checkpoint without them resumes with zeros (a cold warm
+# start, which the engines' guards detect), as gvamp_tpu/ckpt.py:121-171
+_WARM_START_FIELDS = {"gmu", "gmu_n", "mu_cg", "mu_probe", "mu_probe_n",
+                      "tau_gmu", "mu_prevb", "gmu_prev"}
+
+
+def save_state(path: str, state, **extra) -> None:
+    """Full state -> npz (every field plus ``extra`` in the metadata); a
+    ``torch.Generator`` field is stored as its state bytes."""
+    arrs, gen_fields = {}, []
+    for name, v in zip(state._fields, state):
+        if isinstance(v, torch.Generator):
+            arrs[f"f_{name}"] = v.get_state().numpy()
+            gen_fields.append(name)
+        elif isinstance(v, torch.Tensor):
+            arrs[f"f_{name}"] = v.detach().cpu().numpy()
+        else:
+            arrs[f"f_{name}"] = np.asarray(v)
+    arrs["_meta"] = np.frombuffer(
+        json.dumps({"fields": list(state._fields), "gen_fields": gen_fields,
+                    **extra}).encode(),
+        dtype=np.uint8)
+    np.savez(path, **arrs)
+
+
+def read_meta(path: str) -> dict:
+    """Checkpoint metadata only (the state arrays are not read)."""
+    with np.load(path, allow_pickle=False) as z:
+        return json.loads(bytes(z["_meta"]).decode())
+
+
+def _check_resumable(path: str, meta: dict) -> None:
+    """Raise ValueError on the checkpoints the port cannot continue."""
+    if meta.get("key_fields"):
+        raise ValueError(
+            f"checkpoint {path} holds JAX PRNG keys {meta['key_fields']} (a "
+            f"Huber run of the JAX package): a threefry key cannot be "
+            f"continued by a torch generator")
+    cfg = meta.get("cfg")
+    if cfg is not None and "use_slq" not in cfg:
+        raise ValueError(
+            f"checkpoint {path} predates the SLQ traces (no use_slq in its "
+            f"cfg): it resumes with use_slq=False, which is not ported yet "
+            f"(ROADMAP.md Queue 1 item 12)")
+
+
+def _fill_warm_start(vals: dict, missing: list, meta: dict) -> None:
+    """Zero-fill the warm-start fields a checkpoint lacks (the shapes of
+    ``gvamp_tpu/ckpt.py:127-171``; the probe columns follow the
+    checkpoint's own cfg, SLQ on unless it says otherwise)."""
+    x1 = vals["x1"]
+    if "tau_gmu" in missing:  # zero = stale: the first solve re-mults
+        vals["tau_gmu"] = np.zeros(x1.shape[1:2] if x1.ndim == 2 else (),
+                                   x1.dtype)
+    if "mu_cg" in missing:
+        vals["mu_cg"] = np.zeros_like(x1)
+    if "mu_probe" in missing:
+        c = meta.get("cfg", {})
+        slq_on = bool(c.get("use_slq", True)) and not bool(c.get("red", False))
+        n_probes = 0 if slq_on else int(c.get("n_probes", 1))
+        n_cols = n_probes * (x1.shape[1] if x1.ndim == 2 else 1)
+        vals["mu_probe"] = np.zeros((x1.shape[0], n_cols), x1.dtype)
+    p = vals["mu_probe"]
+    if "mu_probe_n" in missing:
+        mun = vals["mu_cg_n"]
+        vals["mu_probe_n"] = np.zeros(mun.shape + (p.shape[1],), mun.dtype)
+    if "gmu" in missing:
+        mu = vals["mu_cg"]
+        ncols = (mu.shape[1] if mu.ndim == 2 else 1) + p.shape[1]
+        vals["gmu"] = np.zeros((mu.shape[0], ncols), p.dtype)
+    if "gmu_n" in missing:
+        mun = vals["mu_cg_n"]
+        vals["gmu_n"] = np.zeros(mun.shape + (1 + p.shape[1],), mun.dtype)
+    for f in ("mu_prevb", "gmu_prev"):
+        # zeros disarm the secant extrapolation until two fresh exits exist
+        if f in missing:
+            vals[f] = np.zeros_like(vals["gmu"])
+
+
+def load_state(path: str, state_cls, device="cuda", dtype=None):
+    """npz -> (state_cls instance on ``device``, metadata).  Floating
+    fields take ``dtype`` where given; ``it`` becomes a host int; a
+    ``gen_fields`` entry becomes a new CPU generator restored from its
+    bytes.  JAX's cross-validation field ``cv_r2`` (not ported) is
+    dropped, and the warm-start fields a checkpoint lacks are zero-filled.
+    Raises ValueError on a JAX Huber checkpoint (its PRNG key), on a
+    pre-SLQ one and on a state with probe columns (ROADMAP.md Queue 1
+    item 12)."""
+    with np.load(path, allow_pickle=False) as z:
+        meta = json.loads(bytes(z["_meta"]).decode())
+        _check_resumable(path, meta)
+        vals = {name: z[f"f_{name}"] for name in meta["fields"]
+                if name != "cv_r2"}
+    gen_fields = set(meta.get("gen_fields", []))
+    unknown = set(vals) - set(state_cls._fields)
+    if unknown:
+        raise KeyError(f"checkpoint {path} holds fields {sorted(unknown)} "
+                       f"that {state_cls.__name__} lacks")
+    missing = [f for f in state_cls._fields if f not in vals]
+    if missing:
+        if set(missing) - _WARM_START_FIELDS:
+            raise KeyError(f"checkpoint {path} lacks state fields {missing}")
+        _fill_warm_start(vals, missing, meta)
+    if vals["mu_probe"].shape[-1]:
+        raise ValueError(
+            f"checkpoint {path} carries Onsager probe columns (use_slq=False "
+            f"or red), which are not ported yet (ROADMAP.md Queue 1 item 12)")
+    out = {}
+    for name in state_cls._fields:
+        v = vals[name]
+        if name == "it":
+            out[name] = int(v)
+        elif name in gen_fields:
+            gen = torch.Generator(device="cpu")
+            gen.set_state(torch.from_numpy(np.array(v, dtype=np.uint8)))
+            out[name] = gen
+        else:
+            t = torch.from_numpy(np.array(v))
+            if dtype is not None and t.is_floating_point():
+                t = t.to(dtype)
+            out[name] = t.to(device)
+    return state_cls(**out), meta
 
 
 def write_scalar_history(prefix: str, history) -> None:

@@ -42,9 +42,11 @@ def state_from_numpy(d: dict, device="cuda",
 
 
 def state_to_numpy(state) -> dict:
-    """Port state (linear or probit) -> the fields of its JAX counterpart
-    that it holds."""
+    """Port state (linear, probit or robust) -> the fields of its JAX
+    counterpart that it holds; a generator as its state bytes."""
     return {name: (np.asarray(v) if name == "it"
+                   else v.get_state().numpy()
+                   if isinstance(v, torch.Generator)
                    else v.detach().cpu().numpy())
             for name, v in zip(state._fields, state)}
 
@@ -71,3 +73,25 @@ def probit_state_from_numpy(d: dict, device="cuda", dtype=torch.float32):
                                      device=device))
             for name in probit.ProbitState._fields}
     return probit.ProbitState(**vals)
+
+
+def robust_state_from_numpy(d: dict, device="cuda", dtype=torch.float32,
+                            gen=None):
+    """``gvamp_tpu.robust.RobustState`` fields (as arrays; JAX's ``key`` is
+    ignored) -> port state.  Its generator is a new CPU generator, seeded
+    by ``gen`` when that is an int, restored from ``gen``'s bytes when it
+    is a uint8 array, or from ``d["gen"]`` (a port state's bytes) when
+    ``gen`` is None."""
+    from gvamp_tpu_torch import robust
+    if gen is None:
+        gen = d["gen"]
+    if isinstance(gen, (int, np.integer)):
+        g = robust.make_generator(int(gen))
+    else:
+        g = torch.Generator(device="cpu")
+        g.set_state(torch.from_numpy(np.array(gen, dtype=np.uint8)))
+    vals = {name: (int(np.asarray(d[name])) if name == "it"
+                   else torch.tensor(np.asarray(d[name]), dtype=dtype,
+                                     device=device))
+            for name in robust.RobustState._fields if name != "gen"}
+    return robust.RobustState(gen=g, **vals)

@@ -7,7 +7,9 @@ fused primal Gram (``GVAMP_FUSED_GRAM=1``), ``fold_noise=False`` or
 ``GVAMP_NOISE_PASS=1``, the explicit noise pass instead (one wide forward
 pass over [x2, x1] after the solve); and for ``use_xxt``, the dual
 (N-space) LMMSE solve with its tracked warm start, Woodbury + SLQ Onsager
-term and the noise update from the CG residual.  One
+term and the noise update from the CG residual.  With ``deflate_k > 0`` the
+primal solve is preconditioned by the top eigenpairs of A^T A
+(``cg.make_deflated_precond``).  One
 iteration (reference ``infere_linear``, vamp.cpp:190-803):
 
   denoising:  the re-estimation loop x1 = g1(r1, gam1), alpha1, eta1, gam1
@@ -89,7 +91,6 @@ def check_slice(cfg: VampConfig) -> None:
     """Raise on every option this port does not run yet."""
     for on, what, item in (
             (cfg.red, "red (reduced-subset solves with probe columns)", 12),
-            (cfg.deflate_k > 0, "deflate_k > 0 (spectral deflation)", 9),
             (cfg.use_cross_val, "use_cross_val (the damping tuner)", 11),
             (not cfg.use_slq, "use_slq=False (probe-column traces)", 12)):
         if on:
@@ -198,6 +199,8 @@ class Aux(NamedTuple):
     xxt_diag_base: torch.Tensor  # sum_m A^2 per slot / N (dual Jacobi)
     slq: slq.SlqBasis        # quadrature of the fixed Gram (A^T A; A A^T
                              # started at z_bern in dual mode)
+    defl: Optional[tuple] = None  # (V [Mpad, k], lam [k]): the top
+                                  # eigenpairs of A^T A (deflate_k > 0)
 
 
 def xxt_diag_base(geno) -> torch.Tensor:
@@ -212,11 +215,27 @@ def xxt_diag_base(geno) -> torch.Tensor:
     return sumsq.to(geno.dtype) / geno.N
 
 
+def make_deflation(geno, cfg: VampConfig, defl_v0=None):
+    """The deflation basis of every engine (``deflate_k > 0``): the top
+    ``deflate_k`` eigenpairs of A^T A from ``deflate_iters`` + 1 Gram
+    passes at width k, fused where fn_gram is on; ``defl_v0`` replaces the
+    drawn start block.  None when deflation is off."""
+    from gvamp_tpu_torch import probit
+    if cfg.deflate_k <= 0:
+        return None
+    mult, op = probit._gram_mult(geno), geno.op
+    return cg.top_eigs(lambda X: mult(op, X), geno.Mpad, cfg.deflate_k,
+                       seed=cfg.seed, n_iter=cfg.deflate_iters,
+                       dtype=geno.dtype, device=geno.device, V0=defl_v0)
+
+
 def make_aux(geno, cfg: VampConfig, freeze=None, true_signal=None,
-             bern=None) -> Aux:
-    """Set-up: the probe, A @ probe, the SLQ basis (``cfg.slq_k`` Gram
-    passes; over A A^T in dual mode) and A^T y; in dual mode also the
-    people statistics.  ``bern`` replaces the drawn probe."""
+             bern=None, defl_v0=None) -> Aux:
+    """Set-up: the probe, the deflation basis (``deflate_k > 0``, primal
+    only as in ``gvamp_tpu/linear.py:390-395``), A @ probe, the SLQ basis
+    (``cfg.slq_k`` Gram passes; over A A^T in dual mode) and A^T y; in
+    dual mode also the people statistics.  ``bern`` and ``defl_v0``
+    replace the drawn probe and deflation start block."""
     from gvamp_tpu_torch import probit
     check_slice(cfg)
     m_mask = geno.m_mask
@@ -225,6 +244,7 @@ def make_aux(geno, cfg: VampConfig, freeze=None, true_signal=None,
     else:
         bern = torch.tensor(np.asarray(bern), dtype=geno.dtype,
                             device=geno.device)
+    defl = make_deflation(geno, cfg, defl_v0) if not cfg.red else None
     y = geno.filter_pheno()
     z_bern = geno.axm(bern)
     if cfg.use_xxt:
@@ -240,7 +260,7 @@ def make_aux(geno, cfg: VampConfig, freeze=None, true_signal=None,
         m_mask=m_mask,
         ts=(geno.pad_m(true_signal) if true_signal is not None
             else torch.zeros_like(m_mask)),
-        xxt_diag_base=diag_base, slq=basis)
+        xxt_diag_base=diag_base, slq=basis, defl=defl)
 
 
 def make_step(geno, cfg: VampConfig, init_est: bool = False,
@@ -411,10 +431,14 @@ def make_step(geno, cfg: VampConfig, init_est: bool = False,
             mu0, r0 = cg.tracked_warm_start(V, mu0, gmu_c, gamw, gamw,
                                             gam2_eff, it, cfg.gram_refresh,
                                             multb)
+        precond = None
+        if aux.defl is not None:
+            precond = cg.make_deflated_precond(aux.defl[0], aux.defl[1],
+                                               gamw, gam2_eff, diag)
         sol = cg.solve_block(multb, V, mu0, diag, gam2_eff, cfg.cg_max_iter,
                              modes=(0,) + (1,) * P_cg, err_tol=cfg.cg_err_tol,
                              onsager_tol=cfg.onsager_tol,
-                             plateau=cfg.cg_plateau, r0=r0,
+                             plateau=cfg.cg_plateau, r0=r0, precond=precond,
                              rider=w["x1"][:, None] if fold_noise else None,
                              rider_mult=rider_mult)
         mu = sol.mu[:, 0]
@@ -527,14 +551,16 @@ def infer(geno, cfg: VampConfig, probs, vars_user, true_signal=None,
           freeze=None, callbacks=None, r1_init=None, x1_init=None, gam1=None,
           gamw=None, verbose: bool = True, sync_every: int = 1,
           phase_timers: bool = False, resume_state: LinState = None,
-          bern=None):
+          bern=None, defl_v0=None):
     """Run the linear VAMP loop; returns (x1_hat_stored, state, history).
 
     ``x1_hat_stored`` is the /sqrt(N)-scaled estimate of the reference's
     per-iteration .bin dumps (vamp.cpp:802).  Each history entry also holds
     ``wall_ms`` (host clock from the step's start to its metrics on the
     host, which waits for the device) and ``host_syncs`` (device values read
-    on the host during the iteration, the metrics fetch included)."""
+    on the host during the iteration, the metrics fetch included).
+    ``bern`` and ``defl_v0`` replace the drawn probe and deflation start
+    block (parity tests pass JAX's)."""
     if sync_every != 1:
         raise NotImplementedError(
             "sync_every > 1 (several iterations per dispatch): ROADMAP.md "
@@ -546,7 +572,7 @@ def infer(geno, cfg: VampConfig, probs, vars_user, true_signal=None,
         geno, cfg, probs, vars_user, r1_init=r1_init, x1_init=x1_init,
         gam1=gam1, gamw=gamw)
     aux = make_aux(geno, cfg, freeze=freeze, true_signal=true_signal,
-                   bern=bern)
+                   bern=bern, defl_v0=defl_v0)
     step = make_step(geno, cfg, init_est=x1_init is not None,
                      with_truth=true_signal is not None)
     history = []

@@ -11,8 +11,9 @@ Newton-Raphson covariate solver with backtracking line search
                   x1 = g1(r1, gam1) with the EM prior update, damping,
                   gam2 and r2;
   denoise_z       z1 = g1_bin_class(p1), beta1, tau1, p2, tau2;
-  lmmse_cg        the warm-started block CG on (tau2 A^T A + gam2 I) with
-                  the SLQ Onsager term; z2 = A x2 tracked through the CG
+  lmmse_cg        the warm-started block CG on (tau2 A^T A + gam2 I),
+                  deflated when ``deflate_k > 0``, with the SLQ Onsager
+                  term; z2 = A x2 tracked through the CG
                   recursion on the two-pass route (``fold_noise``, not under
                   ``GVAMP_NOISE_PASS=1``), or one forward pass after the
                   solve when the fused Gram (``GVAMP_FUSED_GRAM=1``) runs
@@ -261,12 +262,12 @@ class ProbitAux(NamedTuple):
     Z: torch.Tensor          # covariates planar-dense [4 Nb, C]
     ts: torch.Tensor         # true signal * sqrt(N) (zeros if absent)
     slq: slq.SlqBasis        # quadrature of the fixed Gram A^T A
+    defl: Optional[tuple] = None  # (V, lam): deflation basis (deflate_k > 0)
 
 
 def check_slice(cfg: ProbitConfig) -> None:
     """Raise on every option this port does not run yet."""
     for on, what, item in (
-            (cfg.deflate_k > 0, "deflate_k > 0 (spectral deflation)", 9),
             (cfg.red, "red (reduced-subset solves with probe columns)", 12),
             (not cfg.use_slq, "use_slq=False (probe-column traces)", 12)):
         if on:
@@ -309,10 +310,14 @@ def init_state(geno, cfg: ProbitConfig, probs, vars_user,
 
 
 def make_aux(geno, cfg: ProbitConfig, true_signal=None,
-             bern=None) -> ProbitAux:
-    """Set-up: covariates, the probe (``bern`` replaces the drawn one) and
-    the SLQ basis (``cfg.slq_k`` Gram passes, fused where fn_gram is on)."""
+             bern=None, defl_v0=None) -> ProbitAux:
+    """Set-up: covariates, the deflation basis (``deflate_k > 0``;
+    ``defl_v0`` replaces its drawn start block), the probe (``bern``
+    replaces the drawn one) and the SLQ basis (``cfg.slq_k`` Gram passes,
+    fused where fn_gram is on)."""
+    from gvamp_tpu_torch.linear import make_deflation
     check_slice(cfg)
+    defl = make_deflation(geno, cfg, defl_v0)
     C = geno.covs.shape[1] if geno.covs is not None else 0
     nb4 = geno.y_planar.numel()
     Z = (geno.covs_planar().reshape(nb4, C) if C > 0
@@ -327,7 +332,7 @@ def make_aux(geno, cfg: ProbitConfig, true_signal=None,
         bern=bern, m_mask=geno.m_mask, Z=Z,
         ts=(geno.pad_m(true_signal) * math.sqrt(geno.N)
             if true_signal is not None else torch.zeros_like(geno.m_mask)),
-        slq=make_slq_basis(geno, cfg, bern))
+        slq=make_slq_basis(geno, cfg, bern), defl=defl)
 
 
 def geo_damp(new, old, s: float, active: bool):
@@ -436,11 +441,15 @@ def make_step(geno, cfg: ProbitConfig, n_cov: int = 0,
                                          gram_fn=gram_fn)
         diag = cg.jacobi_diag(tau2, gam2, N)
         V = torch.cat([v[:, None], aux.bern[:, :P_cg]], dim=1)
+        precond = None
+        if aux.defl is not None:
+            precond = cg.make_deflated_precond(aux.defl[0], aux.defl[1],
+                                               tau2, gam2, diag)
         fwd_mult = (cg.make_lmmse_mult_block_fwd(axm_fn, atxm_fn, op, tau2,
                                                  gam2) if track_z2 else None)
         kw = dict(modes=(0,) + (1,) * P_cg, err_tol=cfg.cg_err_tol,
                   onsager_tol=cfg.onsager_tol, plateau=cfg.cg_plateau,
-                  fwd_mult=fwd_mult)
+                  fwd_mult=fwd_mult, precond=precond)
         if cfg.gram_refresh > 1:
             # warm start from the previous solutions with the tracked Gram
             # product (the reference zero-starts, vamp_probit.cpp:507)
@@ -539,11 +548,12 @@ def make_step(geno, cfg: ProbitConfig, n_cov: int = 0,
 def infer(geno, cfg: ProbitConfig, probs, vars_user, true_signal=None,
           verbose: bool = True, callbacks=None, phase_timers: bool = False,
           sync_every: int = 1, resume_state: ProbitState = None, bern=None,
-          p1=None):
+          p1=None, defl_v0=None):
     """Run the probit VAMP loop; returns (x1_hat_stored /sqrt(N), state,
     history).  Each history entry also holds ``wall_ms`` and
-    ``host_syncs``, as the linear engine's.  ``bern`` and ``p1`` replace
-    the drawn probe and initial p1 (parity tests pass JAX's)."""
+    ``host_syncs``, as the linear engine's.  ``bern``, ``p1`` and
+    ``defl_v0`` replace the drawn probe, initial p1 and deflation start
+    block (parity tests pass JAX's)."""
     if sync_every != 1:
         raise NotImplementedError(
             "sync_every > 1 (several iterations per dispatch): ROADMAP.md "
@@ -554,7 +564,8 @@ def infer(geno, cfg: ProbitConfig, probs, vars_user, true_signal=None,
     n_cov = geno.covs.shape[1] if geno.covs is not None else 0
     state = (resume_state if resume_state is not None
              else init_state(geno, cfg, probs, vars_user, p1=p1))
-    aux = make_aux(geno, cfg, true_signal=true_signal, bern=bern)
+    aux = make_aux(geno, cfg, true_signal=true_signal, bern=bern,
+                   defl_v0=defl_v0)
     step = make_step(geno, cfg, n_cov=n_cov,
                      with_truth=true_signal is not None)
     history = []

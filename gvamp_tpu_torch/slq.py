@@ -68,10 +68,16 @@ def _tridiag(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def nodes_weights(alphas, betas):
-    """(lam [C, k] clamped >= 0, wts [C, k]) from the Lanczos tridiagonals."""
-    T = _tridiag(alphas.T, betas.T)
+    """(lam [C, k] clamped >= 0, wts [C, k]) from the Lanczos tridiagonals,
+    in the dtype of ``alphas``.  The k x k eigendecomposition runs in
+    float64: on an H100 CUDA's float32 eigh of the 32-step tridiagonal of
+    config B errs 1.1e-5 on the Ritz values and 2.7e-6 on the quadrature,
+    LAPACK's 2.4e-7 and 3.7e-7 (``tools/profile_huber.py``), which moved
+    the Huber engine's first alpha2 on the card 4.4e-6 off the CPU's."""
+    T = _tridiag(alphas.T, betas.T).to(torch.float64)
     lam, S = torch.linalg.eigh(T)
-    return torch.clamp(lam, min=0.0), torch.square(S[:, 0, :])
+    return (torch.clamp(lam, min=0.0).to(alphas.dtype),
+            torch.square(S[:, 0, :]).to(alphas.dtype))
 
 
 def build(mult, U: torch.Tensor, k: int) -> SlqBasis:

@@ -271,13 +271,16 @@ def test_cli_infere_dumps_match_library(problem, tmp_path):
             assert os.path.getsize(pre + name) > 0
     for name in ("_gam1s.csv", "_gam2s.csv", "_R2trains.csv"):
         assert os.path.exists(pre + name)
-    # a model outside the slice raises naming its item (--use-XXT-denoiser
-    # and --model bin_class run since their paths were ported:
-    # tests/test_torch_xxt.py, tests/test_torch_probit.py)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-        tcli.main(["--device", "cpu", "--bed-file", bed, "--phen-files", phen,
-                   "--N", str(N), "--Mt", str(M), "--model", "robust",
-                   "--probs", "0.9,0.1", "--vars", "0.0,0.01"])
+    # a model outside the slice raises naming its item (--use-XXT-denoiser,
+    # --model bin_class and --model robust run since their paths were
+    # ported: tests/test_torch_xxt.py, tests/test_torch_probit.py,
+    # tests/test_torch_robust.py; the multi-trait robust model has not been)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 10"):
+        tcli.main(["--device", "cpu", "--bed-file", bed, "--phen-files",
+                   f"{phen},{phen}", "--N", str(N), "--Mt", str(M),
+                   "--model", "robust", "--probs", "0.9,0.1", "--vars",
+                   "0.0,0.01"])
 
 
 # |log10 p| of the CLI's f32 p-values against JAX's loo_pvals on the same
@@ -356,10 +359,10 @@ def test_out_of_slice_options_raise(problem):
     _, t = _genos(problem, torch.float64)
     # use_xxt left this list when the dual path was ported (it still raises
     # beside an option that is not, use_slq=False), fold_noise=False when
-    # the explicit noise pass was (test_noise_pass_and_fused_gram_match_jax)
+    # the explicit noise pass was (test_noise_pass_and_fused_gram_match_jax),
+    # deflate_k > 0 when deflation was (tests/test_torch_deflate.py)
     for kw in (dict(use_xxt=True, use_slq=False), dict(red=True),
-               dict(deflate_k=4), dict(use_cross_val=True),
-               dict(use_slq=False)):
+               dict(use_cross_val=True), dict(use_slq=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tlinear.infer(t, tlinear.VampConfig(**kw), probs_t, vars_t,
                           verbose=False)

@@ -334,7 +334,9 @@ def test_out_of_slice_options_raise():
     prob = _problem(0.0, 0)
     vars_t, probs_t = prob[3:5]
     _, t = _genos(prob, torch.float64)
-    for kw in (dict(deflate_k=4), dict(red=True), dict(use_slq=False)):
+    # deflate_k > 0 left this list when deflation was ported
+    # (tests/test_torch_deflate.py)
+    for kw in (dict(red=True), dict(use_slq=False)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tprobit.infer(t, tprobit.ProbitConfig(**kw), probs_t, vars_t,
                           verbose=False)
@@ -376,8 +378,10 @@ def test_covariate_helpers_match_jax(tmp_path):
 def test_cli_bin_class_matches_library(tmp_path):
     """--model bin_class with --cov-file / --C 2: the _probit_ dumps, the
     estimate equal to a library run on a container loaded the same way
-    (phenotype not standardised, covariates read); --store-pip and --model
-    robust still raise naming their items."""
+    (phenotype not standardised, covariates read); --store-pip and
+    multi-trait bin_class (several --phen-files) still raise naming their
+    items (--model robust runs since it was ported:
+    tests/test_torch_robust.py)."""
     codes, y, beta, vars_t, probs_t, covs = _problem(0.02, 2)
     bed, phen, cov = (str(tmp_path / f"d.{e}") for e in ("bed", "phen", "cov"))
     plink.write_bed(bed, codes)
@@ -409,7 +413,7 @@ def test_cli_bin_class_matches_library(tmp_path):
     np.testing.assert_allclose(dump, x_lib, rtol=2.0 ** -23)
     assert state.cov_eff.abs().max() > 0
     for extra, item in ((["--store-pip", "1"], 12),
-                        (["--model", "robust"], 9)):
+                        (["--phen-files", f"{phen},{phen}"], 10)):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.md Queue 1 item {item}"):
             tcli.main(args + ["--out-name", "x"] + extra)
