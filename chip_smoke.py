@@ -97,6 +97,18 @@ Phases, each of which raises on failure (exit code != 0):
    ran axm_i8a / atxm_i8a and no other product kernel; then 5 iterations
    at config Bm through axm_i8 / atxm_i8;
    4n. the p-value moments at N=327,680 against a float64 oracle;
+   4t. the multi-trait engines (gvamp_tpu_torch/multi.py) at config B on
+   phase 4's words: T = 8 linear traits (bench.py's recipe, one seed and
+   h2 per trait, 0-5% NA phenotypes) for 10 iterations two-pass and 3
+   under GVAMP_FUSED_GRAM=1 (held against the two-pass run's third), T = 4
+   binary traits for 10 and T = 2 Huber traits for 5, each printing its T
+   statistics passes, the set-up left (probe, A_t^T y_t, SLQ basis), each
+   iteration's ms, CG count per trait and host syncs, every trait's
+   corr(x_hat, beta), the peak memory and the launch counters, which must
+   show the CG on axm_i8a / atxm_i8a (gram_i8a fused) and nothing of the
+   two-plane form or the tools; 4tm: T = 4 linear traits at config Bm on
+   phase 4m's words, 3 iterations through axm_i8 / atxm_i8, then 3
+   through gram_i8 held against them;
 5. the same small problem on the card and on the CPU (plain versions),
    complete and with 2% missing calls (then with LOO and LOCO p-values),
    primal and dual, linear with the fused primal Gram, and probit
@@ -107,13 +119,22 @@ Phases, each of which raises on failure (exit code != 0):
    grid point at every iteration, and x1 and the scalars within
    HUBER_CARD_CPU_XTOL / _RTOL at the iterations before the JAX package's
    own float32-against-float64 spread grows (tests/huber_spread.py);
+   5t. the multi-trait engines likewise, T = 3 (linear complete and with
+   2% missing calls at N=2,000 x M=4,096, probit with 2 covariates at
+   N=6,000 x M=2,048, Huber at N=1,500 x M=300), within the f32
+   tolerances of tests/test_torch_multi*.py (MULTI_CARD_CPU);
 6. the CLI (`--run-mode infere --model linear --store-pvals 1` with a
    .bim) on the flagship recipe of the README's port section, then with
    `--use-XXT-denoiser 1` (6x) and as `--model bin_class --cov-file --C 2`
    on a binary phenotype (6p); 6r: for `--model robust`, linear and
    bin_class, 3 iterations with `--checkpoint`, then `--run-mode restart
    --resume` for 3 more, whose iteration-6 dump must equal a 6-iteration
-   run's bit for bit, and the linear `restart --estimate-file`;
+   run's bit for bit, and the linear `restart --estimate-file`; 6t: the
+   multi-trait CLI (three --phen-files per model on the flagship
+   genotypes): linear with `--store-pvals 1` and a .bim (each trait's
+   `_phen{t}` dumps, LOO / LOCO p-values and LOCO predictors), then the 3
+   + 3 `--checkpoint` / `restart --resume` of each model, every trait's
+   iteration-6 dump equal bit for bit to a 6-iteration run's;
 7. the port's tools on the card, each of whose ``main([])`` must return 0:
    the kernel check against float64 (gvamp_tpu_torch.tools.kernel_check,
    with the fused Grams' correctness), the fused-Gram study (bench_gram),
@@ -138,6 +159,7 @@ It imports nothing of JAX or of the JAX package.
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -2210,6 +2232,442 @@ def phase_cli_restart():
                              "library run")
 
 
+# --------------------------------------------------------------------------
+# multi-trait runs (phases 4t, 4tm, 5t, 6t)
+# --------------------------------------------------------------------------
+
+# The traits of phases 4t / 4tm: bench.py:89-111's recipe (two-group prior,
+# 1,000 causal markers) with one seed and h2 per trait, and 0-5% NA
+# phenotypes spread over the linear traits; the engine's prior is that of
+# h2 = 0.5 for every trait.  MULTI_CORR_MIN, on every trait's corr(x_hat,
+# beta) after its run, set before the first H100 run of these phases below
+# the single-trait readings at config B (linear 0.9958, probit 0.99173,
+# Huber 0.8739 after 10 iterations; PERF.md), with room for the traits of
+# lower h2 and for the shorter runs
+MULTI_H2 = (0.5, 0.3, 0.7, 0.4, 0.6, 0.35, 0.65, 0.45)
+MULTI_NA_MAX = 0.05
+MULTI_CORR_MIN = {"linear": 0.9, "bin_class": 0.9, "robust": 0.8}
+MULTI_SCALARS = {"linear": ("gam1", "gam2", "gamw", "alpha2"),
+                 "bin_class": ("gam1", "gam2", "tau1", "tau2", "alpha2"),
+                 "robust": ("gam1", "gam2", "tau1", "tau2", "alpha2")}
+
+
+def multi_traits(geno, model, T, seed, na_max=0.0):
+    """T phenotypes of ``model`` on ``geno``: trait t draws its effects
+    from the two-group prior of h2 = MULTI_H2[t] and, for the linear
+    model, loses a share na_max * t / (T - 1) of its phenotypes to NA.
+    Returns (ys, betas)."""
+    from gvamp_tpu_torch import sim
+    rng = np.random.default_rng(seed)
+    n, m = geno.N, geno.M
+    ys, betas = [], []
+    for t in range(T):
+        h2 = MULTI_H2[t % len(MULTI_H2)]
+        vars_t, probs_t = sim.two_group_prior(m, 1000, h2)
+        beta = sim.simulate_mixture(rng, m, vars_t, probs_t)
+        if model == "linear":
+            y = sim.simulate_linear_phenotype(geno, beta, 1 / (1 - h2), rng)
+            n_na = int(na_max * t / max(T - 1, 1) * n)
+            y[rng.choice(n, n_na, replace=False)] = np.nan
+        elif model == "bin_class":
+            y = sim.simulate_probit_phenotype(geno, beta, 1 - h2, rng)
+        else:
+            y = huber_phenotype(geno, beta, rng)
+        ys.append(y)
+        betas.append(beta)
+    return ys, betas
+
+
+def build_multi(geno, ys, model, label):
+    """MultiPhen.build with its T statistics passes timed."""
+    from gvamp_tpu_torch import multi
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mp = multi.MultiPhen.build(geno, ys, standardize=model != "bin_class")
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    nas = [int(geno.N - n) for n in mp.nonas]
+    log(f"  {label}: {mp.T} statistics passes {t:.2f} s ({t / mp.T:.2f} s "
+        f"each); NA phenotypes per trait {nas}")
+    return mp
+
+
+def multi_cfg(model, n_it):
+    """bench.py's settings (rho 0.15, gam1 1e-8, gamw 2) for the linear
+    model, phase 4p's for probit and phase 4h's for Huber."""
+    from gvamp_tpu_torch import linear, probit, robust
+    if model == "linear":
+        return linear.VampConfig(max_iter=n_it, rho=0.15, gam1_init=1e-8,
+                                 gamw_init=2.0)
+    if model == "bin_class":
+        return probit.ProbitConfig(max_iter=n_it, probit_var=0.5)
+    return robust.RobustConfig(max_iter=n_it, rho=0.15, stab_gamma=1.0,
+                               stop_criteria_thr=0.0)
+
+
+def run_multi(mp, model, cfg, prior, betas, label, x1_at=None):
+    """One multi-trait run: the set-up left after the statistics (probe,
+    A_t^T y_t, the T*P-column SLQ basis), each iteration's ms, CG count per
+    trait and host syncs, each trait's corr(x_hat, beta), the peak memory
+    and the launch counts; checks that every value is finite, that the run
+    went on past iteration 5 or to its end, and every corr against
+    MULTI_CORR_MIN.  ``prior`` is the engine's (probs, vars) for every
+    trait; ``x1_at`` keeps x1 and the metrics of that iteration.  Returns
+    (x_hat, history, launches, kept)."""
+    from gvamp_tpu_torch import multi
+    from gvamp_tpu_torch.ops import matvec
+    run = {"linear": multi.infer, "bin_class": multi.infer_probit,
+           "robust": multi.infer_huber}[model]
+    kept = {}
+
+    def keep(it, state, m, g):
+        if it == x1_at:
+            kept.update(x1=state.x1[: g.M].double().cpu().numpy(), m=m)
+
+    torch.cuda.reset_peak_memory_stats()
+    matvec.reset_launches()
+    t0 = time.perf_counter()
+    x_hat, _, hist = run(mp, cfg, *prior, verbose=False, callbacks=[keep])
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    launches = dict(matvec.LAUNCHES)
+    t_iters = sum(h["wall_ms"] for h in hist) / 1e3
+    log(f"  {label}: infer set-up (probe, A_t^T y_t, SLQ basis at "
+        f"{mp.T * cfg.n_probes} columns) {t_all - t_iters:.2f} s; "
+        f"{len(hist)} iterations in {t_iters:.2f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    extra = {"linear": "R2_train_1", "bin_class": "beta1",
+             "robust": "deltaH"}[model]
+    log(f"  it    wall_ms  syncs  cg per trait / {extra} per trait")
+    for h in hist:
+        log(f"  {h['it']:2d} {h['wall_ms']:10.2f} {h['host_syncs']:6d}  "
+            f"{' '.join(f'{c:2d}' for c in h['cg_iters'])} / "
+            + " ".join(f"{float(v):.4g}" for v in h[extra]))
+    corrs = [float(np.corrcoef(x_hat[:, t], b)[0, 1])
+             for t, b in enumerate(betas)]
+    log(f"  corr(x_hat_t, beta_t): {' '.join(f'{c:.5f}' for c in corrs)} "
+        f"(floor {MULTI_CORR_MIN[model]}); median "
+        f"{np.median([h['wall_ms'] for h in hist[2:]] or [0]):.2f} ms/it "
+        f"from iteration 3; stopped {hist[-1]['stopped'].tolist()}")
+    keys = MULTI_SCALARS[model]
+    if not (np.isfinite(x_hat).all() and all(
+            np.isfinite(h[k]).all() for h in hist for k in keys)):
+        raise AssertionError(f"{label}: non-finite values")
+    if len(hist) < min(cfg.max_iter, 5):
+        raise AssertionError(f"{label}: stopped after {len(hist)} "
+                             f"iterations")
+    if not min(corrs) >= MULTI_CORR_MIN[model]:
+        raise AssertionError(f"{label}: corr(x_hat, beta) {corrs} below "
+                             f"{MULTI_CORR_MIN[model]}")
+    return x_hat, hist, launches, kept
+
+
+def multi_fused(mp, prior, betas, kept, label, complete):
+    """The linear multi-trait run again for 3 iterations under
+    GVAMP_FUSED_GRAM=1 (every CG product through gram_i8a, or gram_i8 with
+    missing calls, with per-trait [4, Nb, B] NA masks), held against the
+    two-pass run's third iteration ``kept``: x1 within FUSED_XTOL of
+    max|x1|, the scalars within FUSED_RTOL.  Returns the launch counts."""
+    a_only = ("axm_i8a", "atxm_i8a", "gram_i8a")
+    general = ("axm_i8", "atxm_i8", "gram_i8")
+    with fused_env():
+        if mp.fn_gram() is None:
+            raise AssertionError(f"{label}: the multi fn_gram refused the "
+                                 f"words")
+        x_f, h_f, launches, _ = run_multi(
+            mp, "linear", multi_cfg("linear", 3), prior, betas,
+            f"{label} fused")
+    check_launches(f"{label} fused", launches,
+                   a_only if complete else general,
+                   general if complete else a_only)
+    x3 = x_f * np.sqrt(mp.geno.N)
+    dx = float(np.abs(x3 - kept["x1"]).max() / np.abs(kept["x1"]).max())
+    log(f"  fused against two-pass at iteration 3: max|dx| / max|x| = "
+        f"{dx:.3e} (limit {FUSED_XTOL:g})")
+    if not dx < FUSED_XTOL:
+        raise AssertionError(f"{label}: the fused run differs")
+    for k in MULTI_SCALARS["linear"]:
+        a, b = np.asarray(h_f[-1][k]), np.asarray(kept["m"][k])
+        r = float(np.abs(a - b).max() / np.abs(b).min())
+        log(f"  {k}: max relative difference {r:.3e} (limit {FUSED_RTOL:g})")
+        if not r <= FUSED_RTOL:
+            raise AssertionError(f"{label}: fused {k} differs")
+    return launches
+
+
+def phase_multi_b(geno):
+    """Phase 4t: the multi-trait engines at config B on phase 4's words
+    (complete genotypes): T = 8 linear traits for 10 iterations two-pass,
+    then 3 under GVAMP_FUSED_GRAM=1 held against the two-pass run's third
+    iteration; T = 4 binary traits for 10 iterations; T = 2 Huber traits
+    for 5.  Each run's CG must launch axm_i8a / atxm_i8a (gram_i8a in the
+    fused one) and no kernel of the two-plane form or of the tools.
+    Returns {run: launch counts}."""
+    from gvamp_tpu_torch import sim
+    log("== phase 4t: multi-trait engines at config B (complete genotypes)")
+    vars_t, probs_t = sim.two_group_prior(geno.M, 1000, 0.5)
+    prior = (probs_t, vars_t)
+    general = ("axm_i8", "atxm_i8", "gram_i8")
+    counts = {}
+    ys, betas = multi_traits(geno, "linear", 8, 11, MULTI_NA_MAX)
+    mp = build_multi(geno, ys, "linear", "linear T=8")
+    _, _, counts["linear"], kept = run_multi(
+        mp, "linear", multi_cfg("linear", CFG_B_ITERS), prior, betas,
+        "config B linear T=8 two-pass", x1_at=3)
+    check_launches("config B linear T=8", counts["linear"],
+                   ("axm_i8a", "atxm_i8a"), general + ("gram_i8a",))
+    counts["linear fused"] = multi_fused(mp, prior, betas, kept,
+                                         "config B linear T=8", True)
+    for model, T, n_it, seed in (("bin_class", 4, CFG_B_ITERS, 12),
+                                 ("robust", 2, 5, 13)):
+        ys, betas = multi_traits(geno, model, T, seed)
+        mp = build_multi(geno, ys, model, f"{model} T={T}")
+        _, _, counts[model], _ = run_multi(
+            mp, model, multi_cfg(model, n_it), prior, betas,
+            f"config B {model} T={T}")
+        check_launches(f"config B {model} T={T}", counts[model],
+                       ("axm_i8a", "atxm_i8a"), general + ("gram_i8a",))
+    return counts
+
+
+def phase_multi_bm(geno):
+    """Phase 4tm: T = 4 linear traits at config Bm on phase 4m's words
+    (missing calls), 3 iterations through axm_i8 / atxm_i8 and no kernel
+    of the one-plane form, then 3 through gram_i8 (held against the
+    two-pass run).  Returns {run: launch counts}."""
+    from gvamp_tpu_torch import sim
+    log("== phase 4tm: multi-trait linear engine at config Bm (missing "
+        "calls)")
+    vars_t, probs_t = sim.two_group_prior(geno.M, 1000, 0.5)
+    prior = (probs_t, vars_t)
+    ys, betas = multi_traits(geno, "linear", 4, 14, MULTI_NA_MAX)
+    mp = build_multi(geno, ys, "linear", "linear T=4")
+    _, _, launches, kept = run_multi(mp, "linear", multi_cfg("linear", 3),
+                                     prior, betas, "config Bm linear T=4",
+                                     x1_at=3)
+    check_launches("config Bm linear T=4", launches, ("axm_i8", "atxm_i8"),
+                   ("axm_i8a", "atxm_i8a", "gram_i8a", "gram_i8"))
+    return {"linear at Bm": launches,
+            "linear fused at Bm": multi_fused(mp, prior, betas, kept,
+                                              "config Bm linear T=4", False)}
+
+
+# Card against CPU for the multi-trait engines (phase 5t), at the f32
+# tolerances of tests/test_torch_multi*.py (port against JAX on the CPU):
+# per model the limit on max|dx1| / max|x1| after the run, the relative
+# limit on the scalars, and the iterations at which they are held.
+# Huber: x1 at every iteration, deltaH equal at every iteration, the
+# scalars at iterations 1-2: at iteration 3 alpha2 falls to 4e-5-6e-4,
+# where the SLQ quadrature of 1 / (tau2 lam + gam2) at tau2 in the
+# thousands rests on the smallest Ritz values, which the card's and the
+# CPU's float32 Lanczos runs (other summation orders) place apart, and gam1
+# = gam2 (1 - alpha2) / alpha2 carries it: the first H100 run read the
+# scalars within 2.5e-6 at iterations 1-2, then alpha2 3.1e-5 and gam1
+# 1.35e-4 apart at iteration 3, x1 within 2.2e-6 (PERF.md); the port's own
+# float32 run is within 6.5e-7 of its float64 run there
+MULTI_CARD_CPU = {"linear": (5e-5, 2e-4, 6), "bin_class": (1e-4, 5e-4, 6),
+                  "robust": (1e-4, 1e-4, 2)}
+
+
+def phase_card_vs_cpu_multi(model, miss_rate):
+    """Phase 5t: T = 3 traits of ``model`` on the card and on the CPU (the
+    plain versions) from the same data and probe (and, for Huber, the
+    same generator): linear at N=2,000 x M=4,096 (complete and 2% missing
+    calls), probit with 2 covariates at N=6,000 x M=2,048, and Huber at
+    N=1,500 x M=300 with 20 causal markers at h2 = 0.9, the stable recipe
+    of tests/test_torch_multi_zmodel.py (at N=6,000 x M=2,048 with 40 two
+    traits meet the clip by iteration 2, where the card's gam1 came out 45
+    times the CPU's on the first H100 run, PERF.md)."""
+    from gvamp_tpu_torch import multi, sim
+    from gvamp_tpu_torch.data import GenoBed
+    from gvamp_tpu_torch.ops import matvec
+    N, M = {"linear": (2000, 4096), "bin_class": (6000, 2048),
+            "robust": (1500, 300)}[model]
+    n_it = 6 if model != "robust" else 4
+    label = (f"{model}, " + ("complete" if miss_rate == 0
+                             else f"{miss_rate:.0%} missing")
+             + (", 2 covariates" if model == "bin_class" else ""))
+    log(f"== phase 5t: multi-trait card vs CPU, T=3, N={N} x M={M}, "
+        f"{n_it} iterations, {label}")
+    cfg = {"linear": multi_cfg("linear", n_it), "bin_class":
+           multi_cfg("bin_class", n_it), "robust":
+           multi_cfg("robust", n_it)}[model]
+    cfg = dataclasses.replace(cfg, rho=0.3, seed=5)
+    run = {"linear": multi.infer, "bin_class": multi.infer_probit,
+           "robust": multi.infer_huber}[model]
+    xtol, rtol, held = MULTI_CARD_CPU[model]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        bed, beta0, vars_t, probs_t, rng = small_problem(tmp, 9, N, M,
+                                                         miss_rate)
+        if model == "robust":
+            vars_t, probs_t = sim.two_group_prior(M, 20, 0.9)
+            beta0 = sim.simulate_mixture(rng, M, vars_t, probs_t)
+        covs = rng.normal(size=(N, 2)) if model == "bin_class" else None
+        ys = None
+        for dev in ("cuda", "cpu"):
+            g = GenoBed.from_files(bed, None, N=N, Mt=M, device=dev,
+                                   standardize_phen=False)
+            g.covs = covs
+            if ys is None:
+                betas = [beta0] + [sim.simulate_mixture(rng, M, vars_t,
+                                                        probs_t)
+                                   for _ in range(2)]
+                ys = []
+                for t, b in enumerate(betas):
+                    if model == "linear":
+                        y = sim.simulate_linear_phenotype(g, b, 2.0, rng)
+                    elif model == "bin_class":
+                        y = sim.simulate_probit_phenotype(
+                            g, b, 0.5, rng, np.array([0.3, -0.3]))
+                    else:
+                        y = huber_phenotype(g, b, rng)
+                    if t == 1:
+                        y[rng.choice(N, N // 50, replace=False)] = np.nan
+                    ys.append(y)
+            mp = multi.MultiPhen.build(g, ys,
+                                       standardize=model != "bin_class")
+            xs = []
+            t0 = time.perf_counter()
+            matvec.reset_launches()
+            x, _, hist = run(mp, cfg, probs_t, vars_t, verbose=False,
+                             callbacks=[lambda it, s, m, g_: xs.append(
+                                 s.x1.double().cpu().numpy())])
+            check_no_tool_launches(f"multi card vs CPU, {dev}",
+                                   matvec.LAUNCHES)
+            out[dev] = x, hist, xs
+            log(f"  {dev}: {time.perf_counter() - t0:.2f} s")
+    (x_c, h_c, xs_c), (x_p, h_p, xs_p) = out["cuda"], out["cpu"]
+    if not all(np.isfinite(v).all() for v in (x_c, x_p)):
+        raise AssertionError("multi card vs CPU: non-finite x1")
+    for i, (a, b) in enumerate(zip(xs_c, xs_p)):
+        dx = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+        rel = {k: float(np.abs(h_c[i][k] - h_p[i][k]).max()
+                        / np.abs(h_p[i][k]).min())
+               for k in MULTI_SCALARS[model]}
+        held_x = model == "robust" or i == len(xs_p) - 1
+        log(f"  it {i + 1}: max|x1 card - x1 cpu| / max|x1| = {dx:.3e}"
+            + (f" (limit {xtol:g})" if held_x else "") + "; relative "
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+            + (f" (limit {rtol:g})" if i < held else "")
+            + f"; cg card {h_c[i]['cg_iters'].tolist()} cpu "
+            f"{h_p[i]['cg_iters'].tolist()}")
+        if (held_x and not dx <= xtol) or (
+                i < held and not max(rel.values()) <= rtol):
+            raise AssertionError(f"multi card vs CPU ({label}) disagree at "
+                                 f"iteration {i + 1}")
+        if model == "robust" and not np.array_equal(h_c[i]["deltaH"],
+                                                    h_p[i]["deltaH"]):
+            raise AssertionError(f"multi Huber: deltaH differs at "
+                                 f"iteration {i + 1}")
+    if model == "bin_class":
+        ec, ep = h_c[-1]["cov_eff"], h_p[-1]["cov_eff"]
+        log(f"  cov_eff card {ec.tolist()} cpu {ep.tolist()}")
+        if not np.allclose(ec, ep, rtol=rtol, atol=rtol):
+            raise AssertionError("multi card vs CPU: covariate effects differ")
+    log("  corr(x_hat_t, beta_t) card "
+        + " ".join(f"{float(np.corrcoef(x_c[:, t], b)[0, 1]):.5f}"
+                   for t, b in enumerate(betas)))
+
+
+def phase_cli_multi():
+    """Phase 6t: the multi-trait CLI on the card on the flagship genotypes
+    (2% missing calls), three traits per model: --model linear with
+    --store-pvals 1 and a .bim (each trait's dumps, LOO / LOCO p-values and
+    LOCO predictors), then for linear, bin_class and robust 3 iterations
+    with --checkpoint and restart --resume for 3 more, every trait's
+    iteration-6 dump equal bit for bit to a 6-iteration run's."""
+    log("== phase 6t: multi-trait CLI, --store-pvals 1 and 3 + 3 restarts, "
+        "2% missing")
+    from gvamp_tpu_torch import cli, sim
+    from gvamp_tpu_torch.data import GenoBed
+    from gvamp_tpu_torch.io import plink, vecio
+    from gvamp_tpu_torch.ops import matvec
+    N, M, T = 800, 240, 3
+    prior = ["--probs", "0.95,0.05", "--vars", "0.0,0.0667"]
+    with tempfile.TemporaryDirectory() as tmp:
+        bed, phen, bim, beta = flagship_files(tmp, N, M)
+        g = GenoBed.from_files(bed, None, N=N, Mt=M, device="cuda",
+                               standardize_phen=False)
+        rng = np.random.default_rng(9)
+        vars_t, probs_t = sim.two_group_prior(M, 12, 0.8)
+        betas = [beta] + [sim.simulate_mixture(rng, M, vars_t, probs_t)
+                          for _ in range(T - 1)]
+        phens = {m: [] for m in ("linear", "bin_class", "robust")}
+        for t, b in enumerate(betas):
+            ys = {"linear": sim.simulate_linear_phenotype(g, b, 5.0, rng),
+                  "bin_class": sim.simulate_probit_phenotype(g, b, 0.2, rng),
+                  "robust": huber_phenotype(g, b, rng)}
+            if t == 1:
+                ys["linear"][rng.choice(N, 30, replace=False)] = np.nan
+            for model, y in ys.items():
+                phens[model].append(os.path.join(tmp, f"{model}{t}.phen"))
+                plink.write_phen(phens[model][-1], y)
+        out = os.path.join(tmp, "out")
+        ck = os.path.join(tmp, "ck.npz")
+        for model in ("linear", "bin_class", "robust"):
+            base = ["--device", "cuda", "--model", model, "--bed-file", bed,
+                    "--bim-file", bim, "--phen-files", ",".join(phens[model]),
+                    "--N", str(N), "--Mt", str(M), "--rho", "0.3",
+                    "--stop-criteria-thr", "0", "--verbosity", "0",
+                    "--out-dir", out] + prior
+            if model == "bin_class":
+                base += ["--probit-var", "0.2"]
+            matvec.reset_launches()
+            t0 = time.perf_counter()
+            cli.main(["--run-mode", "infere", "--iterations", "6",
+                      "--out-name", f"{model}_full"] + base
+                     + (["--store-pvals", "1"] if model == "linear" else []))
+            t_full = time.perf_counter() - t0
+            cli.main(["--run-mode", "infere", "--iterations", "3",
+                      "--checkpoint", ck, "--out-name", f"{model}_part"]
+                     + base)
+            cli.main(["--run-mode", "restart", "--resume", ck,
+                      "--iterations", "3", "--out-name", f"{model}_part"]
+                     + base)
+            check_launches(f"CLI multi {model}", dict(matvec.LAUNCHES),
+                           ("axm_i8", "atxm_i8"), ("axm_i8a", "atxm_i8a"))
+            tag = cli._TAGS[model]
+            same, corrs = [], []
+            for t in range(T):
+                full = vecio.read_bin_shard(
+                    os.path.join(out, f"{model}_full_phen{t}{tag}_it_6.bin"),
+                    M, 0)
+                part = vecio.read_bin_shard(
+                    os.path.join(out, f"{model}_part_phen{t}{tag}_it_6.bin"),
+                    M, 0)
+                if not np.isfinite(full).all():
+                    raise AssertionError(f"CLI multi {model}: non-finite")
+                same.append(bool(np.array_equal(part, full)))
+                corrs.append(float(np.corrcoef(full, betas[t])[0, 1]))
+            log(f"  {model}: 6 iterations {t_full:.2f} s; iteration-6 dumps "
+                f"of 3 + checkpoint + 3 equal to 6 in one run: {same}; "
+                f"corr(x_hat_t, beta_t) {' '.join(f'{c:.5f}' for c in corrs)}")
+            if not all(same):
+                raise AssertionError(f"CLI multi {model}: the resumed run "
+                                     f"differs from the uninterrupted one")
+        pre = os.path.join(out, "linear_full")
+        for t in range(T):
+            p_loo = vecio.read_bin_shard(f"{pre}_phen{t}_pvals.bin", M, 0)
+            p_loco = vecio.read_bin_shard(f"{pre}_phen{t}_pvals_LOCO.bin",
+                                          M, 0)
+            preds = [np.loadtxt(f"{pre}_phen{t}_LOCO_chr_{ch}.csv")
+                     for ch in range(1, 5)]
+            causal = betas[t] != 0
+            log(f"  linear trait {t}: median causal LOO p "
+                f"{float(np.median(p_loo[causal])):.3e}, null "
+                f"{float(np.median(p_loo[~causal])):.4f}; LOCO "
+                f"{float(np.median(p_loco[causal])):.3e}")
+            if not (pvals_in_range(p_loo) and pvals_in_range(p_loco)):
+                raise AssertionError("multi p-value files outside [0, 1]")
+            if not np.median(p_loo[causal]) < np.median(p_loo[~causal]):
+                raise AssertionError("multi LOO: causal markers not below "
+                                     "the nulls")
+            if not all(pr.shape[0] >= N and np.isfinite(pr).all()
+                       for pr in preds):
+                raise AssertionError("multi LOCO predictor files malformed")
+
+
 # the kernels that only the tools launch (phase 7), and the tools
 TOOL_KERNELS = ("axm_bf16", "atxm_bf16", "axm_i8s", "atx_a") + STUDY
 TOOLS = ("kernel_check", "bench_gram", "profile_kernels", "bench_stream",
@@ -2327,6 +2785,7 @@ def main(argv=None):
     launches_p, launches_pf = phase_probit_b(geno, problem)
     launches_h = phase_huber(geno, problem, "config B", True, CFG_B_ITERS,
                              (0, HUBER_DEFLATE_K))
+    launches_t = phase_multi_b(geno)
     del words, geno
     torch.cuda.empty_cache()
     # config Bm: the general kernels, the fused general Gram, p-values
@@ -2340,6 +2799,7 @@ def main(argv=None):
     launches_mf = phase_fused_linear("config Bm", geno, problem, False)
     launches_hm = phase_huber(geno, problem, "config Bm", False,
                               HUBER_BM_ITERS, (0,))
+    launches_t.update(phase_multi_bm(geno))
     del words, geno
     torch.cuda.empty_cache()
     words = synth_words(gen, False, CFG_X_N, CFG_X_M)
@@ -2359,11 +2819,15 @@ def main(argv=None):
     phase_card_vs_cpu_probit(0.02, 2, fused=True)
     for miss_rate, deflate_k in HUBER_CARD_CPU_CASES:
         phase_card_vs_cpu_huber(miss_rate, deflate_k)
+    for model, miss_rate in (("linear", 0.0), ("linear", 0.02),
+                             ("bin_class", 0.0), ("robust", 0.0)):
+        phase_card_vs_cpu_multi(model, miss_rate)
     phase_cli()
     phase_cli_xxt()
     phase_cli_probit()
     phase_cli_restart()
-    launches_t = phase_tools()
+    phase_cli_multi()
+    launches_tools = phase_tools()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # times at B = 1 on the whole matrix of the path that runs the kernel:
     # config B (a-only, atx, atx_a, the bf16-split products, gram_i8a), Bm
@@ -2374,8 +2838,8 @@ def main(argv=None):
     # runs of phase 4x and, for the kernels only the tools launch, phase 7;
     # the study kernels at config B (phase 3s; the products at B = 2,
     # v6_fused_ab on config Bm), the only rows with a PyTorch call's time
-    launches.update({n: launches_t[n] for n in TOOL_KERNELS})
-    launches_m["axm_i8s"] = launches_t["axm_i8s"]
+    launches.update({n: launches_tools[n] for n in TOOL_KERNELS})
+    launches_m["axm_i8s"] = launches_tools["axm_i8s"]
     numbers = {}
     for n in KERNELS:
         if n in STUDY:
@@ -2408,6 +2872,10 @@ def main(argv=None):
         for k, c in counts.items():
             log(f"Huber at {label}, deflate_k={k}: launches "
                 + ", ".join(f"{n} {c[n]}" for n in DEFLATE_KERNELS))
+    for run, c in launches_t.items():
+        log(f"multi-trait {run} (phases 4t / 4tm): launches "
+            + ", ".join(f"{n} {c[n]}" for n in DEFLATE_KERNELS
+                        + GRAM_PRIM_KERNELS))
     log(smi())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

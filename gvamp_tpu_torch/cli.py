@@ -3,7 +3,9 @@
 The flags are those of the JAX package's CLI (parsed by the port's copy of
 its ``Options``), plus ``--device`` (default ``cuda``) for the port.  This
 slice runs ``--run-mode infere`` and ``--run-mode restart`` on one device
-for one phenotype (``cli.py:61-80, 113-242, 400-520`` of the JAX package).
+(``cli.py:61-80, 113-242, 400-520`` of the JAX package), for one phenotype
+or, with several comma-separated ``--phen-files``, for T phenotypes in one
+joint run of the multi-trait engines (``gvamp_tpu_torch.multi``).
 ``--model linear`` writes the reference-layout dumps per iteration:
 
   {out}_it_{i}.bin  {out}_r1_it_{i}.bin  {out}_r2_it_{i}.bin
@@ -24,17 +26,25 @@ either continues such a checkpoint (``--resume PATH``: ``--iterations``
 more iterations under the checkpoint's config) or starts from an estimate
 file (``--estimate-file``: r1 for the linear model, with ``--gam1-init``
 and ``--gamw-init`` injected, as the JAX CLI does).
+A multi-trait run writes each trait's estimate as
+``{out}_phen{t}{tag}_it_{i}.bin``, a linear one the ``_phen{t}_gam1s`` /
+``_gam2s`` / ``_R2trains`` histories, and ``--checkpoint`` the joint state
+at every iteration with the trait count ``T`` in its metadata;
+``--use-XXT-denoiser``, ``--use-lmmse-damp``, ``--use-cross-val``,
+``--use-freeze``, ``--init-est`` and ``--phase-timers`` are refused there,
+as the JAX CLI refuses them.
 With ``--store-pvals`` 1 or 2 a linear run then writes the LOO p-values
 ``{out}_pvals.bin`` and, when a ``--bim-file`` is given, the LOCO
 p-values ``{out}_pvals_LOCO.bin`` and each chromosome's genetic predictor
 ``{out}_LOCO_chr_{ch}.csv`` (``cli.py:176-177, 373-392`` of the JAX
 package, whose semantics are kept: at the default 0 no p-values are
-computed).  Genotypes with missing calls run through the general kernels;
-``--use-XXT-denoiser 1`` runs the dual (N-space) LMMSE solve through the
-fused dual Gram kernels; ``--deflate-k K`` preconditions the primal solves
-with the top K eigenpairs of A^T A.  Every other run mode, model and
-option outside the slice raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+computed); a multi-trait linear run writes them per trait under
+``{out}_phen{t}``.  Genotypes with missing calls run through the general
+kernels; ``--use-XXT-denoiser 1`` runs the dual (N-space) LMMSE solve
+through the fused dual Gram kernels; ``--deflate-k K`` preconditions the
+primal solves with the top K eigenpairs of A^T A.  Every other run mode,
+model and option outside the slice raises ``NotImplementedError`` naming
+its ROADMAP.md item.
 
 Example::
 
@@ -54,11 +64,11 @@ import sys
 import numpy as np
 import torch
 
-from gvamp_tpu_torch import linear, probit, robust
+from gvamp_tpu_torch import linear, multi, probit, robust
 from gvamp_tpu_torch.ckpt import (load_state, read_meta, save_state,
                                   write_scalar_history)
 from gvamp_tpu_torch.data import GenoBed
-from gvamp_tpu_torch.io import vecio
+from gvamp_tpu_torch.io import plink, vecio
 from gvamp_tpu_torch.ops import pvals
 from gvamp_tpu_torch.options import Options
 from gvamp_tpu_torch.prior import initialize_prior
@@ -72,8 +82,6 @@ def _check_slice(opt: Options) -> None:
     for on, what, item in (
             (opt.run_mode not in ("infere", "restart"),
              f"--run-mode {opt.run_mode}", 11),
-            (len(opt.phen_files) > 1, "multi-trait runs (several "
-                                      "--phen-files)", 10),
             (opt.type_data != "bed", f"--type-data {opt.type_data}", 11),
             (opt.store_pip != 0, "--store-pip", 12),
             (opt.state_evo != 0, "--state-evo", 11),
@@ -144,11 +152,13 @@ def _common_cfg(opt: Options, gam1, default_gam1: float) -> dict:
 
 def run_inference(opt: Options, geno: GenoBed, gam1=None, gamw=None,
                   r1_init=None):
-    """The single-phenotype branches of ``gvamp_tpu.cli.run_inference``;
-    ``gam1``, ``gamw`` and ``r1_init`` are a restart's injected values
-    (r1 and gamw for the linear model only, as in the JAX CLI)."""
+    """The branches of ``gvamp_tpu.cli.run_inference``; ``gam1``, ``gamw``
+    and ``r1_init`` are a restart's injected values (r1 and gamw for the
+    single-trait linear model only, as in the JAX CLI)."""
     probs, vars_user = initialize_prior(opt.probs or None, opt.vars or None,
                                         N=geno.N, Mt=geno.Mt)
+    if len(opt.phen_files) > 1:
+        return _run_multi(opt, geno, probs, vars_user, gam1, gamw)
     ts = (vecio.read_estimate(opt.true_signal_files[0], geno.M, geno.S)
           if opt.true_signal_files else None)
 
@@ -190,6 +200,127 @@ def run_inference(opt: Options, geno: GenoBed, gam1=None, gamw=None,
     return x_est, state, hist
 
 
+def _check_multi_flags(opt: Options) -> None:
+    """The flags the multi-trait engines do not take
+    (``gvamp_tpu/cli.py:247-262``): refused rather than ignored."""
+    bad = [nm for nm, v in [
+        ("--use-XXT-denoiser", opt.use_XXT_denoiser),
+        ("--use-lmmse-damp", opt.use_lmmse_damp),
+        ("--use-cross-val", opt.use_cross_val),
+        ("--use-freeze", opt.use_freeze),
+        ("--init-est", opt.init_est),
+        ("--phase-timers", opt.phase_timers)] if v]
+    if bad:
+        raise SystemExit("multi-trait runs (multiple --phen-files) do not "
+                         "support: " + ", ".join(bad))
+
+
+def _read_phens(opt: Options) -> list:
+    """Each --phen-files phenotype, NA as NaN."""
+    ys = []
+    for pf in opt.phen_files:
+        y, isna = plink.read_phen(pf)
+        ys.append(np.where(isna, np.nan, y))
+    return ys
+
+
+# model -> (engine entry, config, state class) of the multi-trait engines
+_MULTI = {"linear": (multi.infer, linear.VampConfig, multi.MultiState),
+          "bin_class": (multi.infer_probit, probit.ProbitConfig,
+                        multi.ProbitMultiState),
+          "robust": (multi.infer_huber, robust.RobustConfig,
+                     multi.HuberMultiState)}
+
+
+def _multi_cfg(opt: Options, gam1, gamw):
+    """The engine config of a multi-trait run (``gvamp_tpu/cli.py:121-232``):
+    the linear one takes --gamma-damp and --cg-extrapolate besides the
+    common fields, the probit one --probit-var."""
+    if opt.model == "bin_class":
+        return probit.ProbitConfig(probit_var=opt.probit_var,
+                                   **_common_cfg(opt, gam1, 1e-8))
+    if opt.model == "robust":
+        return robust.RobustConfig(**_common_cfg(opt, gam1, 1e-8))
+    return linear.VampConfig(
+        **_common_cfg(opt, gam1, 1e-6), gamma_damp=opt.gamma_damp,
+        gamw_init=opt.gamw_default() if gamw is None else gamw,
+        cg_extrapolate=opt.cg_extrapolate != 0)
+
+
+def _run_multi(opt: Options, geno: GenoBed, probs, vars_user, gam1=None,
+               gamw=None, resume=None, cfg=None):
+    """One joint run of every --phen-files trait: a fresh one, or the
+    continuation of ``resume`` (a multi-trait state) under ``cfg``.  Binary
+    traits stay unstandardised.  A linear run writes the per-trait scalar
+    histories and, with --store-pvals, each trait's p-values."""
+    _check_multi_flags(opt)
+    ys = _read_phens(opt)
+    mp = multi.MultiPhen.build(geno, ys, standardize=opt.model != "bin_class")
+    run = _MULTI[opt.model][0]
+    if cfg is None:
+        cfg = _multi_cfg(opt, gam1, gamw)
+    x_est, state, hist = run(
+        mp, cfg, probs, vars_user, resume_state=resume,
+        verbose=opt.verbosity > 0, sync_every=opt.sync_every,
+        callbacks=[_multi_dump_cb(opt, mp, cfg, _TAGS[opt.model])])
+    if opt.model == "linear":
+        if hist:
+            _write_multi_scalar_history(opt.out_prefix, hist, mp.T)
+        if opt.store_pvals and resume is None:
+            _store_pvals_multi(opt, geno, ys, state)
+    return x_est, state, hist
+
+
+def _multi_dump_cb(opt: Options, mp, cfg, tag: str = ""):
+    """Per-iteration callback of the multi-trait engines
+    (``gvamp_tpu/cli.py:265-289``): each trait's estimate as
+    ``{out}_phen{t}{tag}_it_{it}.bin`` at the dumps, and with --checkpoint
+    the joint state at every iteration, its metadata holding the trait
+    count ``T`` and the engine config."""
+
+    def cb(it, state, metrics, g):
+        if opt.dump_every and it % opt.dump_every == 0:
+            x = state.x1[: g.M].cpu().numpy() / np.sqrt(g.N)
+            for t in range(mp.T):
+                vecio.write_bin_shard(
+                    f"{opt.out_prefix}_phen{t}{tag}_it_{it}.bin", x[:, t],
+                    g.S)
+        if opt.checkpoint:
+            save_state(opt.checkpoint, state, it=it, model=opt.model,
+                       T=mp.T, cfg=dataclasses.asdict(cfg))
+
+    return cb
+
+
+def _write_multi_scalar_history(prefix: str, hist, T: int) -> None:
+    """Per-trait gam1s / gam2s / R2trains CSVs under ``{prefix}_phen{t}``
+    (vamp.cpp:778-794 per trait)."""
+    keys = ("gam1", "gam2", "R2_train_1", "R2_train_2")
+    for t in range(T):
+        write_scalar_history(f"{prefix}_phen{t}", [
+            {k: np.asarray(h[k])[t] for k in keys if k in h} for h in hist])
+
+
+def _store_pvals_multi(opt: Options, geno: GenoBed, ys, state) -> None:
+    """Each trait's end-of-run LOO (+ LOCO with a .bim) p-values
+    (``gvamp_tpu/cli.py:356-371``): the container takes the trait's
+    phenotype, then the single-trait p-value functions run on its z1 and
+    x1 columns."""
+    for t in range(len(ys)):
+        geno.set_phen(ys[t], standardize=opt.model != "bin_class")
+        z1_t = state.z1[..., t].contiguous()
+        x1_t = state.x1[:, t].contiguous()
+        name = f"{opt.out_prefix}_phen{t}_pvals"
+        vecio.write_bin_shard(name + ".bin", pvals.loo_pvals(geno, z1_t, x1_t),
+                              geno.S)
+        print(f"pvals -> {name}.bin")
+        if opt.bim_file:
+            ploco = pvals.loco_pvals(
+                geno, z1_t, x1_t, geno.chromosomes(),
+                predictor_cb=_loco_predictor_writer(opt, geno, f"_phen{t}"))
+            vecio.write_bin_shard(name + "_LOCO.bin", ploco, geno.S)
+
+
 def mode_restart(opt: Options, device):
     """``--run-mode restart`` (``gvamp_tpu/cli.py:405-411``): continue a
     full-state checkpoint (``--resume``), or start from an estimate file
@@ -219,9 +350,7 @@ def _resume_run(opt: Options, device):
             f"FATAL  : checkpoint {opt.resume} was written by --model {model};"
             f" pass the same --model to resume (got {opt.model})")
     if int(meta.get("T", 1)) > 1:
-        raise NotImplementedError(
-            "resuming a multi-trait checkpoint is not ported yet: ROADMAP.md "
-            "Queue 1 item 10")
+        return _resume_multi(opt, device, meta)
     geno = _load_geno(opt, device)
     eng, cfg_cls, state_cls = _ENGINES[model]
     state, _ = load_state(opt.resume, state_cls, device=geno.device,
@@ -249,6 +378,29 @@ def _resume_run(opt: Options, device):
     return x_est, state, hist
 
 
+def _resume_multi(opt: Options, device, meta: dict):
+    """Continue a multi-trait checkpoint (``gvamp_tpu/cli.py:414-459``):
+    the same --phen-files set builds the traits again, and the joint run
+    goes on under the checkpoint's config for --iterations more."""
+    T = int(meta["T"])
+    if len(opt.phen_files) != T:
+        raise SystemExit(
+            f"FATAL  : checkpoint {opt.resume} holds {T} traits; pass the "
+            f"same {T} --phen-files to resume (got {len(opt.phen_files)})")
+    geno = _load_geno(opt, device)
+    _, cfg_cls, state_cls = _MULTI[opt.model]
+    state, _ = load_state(opt.resume, state_cls, device=geno.device,
+                          dtype=geno.dtype)
+    cfg_d = dict(meta.get("cfg", {}))
+    cfg_d.setdefault("cg_extrapolate", False)
+    # --iterations more from the state's own counter
+    cfg = dataclasses.replace(cfg_cls(**cfg_d),
+                              max_iter=state.it + opt.iterations)
+    probs, vars_user = initialize_prior(opt.probs or None, opt.vars or None,
+                                        N=geno.N, Mt=geno.Mt)
+    return _run_multi(opt, geno, probs, vars_user, resume=state, cfg=cfg)
+
+
 def _store_pvals_after_infer(opt: Options, geno: GenoBed, state) -> None:
     """End-of-run LOO (+ LOCO with a .bim) p-values (vamp.cpp:761-776)."""
     p = pvals.loo_pvals(geno, state.z1, state.x1)
@@ -263,13 +415,14 @@ def _store_pvals_after_infer(opt: Options, geno: GenoBed, state) -> None:
         print(f"LOCO pvals -> {opt.out_prefix}_pvals_LOCO.bin")
 
 
-def _loco_predictor_writer(opt: Options, geno: GenoBed):
+def _loco_predictor_writer(opt: Options, geno: GenoBed, tag: str = ""):
     """predictor_cb writing each chromosome's predictor as
-    ``{out}_LOCO_chr_{ch}.csv`` in the original sample order."""
+    ``{out}{tag}_LOCO_chr_{ch}.csv`` in the original sample order (``tag``
+    ``_phen{t}`` in a multi-trait run)."""
     def cb(ch, y_chrom):
         full = np.zeros(4 * geno.layout.mbytes)
         full[: geno.N] = geno.deplanarize(y_chrom)[: geno.N]
-        vecio.write_txt(f"{opt.out_prefix}_LOCO_chr_{ch}.csv", full)
+        vecio.write_txt(f"{opt.out_prefix}{tag}_LOCO_chr_{ch}.csv", full)
     return cb
 
 

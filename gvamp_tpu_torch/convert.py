@@ -29,21 +29,46 @@ def geno_from_numpy(words: np.ndarray, y_raw: np.ndarray, N: int,
         dtype=dtype, mave=mave, msig=msig)
 
 
+def _fields(d: dict, state_cls, device, dtype, skip=()) -> dict:
+    """The fields of ``state_cls`` from arrays: ``it`` as a host int,
+    floating arrays in ``dtype``, bool and integer arrays as they are."""
+    out = {}
+    for name in state_cls._fields:
+        if name in skip:
+            continue
+        v = np.asarray(d[name])
+        out[name] = (int(v) if name == "it" else torch.tensor(
+            v, dtype=dtype if np.issubdtype(v.dtype, np.floating) else None,
+            device=device))
+    return out
+
+
+def _generator(d: dict, gen) -> torch.Generator:
+    """A new CPU generator: seeded by ``gen`` when that is an int, restored
+    from ``gen``'s bytes when it is a uint8 array, or from ``d["gen"]`` (a
+    port state's bytes) when ``gen`` is None."""
+    from gvamp_tpu_torch import robust
+    if gen is None:
+        gen = d["gen"]
+    if isinstance(gen, (int, np.integer)):
+        return robust.make_generator(int(gen))
+    g = torch.Generator(device="cpu")
+    g.set_state(torch.from_numpy(np.array(gen, dtype=np.uint8)))
+    return g
+
+
 def state_from_numpy(d: dict, device="cuda",
                      dtype=torch.float32) -> linear.LinState:
     """``gvamp_tpu.linear.LinState`` fields (as arrays) -> port state on the
     card unless ``device`` names another, primal and dual (``*_n``) fields
     alike; the cross-validation field ``cv_r2`` (not ported) is ignored."""
-    vals = {name: (int(np.asarray(d[name])) if name == "it"
-                   else torch.tensor(np.asarray(d[name]), dtype=dtype,
-                                     device=device))
-            for name in linear.LinState._fields}
-    return linear.LinState(**vals)
+    return linear.LinState(**_fields(d, linear.LinState, device, dtype))
 
 
 def state_to_numpy(state) -> dict:
-    """Port state (linear, probit or robust) -> the fields of its JAX
-    counterpart that it holds; a generator as its state bytes."""
+    """Port state (of any engine, the multi-trait ones included) -> the
+    fields of its JAX counterpart that it holds; a generator as its state
+    bytes."""
     return {name: (np.asarray(v) if name == "it"
                    else v.get_state().numpy()
                    if isinstance(v, torch.Generator)
@@ -68,11 +93,7 @@ def aux_from_numpy(geno: GenoBed, cfg: linear.VampConfig, bern: np.ndarray,
 def probit_state_from_numpy(d: dict, device="cuda", dtype=torch.float32):
     """``gvamp_tpu.probit.ProbitState`` fields (as arrays) -> port state."""
     from gvamp_tpu_torch import probit
-    vals = {name: (int(np.asarray(d[name])) if name == "it"
-                   else torch.tensor(np.asarray(d[name]), dtype=dtype,
-                                     device=device))
-            for name in probit.ProbitState._fields}
-    return probit.ProbitState(**vals)
+    return probit.ProbitState(**_fields(d, probit.ProbitState, device, dtype))
 
 
 def robust_state_from_numpy(d: dict, device="cuda", dtype=torch.float32,
@@ -83,15 +104,31 @@ def robust_state_from_numpy(d: dict, device="cuda", dtype=torch.float32,
     is a uint8 array, or from ``d["gen"]`` (a port state's bytes) when
     ``gen`` is None."""
     from gvamp_tpu_torch import robust
-    if gen is None:
-        gen = d["gen"]
-    if isinstance(gen, (int, np.integer)):
-        g = robust.make_generator(int(gen))
-    else:
-        g = torch.Generator(device="cpu")
-        g.set_state(torch.from_numpy(np.array(gen, dtype=np.uint8)))
-    vals = {name: (int(np.asarray(d[name])) if name == "it"
-                   else torch.tensor(np.asarray(d[name]), dtype=dtype,
-                                     device=device))
-            for name in robust.RobustState._fields if name != "gen"}
-    return robust.RobustState(gen=g, **vals)
+    return robust.RobustState(gen=_generator(d, gen), **_fields(
+        d, robust.RobustState, device, dtype, skip=("gen",)))
+
+
+def multi_state_from_numpy(d: dict, device="cuda", dtype=torch.float32):
+    """``gvamp_tpu.multi.MultiState`` fields (as arrays) -> port state;
+    ``stopped`` stays bool."""
+    from gvamp_tpu_torch import multi
+    return multi.MultiState(**_fields(d, multi.MultiState, device, dtype))
+
+
+def probit_multi_state_from_numpy(d: dict, device="cuda",
+                                  dtype=torch.float32):
+    """``gvamp_tpu.multi.ProbitMultiState`` fields (as arrays) -> port
+    state."""
+    from gvamp_tpu_torch import multi
+    return multi.ProbitMultiState(**_fields(d, multi.ProbitMultiState,
+                                            device, dtype))
+
+
+def huber_multi_state_from_numpy(d: dict, device="cuda", dtype=torch.float32,
+                                 gen=None):
+    """``gvamp_tpu.multi.HuberMultiState`` fields (as arrays; JAX's ``key``
+    is ignored) -> port state, its generator made from ``gen`` as in
+    ``robust_state_from_numpy``."""
+    from gvamp_tpu_torch import multi
+    return multi.HuberMultiState(gen=_generator(d, gen), **_fields(
+        d, multi.HuberMultiState, device, dtype, skip=("gen",)))

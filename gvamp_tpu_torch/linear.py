@@ -539,11 +539,15 @@ def make_step(geno, cfg: VampConfig, init_est: bool = False,
 
 
 def fetch_metrics(metrics: dict) -> dict:
-    """All tensor metrics to the host in one transfer (one counted sync)."""
+    """All tensor metrics to the host in one transfer (one counted sync);
+    ``cg_iters`` as an int (an int array over the traits of a multi-trait
+    step) and ``stopped`` as bools."""
     keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
     out = dict(metrics)
     for k, v in zip(keys, host_values([metrics[k] for k in keys])):
-        out[k] = int(v) if k == "cg_iters" else v
+        if k == "cg_iters":
+            v = int(v) if v.ndim == 0 else v.astype(np.int64)
+        out[k] = v.astype(bool) if k == "stopped" else v
     return out
 
 

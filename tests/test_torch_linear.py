@@ -271,16 +271,18 @@ def test_cli_infere_dumps_match_library(problem, tmp_path):
             assert os.path.getsize(pre + name) > 0
     for name in ("_gam1s.csv", "_gam2s.csv", "_R2trains.csv"):
         assert os.path.exists(pre + name)
-    # a model outside the slice raises naming its item (--use-XXT-denoiser,
+    # an option outside the slice raises naming its item (--use-XXT-denoiser,
     # --model bin_class and --model robust run since their paths were
     # ported: tests/test_torch_xxt.py, tests/test_torch_probit.py,
-    # tests/test_torch_robust.py; the multi-trait robust model has not been)
+    # tests/test_torch_robust.py, and so do several --phen-files, the
+    # multi-trait engines: tests/test_torch_multi_cli.py; --store-pip has
+    # not been, with one phenotype or several)
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 10"):
+                       match="ROADMAP.md Queue 1 item 12"):
         tcli.main(["--device", "cpu", "--bed-file", bed, "--phen-files",
                    f"{phen},{phen}", "--N", str(N), "--Mt", str(M),
                    "--model", "robust", "--probs", "0.9,0.1", "--vars",
-                   "0.0,0.01"])
+                   "0.0,0.01", "--store-pip", "1"])
 
 
 # |log10 p| of the CLI's f32 p-values against JAX's loo_pvals on the same

@@ -378,10 +378,11 @@ def test_covariate_helpers_match_jax(tmp_path):
 def test_cli_bin_class_matches_library(tmp_path):
     """--model bin_class with --cov-file / --C 2: the _probit_ dumps, the
     estimate equal to a library run on a container loaded the same way
-    (phenotype not standardised, covariates read); --store-pip and
-    multi-trait bin_class (several --phen-files) still raise naming their
-    items (--model robust runs since it was ported:
-    tests/test_torch_robust.py)."""
+    (phenotype not standardised, covariates read); --store-pip still
+    raises naming its item (--model robust runs since it was ported:
+    tests/test_torch_robust.py), and multi-trait bin_class (several
+    --phen-files) runs since item 10 was (tests/test_torch_multi_zmodel.py),
+    writing each trait's dumps."""
     codes, y, beta, vars_t, probs_t, covs = _problem(0.02, 2)
     bed, phen, cov = (str(tmp_path / f"d.{e}") for e in ("bed", "phen", "cov"))
     plink.write_bed(bed, codes)
@@ -412,8 +413,11 @@ def test_cli_bin_class_matches_library(tmp_path):
                                   state.x1[:M].numpy() * (1 / np.sqrt(N)))
     np.testing.assert_allclose(dump, x_lib, rtol=2.0 ** -23)
     assert state.cov_eff.abs().max() > 0
-    for extra, item in ((["--store-pip", "1"], 12),
-                        (["--phen-files", f"{phen},{phen}"], 10)):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md Queue 1 item {item}"):
-            tcli.main(args + ["--out-name", "x"] + extra)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 12"):
+        tcli.main(args + ["--out-name", "x", "--store-pip", "1"])
+    tcli.main(args + ["--out-name", "x", "--phen-files", f"{phen},{phen}"])
+    for t in range(2):
+        d = vecio.read_bin_shard(
+            str(tmp_path / "out" / f"x_phen{t}_probit_it_{n_it}.bin"), M, 0)
+        assert np.isfinite(d).all() and np.corrcoef(d, beta)[0, 1] > 0.5

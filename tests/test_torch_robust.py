@@ -321,7 +321,8 @@ def test_out_of_slice_options_raise():
 def test_cli_robust_matches_library(tmp_path):
     """--model robust: the _robust_ dumps, the estimate equal to a library
     run on a container loaded the same way (phenotype standardised);
-    several --phen-files still raise naming item 10."""
+    several --phen-files run the multi-trait Huber engine, ported since
+    (tests/test_torch_multi_zmodel.py), writing each trait's dumps."""
     codes, y, beta, vars_t, probs_t = _problem(0.0)
     bed, phen = str(tmp_path / "d.bed"), str(tmp_path / "d.phen")
     plink.write_bed(bed, codes)
@@ -346,10 +347,13 @@ def test_cli_robust_matches_library(tmp_path):
     np.testing.assert_array_equal(dump,
                                   state.x1[:M].numpy() * (1 / np.sqrt(N)))
     np.testing.assert_allclose(dump, x_lib, rtol=2.0 ** -23)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 10"):
-        tcli.main(args + ["--out-name", "x", "--phen-files",
-                          f"{phen},{phen}"])
+    tcli.main(args + ["--out-name", "x", "--phen-files", f"{phen},{phen}"])
+    for t in range(2):
+        for it in range(1, n_it + 1):
+            d = vecio.read_bin_shard(
+                f"{tmp_path}/out/x_phen{t}_robust_it_{it}.bin", M, 0)
+            assert np.isfinite(d).all()
+        assert np.corrcoef(d, beta)[0, 1] > 0.6
 
 
 def test_slq_nodes_weights_run_in_float64():
