@@ -6,6 +6,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --kernels-only   # phases 1-3a: build and check
     python3 chip_smoke.py --single-vector  # phase 1, the build, phase 3v
     python3 chip_smoke.py --bf16-split     # phase 1, the build, phase 3w
+    python3 chip_smoke.py --options        # the build, 3r, 4q at B, 4r, 5q, 6q
 
 Phases, each of which raises on failure (exit code != 0):
 
@@ -72,6 +73,12 @@ Phases, each of which raises on failure (exit code != 0):
    2) on the whole config-Bm matrix, timed beside their plain versions
    and, for the first three, the one PyTorch call that computes the same
    sum (torch.sum, in turns with the kernel over five rounds);
+   (r) axm_i8a, atxm_i8a, axm_i8 and atxm_i8 at B = 2 on --red's window of
+   the config-B and config-Bm matrices (2,048 of 20,480 word rows, a row
+   view of the words) at a start inside and at the last legal one, bit
+   for bit against their plain versions on the same window and timed
+   beside their bound, then the engine's windowed products
+   (GenoBed.window_fns_multi) timed around them;
 4. the linear VAMP main path at config B of bench.py (N=327,680 x
    M=131,072, complete genotypes, 10.74 GB of packed words on the card):
    load, phenotype simulation and 10 iterations of linear.infer, with the
@@ -96,6 +103,12 @@ Phases, each of which raises on failure (exit code != 0):
    and corr(x_hat, beta) printed, the launch counters proving that the CG
    ran axm_i8a / atxm_i8a and no other product kernel; then 5 iterations
    at config Bm through axm_i8 / atxm_i8;
+   4q. the probe path (use_slq=False: the Onsager term from one Hutchinson
+   probe column riding the block CG) at config B on phase 4's problem, 10
+   iterations, and the dual probe path at config X (inside phase 4x);
+   4r. --red at config B and Bm, 10 iterations each: every CG pass on the
+   window, counted by wrapping window_fns_multi against the launch
+   counters;
    4n. the p-value moments at N=327,680 against a float64 oracle;
    4t. the multi-trait engines (gvamp_tpu_torch/multi.py) at config B on
    phase 4's words: T = 8 linear traits (bench.py's recipe, one seed and
@@ -123,6 +136,12 @@ Phases, each of which raises on failure (exit code != 0):
    2% missing calls at N=2,000 x M=4,096, probit with 2 covariates at
    N=6,000 x M=2,048, Huber at N=1,500 x M=300), within the f32
    tolerances of tests/test_torch_multi*.py (MULTI_CARD_CPU);
+   5q. the same on the probe path and under red: linear primal (2%
+   missing) and dual (complete) with use_slq=False, red complete and with 2%
+   missing (the same window starts on both sides), probit (2% missing, 2
+   covariates) and Huber (complete) with use_slq=False, and the T = 3
+   linear multi-trait run with use_slq=False, with the limits of phases 5,
+   5h and 5t, probe_iters printed on both sides;
 6. the CLI (`--run-mode infere --model linear --store-pvals 1` with a
    .bim) on the flagship recipe of the README's port section, then with
    `--use-XXT-denoiser 1` (6x) and as `--model bin_class --cov-file --C 2`
@@ -134,7 +153,11 @@ Phases, each of which raises on failure (exit code != 0):
    genotypes): linear with `--store-pvals 1` and a .bim (each trait's
    `_phen{t}` dumps, LOO / LOCO p-values and LOCO predictors), then the 3
    + 3 `--checkpoint` / `restart --resume` of each model, every trait's
-   iteration-6 dump equal bit for bit to a 6-iteration run's;
+   iteration-6 dump equal bit for bit to a 6-iteration run's; 6q: the
+   flagship linear CLI with --sync-every 3 (bit for bit against single
+   steps at 4 iterations), --phase-timers 1, --store-pip 1, --profile-dir
+   (the trace names the port's kernels) and --use-slq 0 with --checkpoint
+   and restart --resume (bit for bit against 6 iterations in one run);
 7. the port's tools on the card, each of whose ``main([])`` must return 0:
    the kernel check against float64 (gvamp_tpu_torch.tools.kernel_check,
    with the fused Grams' correctness), the fused-Gram study (bench_gram),
@@ -317,7 +340,13 @@ NULL_SHARE_RANGE = (0.04, 0.06)
 CARD_CPU_LOG10P_TOL = 2e-4
 
 
+# the script's start, for the elapsed time on each phase's header line
+T_START = time.perf_counter()
+
+
 def log(msg=""):
+    if msg.startswith("== "):
+        msg = f"{msg}  [{time.perf_counter() - T_START:.1f} s]"
     print(msg, flush=True)
 
 
@@ -1581,8 +1610,10 @@ def phase_dual_x(words, words_m):
     """Dual mode (use_xxt) at config X (complete) and Xm (missing calls),
     10 iterations each, through the fused dual Gram, with the launch
     counters; the X problem again under GVAMP_NO_FUSED_GRAM=1 (the same
-    trajectory within X_FUSED_*) and in primal mode (iteration medians and
-    CG counts side by side).  Returns (launches at X, launches at Xm)."""
+    trajectory within X_FUSED_*), in primal mode (iteration medians and
+    CG counts side by side) and on the dual probe path (phase 4q).
+    Returns (launches at X, launches at Xm, launches of the X probe
+    path)."""
     log("== phase 4x: dual (XXT) mode at config X and Xm, primal at X")
     from gvamp_tpu_torch.ops import matvec
     geno, beta, vars_t, probs_t = make_problem(words, "config X", True,
@@ -1631,6 +1662,7 @@ def phase_dual_x(words, words_m):
         log(f"  config X {n}: steady-state median "
             f"{np.median([x['wall_ms'] for x in h[2:]]):.2f} ms/it, CG "
             f"{[x['cg_iters'] for x in h]}")
+    launches_q = phase_probe_dual_x(geno, beta, vars_t, probs_t)
     del geno
     torch.cuda.empty_cache()
 
@@ -1648,7 +1680,7 @@ def phase_dual_x(words, words_m):
     if launches_m["ax"] != 2:
         raise AssertionError(f"config Xm: ax launched {launches_m['ax']} "
                              f"times, expected 2")
-    return launches, launches_m
+    return launches, launches_m, launches_q
 
 
 def bed_bytes(codes):
@@ -1728,17 +1760,27 @@ def small_problem(tmp, seed, N, M, miss_rate=0.0):
     return bed, beta, vars_t, probs_t, rng
 
 
-def phase_card_vs_cpu(miss_rate, use_xxt=False, fused=False):
+def phase_card_vs_cpu(miss_rate, use_xxt=False, fused=False, use_slq=True,
+                      red=False):
+    """The linear engine on the card and on the CPU (plain versions) from
+    the same data and probe: phase 5, and with use_slq=False (the probe
+    path) or red=True (the same window starts, drawn on the host) phase
+    5q."""
     label = "complete" if miss_rate == 0 else f"{miss_rate:.0%} missing"
     label += ", dual (XXT)" if use_xxt else ""
     label += ", fused primal Gram" if fused else ""
-    log(f"== phase 5: card vs CPU, N=2000 x M=4096, 6 iterations, {label}")
+    label += ", use_slq=False" if not use_slq else ""
+    label += ", red" if red else ""
+    phase = "5" if use_slq and not red else "5q"
+    log(f"== phase {phase}: card vs CPU, N=2000 x M=4096, 6 iterations, "
+        f"{label}")
     from gvamp_tpu_torch import linear, sim
     from gvamp_tpu_torch.data import GenoBed
     from gvamp_tpu_torch.ops import matvec, pvals
     N, M = 2000, 4096
     cfg = linear.VampConfig(max_iter=6, rho=0.3, gam1_init=1e-8,
-                            gamw_init=2.0, seed=5, use_xxt=use_xxt)
+                            gamw_init=2.0, seed=5, use_xxt=use_xxt,
+                            use_slq=use_slq, red=red)
     if use_xxt:
         gram = "gram_aat_i8a" if miss_rate == 0 else "gram_aat_i8"
     else:
@@ -1767,12 +1809,18 @@ def phase_card_vs_cpu(miss_rate, use_xxt=False, fused=False):
                                      f"{gram}: {matvec.LAUNCHES}")
             check_no_tool_launches(f"card vs CPU, {dev}", matvec.LAUNCHES)
             p = None
-            if miss_rate and not use_xxt and not fused:
+            if miss_rate and not use_xxt and not fused and phase == "5":
                 p = (pvals.loo_pvals(g, state.z1, state.x1),
                      pvals.loco_pvals(g, state.z1, state.x1, chroms))
             out[dev] = x, hist, p
             log(f"  {dev}: {time.perf_counter() - t0:.2f} s")
     (x_c, h_c, p_c), (x_p, h_p, p_p) = out["cuda"], out["cpu"]
+    log(f"  probe_iters card {[h['probe_iters'] for h in h_c]} cpu "
+        f"{[h['probe_iters'] for h in h_p]}"
+        + (f"; window starts card {[h['red_sbw'] for h in h_c]} cpu "
+           f"{[h['red_sbw'] for h in h_p]}" if red else ""))
+    if red and [h["red_sbw"] for h in h_c] != [h["red_sbw"] for h in h_p]:
+        raise AssertionError("card and CPU drew other window starts")
     dx = float(np.abs(x_c - x_p).max() / np.abs(x_p).max())
     log(f"  max|x1 card - x1 cpu| / max|x1| = {dx:.3e} (limit 5e-5)")
     if not dx < 5e-5:
@@ -1806,22 +1854,25 @@ def phase_card_vs_cpu(miss_rate, use_xxt=False, fused=False):
 PROBIT_CARD_CPU_XTOL, PROBIT_CARD_CPU_RTOL = 5e-4, 1e-3
 
 
-def phase_card_vs_cpu_probit(miss_rate, n_cov, fused=False):
+def phase_card_vs_cpu_probit(miss_rate, n_cov, fused=False, use_slq=True):
     """The probit engine on the card and on the CPU (plain versions) from
     the same data, probe and initial p1 (PROBIT_CARD_CPU_*).  N=6,000 x
     M=2,048 (M/N 0.34): the probit solves are better conditioned than at
     the linear phase's N=2,000 x M=4,096, where the two devices' rounding
-    noise grows to 5.1e-4 of max|x1| (first H100 run)."""
+    noise grows to 5.1e-4 of max|x1| (first H100 run).  use_slq=False:
+    phase 5q, the probe path."""
     label = "complete" if miss_rate == 0 else f"{miss_rate:.0%} missing"
     label += f", {n_cov} covariates" if n_cov else ""
     label += ", fused primal Gram" if fused else ""
-    log(f"== phase 5: probit card vs CPU, N=6000 x M=2048, 6 iterations, "
-        f"{label}")
+    label += ", use_slq=False" if not use_slq else ""
+    log(f"== phase {'5' if use_slq else '5q'}: probit card vs CPU, N=6000 x "
+        f"M=2048, 6 iterations, {label}")
     from gvamp_tpu_torch import probit, sim
     from gvamp_tpu_torch.data import GenoBed
     from gvamp_tpu_torch.ops import matvec
     N, M = 6000, 2048
-    cfg = probit.ProbitConfig(max_iter=6, rho=0.3, probit_var=0.5, seed=5)
+    cfg = probit.ProbitConfig(max_iter=6, rho=0.3, probit_var=0.5, seed=5,
+                              use_slq=use_slq)
     gram = "gram_i8a" if miss_rate == 0 else "gram_i8"
     out = {}
     with tempfile.TemporaryDirectory() as tmp, fused_env(fused):
@@ -1894,20 +1945,23 @@ HUBER_CARD_CPU_X_ITERS, HUBER_CARD_CPU_S_ITERS = 2, 1
 HUBER_CARD_CPU_CASES = [(0.0, 0), (0.02, 0), (0.0, 8)]
 
 
-def phase_card_vs_cpu_huber(miss_rate, deflate_k):
+def phase_card_vs_cpu_huber(miss_rate, deflate_k, use_slq=True):
     """The Huber engine on the card and on the CPU (plain versions) from
     the same data, probe, deflation start block and Monte-Carlo draws (all
-    from CPU generators): N=2,000 x M=4,096, f32, 6 iterations."""
+    from CPU generators): N=2,000 x M=4,096, f32, 6 iterations; with
+    use_slq=False phase 5q, the probe path."""
     label = "complete" if miss_rate == 0 else f"{miss_rate:.0%} missing"
     label += f", deflate_k={deflate_k}" if deflate_k else ""
-    log(f"== phase 5h: Huber card vs CPU, N=2000 x M=4096, 6 iterations, "
-        f"{label}")
+    label += ", use_slq=False" if not use_slq else ""
+    log(f"== phase {'5h' if use_slq else '5q'}: Huber card vs CPU, N=2000 x "
+        f"M=4096, 6 iterations, {label}")
     from gvamp_tpu_torch import robust
     from gvamp_tpu_torch.data import GenoBed
     from gvamp_tpu_torch.ops import matvec
     N, M = 2000, 4096
     cfg = robust.RobustConfig(max_iter=6, rho=0.3, seed=5,
-                              stop_criteria_thr=0.0, deflate_k=deflate_k)
+                              stop_criteria_thr=0.0, deflate_k=deflate_k,
+                              use_slq=use_slq)
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         bed, beta, vars_t, probs_t, rng = small_problem(tmp, 6, N, M,
@@ -2469,7 +2523,7 @@ MULTI_CARD_CPU = {"linear": (5e-5, 2e-4, 6), "bin_class": (1e-4, 5e-4, 6),
                   "robust": (1e-4, 1e-4, 2)}
 
 
-def phase_card_vs_cpu_multi(model, miss_rate):
+def phase_card_vs_cpu_multi(model, miss_rate, use_slq=True):
     """Phase 5t: T = 3 traits of ``model`` on the card and on the CPU (the
     plain versions) from the same data and probe (and, for Huber, the
     same generator): linear at N=2,000 x M=4,096 (complete and 2% missing
@@ -2477,7 +2531,8 @@ def phase_card_vs_cpu_multi(model, miss_rate):
     N=1,500 x M=300 with 20 causal markers at h2 = 0.9, the stable recipe
     of tests/test_torch_multi_zmodel.py (at N=6,000 x M=2,048 with 40 two
     traits meet the clip by iteration 2, where the card's gam1 came out 45
-    times the CPU's on the first H100 run, PERF.md)."""
+    times the CPU's on the first H100 run, PERF.md).  use_slq=False: phase
+    5q, T*P probe columns in the joint CG."""
     from gvamp_tpu_torch import multi, sim
     from gvamp_tpu_torch.data import GenoBed
     from gvamp_tpu_torch.ops import matvec
@@ -2486,13 +2541,14 @@ def phase_card_vs_cpu_multi(model, miss_rate):
     n_it = 6 if model != "robust" else 4
     label = (f"{model}, " + ("complete" if miss_rate == 0
                              else f"{miss_rate:.0%} missing")
-             + (", 2 covariates" if model == "bin_class" else ""))
-    log(f"== phase 5t: multi-trait card vs CPU, T=3, N={N} x M={M}, "
-        f"{n_it} iterations, {label}")
+             + (", 2 covariates" if model == "bin_class" else "")
+             + (", use_slq=False" if not use_slq else ""))
+    log(f"== phase {'5t' if use_slq else '5q'}: multi-trait card vs CPU, "
+        f"T=3, N={N} x M={M}, {n_it} iterations, {label}")
     cfg = {"linear": multi_cfg("linear", n_it), "bin_class":
            multi_cfg("bin_class", n_it), "robust":
            multi_cfg("robust", n_it)}[model]
-    cfg = dataclasses.replace(cfg, rho=0.3, seed=5)
+    cfg = dataclasses.replace(cfg, rho=0.3, seed=5, use_slq=use_slq)
     run = {"linear": multi.infer, "bin_class": multi.infer_probit,
            "robust": multi.infer_huber}[model]
     xtol, rtol, held = MULTI_CARD_CPU[model]
@@ -2668,6 +2724,355 @@ def phase_cli_multi():
                 raise AssertionError("multi LOCO predictor files malformed")
 
 
+# --------------------------------------------------------------------------
+# the probe path, --red and the driver options (phases 3r, 4q, 4r, 6q)
+# --------------------------------------------------------------------------
+
+# the window starts of phase 3r: one inside (word row 4,384 at config B)
+# and the last legal one, Nw - lbw
+WINDOW_START = 32 * 137
+
+
+def phase_kernels_window(words, label):
+    """Phase 3r: the four engine digit products at B = 2 (the red solve's
+    width at P = 1) on --red's window of ``words``,
+    linear.red_window_words(Nw) word rows (2,048 of config B's 20,480) at
+    WINDOW_START and at the last legal start: each bit for bit against its
+    plain version on the same window, timed with CUDA events beside its
+    bound on the window's shape, and beside the engine's windowed product
+    (GenoBed.window_fns_multi, the wrapper's statistics and masks around
+    the same kernel).  Its own generator, so that ``gen``'s draws stay
+    those the engine phases' limits were set on."""
+    from gvamp_tpu_torch import linear
+    from gvamp_tpu_torch.data import GenoBed
+    log(f"== phase 3r: digit products on --red's window, {label} words")
+    nw, m = words.shape
+    lbw = linear.red_window_words(nw)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    geno = GenoBed.from_device_words(
+        words, np.zeros(16 * nw), N=16 * nw, M=m, standardize_phen=False,
+        mave=np.full(m, 1.0, np.float32), msig=np.full(m, 0.5, np.float32))
+    out = {}
+    for sbw in (WINDOW_START, nw - lbw):
+        win = words[sbw:sbw + lbw]
+        res = check_kernels(win, 2, gen, f"{label} rows {sbw}+{lbw}",
+                            names=DEFLATE_KERNELS, reps=5, plain_reps=1)
+        for name, (err, ms, plain) in res.items():
+            b_ms, b_by = bound(name, lbw, m, 2)
+            log(f"    {name:9s} window {sbw}+{lbw}: {ms:.3f} ms, bound "
+                f"{b_ms:.3f} ms by {b_by} ({b_ms / ms:.1%} of it)")
+        out[sbw] = res
+    axm_w, atxm_w = geno.window_fns_multi(lbw)
+    X = torch.randn((m, 2), generator=gen, device="cuda")
+    V = torch.randn((4, 4 * lbw, 2), generator=gen, device="cuda")
+    t_f = cuda_ms(lambda: axm_w(geno.op, X, WINDOW_START))
+    t_t = cuda_ms(lambda: atxm_w(geno.op, V, WINDOW_START))
+    log(f"  window_fns_multi ({'a-only' if geno.geno_complete else 'general'}"
+        f" route) B=2 at rows {WINDOW_START}+{lbw}: forward {t_f:.3f} ms, "
+        f"transpose {t_t:.3f} ms (the wrapper's work around the kernel "
+        f"included)")
+    del geno
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def counted_windows(geno):
+    """Count the engine's windowed passes on ``geno`` (its
+    window_fns_multi wrapped for the block), beside the kernels' own
+    launch counters."""
+    calls = {"axm_w": 0, "atxm_w": 0}
+    real = geno.window_fns_multi
+
+    def wrapped(lbw):
+        axm_w, atxm_w = real(lbw)
+
+        def fwd(op, X, sbw):
+            calls["axm_w"] += 1
+            return axm_w(op, X, sbw)
+
+        def tr(op, V, sbw):
+            calls["atxm_w"] += 1
+            return atxm_w(op, V, sbw)
+
+        return fwd, tr
+
+    geno.window_fns_multi = wrapped
+    try:
+        yield calls
+    finally:
+        del geno.window_fns_multi
+
+
+def run_option(geno, beta, label, corr_min, prior, n_it=CFG_B_ITERS,
+               **cfg_kw):
+    """``n_it`` iterations of linear.infer at bench.py's settings with
+    ``cfg_kw`` (use_slq=False, red=True, use_xxt=True): each iteration's
+    ms, CG and probe iterations, host syncs and (under red) window start
+    printed, then the steady-state median and corr(x_hat, beta); finite
+    values and corr >= ``corr_min`` checked.  Returns (x_hat, history)."""
+    from gvamp_tpu_torch import linear
+    vars_t, probs_t = prior
+    cfg = linear.VampConfig(max_iter=n_it, rho=0.15, gam1_init=1e-8,
+                            gamw_init=2.0, **cfg_kw)
+    t0 = time.perf_counter()
+    x_hat, _, hist = linear.infer(geno, cfg, probs_t, vars_t, verbose=False)
+    t_all = time.perf_counter() - t0
+    log(f"  {label}: set-up {t_all - sum(h['wall_ms'] for h in hist) / 1e3:.2f}"
+        f" s (A^T y, A u" + (", no SLQ basis" if not cfg.use_slq or cfg.red
+                             else ", SLQ basis") + ")")
+    log("  it    wall_ms  cg  probe  syncs  window      gam1      gamw    "
+        "alpha2  R2_train_1")
+    for h in hist:
+        log(f"  {h['it']:2d} {h['wall_ms']:10.2f} {h['cg_iters']:3d} "
+            f"{h['probe_iters']:6d} {h['host_syncs']:6d} "
+            f"{str(h.get('red_sbw', '-')):>7s} {float(h['gam1']):9.4g} "
+            f"{float(h['gamw']):9.4g} {float(h['alpha2']):9.4g} "
+            f"{float(h['R2_train_1']):10.5f}")
+    corr = float(np.corrcoef(x_hat, beta)[0, 1])
+    med = float(np.median([h["wall_ms"] for h in hist[2:]]))
+    log(f"  {label}: steady-state (it 3-{len(hist)}) median {med:.2f} ms/it;"
+        f" corr(x_hat, beta) {corr:.5f} (limit {corr_min}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    keys = ("gam1", "gam2", "gamw", "alpha2", "R2_train_1")
+    if len(hist) != n_it or not (np.isfinite(x_hat).all() and all(
+            np.isfinite(float(h[k])) for h in hist for k in keys)):
+        raise AssertionError(f"{label}: non-finite values or a short run")
+    if corr < corr_min:
+        raise AssertionError(f"{label}: corr(x_hat, beta) {corr:.4f} < "
+                             f"{corr_min}")
+    return x_hat, hist
+
+
+# corr(x_hat, beta) after 10 iterations of the probe path (phase 4q) and
+# of --red (phase 4r) at config B / Bm, and of the dual probe path at
+# config X: the probe path's limits are the SLQ path's CORR_MIN and
+# X_CORR_MIN (the Hutchinson estimate is the SLQ quadrature's Monte-Carlo
+# twin; the first H100 run gave the same corr as SLQ's at B, 0.99571);
+# red's from the first H100 run (0.96179 at B, 0.96101 at Bm on
+# --options' instances, PERF.md), with room for another instance
+PROBE_CORR_MIN = CORR_MIN
+RED_CORR_MIN = 0.9
+
+
+def phase_probe_b(geno, problem):
+    """Phase 4q at config B: the linear engine with use_slq=False, the
+    Onsager term from one Hutchinson probe column riding the block CG, on
+    phase 4's loaded problem; its launches must show the a-only kernels and
+    nothing else.  Returns the launch counts."""
+    log("== phase 4q: the probe path (use_slq=False) at config B")
+    from gvamp_tpu_torch.ops import matvec
+    beta, vars_t, probs_t = problem[:3]
+    torch.cuda.reset_peak_memory_stats()
+    matvec.reset_launches()
+    run_option(geno, beta, "config B probe path", PROBE_CORR_MIN,
+               (vars_t, probs_t), use_slq=False)
+    launches = dict(matvec.LAUNCHES)
+    check_launches("config B probe", launches, ("axm_i8a", "atxm_i8a"),
+                   ("axm_i8", "atxm_i8", "gram_i8a", "gram_i8"))
+    return launches
+
+
+def phase_red(geno, problem, label, complete):
+    """Phase 4r: --red (linear, 10 iterations) on ``geno``'s loaded
+    problem: each iteration solves on a window of a tenth of the sample
+    word rows.  The launch counters and the windowed-pass counts show that
+    every pass but the set-up's A^T y and A u and each iteration's
+    full-data noise pass [x2, x1] ran on the window, 2 + n passes each way
+    per iteration for n CG iterations, through the route's digit products
+    and no tool-only kernel.  Returns the launch counts."""
+    log(f"== phase 4r: --red at {label}")
+    from gvamp_tpu_torch.ops import matvec
+    beta, vars_t, probs_t = problem[:3]
+    fwd, tr = ("axm_i8a", "atxm_i8a") if complete else ("axm_i8", "atxm_i8")
+    other = ("axm_i8", "atxm_i8") if complete else ("axm_i8a", "atxm_i8a")
+    torch.cuda.reset_peak_memory_stats()
+    matvec.reset_launches()
+    with counted_windows(geno) as calls:
+        _, hist = run_option(geno, beta, f"{label} red", RED_CORR_MIN,
+                             (vars_t, probs_t), red=True)
+    launches = dict(matvec.LAUNCHES)
+    check_launches(f"{label} red", launches, (fwd, tr),
+                   other + ("gram_i8a", "gram_i8"))
+    loops = [max(h["cg_iters"], h["probe_iters"]) for h in hist]
+    want = sum(2 + n for n in loops)
+    log(f"  windowed passes: forward {calls['axm_w']}, transpose "
+        f"{calls['atxm_w']} (2 + CG loop {loops} each per iteration: "
+        f"{want}); {fwd} launches {launches[fwd]}, {tr} {launches[tr]}; "
+        f"window starts {[h['red_sbw'] for h in hist]}")
+    if not (calls["axm_w"] == calls["atxm_w"] == want
+            and launches[tr] == want + 1
+            and launches[fwd] == want + 1 + len(hist)):
+        raise AssertionError(f"{label} red: a CG pass left the window: "
+                             f"{calls}, {launches}")
+    return launches
+
+
+def phase_probe_dual_x(geno, beta, vars_t, probs_t):
+    """Phase 4q at config X: the dual solve with use_slq=False, its probe
+    column z_u = A u riding the N-space block CG through the fused dual
+    Gram, held to X_CORR_MIN.  Returns the launch counts."""
+    log("== phase 4q: the dual probe path (use_xxt, use_slq=False) at "
+        "config X")
+    from gvamp_tpu_torch.ops import matvec
+    torch.cuda.reset_peak_memory_stats()
+    matvec.reset_launches()
+    run_option(geno, beta, "config X dual probe path", X_CORR_MIN,
+               (vars_t, probs_t), use_xxt=True, use_slq=False)
+    launches = dict(matvec.LAUNCHES)
+    check_launches("config X dual probe", launches,
+                   ("gram_aat_i8a", "ax"), ("gram_aat_i8", "axm_i8",
+                                            "atxm_i8"))
+    return launches
+
+
+def flagship_cli_args(bed, phen, bim, N, M, out, name, n_it):
+    return ["--device", "cuda", "--model", "linear", "--bed-file", bed,
+            "--phen-files", phen, "--bim-file", bim, "--N", str(N), "--Mt",
+            str(M), "--iterations", str(n_it), "--rho", "0.3",
+            "--stop-criteria-thr", "0", "--probs", "0.95,0.05", "--vars",
+            "0.0,0.0667", "--verbosity", "0", "--out-dir", out,
+            "--out-name", name]
+
+
+# the names of the port's CUDA kernels in a profiler trace (csrc/)
+KERNEL_SYMBOLS = ("axm_i8_kernel", "atxm_i8_kernel", "atx_kernel",
+                  "ax_kernel", "gram_aat_kernel", "gram_prim_kernel")
+
+
+def phase_cli_options():
+    """Phase 6q: the driver and probe-path flags through the CLI on the
+    card, on the flagship genotypes (2% missing calls): --sync-every 3
+    against --sync-every 1 at 4 iterations (3 does not divide it, the
+    stopping test off), bit for bit; --phase-timers 1 (one line of the
+    five phase times per iteration, the estimate equal to the untimed
+    run's); --store-pip 1 (values in [0, 1], the causal markers' median
+    above the nulls'); --profile-dir (a Chrome trace naming the port's
+    kernels); and --use-slq 0 with --checkpoint at 3 iterations, then
+    restart --resume for 3 more, equal bit for bit to 6 in one run."""
+    log("== phase 6q: CLI --sync-every, --phase-timers, --store-pip, "
+        "--profile-dir, --use-slq 0 with restart")
+    import io
+    from gvamp_tpu_torch import cli
+    from gvamp_tpu_torch.io import vecio
+    from gvamp_tpu_torch.ops import matvec
+    N, M = 800, 240
+    with tempfile.TemporaryDirectory() as tmp:
+        bed, phen, bim, beta = flagship_files(tmp, N, M)
+        out = os.path.join(tmp, "out")
+
+        def args(name, n_it, *extra):
+            return (["--run-mode", "infere"]
+                    + flagship_cli_args(bed, phen, bim, N, M, out, name,
+                                        n_it) + list(extra))
+
+        def dump(name, it):
+            return vecio.read_bin_shard(os.path.join(out, f"{name}_it_{it}"
+                                                          f".bin"), M, 0)
+
+        matvec.reset_launches()
+        cli.main(args("one", 4))
+        cli.main(args("three", 4, "--sync-every", "3"))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(args("timed", 4, "--phase-timers", "1", "--verbosity",
+                          "1"))
+        phase_lines = [ln for ln in buf.getvalue().splitlines()
+                       if "lmmse_cg=" in ln]
+        cli.main(args("pip", 4, "--store-pip", "1"))
+        prof = os.path.join(tmp, "prof")
+        cli.main(args("prof", 2, "--profile-dir", prof))
+        ck = os.path.join(tmp, "ck.npz")
+        cli.main(args("slq0", 6, "--use-slq", "0"))
+        cli.main(args("part", 3, "--use-slq", "0", "--checkpoint", ck))
+        cli.main(["--run-mode", "restart", "--resume", ck]
+                 + flagship_cli_args(bed, phen, bim, N, M, out, "part", 3))
+        check_no_tool_launches("CLI options", matvec.LAUNCHES)
+        one, three, timed = dump("one", 4), dump("three", 4), dump("timed", 4)
+        early = [os.path.exists(os.path.join(out, f"three_it_{i}.bin"))
+                 for i in (1, 2, 3)]
+        pip = vecio.read_bin_shard(os.path.join(out, "pip_pip.bin"), M, 0)
+        with open(os.path.join(prof, "trace.json")) as f:
+            trace = f.read()
+        full, part = dump("slq0", 6), dump("part", 6)
+    log(f"  --sync-every 3 against 1 at 4 iterations: equal "
+        f"{np.array_equal(three, one)}; dumps at iterations 1-3 {early}")
+    if not (np.array_equal(three, one) and early == [False, False, True]):
+        raise AssertionError("--sync-every 3 differs from single steps or "
+                             "dumped inside a chunk")
+    log(f"  --phase-timers: {len(phase_lines)} phase lines, first "
+        f"{phase_lines[0].strip() if phase_lines else None}; estimate equal "
+        f"to the untimed run: {np.array_equal(timed, one)}")
+    names = ("denoise", "z1_project", "lmmse_cg", "noise_em", "finish")
+    if not (len(phase_lines) == 4 and all(f"{n}=" in phase_lines[0]
+                                          for n in names)
+            and np.array_equal(timed, one)):
+        raise AssertionError("--phase-timers missed its lines or changed "
+                             "the run")
+    causal = beta != 0
+    log(f"  --store-pip: pip in [{pip.min():.3g}, {pip.max():.3g}], median "
+        f"causal {np.median(pip[causal]):.3g}, null "
+        f"{np.median(pip[~causal]):.3g}")
+    if not (np.all((pip >= 0) & (pip <= 1))
+            and np.median(pip[causal]) > np.median(pip[~causal])):
+        raise AssertionError("--store-pip values out of [0, 1] or not "
+                             "higher on the causal markers")
+    found = [s for s in KERNEL_SYMBOLS if s in trace]
+    log(f"  --profile-dir: trace.json {len(trace)} bytes, kernels named "
+        f"{found}")
+    if not found:
+        raise AssertionError("the profiler trace names none of the port's "
+                             "kernels")
+    log(f"  --use-slq 0: 3 + checkpoint + restart --resume 3 against 6 in "
+        f"one run: equal {np.array_equal(part, full)}; corr(x_hat, beta) "
+        f"{float(np.corrcoef(full, beta)[0, 1]):.5f}")
+    if not (np.isfinite(full).all() and np.array_equal(part, full)):
+        raise AssertionError("the probe-path resume differs from the "
+                             "uninterrupted run")
+
+
+def phase_options_alone():
+    """--options: phases 3r, 4q at config B, 4r, 5q and 6q on instances of
+    their own (the configurations drawn one after the other from one
+    generator), with an SLQ run beside the probe run at B for comparison
+    in one call.  The dual probe path at config X runs only in the full
+    run, on the instance X_CORR_MIN was set on (phase 4x)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    words = synth_words(gen, False, CFG_B_N, CFG_B_M)
+    phase_kernels_window(words, "config B")
+    geno, beta, vars_t, probs_t = make_problem(words, "config B", True)
+    log("== the SLQ path at config B, beside phase 4q")
+    run_option(geno, beta, "config B SLQ", CORR_MIN, (vars_t, probs_t))
+    phase_probe_b(geno, (beta, vars_t, probs_t))
+    phase_red(geno, (beta, vars_t, probs_t), "config B", True)
+    del words, geno
+    torch.cuda.empty_cache()
+    words = synth_words(gen, True, CFG_B_N, CFG_B_M)
+    phase_kernels_window(words, "config Bm")
+    geno, beta, vars_t, probs_t = make_problem(words, "config Bm", False)
+    phase_red(geno, (beta, vars_t, probs_t), "config Bm", False)
+    del words, geno
+    torch.cuda.empty_cache()
+    phase_card_vs_cpu_options()
+    phase_cli_options()
+
+
+def phase_card_vs_cpu_options():
+    """Phase 5q: the linear primal (2% missing) and dual (complete) probe
+    paths, red complete and with 2% missing calls, probit (2% missing, 2
+    covariates) and Huber (complete) on the probe path, and the T = 3
+    linear multi-trait run on it, card against CPU."""
+    phase_card_vs_cpu(0.02, use_slq=False)
+    phase_card_vs_cpu(0.0, use_xxt=True, use_slq=False)
+    phase_card_vs_cpu(0.0, red=True)
+    phase_card_vs_cpu(0.02, red=True)
+    phase_card_vs_cpu_probit(0.02, 2, use_slq=False)
+    phase_card_vs_cpu_huber(0.0, 0, use_slq=False)
+    phase_card_vs_cpu_multi("linear", 0.0, use_slq=False)
+
+
 # the kernels that only the tools launch (phase 7), and the tools
 TOOL_KERNELS = ("axm_bf16", "atxm_bf16", "axm_i8s", "atx_a") + STUDY
 TOOLS = ("kernel_check", "bench_gram", "profile_kernels", "bench_stream",
@@ -2744,6 +3149,10 @@ def main(argv=None):
     ap.add_argument("--bf16-split", action="store_true",
                     help="only build and phase 3w: axm_bf16 and atxm_bf16 "
                          "at configs B and Bm, checked and timed")
+    ap.add_argument("--options", action="store_true",
+                    help="only build and the phases of the engine options "
+                         "(3r, 4q at config B, 4r, 5q, 6q), the SLQ run "
+                         "beside the probe run")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     phase_environment()
@@ -2762,6 +3171,11 @@ def main(argv=None):
             f"{time.perf_counter() - t_start:.1f} s")
         return
     phase_build()
+    if args.options:
+        phase_options_alone()
+        log(f"options run: phases 3r, 4q at config B, 4r, 5q and 6q "
+            f"passed in {time.perf_counter() - t_start:.1f} s")
+        return
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     # the staged study products draw from their own generator, so that the
@@ -2780,7 +3194,10 @@ def main(argv=None):
     full = phase_kernels_config_b(words, gen)
     full_s = phase_study_config_b(words, study_gen)
     full_g = phase_kernels_gram(words, gen, True)
+    phase_kernels_window(words, "config B")
     launches, geno, problem = phase_main_path(words)
+    launches_q = {"config B probe path": phase_probe_b(geno, problem),
+                  "config B red": phase_red(geno, problem, "config B", True)}
     launches_f = phase_fused_linear("config B", geno, problem, True)
     launches_p, launches_pf = phase_probit_b(geno, problem)
     launches_h = phase_huber(geno, problem, "config B", True, CFG_B_ITERS,
@@ -2795,7 +3212,10 @@ def main(argv=None):
     full_s.update(phase_study_products(words, study_gen, ("v6_fused_ab",),
                                       "config Bm"))
     full_gm = phase_kernels_gram(words, gen, False)
+    phase_kernels_window(words, "config Bm")
     launches_m, geno, problem = phase_config_bm(words)
+    launches_q["config Bm red"] = phase_red(geno, problem, "config Bm",
+                                            False)
     launches_mf = phase_fused_linear("config Bm", geno, problem, False)
     launches_hm = phase_huber(geno, problem, "config Bm", False,
                               HUBER_BM_ITERS, (0,))
@@ -2806,7 +3226,8 @@ def main(argv=None):
     words_m = synth_words(gen, True, CFG_X_N, CFG_X_M)
     nwx, mx = words.shape
     full_x = phase_kernels_config_x(words, words_m, gen)
-    launches_x, launches_xm = phase_dual_x(words, words_m)
+    launches_x, launches_xm, launches_q["config X dual probe path"] = \
+        phase_dual_x(words, words_m)
     del words, words_m
     torch.cuda.empty_cache()
     phase_moments_biobank()
@@ -2822,11 +3243,13 @@ def main(argv=None):
     for model, miss_rate in (("linear", 0.0), ("linear", 0.02),
                              ("bin_class", 0.0), ("robust", 0.0)):
         phase_card_vs_cpu_multi(model, miss_rate)
+    phase_card_vs_cpu_options()
     phase_cli()
     phase_cli_xxt()
     phase_cli_probit()
     phase_cli_restart()
     phase_cli_multi()
+    phase_cli_options()
     launches_tools = phase_tools()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # times at B = 1 on the whole matrix of the path that runs the kernel:
@@ -2876,6 +3299,9 @@ def main(argv=None):
         log(f"multi-trait {run} (phases 4t / 4tm): launches "
             + ", ".join(f"{n} {c[n]}" for n in DEFLATE_KERNELS
                         + GRAM_PRIM_KERNELS))
+    for run, c in launches_q.items():
+        log(f"{run} (phases 4q / 4r): launches "
+            + ", ".join(f"{n} {c[n]}" for n in PRODUCT_KERNELS if c[n]))
     log(smi())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

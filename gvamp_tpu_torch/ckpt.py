@@ -6,7 +6,8 @@ Port of ``gvamp_tpu/ckpt.py:76-184``.  A checkpoint is one ``.npz``: an
 generator is stored as its ``get_state()`` bytes and listed under
 ``gen_fields`` (a key of the port; JAX's typed PRNG keys are listed under
 ``key_fields``).  ``load_state`` reads the port's own checkpoints and the
-linear and probit ones the JAX package writes.
+linear and probit ones the JAX package writes, with SLQ traces or probe
+columns, and those from before the SLQ traces.
 """
 
 from __future__ import annotations
@@ -57,18 +58,13 @@ def _check_resumable(path: str, meta: dict) -> None:
             f"checkpoint {path} holds JAX PRNG keys {meta['key_fields']} (a "
             f"Huber run of the JAX package): a threefry key cannot be "
             f"continued by a torch generator")
-    cfg = meta.get("cfg")
-    if cfg is not None and "use_slq" not in cfg:
-        raise ValueError(
-            f"checkpoint {path} predates the SLQ traces (no use_slq in its "
-            f"cfg): it resumes with use_slq=False, which is not ported yet "
-            f"(ROADMAP.md Queue 1 item 12)")
 
 
 def _fill_warm_start(vals: dict, missing: list, meta: dict) -> None:
     """Zero-fill the warm-start fields a checkpoint lacks (the shapes of
     ``gvamp_tpu/ckpt.py:127-171``; the probe columns follow the
-    checkpoint's own cfg, SLQ on unless it says otherwise)."""
+    checkpoint's own cfg, where a cfg without ``use_slq`` predates the SLQ
+    traces and so ran the probe path)."""
     x1 = vals["x1"]
     if "tau_gmu" in missing:  # zero = stale: the first solve re-mults
         vals["tau_gmu"] = np.zeros(x1.shape[1:2] if x1.ndim == 2 else (),
@@ -77,7 +73,7 @@ def _fill_warm_start(vals: dict, missing: list, meta: dict) -> None:
         vals["mu_cg"] = np.zeros_like(x1)
     if "mu_probe" in missing:
         c = meta.get("cfg", {})
-        slq_on = bool(c.get("use_slq", True)) and not bool(c.get("red", False))
+        slq_on = bool(c.get("use_slq", False)) and not bool(c.get("red", False))
         n_probes = 0 if slq_on else int(c.get("n_probes", 1))
         n_cols = n_probes * (x1.shape[1] if x1.ndim == 2 else 1)
         vals["mu_probe"] = np.zeros((x1.shape[0], n_cols), x1.dtype)
@@ -104,9 +100,7 @@ def load_state(path: str, state_cls, device="cuda", dtype=None):
     ``gen_fields`` entry becomes a new CPU generator restored from its
     bytes.  JAX's cross-validation field ``cv_r2`` (not ported) is
     dropped, and the warm-start fields a checkpoint lacks are zero-filled.
-    Raises ValueError on a JAX Huber checkpoint (its PRNG key), on a
-    pre-SLQ one and on a state with probe columns (ROADMAP.md Queue 1
-    item 12)."""
+    Raises ValueError on a JAX Huber checkpoint (its PRNG key)."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(bytes(z["_meta"]).decode())
         _check_resumable(path, meta)
@@ -122,10 +116,6 @@ def load_state(path: str, state_cls, device="cuda", dtype=None):
         if set(missing) - _WARM_START_FIELDS:
             raise KeyError(f"checkpoint {path} lacks state fields {missing}")
         _fill_warm_start(vals, missing, meta)
-    if vals["mu_probe"].shape[-1]:
-        raise ValueError(
-            f"checkpoint {path} carries Onsager probe columns (use_slq=False "
-            f"or red), which are not ported yet (ROADMAP.md Queue 1 item 12)")
     out = {}
     for name in state_cls._fields:
         v = vals[name]

@@ -32,7 +32,15 @@ A multi-trait run writes each trait's estimate as
 at every iteration with the trait count ``T`` in its metadata;
 ``--use-XXT-denoiser``, ``--use-lmmse-damp``, ``--use-cross-val``,
 ``--use-freeze``, ``--init-est`` and ``--phase-timers`` are refused there,
-as the JAX CLI refuses them.
+as the JAX CLI refuses them.  ``--use-slq 0`` takes the Onsager traces
+from probe columns riding the block CG, ``--red 1`` (``--model linear``,
+one phenotype) solves on a moving 10% window of the samples,
+``--sync-every K`` fetches the metrics (and runs the dumps and the
+stopping test) once per K iterations, ``--phase-timers 1`` prints each
+phase's wall clock per iteration, ``--store-pip 1`` writes the final
+posterior inclusion probabilities ``{out}{tag}_pip.bin`` (per trait
+``{out}_phen{t}{tag}_pip.bin``), and ``--profile-dir DIR`` writes a
+``torch.profiler`` Chrome trace of the run mode, ``DIR/trace.json``.
 With ``--store-pvals`` 1 or 2 a linear run then writes the LOO p-values
 ``{out}_pvals.bin`` and, when a ``--bim-file`` is given, the LOCO
 p-values ``{out}_pvals_LOCO.bin`` and each chromosome's genetic predictor
@@ -44,7 +52,7 @@ kernels; ``--use-XXT-denoiser 1`` runs the dual (N-space) LMMSE solve
 through the fused dual Gram kernels; ``--deflate-k K`` preconditions the
 primal solves with the top K eigenpairs of A^T A.  Every other run mode,
 model and option outside the slice raises ``NotImplementedError`` naming
-its ROADMAP.md item.
+its ROADMAP.md item (Queue 1 item 11).
 
 Example::
 
@@ -59,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 
 import numpy as np
@@ -71,7 +80,7 @@ from gvamp_tpu_torch.data import GenoBed
 from gvamp_tpu_torch.io import plink, vecio
 from gvamp_tpu_torch.ops import pvals
 from gvamp_tpu_torch.options import Options
-from gvamp_tpu_torch.prior import initialize_prior
+from gvamp_tpu_torch.prior import Prior, initialize_prior, pip
 
 
 def _check_slice(opt: Options) -> None:
@@ -83,12 +92,10 @@ def _check_slice(opt: Options) -> None:
             (opt.run_mode not in ("infere", "restart"),
              f"--run-mode {opt.run_mode}", 11),
             (opt.type_data != "bed", f"--type-data {opt.type_data}", 11),
-            (opt.store_pip != 0, "--store-pip", 12),
             (opt.state_evo != 0, "--state-evo", 11),
             (opt.devices > 1 or opt.distributed != 0, "a device mesh "
                                                      "(--devices, "
-                                                     "--distributed)", 11),
-            (bool(opt.profile_dir), "--profile-dir", 12)):
+                                                     "--distributed)", 11)):
         if on:
             raise NotImplementedError(
                 f"{what} is not ported yet: ROADMAP.md Queue 1 item {item}")
@@ -169,15 +176,17 @@ def run_inference(opt: Options, geno: GenoBed, gam1=None, gamw=None,
     common = dict(true_signal=ts, sync_every=opt.sync_every,
                   phase_timers=bool(opt.phase_timers),
                   verbose=opt.verbosity > 0)
-    if opt.model == "bin_class":
-        cfg = probit.ProbitConfig(probit_var=opt.probit_var,
-                                  **_common_cfg(opt, gam1, 1e-8))
-        return probit.infer(geno, cfg, probs, vars_user,
-                            callbacks=[dumper(cfg)], **common)
-    if opt.model == "robust":
-        cfg = robust.RobustConfig(**_common_cfg(opt, gam1, 1e-8))
-        return robust.infer(geno, cfg, probs, vars_user,
-                            callbacks=[dumper(cfg)], **common)
+    if opt.model in ("bin_class", "robust"):
+        if opt.model == "bin_class":
+            cfg = probit.ProbitConfig(probit_var=opt.probit_var,
+                                      **_common_cfg(opt, gam1, 1e-8))
+        else:
+            cfg = robust.RobustConfig(**_common_cfg(opt, gam1, 1e-8))
+        res = _ENGINES[opt.model][0].infer(geno, cfg, probs, vars_user,
+                                           callbacks=[dumper(cfg)], **common)
+        if opt.store_pip:
+            _store_pip(opt, geno, res[1], _TAGS[opt.model])
+        return res
     freeze = (vecio.read_estimate(opt.freeze_index_file, geno.M, geno.S)
               if opt.use_freeze else None)
     x1_init = (vecio.read_estimate(opt.estimate_file, geno.M, geno.S)
@@ -197,7 +206,29 @@ def run_inference(opt: Options, geno: GenoBed, gam1=None, gamw=None,
     # the JAX CLI's test (cli.py:176): the default 0 computes no p-values
     if opt.store_pvals:
         _store_pvals_after_infer(opt, geno, state)
+    if opt.store_pip:
+        _store_pip(opt, geno, state)
     return x_est, state, hist
+
+
+def _store_pip(opt: Options, geno: GenoBed, state, tag: str = "",
+               T: int = 0) -> None:
+    """--store-pip (``gvamp_tpu/cli.py:307-329``): each marker's posterior
+    inclusion probability P(x != 0 | r1, gam1) at the final iterate, from
+    the state's internal-scale r1, gam1 and prior, as
+    ``{out}{tag}_pip.bin``, or per trait ``{out}_phen{t}{tag}_pip.bin``."""
+    def one(r1, gam1, probs, vars_, name):
+        p = pip(r1, gam1, Prior(probs=probs, vars=vars_))[: geno.M]
+        vecio.write_bin_shard(name, p.cpu().numpy(), geno.S)
+        print(f"pip -> {name}")
+
+    if T:
+        for t in range(T):
+            one(state.r1[:, t], state.gam1[t], state.probs[t], state.vars[t],
+                f"{opt.out_prefix}_phen{t}{tag}_pip.bin")
+    else:
+        one(state.r1, state.gam1, state.probs, state.vars,
+            f"{opt.out_prefix}{tag}_pip.bin")
 
 
 def _check_multi_flags(opt: Options) -> None:
@@ -268,6 +299,8 @@ def _run_multi(opt: Options, geno: GenoBed, probs, vars_user, gam1=None,
             _write_multi_scalar_history(opt.out_prefix, hist, mp.T)
         if opt.store_pvals and resume is None:
             _store_pvals_multi(opt, geno, ys, state)
+    if opt.store_pip and resume is None:
+        _store_pip(opt, geno, state, _TAGS[opt.model], T=mp.T)
     return x_est, state, hist
 
 
@@ -357,7 +390,10 @@ def _resume_run(opt: Options, device):
                           dtype=geno.dtype)
     cfg_d = dict(meta.get("cfg", {}))
     if cfg_d:
-        # a run from before the secant warm start resumes without it
+        # a run from before the SLQ traces carries probe columns, and one
+        # from before the secant warm start ran without it: the resume
+        # keeps the original configuration (gvamp_tpu/cli.py:479-489)
+        cfg_d.setdefault("use_slq", False)
         cfg_d.setdefault("cg_extrapolate", False)
     cfg_d["max_iter"] = int(meta.get("it", 0)) + opt.iterations
     if model == "linear" and not cfg_d.keys() - {"max_iter"}:
@@ -392,6 +428,7 @@ def _resume_multi(opt: Options, device, meta: dict):
     state, _ = load_state(opt.resume, state_cls, device=geno.device,
                           dtype=geno.dtype)
     cfg_d = dict(meta.get("cfg", {}))
+    cfg_d.setdefault("use_slq", False)
     cfg_d.setdefault("cg_extrapolate", False)
     # --iterations more from the state's own counter
     cfg = dataclasses.replace(cfg_cls(**cfg_d),
@@ -447,9 +484,43 @@ def main(argv=None):
     ns, rest = pre.parse_known_args(argv)
     opt = Options.from_args(rest)
     _check_slice(opt)
-    if opt.run_mode == "restart":
-        return mode_restart(opt, ns.device)
-    return run_inference(opt, _load_geno(opt, ns.device))
+
+    def run():
+        if opt.run_mode == "restart":
+            return mode_restart(opt, ns.device)
+        return run_inference(opt, _load_geno(opt, ns.device))
+
+    if opt.profile_dir:
+        return _profiled(run, opt.profile_dir, torch.device(ns.device))
+    return run()
+
+
+def _profiled(run, out_dir: str, device: torch.device):
+    """--profile-dir (``gvamp_tpu/cli.py:934-939``): the run mode under
+    ``torch.profiler``, host activity always and the card's on CUDA, its
+    Chrome trace written as ``out_dir/trace.json``.  A profiler that cannot
+    start raises, and so does a CUDA run whose trace holds no device
+    activity."""
+    from torch.autograd import kineto_available
+    from torch.profiler import ProfilerActivity, profile
+    if not kineto_available():
+        raise RuntimeError("--profile-dir: this torch build has no profiler "
+                           "(kineto) support")
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        out = run()
+    if device.type == "cuda" and not any(
+            e.device_type == torch.autograd.DeviceType.CUDA
+            for e in prof.events()):
+        raise RuntimeError("--profile-dir: the profiler recorded no CUDA "
+                           "activity")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profile -> {path}")
+    return out
 
 
 if __name__ == "__main__":

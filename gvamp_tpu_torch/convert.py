@@ -61,7 +61,9 @@ def state_from_numpy(d: dict, device="cuda",
                      dtype=torch.float32) -> linear.LinState:
     """``gvamp_tpu.linear.LinState`` fields (as arrays) -> port state on the
     card unless ``device`` names another, primal and dual (``*_n``) fields
-    alike; the cross-validation field ``cv_r2`` (not ported) is ignored."""
+    alike, the probe columns' warm starts and Gram products included
+    (``mu_probe`` [Mpad, P], ``mu_probe_n`` [4, Nb, P]); the
+    cross-validation field ``cv_r2`` (not ported) is ignored."""
     return linear.LinState(**_fields(d, linear.LinState, device, dtype))
 
 

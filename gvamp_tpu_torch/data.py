@@ -26,7 +26,9 @@ The dual (XXT) solve adds the people statistics (``ax``, its Jacobi
 diagonal) and ``fn_gram_aat``, the fused dual Gram A A^T in one read of the
 words (``gram_aat_i8a`` / ``gram_aat_i8``); ``fn_gram`` offers the fused
 primal Gram A^T A (``gram_i8a`` / ``gram_i8``) under ``GVAMP_FUSED_GRAM=1``.
-The probit model reads fixed covariates (``read_covariates``).
+``window_fns_multi`` runs the same digit products on a word-row window of
+the words, the reduced-subset solves of ``--red``.  The probit model reads
+fixed covariates (``read_covariates``).
 
 The entry points put the container on the card unless the caller names
 another device; without a CUDA device they raise rather than run on the CPU.
@@ -377,16 +379,16 @@ class GenoBed:
             self._complete = bool(torch.all(torch.where(real, bv, n) == n))
         return self._complete
 
-    def fns_multi(self):
-        """(axm_fn, atxm_fn): B right-hand sides per pass over the words,
-        signatures (op, X[Mpad, B]) -> z[4, Nb, B] and
-        (op, V[4, Nb, B]) -> [Mpad, B]."""
-        dtype, scale = self.dtype, self.inv_sqrt_n
+    def _route(self, scale: float):
+        """(axm(op, X), atxm(op, V)) at ``scale``, reading ``op.words`` and
+        ``op.na_planar`` as given: the routing shared by ``fns_multi`` and
+        ``window_fns_multi``."""
+        dtype = self.dtype
 
         if dtype == torch.float32 and self.geno_complete:
             # complete genotypes: b == 1 on real samples, so its
             # contractions collapse to the scalars colsum(U) and colsum(v)
-            # (data.py:589-617)
+            # (data.py:589-617, 812-816)
             def axm_fn(op: BedOp, X):
                 W = op.msig[:, None] * X.to(dtype)
                 U = op.mave[:, None] * W
@@ -425,6 +427,12 @@ class GenoBed:
             return (av - op.mave[:, None] * bv) * op.msig[:, None] * scale
 
         return axm_fn, atxm_fn
+
+    def fns_multi(self):
+        """(axm_fn, atxm_fn): B right-hand sides per pass over the words,
+        signatures (op, X[Mpad, B]) -> z[4, Nb, B] and
+        (op, V[4, Nb, B]) -> [Mpad, B]."""
+        return self._route(self.inv_sqrt_n)
 
     def fns(self):
         """(ax_fn, atx_fn): the single-vector products, (op, x[Mpad]) ->
@@ -522,6 +530,58 @@ class GenoBed:
             return z.to(dtype) * op.na_planar[:, :, None] * scale2
 
         return gram_aat_fn
+
+    def window_fns_multi(self, lbw: int):
+        """(axm_w, atxm_w) over the word-row window [sbw, sbw + lbw), the
+        reduced-subset solves of ``--red`` (``gvamp_tpu/data.py:771-853``,
+        reference data.cpp:728-801): each pass reads ``lbw / n_words`` of
+        the packed matrix.  ``sbw`` is a host int, a multiple of 32, so the
+        window ``words[sbw:sbw + lbw]`` is a contiguous, 16-byte-aligned
+        row view that the kernels take as it is.  The marker statistics
+        stay those of the full data and the scale becomes 1/sqrt(16 lbw)
+        (data.cpp:825-832).  The routing of ``fns_multi``, never the fused
+        Gram.
+
+        Signatures: axm_w(op, X[Mpad, B], sbw) -> z[4, 4 lbw, B] and
+        atxm_w(op, V[4, 4 lbw, B], sbw) -> [Mpad, B]."""
+        lbw = int(lbw)
+        axm_fn, atxm_fn = self._route(1.0 / float(np.sqrt(16 * lbw)))
+
+        def window(op: BedOp, sbw: int) -> BedOp:
+            if sbw % 32 or not 0 <= sbw <= op.words.shape[0] - lbw:
+                raise ValueError(f"window start {sbw}: must be a multiple of "
+                                 f"32 in [0, {op.words.shape[0] - lbw}]")
+            return op._replace(words=op.words[sbw:sbw + lbw],
+                               na_planar=op.na_planar[:, 4 * sbw:4 * (sbw + lbw)])
+
+        def axm_w(op: BedOp, X, sbw: int):
+            return axm_fn(window(op, sbw), X)
+
+        def atxm_w(op: BedOp, V, sbw: int):
+            return atxm_fn(window(op, sbw), V)
+
+        return axm_w, atxm_w
+
+        if dtype == torch.float64:
+            def axm_raw(words, W, U):
+                return matvec.axm_ref(words, W, U, dtype)
+
+            def atxm_raw(words, V):
+                return matvec.atxm_ref(words, V, dtype)
+        else:
+            axm_raw, atxm_raw = matvec.axm_i8, matvec.atxm_i8
+
+        def axm_w(op: BedOp, X, sbw: int):
+            g, na = window(op, sbw)
+            W = op.msig[:, None] * X.to(dtype)
+            return axm_raw(g, W, op.mave[:, None] * W) * na[:, :, None] * scale
+
+        def atxm_w(op: BedOp, V, sbw: int):
+            g, na = window(op, sbw)
+            av, bv = atxm_raw(g, V.to(dtype) * na[:, :, None])
+            return (av - op.mave[:, None] * bv) * op.msig[:, None] * scale
+
+        return axm_w, atxm_w
 
     def ax(self, x: torch.Tensor) -> torch.Tensor:
         return self.fns()[0](self.op, x)

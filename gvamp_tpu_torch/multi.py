@@ -26,8 +26,12 @@ again, so the skipped passes change nothing), and the batched EM prior
 update reads one flag per pass (``prior.update_prior``).  Huber's
 Monte-Carlo draws come from a CPU generator in the state (``gen``, seeded
 ``cfg.seed + 2``), T blocks of [mc, 4 Nb] per iteration; parity tests pass
-JAX's draws in.  Options outside the single-trait engines' slice raise as
-there, and ``sync_every > 1`` raises naming ROADMAP.md Queue 1 item 12.
+JAX's draws in.  ``use_slq=False`` (or ``red``, which means probe columns
+only here) takes the Onsager traces from T*P probe columns riding the
+block CG.  ``sync_every`` > 1 runs chunks of that many iterations between
+metrics fetches (``linear.run_chunks``); the callbacks and the all-stopped
+exit run once per chunk, with no exit inside a chunk, where stopped traits
+stay frozen.  ``use_cross_val`` raises as in the single-trait engine.
 """
 
 from __future__ import annotations
@@ -35,18 +39,18 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from gvamp_tpu_torch import cg, linear, probit, robust, slq
-from gvamp_tpu_torch.linear import (VampConfig, _clamp_gamma, fetch_metrics,
-                                    probe_cols)
+from gvamp_tpu_torch.linear import (VampConfig, _check_resume_probe_cols,
+                                    _clamp_gamma, probe_cols, run_chunks,
+                                    slq_on)
 from gvamp_tpu_torch.ops import matvec
 from gvamp_tpu_torch.prior import Prior, g1, g1d, update_prior
-from gvamp_tpu_torch.sync import SYNCS, host_bool
+from gvamp_tpu_torch.sync import host_bool
 
 
 class MultiOp(NamedTuple):
@@ -284,8 +288,11 @@ class MultiAux(NamedTuple):
     bern: torch.Tensor       # [Mpad, P] probes shared by every trait
     aty: torch.Tensor        # [Mpad, T] per-trait A_t^T y_t
     m_mask: torch.Tensor
-    slq: slq.SlqBasis        # T*P columns: probe j under trait t's own Gram
+    slq: Optional[slq.SlqBasis]  # T*P columns: probe j under trait t's own
+                                 # Gram; None on the probe path
     defl: Optional[tuple] = None  # (V [Mpad, k], lam [k]) shared basis
+    z_bern: Optional[torch.Tensor] = None  # [4, Nb, T*P] A_t u_j on the
+                                           # probe path
 
 
 def _bern(mp: MultiPhen, cfg, bern):
@@ -322,16 +329,21 @@ def make_slq_basis(mp: MultiPhen, cfg, bern) -> slq.SlqBasis:
 def make_aux(mp: MultiPhen, cfg: VampConfig, bern=None,
              defl_v0=None) -> MultiAux:
     """Set-up: the probe (``bern`` replaces the drawn one), the deflation
-    basis, A_t^T y_t and the SLQ basis."""
+    basis, A_t^T y_t, and the SLQ basis or, on the probe path, the T*P-wide
+    pass A_t u_j (``gvamp_tpu/multi.py:340-360``)."""
     linear.check_slice(cfg)
     bern = _bern(mp, cfg, bern)
-    atxm_fn = mp.fns()[1]
+    axm_fn, atxm_fn = mp.fns()
     yf = mp.filter_pheno()
+    use_slq = slq_on(cfg)
+    cols_tp = mp.cols(np.repeat(np.arange(mp.T), cfg.n_probes))
     return MultiAux(op=mp.op, y=yf, bern=bern,
                     aty=atxm_fn(mp.op, yf, mp.cols(np.arange(mp.T))),
                     m_mask=mp.geno.m_mask,
                     defl=make_deflation(mp, cfg, defl_v0),
-                    slq=make_slq_basis(mp, cfg, bern))
+                    slq=make_slq_basis(mp, cfg, bern) if use_slq else None,
+                    z_bern=(None if use_slq else
+                            axm_fn(mp.op, bern.repeat(1, mp.T), cols_tp)))
 
 
 # --------------------------------------------------------------------------
@@ -439,6 +451,7 @@ def make_step(mp: MultiPhen, cfg: VampConfig):
     # engine: two-pass routing only, with the environment switch
     fold_noise = (cfg.fold_noise and gram_fn is None
                   and os.environ.get("GVAMP_NOISE_PASS", "0") != "1")
+    use_slq = slq_on(cfg)
 
     def step(state: MultiState, aux: MultiAux):
         op, y, m_mask = aux.op, aux.y, aux.m_mask
@@ -492,7 +505,8 @@ def make_step(mp: MultiPhen, cfg: VampConfig):
                     + gam2_cols[None, :] * Pk), Z[..., B:]
 
         v = gamw[None, :] * aux.aty + gam2_eff[None, :] * r2
-        V = torch.cat([v, aux.bern[:, :P_cg].repeat(1, T)], dim=1)
+        bern_tp = aux.bern[:, :P_cg].repeat(1, T)
+        V = torch.cat([v, bern_tp], dim=1)
         mu_start = torch.cat([state.mu_cg, state.mu_probe], dim=1)
         mu0, r0 = mu_start, None
         precond = None
@@ -524,8 +538,12 @@ def make_step(mp: MultiPhen, cfg: VampConfig):
         invq = sol.mu[:, T:]
         x2 = _keep(live[None, :], muT * mm, state.x2)
 
-        # per-trait Onsager alpha2: SLQ quadrature per (trait, probe) column
-        quad = slq.quad_inv(aux.slq, gamw[cols_tp], gam2_eff[cols_tp])
+        # per-trait Onsager alpha2: SLQ quadrature per (trait, probe)
+        # column, or the probe columns' Hutchinson estimate
+        if use_slq:
+            quad = slq.quad_inv(aux.slq, gamw[cols_tp], gam2_eff[cols_tp])
+        else:
+            quad = (bern_tp * invq).sum(dim=0)
         alpha2 = gam2_eff * quad.reshape(T, P).mean(dim=1)
         eta2 = gam2 / alpha2
         if cfg.auto_var_max_iter >= 1 and it > 2:
@@ -536,8 +554,10 @@ def make_step(mp: MultiPhen, cfg: VampConfig):
               / gam1_new[None, :]) * mm
 
         # noise precision per trait (updateNoisePrec, vamp.cpp:892-927)
-        trace_corr = slq.quad_ratio(aux.slq, gamw[cols_tp], gam2_eff[cols_tp]
-                                    ).reshape(T, P).mean(dim=1) * Mt
+        if use_slq:
+            trace_corr = slq.quad_ratio(aux.slq, gamw[cols_tp],
+                                        gam2_eff[cols_tp]
+                                        ).reshape(T, P).mean(dim=1) * Mt
         if fold_noise:
             # the exit Gram identity (tau A^T A mu = V - r - gam2 mu, exact
             # for any mu) and z1 from the rider columns: no pass here
@@ -547,6 +567,13 @@ def make_step(mp: MultiPhen, cfg: VampConfig):
                       - gam2_eff * torch.square(muT).sum(dim=0)) / gamw
             resid2 = torch.clamp(quad_t - 2.0 * (muT * aux.aty).sum(dim=0)
                                  + l2y, min=0.0)
+            if not use_slq:
+                # the Hutchinson term from the same exit identity
+                trq = ((bern_tp * bern_tp).sum(dim=0)
+                       - (bern_tp * sol.r[:, T:]).sum(dim=0)
+                       - gam2_cols[T:] * (bern_tp * invq).sum(dim=0)
+                       ) / tau_cols[T:]
+                trace_corr = trq.reshape(T, P).mean(dim=1) * Mt
             R2_2 = 1.0 - resid2 / l2y
         else:
             # one wide pass computes A x2, A invq and the deferred z1 = A x1
@@ -554,6 +581,9 @@ def make_step(mp: MultiPhen, cfg: VampConfig):
             ax2 = Z2[..., :T]
             z1 = Z2[..., T + T * P_cg:]
             resid2 = torch.square(ax2 - y).sum(dim=(0, 1))
+            if not use_slq:
+                tc = (aux.z_bern * Z2[..., T:T + T * P]).sum(dim=(0, 1))
+                trace_corr = tc.reshape(T, P).mean(dim=1) * Mt
             R2_2 = 1.0 - torch.square(y - ax2).sum(dim=(0, 1)) / l2y
         gamw_new = N / (resid2 + trace_corr)
         R2_1 = 1.0 - torch.square(y - z1).sum(dim=(0, 1)) / l2y
@@ -601,50 +631,23 @@ def make_step(mp: MultiPhen, cfg: VampConfig):
 # --------------------------------------------------------------------------
 
 
-def check_resume_probe_cols(state, cfg, T: int) -> None:
-    """Raise when a resume state's probe-column width disagrees with its
-    config (``gvamp_tpu/linear.py:219-232``)."""
-    want = T * probe_cols(cfg)
-    got = int(state.mu_probe.shape[-1])
-    if got != want:
-        raise ValueError(
-            f"resume_state carries {got} probe column(s) but the resumed "
-            f"config implies {want} (use_slq={cfg.use_slq}, red={cfg.red}, "
-            f"n_probes={cfg.n_probes}); resume with the checkpoint's "
-            f"original use_slq setting")
-
-
-def _check_sync_every(sync_every: int) -> None:
-    if sync_every != 1:
-        raise NotImplementedError(
-            "sync_every > 1 (several iterations per dispatch, "
-            "make_scan_step): ROADMAP.md Queue 1 item 12")
-
-
 def _run_loop(step, state, aux, cfg, mp, name, vprint, callbacks,
-              draws=None):
-    """The run loop of the three engines (multi.py:660-704): one step per
-    iteration, its metrics on the host in one transfer, the callbacks,
-    then the exit when every trait has stopped.  Each history entry also
-    holds ``wall_ms`` and ``host_syncs``, as the single-trait engines'."""
+              sync_every: int = 1, draws=None):
+    """The chunked run loop of the three engines (multi.py:660-704): each
+    chunk's metrics on the host in one transfer, then the callbacks and
+    the exit when every trait has stopped, once per chunk
+    (``linear.run_chunks``).  No exit inside a chunk: its later steps
+    leave the stopped traits frozen, and an early exit would part the
+    counted iteration from ``state.it`` that the callbacks write."""
     history = []
-    it = state.it
-    while it < cfg.max_iter:
-        syncs0 = SYNCS["count"]
-        t0 = time.perf_counter()
-        if draws is None:
-            state, metrics = step(state, aux)
-        else:
-            state, metrics = step(state, aux, next(draws))
-        m = fetch_metrics(metrics)
-        m["wall_ms"] = (time.perf_counter() - t0) * 1e3
-        m["host_syncs"] = SYNCS["count"] - syncs0
-        it = state.it
-        history.append(m)
+    for state, ms in run_chunks(step, state, aux, cfg.max_iter, sync_every,
+                                draws=draws):
+        history += ms
+        m = ms[-1]
         if vprint is not None:
-            vprint(it, m)
+            vprint(state.it, m)
         for cb in callbacks or ():
-            cb(it, state, m, mp.geno)
+            cb(state.it, state, m, mp.geno)
         if m["stopped"].all():
             if vprint is not None:
                 print(f"{name}: all traits met the stopping criterion")
@@ -666,12 +669,12 @@ def infer(mp: MultiPhen, cfg: VampConfig, probs, vars_user,
           resume_state: MultiState = None, bern=None, defl_v0=None):
     """Run the joint multi-trait linear loop; returns (x_stored [M, T],
     state, history).  ``resume_state`` continues a checkpointed run
-    (``cfg.max_iter`` is the total budget); ``bern`` and ``defl_v0``
-    replace the drawn probe and deflation start block (parity tests pass
-    JAX's)."""
-    _check_sync_every(sync_every)
+    (``cfg.max_iter`` is the total budget); ``sync_every`` > 1 runs that
+    many iterations per metrics fetch (``_run_loop``); ``bern`` and
+    ``defl_v0`` replace the drawn probe and deflation start block (parity
+    tests pass JAX's)."""
     if resume_state is not None:
-        check_resume_probe_cols(resume_state, cfg, mp.T)
+        _check_resume_probe_cols(resume_state, cfg, mp.T)
     state = (resume_state if resume_state is not None
              else init_state(mp, cfg, probs, vars_user))
     aux = make_aux(mp, cfg, bern=bern, defl_v0=defl_v0)
@@ -684,7 +687,8 @@ def infer(mp: MultiPhen, cfg: VampConfig, probs, vars_user,
               f"stopped={int(m['stopped'].sum())}/{mp.T}", flush=True)
 
     state, history = _run_loop(step, state, aux, cfg, mp, "multi",
-                               vprint if verbose else None, callbacks)
+                               vprint if verbose else None, callbacks,
+                               sync_every)
     return _finish(mp, state), state, history
 
 
@@ -792,15 +796,14 @@ class ProbitMultiAux(NamedTuple):
     bern: torch.Tensor       # [Mpad, P]
     Z: torch.Tensor          # covariates planar-dense [4 Nb, max(C, 1)]
     m_mask: torch.Tensor
-    slq: slq.SlqBasis        # T*P columns (see MultiAux.slq)
+    slq: Optional[slq.SlqBasis]  # T*P columns (see MultiAux.slq)
     defl: Optional[tuple] = None
 
 
 def make_probit_aux(mp: MultiPhen, cfg, bern=None,
                     defl_v0=None) -> ProbitMultiAux:
     """Set-up of the z-model engines: covariates, the probe, the deflation
-    basis and the SLQ basis."""
-    probit.check_slice(cfg)
+    basis and, unless the probe columns carry the trace, the SLQ basis."""
     geno = mp.geno
     C = geno.covs.shape[1] if geno.covs is not None else 0
     nb4 = geno.y_planar.numel()
@@ -809,7 +812,8 @@ def make_probit_aux(mp: MultiPhen, cfg, bern=None,
     bern = _bern(mp, cfg, bern)
     return ProbitMultiAux(
         op=mp.op, y=mp.filter_pheno(), n_mask=geno.n_mask_planar, bern=bern,
-        Z=Z, m_mask=geno.m_mask, slq=make_slq_basis(mp, cfg, bern),
+        Z=Z, m_mask=geno.m_mask,
+        slq=make_slq_basis(mp, cfg, bern) if slq_on(cfg) else None,
         defl=make_deflation(mp, cfg, defl_v0))
 
 
@@ -834,14 +838,16 @@ def _x_denoise(mp: MultiPhen, cfg, state, m_mask, it: int, live):
 
 def _make_zmodel_lmmse(mp: MultiPhen, cfg):
     """The z-model LMMSE tail (multi.py:867-959): one block CG of T (+ T*P)
-    columns, the SLQ alpha2 clipped into [1e-11, 1 - 100 eps], the x and z
-    extrinsic updates, and z2 = A x2 from one forward pass."""
+    columns, the SLQ or probe-column alpha2 clipped into
+    [1e-11, 1 - 100 eps], the x and z extrinsic updates, and z2 = A x2 from
+    one forward pass."""
     Mt = float(mp.geno.Mt)
     N = float(mp.geno.N)
     T, P = mp.T, cfg.n_probes
     axm_fn, atxm_fn = mp.fns()
     gram_fn = mp.fn_gram()
     P_cg = probe_cols(cfg)
+    use_slq = slq_on(cfg)
     cols_tpc = np.repeat(np.arange(T), P_cg)
     tpc = mp.cols(cols_tpc)
     cols_t = mp.cols(np.arange(T))
@@ -866,7 +872,8 @@ def _make_zmodel_lmmse(mp: MultiPhen, cfg):
                     * atxm_fn(op, axm_fn(op, Pk, cols_all), cols_all)
                     + gam2_cols[None, :] * Pk)
 
-        V = torch.cat([v, aux.bern[:, :P_cg].repeat(1, T)], dim=1)
+        bern_tp = aux.bern[:, :P_cg].repeat(1, T)
+        V = torch.cat([v, bern_tp], dim=1)
         warm = cfg.gram_refresh > 1
         mu0 = torch.cat([state.mu_cg if warm else torch.zeros_like(v),
                          state.mu_probe], dim=1)
@@ -891,9 +898,13 @@ def _make_zmodel_lmmse(mp: MultiPhen, cfg):
         gmu_new = cg.gram_from_exit(V, sol, tau_cols[None, :],
                                     gam2_cols[None, :])
         x2 = sol.mu[:, :T] * mm
-        # per-(trait, probe) SLQ quadrature at this iteration's shifts
-        alpha2 = gam2 * slq.quad_inv(aux.slq, tau2[cols_tp],
-                                     gam2[cols_tp]).reshape(T, P).mean(dim=1)
+        # per-(trait, probe) SLQ quadrature at this iteration's shifts, or
+        # the probe columns' Hutchinson estimate
+        if use_slq:
+            quad = slq.quad_inv(aux.slq, tau2[cols_tp], gam2[cols_tp])
+        else:
+            quad = (bern_tp * sol.mu[:, T:]).sum(dim=0)
+        alpha2 = gam2 * quad.reshape(T, P).mean(dim=1)
         eps1 = 100.0 * torch.finfo(alpha2.dtype).eps
         alpha2 = torch.clamp(alpha2, 1e-11, 1.0 - eps1)
         eta2 = gam2 / alpha2
@@ -976,7 +987,6 @@ def _newton_multi(yf, gg, Z, cov_eff, nmf, cfg):
 
 def make_probit_step(mp: MultiPhen, cfg, n_cov: int = 0):
     """The per-iteration multi-trait probit step (multi.py:962-1086)."""
-    probit.check_slice(cfg)
     N = float(mp.geno.N)
     T = mp.T
     pv = cfg.probit_var
@@ -1032,7 +1042,6 @@ def make_huber_step(mp: MultiPhen, cfg):
     """The per-iteration multi-trait Huber step (multi.py:1202-1316):
     (state, aux, eps=None) -> (state, metrics); ``eps`` [T, mc, 4 Nb]
     replaces the draws from ``state.gen``."""
-    probit.check_slice(cfg)
     N = float(mp.geno.N)
     T = mp.T
     lmmse = _make_zmodel_lmmse(mp, cfg)
@@ -1091,10 +1100,9 @@ def infer_probit(mp: MultiPhen, cfg, probs, vars_user, verbose: bool = True,
                  bern=None, defl_v0=None):
     """Joint multi-trait probit run; returns (x_stored [M, T], state,
     history).  ``bern`` and ``defl_v0`` as in ``infer``."""
-    _check_sync_every(sync_every)
     n_cov = mp.geno.covs.shape[1] if mp.geno.covs is not None else 0
     if resume_state is not None:
-        check_resume_probe_cols(resume_state, cfg, mp.T)
+        _check_resume_probe_cols(resume_state, cfg, mp.T)
     state = (resume_state if resume_state is not None
              else init_probit_state(mp, cfg, probs, vars_user, n_cov=n_cov))
     aux = make_probit_aux(mp, cfg, bern=bern, defl_v0=defl_v0)
@@ -1106,7 +1114,8 @@ def infer_probit(mp: MultiPhen, cfg, probs, vars_user, verbose: bool = True,
 
     state, history = _run_loop(make_probit_step(mp, cfg, n_cov=n_cov),
                                state, aux, cfg, mp, "multi-probit",
-                               vprint if verbose else None, callbacks)
+                               vprint if verbose else None, callbacks,
+                               sync_every)
     return _finish(mp, state), state, history
 
 
@@ -1116,9 +1125,8 @@ def infer_huber(mp: MultiPhen, cfg, probs, vars_user, verbose: bool = True,
     """Joint multi-trait Huber run; returns (x_stored [M, T], state,
     history).  ``mc_draws`` (an iterable of per-iteration [T, mc, 4 Nb]
     draws) replaces the state's generator (parity tests pass JAX's)."""
-    _check_sync_every(sync_every)
     if resume_state is not None:
-        check_resume_probe_cols(resume_state, cfg, mp.T)
+        _check_resume_probe_cols(resume_state, cfg, mp.T)
     state = (resume_state if resume_state is not None
              else init_huber_state(mp, cfg, probs, vars_user))
     aux = make_probit_aux(mp, cfg, bern=bern, defl_v0=defl_v0)
@@ -1130,7 +1138,7 @@ def infer_huber(mp: MultiPhen, cfg, probs, vars_user, verbose: bool = True,
 
     state, history = _run_loop(make_huber_step(mp, cfg), state, aux, cfg,
                                mp, "multi-huber", vprint if verbose else None,
-                               callbacks,
+                               callbacks, sync_every,
                                iter(mc_draws) if mc_draws is not None
                                else None)
     return _finish(mp, state), state, history

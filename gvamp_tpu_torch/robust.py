@@ -13,7 +13,9 @@ JAX's:
                   derivative), tau1, deltaH, p2, tau2;
   lmmse_cg        the warm-started block CG on (tau2 A^T A + gam2 I),
                   deflated when ``deflate_k > 0``, with the SLQ Onsager
-                  term; z2 = A x2 tracked through the CG recursion on the
+                  term or probe columns riding the solve
+                  (``use_slq=False``); z2 = A x2 tracked through the CG
+                  recursion on the
                   two-pass route, or one forward pass after the solve when
                   the fused Gram runs it;
   lmmse_z_finish  beta2, tau2, p1 and tau1 from z2.
@@ -23,6 +25,8 @@ counted host sync (``gvamp_tpu_torch.sync``).  The Monte-Carlo draws of
 ``em_deltaH`` come from a CPU ``torch.Generator`` carried in the state
 (seeded ``cfg.seed + 2``; jax.random cannot be reproduced) and move to the
 device; parity tests pass JAX's draws in through ``infer(mc_draws=...)``.
+The driver, ``sync_every`` and ``phase_timers`` are the linear engine's
+(``linear.run_chunks``, ``linear.make_phase_step``).
 """
 
 from __future__ import annotations
@@ -30,19 +34,20 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from gvamp_tpu_torch import cg, slq
-from gvamp_tpu_torch.linear import (VampConfig, _clamp_gamma, fetch_metrics,
-                                    make_bern_probe, make_deflation,
-                                    probe_cols)
+from gvamp_tpu_torch.linear import (VampConfig, _check_resume_probe_cols,
+                                    _clamp_gamma, make_bern_probe,
+                                    make_deflation, make_phase_step,
+                                    print_phase_ms, probe_cols, run_chunks,
+                                    slq_on)
 from gvamp_tpu_torch.prior import GAMMA_MIN, Prior, g1, g1d, update_prior
 from gvamp_tpu_torch.probit import geo_damp, make_slq_basis
-from gvamp_tpu_torch.sync import SYNCS, host_bool
+from gvamp_tpu_torch.sync import host_bool
 
 # deltaH M-step grid (vamp_Huber.cpp:259)
 DELTA_GRID = np.array([1e-6, 1e-5, 1e-4, 1e-3, 1e-2, 1e-1,
@@ -167,19 +172,9 @@ class RobustAux(NamedTuple):
     m_mask: torch.Tensor
     ts: torch.Tensor         # true signal * sqrt(N) (zeros if absent)
     defl: Optional[tuple]    # (V, lam): deflation basis (deflate_k > 0)
-    slq: slq.SlqBasis        # quadrature of the fixed Gram A^T A, one basis
-                             # for Huber's whole tau2 trajectory
-
-
-def check_slice(cfg: RobustConfig) -> None:
-    """Raise on every option this port does not run yet."""
-    for on, what, item in (
-            (cfg.red, "red (reduced-subset solves with probe columns)", 12),
-            (not cfg.use_slq, "use_slq=False (probe-column traces)", 12)):
-        if on:
-            raise NotImplementedError(
-                f"RobustConfig.{what} is not ported yet: ROADMAP.md Queue 1 "
-                f"item {item}")
+    slq: Optional[slq.SlqBasis]  # quadrature of the fixed Gram A^T A, one
+                                 # basis for Huber's whole tau2 trajectory;
+                                 # None on the probe path
 
 
 def make_generator(seed: int) -> torch.Generator:
@@ -214,10 +209,10 @@ def init_state(geno, cfg: RobustConfig, probs, vars_user) -> RobustState:
 
 def make_aux(geno, cfg: RobustConfig, true_signal=None, bern=None,
              defl_v0=None) -> RobustAux:
-    """Set-up: the deflation basis (``deflate_k > 0``), the probe and the
-    SLQ basis; ``bern`` and ``defl_v0`` replace the drawn probe and
-    deflation start block."""
-    check_slice(cfg)
+    """Set-up: the deflation basis (``deflate_k > 0``), the probe and,
+    unless the probe columns carry the trace (``use_slq=False`` or
+    ``red``), the SLQ basis; ``bern`` and ``defl_v0`` replace the drawn
+    probe and deflation start block."""
     defl = make_deflation(geno, cfg, defl_v0)
     if bern is None:
         bern = make_bern_probe(geno, cfg.seed, cfg.n_probes)
@@ -229,13 +224,15 @@ def make_aux(geno, cfg: RobustConfig, true_signal=None, bern=None,
         bern=bern, m_mask=geno.m_mask,
         ts=(geno.pad_m(true_signal) * math.sqrt(geno.N)
             if true_signal is not None else torch.zeros_like(geno.m_mask)),
-        defl=defl, slq=make_slq_basis(geno, cfg, bern))
+        defl=defl,
+        slq=make_slq_basis(geno, cfg, bern) if slq_on(cfg) else None)
 
 
-def make_step(geno, cfg: RobustConfig, with_truth: bool = False):
+def make_step(geno, cfg: RobustConfig, with_truth: bool = False,
+              timer_device=None):
     """The per-iteration Huber step: (state, aux, eps=None) -> (state,
-    metrics); ``eps`` [mc, 4 Nb] replaces the draws from ``state.gen``."""
-    check_slice(cfg)
+    metrics); ``eps`` [mc, 4 Nb] replaces the draws from ``state.gen``.
+    Its phases are timed with ``timer_device`` (``linear.make_phase_step``)."""
     Mt = float(geno.Mt)
     N = float(geno.N)
     ax_fn, atx_fn = geno.fns()
@@ -246,8 +243,9 @@ def make_step(geno, cfg: RobustConfig, with_truth: bool = False):
     track_z2 = (cfg.fold_noise and gram_fn is None
                 and os.environ.get("GVAMP_NOISE_PASS", "0") != "1")
     P_cg = probe_cols(cfg)
+    use_slq = slq_on(cfg)
 
-    def phase_denoise_x(state: RobustState, aux: RobustAux):
+    def phase_denoise_x(w, state: RobustState, aux: RobustAux):
         # the re-estimation loop (vamp_Huber.cpp:94-131); its test reads
         # gam1 on the host
         m_mask = aux.m_mask
@@ -281,11 +279,11 @@ def make_step(geno, cfg: RobustConfig, with_truth: bool = False):
             alpha1 = rho * alpha1 + (1 - rho) * state.alpha1
         gam2 = _clamp_gamma(eta1 - gam1)
         r2 = ((eta1 * x1 - gam1 * state.r1) / gam2) * m_mask
-        return {"it": it, "x1_prev": state.x1, "x1": x1, "gam1": gam1,
-                "alpha1": alpha1, "eta1": eta1, "probs": probs,
-                "vars": vars_, "gam2": gam2, "r2": r2}
+        w.update(it=it, x1_prev=state.x1, x1=x1, gam1=gam1, alpha1=alpha1,
+                 eta1=eta1, probs=probs, vars=vars_, gam2=gam2, r2=r2)
+        return w
 
-    def phase_denoise_z(w, state: RobustState, aux: RobustAux, eps):
+    def phase_denoise_z(w, state: RobustState, aux: RobustAux):
         # the Huber proximal (vamp_Huber.cpp:225-262)
         yf = aux.y.reshape(-1)
         nm = aux.n_mask.reshape(-1)
@@ -298,7 +296,7 @@ def make_step(geno, cfg: RobustConfig, with_truth: bool = False):
         if w["it"] >= 2:
             tau1 = _clamp_gamma(1.0 / (1.0 / zeta1 + l2zp / N))
         # deltaH MC-EM grid update (vamp_Huber.cpp:259-260)
-        gen = state.gen
+        gen, eps = state.gen, w.get("eps")
         if eps is None:
             gen = torch.Generator(device="cpu")
             gen.set_state(state.gen.get_state())
@@ -356,9 +354,13 @@ def make_step(geno, cfg: RobustConfig, with_truth: bool = False):
             gmu_new = torch.zeros_like(sol.mu)
         x2 = sol.mu[:, 0] * m_mask
         # SLQ quadrature of f(lam) = 1/(tau2 lam + gam2) on the fixed Gram
-        # basis, clipped into (0, 1) at a bound the dtype can represent
-        # (robust.py:374-383): an f32 alpha2 of 1 NaNs gam1 and r1
-        alpha2 = gam2 * slq.quad_inv(aux.slq, tau2, gam2).mean()
+        # basis or the probe columns' Hutchinson estimate, clipped into
+        # (0, 1) at a bound the dtype can represent (robust.py:368-383): an
+        # f32 alpha2 of 1 NaNs gam1 and r1
+        if use_slq:
+            alpha2 = gam2 * slq.quad_inv(aux.slq, tau2, gam2).mean()
+        else:
+            alpha2 = gam2 * (aux.bern * sol.mu[:, 1:]).sum(dim=0).mean()
         eps1 = 100.0 * torch.finfo(alpha2.dtype).eps
         alpha2 = torch.clamp(alpha2, GAMMA_MIN, 1.0 - eps1)
         eta2 = gam2 / alpha2
@@ -417,11 +419,13 @@ def make_step(geno, cfg: RobustConfig, with_truth: bool = False):
             tau_gmu=w["tau_gmu"])
         return new_state, metrics
 
+    composed = make_phase_step(
+        (("denoise_x", phase_denoise_x), ("denoise_z", phase_denoise_z),
+         ("lmmse_cg", phase_lmmse_x), ("lmmse_z_finish", phase_lmmse_z)),
+        timer_device)
+
     def step(state: RobustState, aux: RobustAux, eps=None):
-        w = phase_denoise_x(state, aux)
-        w = phase_denoise_z(w, state, aux, eps)
-        w = phase_lmmse_x(w, state, aux)
-        return phase_lmmse_z(w, state, aux)
+        return composed(state, aux, {"eps": eps})
 
     return step
 
@@ -431,45 +435,37 @@ def infer(geno, cfg: RobustConfig, probs, vars_user, true_signal=None,
           sync_every: int = 1, resume_state: RobustState = None, bern=None,
           defl_v0=None, mc_draws=None):
     """Run the Huber VAMP loop; returns (x1_hat_stored /sqrt(N), state,
-    history).  Each history entry also holds ``wall_ms`` and
-    ``host_syncs``, as the other engines'.  ``bern`` and ``defl_v0``
-    replace the drawn probe and deflation start block, ``mc_draws`` (an
-    iterable of per-iteration [mc, 4 Nb] arrays) the draws from the state's
-    generator (parity tests pass JAX's)."""
-    if sync_every != 1:
-        raise NotImplementedError(
-            "sync_every > 1 (several iterations per dispatch): ROADMAP.md "
-            "Queue 1 item 12")
-    if phase_timers:
-        raise NotImplementedError(
-            "phase_timers (per-phase wall clock): ROADMAP.md Queue 1 item 12")
+    history).  ``sync_every``, ``phase_timers`` and the history's
+    ``wall_ms`` and ``host_syncs`` are the linear engine's
+    (``linear.infer``).  ``bern`` and ``defl_v0`` replace the drawn probe
+    and deflation start block, ``mc_draws`` (an iterable of per-iteration
+    [mc, 4 Nb] arrays) the draws from the state's generator (parity tests
+    pass JAX's)."""
+    if resume_state is not None:
+        _check_resume_probe_cols(resume_state, cfg)
     state = (resume_state if resume_state is not None
              else init_state(geno, cfg, probs, vars_user))
     aux = make_aux(geno, cfg, true_signal=true_signal, bern=bern,
                    defl_v0=defl_v0)
-    step = make_step(geno, cfg, with_truth=true_signal is not None)
-    draws = iter(mc_draws) if mc_draws is not None else None
+    step = make_step(geno, cfg, with_truth=true_signal is not None,
+                     timer_device=geno.device if phase_timers else None)
     history = []
-    it = state.it
-    while it < cfg.max_iter:
-        syncs0 = SYNCS["count"]
-        t0 = time.perf_counter()
-        state, metrics = step(state, aux,
-                              next(draws) if draws is not None else None)
-        m = fetch_metrics(metrics)
-        m["wall_ms"] = (time.perf_counter() - t0) * 1e3
-        m["host_syncs"] = SYNCS["count"] - syncs0
-        it = state.it
-        history.append(m)
+    chunk = 1 if phase_timers else sync_every
+    for state, ms in run_chunks(step, state, aux, cfg.max_iter, chunk,
+                                draws=(iter(mc_draws) if mc_draws is not None
+                                       else None)):
+        history += ms
+        m = ms[-1]
         if verbose:
             extra = f" corr={m['corr_x1']:.4f}" if "corr_x1" in m else ""
-            print(f"[robust it {it}] gam1={m['gam1']:.5g} "
+            print(f"[robust it {state.it}] gam1={m['gam1']:.5g} "
                   f"tau1={m['tau1']:.5g} deltaH={m['deltaH']:.4g} "
                   f"alpha2={m['alpha2']:.4g} rel={m['rel_change']:.3e} "
                   f"cg={int(m['cg_iters'])}{extra}", flush=True)
+            print_phase_ms(m)
         for cb in callbacks or ():
-            cb(it, state, m, geno)
-        if it > 1 and float(m["rel_change"]) < cfg.stop_criteria_thr:
+            cb(state.it, state, m, geno)
+        if state.it > 1 and float(m["rel_change"]) < cfg.stop_criteria_thr:
             break
     sqn = float(np.sqrt(geno.N))
     return state.x1[: geno.M].cpu().numpy() / sqn, state, history

@@ -206,9 +206,12 @@ def test_missing_warm_start_fields_zero_filled_as_jax(model, tmp_path):
 
 
 def test_unresumable_checkpoints_raise(tmp_path):
-    """A JAX Huber checkpoint (a threefry key) and a pre-SLQ one (no
-    use_slq in its cfg) raise ValueError naming why, from load_state and
-    from the CLI's resume."""
+    """A JAX Huber checkpoint (a threefry key) raises ValueError naming
+    why, from load_state and from the CLI's resume.  A checkpoint whose cfg
+    lacks use_slq predates the SLQ traces and resumes on the probe path
+    (tests/test_torch_driver.py): one written with SLQ on and its cfg's
+    use_slq removed loads, and its resume under that path raises on the
+    probe-column width, as JAX's (gvamp_tpu/linear.py:219-233)."""
     vars_t, probs_t = _problem("robust")[3:5]
     j, _ = _genos("robust", torch.float64)
     jcfg = jrobust.RobustConfig(max_iter=1, rho=0.3, seed=5)
@@ -226,8 +229,12 @@ def test_unresumable_checkpoints_raise(tmp_path):
     del cfg_d["use_slq"]
     pre = str(tmp_path / "pre.npz")
     jckpt.save_state(pre, ls, it=1, model="linear", cfg=cfg_d)
-    with pytest.raises(ValueError, match="Queue 1 item 12"):
-        tckpt.load_state(pre, tlinear.LinState, device="cpu")
+    st, meta = tckpt.load_state(pre, tlinear.LinState, device="cpu")
+    assert st.mu_probe.shape[1] == 0 and "use_slq" not in meta["cfg"]
+    jl_t = _genos("linear", torch.float64)[1]
+    with pytest.raises(ValueError, match="probe column"):
+        tlinear.infer(jl_t, tlinear.VampConfig(max_iter=2, use_slq=False),
+                      lprobs, lvars, verbose=False, resume_state=st)
     codes, y = _problem("robust")[:2]
     bed, phen = str(tmp_path / "d.bed"), str(tmp_path / "d.phen")
     plink.write_bed(bed, codes)

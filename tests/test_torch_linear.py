@@ -271,18 +271,22 @@ def test_cli_infere_dumps_match_library(problem, tmp_path):
             assert os.path.getsize(pre + name) > 0
     for name in ("_gam1s.csv", "_gam2s.csv", "_R2trains.csv"):
         assert os.path.exists(pre + name)
-    # an option outside the slice raises naming its item (--use-XXT-denoiser,
-    # --model bin_class and --model robust run since their paths were
-    # ported: tests/test_torch_xxt.py, tests/test_torch_probit.py,
-    # tests/test_torch_robust.py, and so do several --phen-files, the
-    # multi-trait engines: tests/test_torch_multi_cli.py; --store-pip has
-    # not been, with one phenotype or several)
+    # --store-pip, once refused, writes the final posterior inclusion
+    # probabilities (tests/test_torch_driver.py holds them against JAX's)
+    tcli.main(["--device", "cpu", "--bed-file", bed, "--phen-files", phen,
+               "--N", str(N), "--Mt", str(M), "--iterations", "1",
+               "--probs", ",".join(map(str, probs_t)),
+               "--vars", ",".join(map(str, vars_t)), "--verbosity", "0",
+               "--out-dir", str(tmp_path / "out"), "--out-name", "pip",
+               "--store-pip", "1"])
+    p = vecio.read_bin_shard(str(tmp_path / "out" / "pip_pip.bin"), M, 0)
+    assert np.all((p >= 0) & (p <= 1))
+    # an option outside the slice raises naming its item
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 12"):
+                       match="ROADMAP.md Queue 1 item 11"):
         tcli.main(["--device", "cpu", "--bed-file", bed, "--phen-files",
-                   f"{phen},{phen}", "--N", str(N), "--Mt", str(M),
-                   "--model", "robust", "--probs", "0.9,0.1", "--vars",
-                   "0.0,0.01", "--store-pip", "1"])
+                   phen, "--N", str(N), "--Mt", str(M), "--probs",
+                   "0.9,0.1", "--vars", "0.0,0.01", "--state-evo", "1"])
 
 
 # |log10 p| of the CLI's f32 p-values against JAX's loo_pvals on the same
@@ -346,32 +350,41 @@ def test_cli_store_pvals_on_missing_genotypes(problem_miss, tmp_path):
     assert not os.path.exists(quiet + "_pvals_LOCO.bin")
 
 
-def test_red_raises_under_item_12(problem):
-    """--red keeps Onsager probe columns in the block CG, which come with
-    Queue 1 item 12 (use_slq=False): it raises naming that item."""
+def test_red_ignores_use_slq(problem):
+    """--red re-draws its window every iteration, so the fixed-Gram
+    quadrature does not apply: it keeps its probe columns whatever
+    use_slq says, bit for bit (tests/test_slq_engines.py:160-175)."""
     vars_t, probs_t = problem[3:5]
-    _, t = _genos(problem, torch.float64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        tlinear.infer(t, tlinear.VampConfig(red=True), probs_t, vars_t,
-                      verbose=False)
+    _, t = _genos(problem, torch.float32)
+    assert tlinear.probe_cols(tlinear.VampConfig(red=True)) == 1
+    runs = [tlinear.infer(t, tlinear.VampConfig(max_iter=4, red=True,
+                                                use_slq=flag),
+                          probs_t, vars_t, verbose=False)
+            for flag in (False, True)]
+    np.testing.assert_array_equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][2], runs[1][2]):
+        assert float(a["alpha2"]) == float(b["alpha2"])
+        assert a["red_sbw"] == b["red_sbw"] and a["probe_iters"] > 0
 
 
 def test_out_of_slice_options_raise(problem):
     vars_t, probs_t = problem[3:5]
     _, t = _genos(problem, torch.float64)
-    # use_xxt left this list when the dual path was ported (it still raises
-    # beside an option that is not, use_slq=False), fold_noise=False when
-    # the explicit noise pass was (test_noise_pass_and_fused_gram_match_jax),
-    # deflate_k > 0 when deflation was (tests/test_torch_deflate.py)
-    for kw in (dict(use_xxt=True, use_slq=False), dict(red=True),
-               dict(use_cross_val=True), dict(use_slq=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tlinear.infer(t, tlinear.VampConfig(**kw), probs_t, vars_t,
-                          verbose=False)
-    for kw in (dict(sync_every=2), dict(phase_timers=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tlinear.infer(t, tlinear.VampConfig(), probs_t, vars_t,
-                          verbose=False, **kw)
+    # use_xxt left this list when the dual path was ported, fold_noise=False
+    # when the explicit noise pass was (test_noise_pass_and_fused_gram_
+    # match_jax), deflate_k > 0 when deflation was (tests/test_torch_
+    # deflate.py), red, use_slq=False, sync_every and phase_timers when
+    # the probe path and the driver options were (tests/test_torch_probe.py,
+    # test_torch_red.py, test_torch_driver.py): they run here
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tlinear.infer(t, tlinear.VampConfig(use_cross_val=True), probs_t,
+                      vars_t, verbose=False)
+    for kw, opts in ((dict(use_xxt=True, use_slq=False), {}),
+                     (dict(red=True), {}), (dict(use_slq=False), {}),
+                     ({}, dict(sync_every=2)), ({}, dict(phase_timers=True))):
+        x, _, h = tlinear.infer(t, tlinear.VampConfig(max_iter=2, **kw),
+                                probs_t, vars_t, verbose=False, **opts)
+        assert np.isfinite(x).all() and len(h) == 2
 
 
 def test_port_imports_and_runs_without_jax():

@@ -326,10 +326,21 @@ def test_multi_equals_single_trait_runs():
                                                          for h in h_s]
 
 
-def test_sync_every_raises_under_item_12():
+def test_sync_every_equals_single_steps():
+    """sync_every=2 at max_iter=3 (a chunk of two, then a single step)
+    equals single steps bit for bit in the three engines, f64
+    (tests/test_round3.py:488-510; no exit inside a chunk, where stopped
+    traits stay frozen)."""
     codes, ys, _, priors = problem(0.0)
     tmp = tmulti.MultiPhen.build(port_geno(codes, torch.float64), ys)
-    for run in (tmulti.infer, tmulti.infer_probit, tmulti.infer_huber):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-            run(tmp, tlinear.VampConfig(), *priors[0], verbose=False,
-                sync_every=2)
+    from gvamp_tpu_torch import probit as tprobit, robust as trobust
+    for run, cfg_cls in ((tmulti.infer, tlinear.VampConfig),
+                         (tmulti.infer_probit, tprobit.ProbitConfig),
+                         (tmulti.infer_huber, trobust.RobustConfig)):
+        cfg = cfg_cls(max_iter=3, **CFG)
+        x1, s1, h1 = run(tmp, cfg, *priors[0], verbose=False)
+        x2, s2, h2 = run(tmp, cfg, *priors[0], verbose=False, sync_every=2)
+        assert s2.it == s1.it == 3 and len(h2) == len(h1) == 3
+        np.testing.assert_array_equal(x2, x1)
+        for a, b in zip(h2, h1):
+            np.testing.assert_array_equal(a["gam1"], b["gam1"])

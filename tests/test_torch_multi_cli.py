@@ -275,19 +275,28 @@ def test_missing_warm_start_fields_zero_filled_as_jax(tmp_path):
 
 
 def test_cli_multi_refusals(tmp_path):
-    """What several --phen-files still refuse: --store-pip (ROADMAP.md
-    Queue 1 item 12), --use-XXT-denoiser (no dual multi-trait engine, as in
-    the JAX CLI), --sync-every 2 (item 12), and a resume with another
-    trait count than the checkpoint's."""
+    """What several --phen-files still refuse: --use-XXT-denoiser (no dual
+    multi-trait engine, as in the JAX CLI) and a resume with another trait
+    count than the checkpoint's.  --store-pip and --sync-every, refused
+    until they were ported, run: one pip file per trait, and the chunked
+    run's last dump equal to the single-step run's."""
     files = _files(tmp_path, "linear")
     out = str(tmp_path / "out")
-    for extra, err, match in (
-            (["--store-pip", "1"], NotImplementedError, "Queue 1 item 12"),
-            (["--use-XXT-denoiser", "1"], SystemExit, "--use-XXT-denoiser"),
-            (["--sync-every", "2"], NotImplementedError, "Queue 1 item 12")):
-        with pytest.raises(err, match=match):
-            tcli.main(["--run-mode", "infere"]
-                      + _args("linear", files, 2, out, "x", extra))
+    with pytest.raises(SystemExit, match="--use-XXT-denoiser"):
+        tcli.main(["--run-mode", "infere"]
+                  + _args("linear", files, 2, out, "x",
+                          ["--use-XXT-denoiser", "1"]))
+    for name, extra in (("one", []),
+                        ("two", ["--sync-every", "2", "--store-pip", "1"])):
+        tcli.main(["--run-mode", "infere"]
+                  + _args("linear", files, 3, out, name, extra))
+    m = files[5]
+    for t in range(T):
+        a = vecio.read_bin_shard(f"{out}/two_phen{t}_it_3.bin", m, 0)
+        b = vecio.read_bin_shard(f"{out}/one_phen{t}_it_3.bin", m, 0)
+        np.testing.assert_array_equal(a, b)
+        p = vecio.read_bin_shard(f"{out}/two_phen{t}_pip.bin", m, 0)
+        assert np.all((p >= 0) & (p <= 1))
     ck = str(tmp_path / "ck.npz")
     tcli.main(["--run-mode", "infere", "--checkpoint", ck]
               + _args("linear", files, 1, out, "x"))

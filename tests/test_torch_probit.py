@@ -330,20 +330,20 @@ def test_six_iteration_recipe_matches_jax(dt, miss, n_cov, route, f32_probe,
     assert all(h["host_syncs"] > 0 and h["wall_ms"] > 0 for h in h_t)
 
 
-def test_out_of_slice_options_raise():
+def test_item_12_options_run():
+    """The options that raised until the probe path and the driver options
+    were ported run: red (probe columns only, as in JAX), use_slq=False,
+    sync_every and phase_timers (their parity: tests/test_torch_probe.py,
+    tests/test_torch_driver.py)."""
     prob = _problem(0.0, 0)
     vars_t, probs_t = prob[3:5]
     _, t = _genos(prob, torch.float64)
-    # deflate_k > 0 left this list when deflation was ported
-    # (tests/test_torch_deflate.py)
-    for kw in (dict(red=True), dict(use_slq=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tprobit.infer(t, tprobit.ProbitConfig(**kw), probs_t, vars_t,
-                          verbose=False)
-    for kw in (dict(sync_every=2), dict(phase_timers=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tprobit.infer(t, tprobit.ProbitConfig(), probs_t, vars_t,
-                          verbose=False, **kw)
+    for kw, opts in ((dict(red=True), {}), (dict(use_slq=False), {}),
+                     ({}, dict(sync_every=2)), ({}, dict(phase_timers=True))):
+        x, s, h = tprobit.infer(t, tprobit.ProbitConfig(max_iter=2, **kw),
+                                probs_t, vars_t, verbose=False, **opts)
+        assert np.isfinite(x).all() and len(h) == 2
+        assert s.mu_probe.shape[1] == (1 if kw else 0)
 
 
 def test_simulate_probit_phenotype_matches_jax():
@@ -378,9 +378,10 @@ def test_covariate_helpers_match_jax(tmp_path):
 def test_cli_bin_class_matches_library(tmp_path):
     """--model bin_class with --cov-file / --C 2: the _probit_ dumps, the
     estimate equal to a library run on a container loaded the same way
-    (phenotype not standardised, covariates read); --store-pip still
-    raises naming its item (--model robust runs since it was ported:
-    tests/test_torch_robust.py), and multi-trait bin_class (several
+    (phenotype not standardised, covariates read); --store-pip writes
+    the final posterior inclusion probabilities under the _probit tag
+    (held against JAX's in tests/test_torch_driver.py), and multi-trait
+    bin_class (several
     --phen-files) runs since item 10 was (tests/test_torch_multi_zmodel.py),
     writing each trait's dumps."""
     codes, y, beta, vars_t, probs_t, covs = _problem(0.02, 2)
@@ -413,9 +414,11 @@ def test_cli_bin_class_matches_library(tmp_path):
                                   state.x1[:M].numpy() * (1 / np.sqrt(N)))
     np.testing.assert_allclose(dump, x_lib, rtol=2.0 ** -23)
     assert state.cov_eff.abs().max() > 0
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 12"):
-        tcli.main(args + ["--out-name", "x", "--store-pip", "1"])
+    tcli.main(args + ["--out-name", "x", "--store-pip", "1"])
+    p = vecio.read_bin_shard(str(tmp_path / "out" / "x_probit_pip.bin"),
+                             M, 0)
+    assert np.all((p >= 0) & (p <= 1))
+    assert np.median(p[beta != 0]) > np.median(p[beta == 0])
     tcli.main(args + ["--out-name", "x", "--phen-files", f"{phen},{phen}"])
     for t in range(2):
         d = vecio.read_bin_shard(

@@ -302,20 +302,20 @@ def test_generator_draws_are_reproducible():
                        states[3].gen.get_state())
 
 
-def test_out_of_slice_options_raise():
+def test_item_12_options_run():
+    """The options that raised until the probe path and the driver options
+    were ported run: red (probe columns only, as in JAX), use_slq=False,
+    sync_every and phase_timers (their parity: tests/test_torch_probe.py,
+    tests/test_torch_driver.py)."""
     prob = _problem(0.0)
     vars_t, probs_t = prob[3:5]
     _, t = _genos(prob, torch.float64)
-    for kw in (dict(red=True), dict(use_slq=False)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 12"):
-            trobust.infer(t, trobust.RobustConfig(**kw), probs_t, vars_t,
-                          verbose=False)
-    for kw in (dict(sync_every=2), dict(phase_timers=True)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 12"):
-            trobust.infer(t, trobust.RobustConfig(), probs_t, vars_t,
-                          verbose=False, **kw)
+    for kw, opts in ((dict(red=True), {}), (dict(use_slq=False), {}),
+                     ({}, dict(sync_every=2)), ({}, dict(phase_timers=True))):
+        x, s, h = trobust.infer(t, trobust.RobustConfig(max_iter=2, **kw),
+                                probs_t, vars_t, verbose=False, **opts)
+        assert np.isfinite(x).all() and len(h) == 2
+        assert s.mu_probe.shape[1] == (1 if kw else 0)
 
 
 def test_cli_robust_matches_library(tmp_path):
