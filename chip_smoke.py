@@ -7,6 +7,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --single-vector  # phase 1, the build, phase 3v
     python3 chip_smoke.py --bf16-split     # phase 1, the build, phase 3w
     python3 chip_smoke.py --options        # the build, 3r, 4q at B, 4r, 5q, 6q
+    python3 chip_smoke.py --modes          # the build, 4, 4c, 4m, 4v, 4d, 5v, 6v
 
 Phases, each of which raises on failure (exit code != 0):
 
@@ -49,10 +50,17 @@ Phases, each of which raises on failure (exit code != 0):
    (c) the general kernels, axm_i8s and the bf16-split products on the
    whole config-Bm matrix at B = 1 and 2, and axm_i8 and axm_i8s at
    B = 22;
+   in (b) and (c) each plain version runs once on the whole matrix, at
+   B = 1 (its one call timed), and the launches on the whole matrix at
+   B = 2 and 22 and on Gaussian inputs are held against it on a band,
+   the last 1,024 word rows of a forward product's output or the last
+   8,192 markers of a transposed one's, at the full contraction length;
    (d) the fused dual Grams on the whole config-X matrix (gram_aat_i8a)
-   and config-Xm matrix (gram_aat_i8) at B = 1, 2 and 5, timed beside
-   their two-pass composition, and ax there (dyadic inputs bit for bit,
-   the statistics' real inputs to a stated tolerance);
+   and config-Xm matrix (gram_aat_i8) at B = 1 (their plain versions on
+   the whole matrix) and at 2 and 5 (on 65,536 of its markers, every word
+   row), timed beside their two-pass composition, and ax there (dyadic
+   inputs bit for bit, the statistics' real inputs to a stated
+   tolerance);
    (v) with --single-vector and nothing else: atx and atx_a on the whole
    config-B matrix and ax on the config-X one, checked as in (b) and (d)
    and timed, for comparing two trees in turns;
@@ -63,7 +71,9 @@ Phases, each of which raises on failure (exit code != 0):
    trees in turns, and on config B their error against float64 at the
    full contraction length printed beside the plain versions';
    (e) the fused primal Grams on the whole config-B matrix (gram_i8a) and
-   config-Bm matrix (gram_i8) at B = 1 and 2, timed through the wrapper
+   config-Bm matrix (gram_i8) at B = 1 and 2 (the plain version on the
+   whole matrix at B = 1, on its last 8,192 markers at B = 2), timed
+   through the wrapper
    and as the bare launch beside their two-pass composition, with packed
    GB/s and the bound;
    (s) the study kernels (stream, stream_sum, v0_stream, v1_decode_a,
@@ -109,6 +119,23 @@ Phases, each of which raises on failure (exit code != 0):
    4r. --red at config B and Bm, 10 iterations each: every CG pass on the
    window, counted by wrapping window_fns_multi against the launch
    counters;
+   4c. cross-validation at config B on phase 4's instance: 10 iterations
+   with use_cross_val (98% of the people train, 2% held out re-damp x1
+   while their R2 falls), each iteration's cv_r2, rho_cross, retries,
+   host syncs and ms, the median beside phase 4's, corr(x_hat, beta),
+   the launches (axm_i8a / atxm_i8a only);
+   4v. the run modes' work at full width on phase 4m's container: the
+   last 3 estimates of 4m's run written to a temporary directory and
+   read back as a series, scored (each R2 against 4m's R2_train_1), their
+   LOO p-values in one pass (the last one's file against 4m's loo_pvals)
+   and LOCO for the last one (against 4m's loco_pvals), and the matrix
+   prediction (against 4m's A x1), each timed, the launches on axm_i8;
+   4d. the dense methylation path (GenoDense, --type-data meth) at N=8,192
+   x M=485,577 (the HumanMethylation450 array's probes, 15.9 GB of
+   float32): X drawn on the card and standardised per probe, its float64
+   statistics, bench.py's phenotype, 10 linear iterations through
+   torch.matmul; statistics seconds, ms per iteration, corr(x_hat, beta)
+   and the peak memory; freed before the next phase;
    4n. the p-value moments at N=327,680 against a float64 oracle;
    4t. the multi-trait engines (gvamp_tpu_torch/multi.py) at config B on
    phase 4's words: T = 8 linear traits (bench.py's recipe, one seed and
@@ -142,6 +169,12 @@ Phases, each of which raises on failure (exit code != 0):
    covariates) and Huber (complete) with use_slq=False, and the T = 3
    linear multi-trait run with use_slq=False, with the limits of phases 5,
    5h and 5t, probe_iters printed on both sides;
+   5v. the same for the run modes' engines: cross-validated linear,
+   complete and with 2% missing calls (cv_r2 and rho_cross within phase
+   5's limits too, each side's rejected tries printed, the card's run on
+   axm_i8a / atxm_i8a or axm_i8 / atxm_i8), the dense linear engine
+   (N=2,000 x M=4,096), and state_evolution from the same draws within
+   1e-6;
 6. the CLI (`--run-mode infere --model linear --store-pvals 1` with a
    .bim) on the flagship recipe of the README's port section, then with
    `--use-XXT-denoiser 1` (6x) and as `--model bin_class --cov-file --C 2`
@@ -158,6 +191,13 @@ Phases, each of which raises on failure (exit code != 0):
    steps at 4 iterations), --phase-timers 1, --store-pip 1, --profile-dir
    (the trace names the port's kernels) and --use-slq 0 with --checkpoint
    and restart --resume (bit for bit against 6 iterations in one run);
+   6v: the run modes through the CLI on the flagship files and a test
+   set of 400 other people: sim, infere with --use-cross-val 1
+   --state-evo 1, test over its dumped series (the R2 at the last
+   iteration against the CPU's float64 score within 1e-5), both,
+   pvals-calc with a .bim, predict_single and predict --predict-format
+   matrix, then --type-data meth on a small .meth file; every output
+   file checked for presence and shape;
 7. the port's tools on the card, each of whose ``main([])`` must return 0:
    the kernel check against float64 (gvamp_tpu_torch.tools.kernel_check,
    with the fused Grams' correctness), the fused-Gram study (bench_gram),
@@ -183,6 +223,7 @@ It imports nothing of JAX or of the JAX package.
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -430,8 +471,41 @@ def compare(name, label, got, want) -> float:
     return err
 
 
+# the bands of a whole matrix on which a launch there is held against its
+# plain version: the last BAND_ROWS word rows of a forward product's output
+# [4, Nb, B] (those slots read only those rows), the last BAND_COLS
+# markers of a transposed product's [Mpad, B] (those entries read only
+# those markers); the full contraction length either way
+BAND_ROWS = 1024
+BAND_COLS = 8192
+FORWARD_KERNELS = ("axm_i8a", "axm_i8", "axm_i8s", "axm_bf16")
+TRANSPOSED_KERNELS = ("atxm_i8a", "atxm_i8", "atxm_bf16", "atx", "atx_a")
+
+
+def band_words(words, name):
+    """(the words the plain version reads for ``name``'s band, the slice of
+    the kernel's output that it must equal)."""
+    nw, m = words.shape
+    if name in FORWARD_KERNELS:
+        r0 = nw - BAND_ROWS
+        return words[r0:], (slice(None), slice(4 * r0, 4 * nw))
+    c0 = m - BAND_COLS
+    return words[:, c0:].contiguous(), (slice(c0, m),)
+
+
+def timed_once(fn):
+    """(CUDA-event ms of one call of ``fn``, its result)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
 def check_kernels(words, B, gen, label, names=PRODUCT_KERNELS, count=None,
-                  reps=5, plain_reps=3):
+                  reps=5, plain_reps=3, band=False):
     """Each kernel of ``names`` against its plain version on ``words``;
     returns {name: (max_abs_err, ms, plain_ms)}.
 
@@ -447,7 +521,12 @@ def check_kernels(words, B, gen, label, names=PRODUCT_KERNELS, count=None,
     the plain version's count and, where given, ``count``.  The study
     products (v5_dot1, v6_fused_ab, v7_i8decode on the words' byte rows,
     made here only for it, and v8_atxm_vt) share the digit contract, and
-    v7 must equal axm_i8a on the words too."""
+    v7 must equal axm_i8a on the words too.
+
+    ``plain_reps`` 0 times the plain version's one comparison call instead
+    of timing it again (a whole matrix's plain version takes seconds a
+    call).  With ``band`` each kernel runs on the whole matrix and the
+    plain version on its band only (``band_words``; plain_ms None)."""
     from gvamp_tpu_torch.ops import matvec, study
     nw, m = words.shape
     dev = words.device
@@ -473,63 +552,84 @@ def check_kernels(words, B, gen, label, names=PRODUCT_KERNELS, count=None,
     cu = torch.randn((B,), generator=gen, device=dev)
     bytes8 = (study.expand_words(words)
               if any(n.startswith("v7_") for n in names) else None)
-    cases = {
-        "axm_i8a": (lambda: matvec.axm_i8a(words, W),
-                    lambda: matvec.axm_i8a_ref(words, W)),
-        "atxm_i8a": (lambda: matvec.atxm_i8a(words, V),
-                     lambda: matvec.atxm_i8a_ref(words, V)),
-        "axm_i8": (lambda: matvec.axm_i8(words, W, U),
-                   lambda: matvec.axm_i8_ref(words, W, U)),
-        "atxm_i8": (lambda: matvec.atxm_i8(words, V),
-                    lambda: matvec.atxm_i8_ref(words, V)),
-        "atx": (lambda: matvec.atx(words, v),
-                lambda: matvec.atx_ref(words, v)),
-        "ax": (lambda: matvec.ax(words, w8, u8),
-               lambda: matvec.ax_ref(words, w8, u8)),
-        "gram_aat_i8a": (lambda: matvec.gram_aat_i8a(words, V, mave, msig2),
-                         lambda: matvec.gram_aat_i8a_ref(words, V, mave,
-                                                         msig2)),
-        "gram_aat_i8": (lambda: matvec.gram_aat_i8(words, V, mave, msig2),
-                        lambda: matvec.gram_aat_i8_ref(words, V, mave,
-                                                       msig2)),
-        "gram_i8a": (lambda: matvec.gram_i8a(words, W, na_a, cu),
-                     lambda: matvec.gram_i8a_ref(words, W, na_a, cu)),
-        "gram_i8": (lambda: matvec.gram_i8(words, W, U, na_g),
-                    lambda: matvec.gram_i8_ref(words, W, U, na_g)),
-        "axm_bf16": (lambda: matvec.axm_bf16(words, W8, U8),
-                     lambda: matvec.axm_bf16_ref(words, W8, U8)),
-        "atxm_bf16": (lambda: matvec.atxm_bf16(words, V8),
-                      lambda: matvec.atxm_bf16_ref(words, V8)),
-        "axm_i8s": (lambda: matvec.axm_i8s(words, W, U),
-                    lambda: matvec.axm_i8s_ref(words, W, U)),
-        "atx_a": (lambda: matvec.atx_a(words, v),
-                  lambda: matvec.atx_a_ref(words, v)),
-        "v5_dot1": (lambda: study.v5_dot1(words, W),
-                    lambda: study.v5_dot1_ref(words, W)),
-        "v6_fused_ab": (lambda: study.v6_fused_ab(words, W, U),
-                        lambda: study.v6_fused_ab_ref(words, W, U)),
-        "v7_i8decode": (lambda: study.v7_i8decode(bytes8, W),
-                        lambda: study.v7_i8decode_ref(bytes8, W)),
-        "v7_i8decode_round2": (
-            lambda: study.v7_i8decode_round2(bytes8, W),
-            lambda: study.v7_i8decode_round2_ref(bytes8, W)),
-        "v8_atxm_vt": (lambda: study.v8_atxm_vt(words, V),
-                       lambda: study.v8_atxm_vt_ref(words, V))}
+
+    def cases(g):
+        return {
+            "axm_i8a": (lambda: matvec.axm_i8a(g, W),
+                        lambda: matvec.axm_i8a_ref(g, W)),
+            "atxm_i8a": (lambda: matvec.atxm_i8a(g, V),
+                         lambda: matvec.atxm_i8a_ref(g, V)),
+            "axm_i8": (lambda: matvec.axm_i8(g, W, U),
+                       lambda: matvec.axm_i8_ref(g, W, U)),
+            "atxm_i8": (lambda: matvec.atxm_i8(g, V),
+                        lambda: matvec.atxm_i8_ref(g, V)),
+            "atx": (lambda: matvec.atx(g, v),
+                    lambda: matvec.atx_ref(g, v)),
+            "ax": (lambda: matvec.ax(g, w8, u8),
+                   lambda: matvec.ax_ref(g, w8, u8)),
+            "gram_aat_i8a": (lambda: matvec.gram_aat_i8a(g, V, mave, msig2),
+                             lambda: matvec.gram_aat_i8a_ref(g, V, mave,
+                                                             msig2)),
+            "gram_aat_i8": (lambda: matvec.gram_aat_i8(g, V, mave, msig2),
+                            lambda: matvec.gram_aat_i8_ref(g, V, mave,
+                                                           msig2)),
+            "gram_i8a": (lambda: matvec.gram_i8a(g, W, na_a, cu),
+                         lambda: matvec.gram_i8a_ref(g, W, na_a, cu)),
+            "gram_i8": (lambda: matvec.gram_i8(g, W, U, na_g),
+                        lambda: matvec.gram_i8_ref(g, W, U, na_g)),
+            "axm_bf16": (lambda: matvec.axm_bf16(g, W8, U8),
+                         lambda: matvec.axm_bf16_ref(g, W8, U8)),
+            "atxm_bf16": (lambda: matvec.atxm_bf16(g, V8),
+                          lambda: matvec.atxm_bf16_ref(g, V8)),
+            "axm_i8s": (lambda: matvec.axm_i8s(g, W, U),
+                        lambda: matvec.axm_i8s_ref(g, W, U)),
+            "atx_a": (lambda: matvec.atx_a(g, v),
+                      lambda: matvec.atx_a_ref(g, v)),
+            "v5_dot1": (lambda: study.v5_dot1(g, W),
+                        lambda: study.v5_dot1_ref(g, W)),
+            "v6_fused_ab": (lambda: study.v6_fused_ab(g, W, U),
+                            lambda: study.v6_fused_ab_ref(g, W, U)),
+            "v7_i8decode": (lambda: study.v7_i8decode(bytes8, W),
+                            lambda: study.v7_i8decode_ref(bytes8, W)),
+            "v7_i8decode_round2": (
+                lambda: study.v7_i8decode_round2(bytes8, W),
+                lambda: study.v7_i8decode_round2_ref(bytes8, W)),
+            "v8_atxm_vt": (lambda: study.v8_atxm_vt(g, V),
+                           lambda: study.v8_atxm_vt_ref(g, V))}
+
+    whole = cases(words)
     out = {}
     for name in names:
-        fn, ref = cases[name]
-        got, want = fn(), ref()
+        fn, ref = whole[name]
+        got = fn()
         if isinstance(got, torch.Tensor):
-            got, want = (got,), (want,)
-        err = compare(name, f"{label} B={B}", got, want)
+            got = (got,)
+        plain = None
+        if band:
+            g, sl = band_words(words, name)
+            want = cases(g)[name][1]()
+            got = tuple(x[sl] for x in got)
+        elif plain_reps:
+            want = ref()
+            plain = cuda_ms(ref, plain_reps)
+        else:
+            plain, want = timed_once(ref)
+        if isinstance(want, torch.Tensor):
+            want = (want,)
+        err = compare(name, f"{label} B={B}" + " band" * band, got, want)
         if name.startswith("v7_"):
             compare(name, f"{label} B={B} against axm_i8a", got,
                     (matvec.axm_i8a(words, W),))
         del got, want
-        out[name] = (err, cuda_ms(fn, reps), cuda_ms(ref, plain_reps))
+        out[name] = (err, cuda_ms(fn, reps), plain)
     if "atx" in names:
         ones = torch.ones((4, 4 * nw), device=dev)
-        bv1, rbv1 = matvec.atx(words, ones)[1], matvec.atx_ref(words, ones)[1]
+        bv1 = matvec.atx(words, ones)[1]
+        if band:
+            g, sl = band_words(words, "atx")
+            bv1, rbv1 = bv1[sl], matvec.atx_ref(g, ones)[1]
+        else:
+            rbv1 = matvec.atx_ref(words, ones)[1]
         if not torch.equal(bv1, rbv1) or (
                 count is not None and not bool((bv1 == count).all())):
             raise AssertionError(f"atx {label}: bv differs from the "
@@ -537,8 +637,11 @@ def check_kernels(words, B, gen, label, names=PRODUCT_KERNELS, count=None,
     torch.cuda.synchronize()
     for name, (e, t, p) in out.items():
         gbs = 4 * nw * m / (t * 1e6)
-        log(f"  {label:>22s} B={B:<3d} {name:12s} equal  max|err|={e:.3e}  "
-            f"kernel {t:8.3f} ms ({gbs:7.1f} GB/s packed)  plain {p:8.3f} ms")
+        where = (f"band of {BAND_ROWS} word rows" if name in FORWARD_KERNELS
+                 else f"band of {BAND_COLS} markers") if band else "equal"
+        log(f"  {label:>22s} B={B:<3d} {name:12s} {where}  max|err|={e:.3e}  "
+            f"kernel {t:8.3f} ms ({gbs:7.1f} GB/s packed)"
+            + (f"  plain {p:8.3f} ms" if p is not None else ""))
     return out
 
 
@@ -556,11 +659,12 @@ BF16_PLAIN_TOL = 5e-6
 
 
 def check_gaussian(words, B, gen, label, against, tol,
-                   names=GAUSSIAN_KERNELS) -> dict:
+                   names=GAUSSIAN_KERNELS, band=False) -> dict:
     """Each kernel of ``names`` on Gaussian inputs against ``against``:
     "float64" (the dense plain products in float64) or "plain" (the f32
-    plain version); raises beyond ``tol`` of the largest entry.  Returns
-    {name: relative error}."""
+    plain version); raises beyond ``tol`` of the largest entry.  With
+    ``band`` the kernel runs on the whole matrix and the other side on its
+    band (``band_words``).  Returns {name: relative error}."""
     from gvamp_tpu_torch.ops import matvec
     nw, m = words.shape
     dev = words.device
@@ -568,29 +672,38 @@ def check_gaussian(words, B, gen, label, against, tol,
     U = torch.randn((m, B), generator=gen, device=dev) * 0.1
     V = torch.randn((4, 4 * nw, B), generator=gen, device=dev)
     f64 = against == "float64"
-    cases = {
-        "atx": (lambda: matvec.atx(words, V[..., 0]),
-                lambda: matvec.atx_ref(words, V[..., 0],
-                                       torch.float64 if f64 else
-                                       torch.float32)),
-        "atx_a": (lambda: (matvec.atx_a(words, V[..., 0]),),
-                  lambda: (matvec.atx_ref(words, V[..., 0], torch.float64)[0]
-                           if f64 else matvec.atx_a_ref(words, V[..., 0]),)),
-        "axm_bf16": (lambda: (matvec.axm_bf16(words, W, U),),
-                     lambda: (matvec.axm_ref(words, W, U, torch.float64)
-                              if f64 else matvec.axm_bf16_ref(words, W, U),)),
-        "atxm_bf16": (lambda: matvec.atxm_bf16(words, V),
-                      lambda: (matvec.atxm_ref(words, V, torch.float64)
-                               if f64 else matvec.atxm_bf16_ref(words, V)))}
+
+    def cases(g):
+        return {
+            "atx": (lambda: matvec.atx(g, V[..., 0]),
+                    lambda: matvec.atx_ref(g, V[..., 0],
+                                           torch.float64 if f64 else
+                                           torch.float32)),
+            "atx_a": (lambda: (matvec.atx_a(g, V[..., 0]),),
+                      lambda: (matvec.atx_ref(g, V[..., 0], torch.float64)[0]
+                               if f64 else matvec.atx_a_ref(g, V[..., 0]),)),
+            "axm_bf16": (lambda: (matvec.axm_bf16(g, W, U),),
+                         lambda: (matvec.axm_ref(g, W, U, torch.float64)
+                                  if f64 else matvec.axm_bf16_ref(g, W, U),)),
+            "atxm_bf16": (lambda: matvec.atxm_bf16(g, V),
+                          lambda: (matvec.atxm_ref(g, V, torch.float64)
+                                   if f64 else matvec.atxm_bf16_ref(g, V)))}
+
+    whole = cases(words)
     out = {}
     for name in names:
-        fn, ref = cases[name]
-        got, want = fn(), ref()
+        got = whole[name][0]()
+        if band:
+            g, sl = band_words(words, name)
+            got, want = tuple(x[sl] for x in got), cases(g)[name][1]()
+        else:
+            want = whole[name][1]()
         err = max(float((g.double() - w.double()).abs().max()
                         / w.double().abs().max()) for g, w in zip(got, want))
         del got, want
         log(f"  {label:>22s} B={B:<3d} {name:12s} Gaussian: max|kernel - "
-            f"{against}| / max = {err:.3e} (limit {tol:g})")
+            f"{against}| / max = {err:.3e} (limit {tol:g})"
+            + " on its band" * band)
         if not err <= tol:
             raise AssertionError(f"{name} {label} B={B}: {err:.3e} from the "
                                  f"{against} version on Gaussian inputs")
@@ -822,12 +935,12 @@ def phase_study_config_b(words, gen) -> dict:
 
 def phase_study_products(words, gen, names, config) -> dict:
     """The staged study products ``names`` at B = 2 on the whole matrix,
-    bit for bit against their plain versions and timed beside them (no
-    PyTorch call computes them).  Returns {name: (max_abs_err, ms,
+    bit for bit against their plain versions and timed beside them (the
+    plain version's one comparison call; no PyTorch call computes them).  Returns {name: (max_abs_err, ms,
     plain_ms, None)}."""
     nw, m = words.shape
     res = check_kernels(words, 2, gen, f"{config} full {nw}x{m}",
-                        names=names, reps=5, plain_reps=1)
+                        names=names, reps=5, plain_reps=0)
     torch.cuda.empty_cache()
     return {n: (*r, None) for n, r in res.items()}
 
@@ -838,9 +951,12 @@ def phase_kernels_config_b(words, gen):
     band spans many shared-memory tiles: the a-only kernels, atx, atx_a and
     the bf16-split products, the last three also on Gaussian inputs; then
     the a-only kernels at B = 22 (LOCO's forward width on complete
-    genotypes, the words read 11 times).  The plain versions decode
-    _REF_BLOCK markers at a time, so they run beside the 10.74 GB of words.
-    Returns {B: check_kernels result} of the whole matrix."""
+    genotypes, the words read 11 times).  Each plain version runs once on
+    the whole matrix, at B = 1; the launches at B = 2 and 22 and the
+    Gaussian inputs are held against it on their bands (``band_words``).
+    The plain versions decode _REF_BLOCK markers at a time, so they run
+    beside the 10.74 GB of words.  Returns {B: check_kernels result} of
+    the whole matrix."""
     log("== phase 3b: kernels vs plain versions, config-B words")
     sl = words[:, :SLICE_M].contiguous()
     # the fused dual Grams refuse N=327,680 (Nw above GRAM_AAT_MAX_NW), and
@@ -854,19 +970,23 @@ def phase_kernels_config_b(words, gen):
     a_only = ("axm_i8a", "atxm_i8a")
     bf16 = ("axm_bf16", "atxm_bf16")
     label = f"config B full {nw}x{m}"
-    full = {B: check_kernels(words, B, gen, label,
-                             names=a_only + bf16 + ("atx", "atx_a") * (B == 1),
-                             count=16 * nw, reps=3, plain_reps=1)
-            for B in (1, 2)}
-    for B in (1, 2):
-        check_gaussian(words, B, gen, label, "plain", BF16_PLAIN_TOL,
-                       names=bf16 + ("atx", "atx_a") * (B == 1))
+    # each plain version once on the whole matrix at B = 1 (its one call
+    # timed); the wider launches against it on their bands
+    full = {1: check_kernels(words, 1, gen, label,
+                             names=a_only + bf16 + ("atx", "atx_a"),
+                             count=16 * nw, reps=3, plain_reps=0),
+            2: check_kernels(words, 2, gen, label, names=a_only + bf16,
+                             reps=3, band=True)}
+    check_gaussian(words, 1, gen, label, "plain", BF16_PLAIN_TOL,
+                   names=bf16 + ("atx", "atx_a"), band=True)
+    check_gaussian(words, 2, gen, label, "plain", BF16_PLAIN_TOL,
+                   names=bf16, band=True)
     # a generator of its own, so that the draws of ``gen`` stay those the
     # engine phases' limits were set on
     wide_gen = torch.Generator(device="cuda")
     wide_gen.manual_seed(3)
     full[BM_CHROMS] = check_kernels(words, BM_CHROMS, wide_gen, label,
-                                    names=a_only, reps=3, plain_reps=1)
+                                    names=a_only, reps=3, band=True)
     torch.cuda.empty_cache()
     return full
 
@@ -875,18 +995,20 @@ def phase_kernels_config_bm(words, gen):
     """The general kernels, axm_i8s and the bf16-split products on the
     whole config-Bm matrix at B = 1 and 2 (the linear path's widths) and
     axm_i8 and axm_i8s at B = 22 (LOCO's forward product over 22
-    chromosomes, the widest call of the path; 11 digit groups).  Returns
-    {B: check_kernels result}."""
+    chromosomes, the widest call of the path; 11 digit groups): each plain
+    version once on the whole matrix at B = 1, the wider launches on their
+    bands.  Returns {B: check_kernels result}."""
     log("== phase 3c: general kernels vs plain versions, config-Bm words")
     nw, m = words.shape
     general = ("axm_i8", "atxm_i8", "axm_i8s", "axm_bf16", "atxm_bf16")
-    full = {B: check_kernels(words, B, gen, f"config Bm full {nw}x{m}",
-                             names=general, reps=3, plain_reps=1)
-            for B in (1, 2)}
-    full[BM_CHROMS] = check_kernels(words, BM_CHROMS, gen,
-                                    f"config Bm full {nw}x{m}",
+    label = f"config Bm full {nw}x{m}"
+    full = {1: check_kernels(words, 1, gen, label, names=general, reps=3,
+                             plain_reps=0),
+            2: check_kernels(words, 2, gen, label, names=general, reps=3,
+                             band=True)}
+    full[BM_CHROMS] = check_kernels(words, BM_CHROMS, gen, label,
                                     names=("axm_i8", "axm_i8s"), reps=3,
-                                    plain_reps=1)
+                                    band=True)
     torch.cuda.empty_cache()
     return full
 
@@ -919,19 +1041,19 @@ def make_problem(words, label, complete, n=CFG_B_N, m=CFG_B_M):
     return geno, beta, vars_t, probs_t
 
 
-def run_linear(words, label, complete, corr_min, r2_range):
+def run_linear(words, label, complete, corr_min, r2_range, callbacks=None):
     """Load, phenotype simulation and CFG_B_ITERS iterations of linear.infer
     at config-B settings on ``words``; returns (geno, state, problem) with
     problem = (beta, vars_t, probs_t, x_hat, history).  The caller resets
     and reads the launch counters around it."""
     geno, beta, vars_t, probs_t = make_problem(words, label, complete)
     x_hat, state, hist = run_infer(geno, beta, vars_t, probs_t, label,
-                                   corr_min, r2_range)
+                                   corr_min, r2_range, callbacks=callbacks)
     return geno, state, (beta, vars_t, probs_t, x_hat, hist)
 
 
 def run_infer(geno, beta, vars_t, probs_t, label, corr_min, r2_range,
-              use_xxt=False):
+              use_xxt=False, callbacks=None):
     """CFG_B_ITERS iterations of linear.infer at bench.py's settings
     (VampConfig(rho=0.15, gam1_init=1e-8, gamw_init=2.0), dual with
     ``use_xxt``); prints the trajectory and checks it: finite, R2_train_1
@@ -941,7 +1063,8 @@ def run_infer(geno, beta, vars_t, probs_t, label, corr_min, r2_range,
     cfg = linear.VampConfig(max_iter=CFG_B_ITERS, rho=0.15, gam1_init=1e-8,
                             gamw_init=2.0, use_xxt=use_xxt)
     t0 = time.perf_counter()
-    x_hat, state, hist = linear.infer(geno, cfg, probs_t, vars_t)
+    x_hat, state, hist = linear.infer(geno, cfg, probs_t, vars_t,
+                                      callbacks=callbacks)
     t_infer = time.perf_counter() - t0
     t_iters = sum(h["wall_ms"] for h in hist) / 1e3
     what = ("people statistics, dual SLQ basis, A^T y, A u" if use_xxt
@@ -1297,7 +1420,9 @@ def check_pvals(label, p, beta):
 
 def phase_config_bm(words):
     """The missing-genotype path at config Bm, with its LOO and LOCO
-    p-values over 22 chromosomes; returns (launch counts, geno, problem)."""
+    p-values over 22 chromosomes; returns (launch counts, geno, problem,
+    {ests: the last MODES_SERIES iterations' estimates, p_loo, p_loco, z1:
+    the last A x1 in the sample order}) for phase 4v."""
     log("== phase 4m: linear VAMP and p-values at config Bm (missing calls)")
     from gvamp_tpu_torch.io import plink
     from gvamp_tpu_torch.ops import matvec, pvals
@@ -1308,8 +1433,15 @@ def phase_config_bm(words):
         f"of {CFG_B_N} x {m}")
     torch.cuda.reset_peak_memory_stats()
     matvec.reset_launches()
+    # the last MODES_SERIES iterations' estimates, the series of phase 4v
+    ests = {}
+
+    def keep(it, state, metrics, g):
+        if it > CFG_B_ITERS - MODES_SERIES:
+            ests[it] = state.x1[: g.M].cpu().numpy() / np.sqrt(g.N)
+
     geno, state, problem = run_linear(words, "config Bm", False, CORR_MIN,
-                                      R2_RANGE)
+                                      R2_RANGE, callbacks=[keep])
     beta = problem[0]
     chroms = 1 + np.arange(CFG_B_M) * BM_CHROMS // CFG_B_M
     with tempfile.TemporaryDirectory() as tmp:
@@ -1330,7 +1462,9 @@ def phase_config_bm(words):
     check_pvals("LOCO", p_loco, beta)
     check_launches("config Bm", launches, ("axm_i8", "atxm_i8", "atx"),
                    ("axm_i8a", "atxm_i8a", "gram_i8a", "gram_i8"))
-    return launches, geno, problem
+    return launches, geno, problem, dict(
+        ests=ests, p_loo=p_loo, p_loco=p_loco,
+        z1=geno.deplanarize(state.z1)[:geno.N])
 
 
 # the fused primal Gram against its two-pass composition on the whole
@@ -1342,8 +1476,8 @@ B_TWO_PASS_TOL = 1e-4
 
 def phase_kernels_gram(words, gen, complete):
     """The fused primal Gram on the whole matrix at B = 1 and 2: gram_i8a on
-    config B, gram_i8 on config Bm, each bit-equal to its plain version and
-    timed through its wrapper and as its bare launch (the operands made
+    config B, gram_i8 on config Bm, each bit-equal to its plain version (on
+    the whole matrix at B = 1, on BAND_COLS markers at B = 2) and timed through its wrapper and as its bare launch (the operands made
     once by matvec.gram_launch; the first launch's result equal to the
     wrapper's bit for bit) beside its two-pass composition at the same B,
     with packed GB/s and the bound.  Returns {name: check_kernels numbers
@@ -1356,10 +1490,17 @@ def phase_kernels_gram(words, gen, complete):
     label = f"config B{'' if complete else 'm'} full {nw}x{m}"
     out = {}
     for B in (1, 2):
-        res = check_kernels(words, B, gen, label, names=(name,), reps=3,
-                            plain_reps=1)
+        # the plain version once on the whole matrix at B = 1; each output
+        # entry reads every word, so B = 2 is held against it on the last
+        # BAND_COLS markers, every band of word rows kept
         if B == 1:
-            out.update(res)
+            out.update(check_kernels(words, B, gen, label, names=(name,),
+                                     reps=3, plain_reps=0))
+        else:
+            check_kernels(words[:, -BAND_COLS:].contiguous(), B, gen,
+                          f"config B{'' if complete else 'm'} "
+                          f"{nw}x{BAND_COLS}", names=(name,), reps=3,
+                          plain_reps=0)
         W = torch.randn((m, B), generator=gen, device="cuda")
         U = torch.randn((m, B), generator=gen, device="cuda") * 3
         na = (torch.rand((4, 4 * nw), generator=gen, device="cuda")
@@ -1419,12 +1560,19 @@ X_TWO_PASS_TOL = 1e-4
 AX_REAL_TOL = 1e-6
 
 
+# the marker band of phase 3d's launches at B = 2 and 5: an eighth of
+# config X's markers, every word row
+X_BAND_COLS = 65_536
+
+
 def phase_kernels_config_x(words, words_m, gen):
     """The fused dual Grams on the whole config-X matrix (gram_aat_i8a,
     complete) and config-Xm matrix (gram_aat_i8, 1.56% missing) at B = 1, 2
-    and 5, each beside its two-pass composition at the same B; ax on config X
-    with dyadic inputs (bit for bit) and with the statistics' real inputs
-    (AX_REAL_TOL).  Returns {name: check_kernels numbers at B = 1}."""
+    and 5, each beside its two-pass composition at the same B (the plain
+    version on the whole matrix at B = 1, on X_BAND_COLS markers at B = 2
+    and 5); ax on config X with dyadic inputs (bit for bit) and with the
+    statistics' real inputs (AX_REAL_TOL).  Returns {name: check_kernels
+    numbers at B = 1}."""
     log("== phase 3d: dual kernels vs plain versions, config-X words")
     from gvamp_tpu_torch.ops import matvec
     nw, m = words.shape
@@ -1433,10 +1581,18 @@ def phase_kernels_config_x(words, words_m, gen):
                               (words_m, "gram_aat_i8", False)):
         label = f"config X{'' if complete else 'm'} full {nw}x{m}"
         for B in (1, 2, 5):
-            res = check_kernels(w, B, gen, label, names=(name,), reps=5,
-                                plain_reps=1)
+            # the plain version once on the whole matrix at B = 1; each
+            # output slot reads every marker, so the wider launches are
+            # held against it on a band of X_BAND_COLS markers, all the
+            # word rows (the stripe cache's dimension) kept
             if B == 1:
-                out.update(res)
+                out.update(check_kernels(w, B, gen, label, names=(name,),
+                                         reps=5, plain_reps=0))
+            else:
+                check_kernels(w[:, :X_BAND_COLS].contiguous(), B, gen,
+                              f"config X{'' if complete else 'm'} "
+                              f"{nw}x{X_BAND_COLS}", names=(name,), reps=5,
+                              plain_reps=0)
             V = torch.randn((4, 4 * nw, B), generator=gen, device="cuda")
             mave = torch.rand((m,), generator=gen, device="cuda") * 2
             msig2 = torch.rand((m,), generator=gen, device="cuda") * 1.5 + 0.5
@@ -1461,7 +1617,7 @@ def phase_kernels_config_x(words, words_m, gen):
                 raise AssertionError(f"{name}: fused and two-pass differ")
             out[f"{name} two-pass B={B}"] = t_two
     out.update(check_kernels(words, 1, gen, f"config X full {nw}x{m}",
-                             names=("ax",), reps=5, plain_reps=1))
+                             names=("ax",), reps=5, plain_reps=0))
     check_ax_real(words, gen)
     torch.cuda.empty_cache()
     return out
@@ -1761,17 +1917,19 @@ def small_problem(tmp, seed, N, M, miss_rate=0.0):
 
 
 def phase_card_vs_cpu(miss_rate, use_xxt=False, fused=False, use_slq=True,
-                      red=False):
+                      red=False, cross_val=False):
     """The linear engine on the card and on the CPU (plain versions) from
-    the same data and probe: phase 5, and with use_slq=False (the probe
+    the same data and probe: phase 5, with use_slq=False (the probe
     path) or red=True (the same window starts, drawn on the host) phase
-    5q."""
+    5q, with cross_val=True (cv_r2 and rho_cross held too, the damping
+    tuner's decisions printed) phase 5v."""
     label = "complete" if miss_rate == 0 else f"{miss_rate:.0%} missing"
     label += ", dual (XXT)" if use_xxt else ""
     label += ", fused primal Gram" if fused else ""
     label += ", use_slq=False" if not use_slq else ""
     label += ", red" if red else ""
-    phase = "5" if use_slq and not red else "5q"
+    label += ", cross-validation" if cross_val else ""
+    phase = ("5v" if cross_val else "5" if use_slq and not red else "5q")
     log(f"== phase {phase}: card vs CPU, N=2000 x M=4096, 6 iterations, "
         f"{label}")
     from gvamp_tpu_torch import linear, sim
@@ -1780,7 +1938,8 @@ def phase_card_vs_cpu(miss_rate, use_xxt=False, fused=False, use_slq=True,
     N, M = 2000, 4096
     cfg = linear.VampConfig(max_iter=6, rho=0.3, gam1_init=1e-8,
                             gamw_init=2.0, seed=5, use_xxt=use_xxt,
-                            use_slq=use_slq, red=red)
+                            use_slq=use_slq, red=red,
+                            use_cross_val=cross_val)
     if use_xxt:
         gram = "gram_aat_i8a" if miss_rate == 0 else "gram_aat_i8"
     else:
@@ -1807,6 +1966,10 @@ def phase_card_vs_cpu(miss_rate, use_xxt=False, fused=False, use_slq=True,
                     not matvec.LAUNCHES[gram]:
                 raise AssertionError(f"the card's run did not launch "
                                      f"{gram}: {matvec.LAUNCHES}")
+            if dev == "cuda" and cross_val:
+                check_launches(f"card, {label}", dict(matvec.LAUNCHES),
+                               ("axm_i8a", "atxm_i8a") if miss_rate == 0
+                               else ("axm_i8", "atxm_i8"))
             check_no_tool_launches(f"card vs CPU, {dev}", matvec.LAUNCHES)
             p = None
             if miss_rate and not use_xxt and not fused and phase == "5":
@@ -1815,22 +1978,21 @@ def phase_card_vs_cpu(miss_rate, use_xxt=False, fused=False, use_slq=True,
             out[dev] = x, hist, p
             log(f"  {dev}: {time.perf_counter() - t0:.2f} s")
     (x_c, h_c, p_c), (x_p, h_p, p_p) = out["cuda"], out["cpu"]
+    out = {dev: (x, None, h) for dev, (x, h, _) in out.items()}
     log(f"  probe_iters card {[h['probe_iters'] for h in h_c]} cpu "
         f"{[h['probe_iters'] for h in h_p]}"
         + (f"; window starts card {[h['red_sbw'] for h in h_c]} cpu "
            f"{[h['red_sbw'] for h in h_p]}" if red else ""))
     if red and [h["red_sbw"] for h in h_c] != [h["red_sbw"] for h in h_p]:
         raise AssertionError("card and CPU drew other window starts")
-    dx = float(np.abs(x_c - x_p).max() / np.abs(x_p).max())
-    log(f"  max|x1 card - x1 cpu| / max|x1| = {dx:.3e} (limit 5e-5)")
-    if not dx < 5e-5:
-        raise AssertionError("card and CPU x1 disagree")
-    for k in ("gam1", "gam2", "gamw", "alpha2"):
-        a, b = float(h_c[-1][k]), float(h_p[-1][k])
-        log(f"  {k}: card {a:.7g} cpu {b:.7g} rel {abs(a - b) / abs(b):.3e} "
-            f"(limit 2e-4)")
-        if not abs(a - b) <= 2e-4 * abs(b):
-            raise AssertionError(f"card and CPU {k} disagree")
+    if cross_val:
+        log(f"  retries card {retries(h_c, cfg.rho)} cpu "
+            f"{retries(h_p, cfg.rho)}; cv_r2 card "
+            f"{[round(float(h['cv_r2']), 6) for h in h_c]} cpu "
+            f"{[round(float(h['cv_r2']), 6) for h in h_p]}")
+    compare_card_cpu(label, out["cuda"], out["cpu"],
+                     ("gam1", "gam2", "gamw", "alpha2")
+                     + ("cv_r2", "rho_cross") * cross_val)
     log(f"  cg_iters card {[h['cg_iters'] for h in h_c]} "
         f"cpu {[h['cg_iters'] for h in h_p]}")
     if p_c is not None:
@@ -3073,6 +3235,503 @@ def phase_card_vs_cpu_options():
     phase_card_vs_cpu_multi("linear", 0.0, use_slq=False)
 
 
+# --------------------------------------------------------------------------
+# the run modes, cross-validation and the dense path (phases 4c, 4v, 4d,
+# 5v, 6v)
+# --------------------------------------------------------------------------
+
+# phase 4c, cross-validated infere at config B on phase 4's instance: the
+# training window is 98% of the people, so corr(x_hat, beta) stays near the
+# full fit's 0.996 (PERF.md); set before the first H100 run of this phase
+CV_CORR_MIN = 0.98
+# phase 4v: the estimates of phase 4m's last iterations that the run modes
+# score, test and predict from
+MODES_SERIES = 3
+# phase 4v: each score against phase 4m's R2_train_1 at the same iteration:
+# 1 - |y - A x|^2 / (N var(y)) against 1 - |y - A x|^2 / |y|^2, y not
+# centred (mean ~0: the denominators differ by about N mean(y)^2, a share
+# ~1/N of them)
+SCORE_R2_TOL = 1e-3
+# phase 4d: the dense methylation path, N = 8,192 people x the 485,577
+# probes of the Illumina HumanMethylation450 array; X standard normal per
+# probe, bench.py's phenotype recipe (1,000 causal probes, h2 = 0.5).
+# N / M = 0.017 leaves the effects poorly determined (config X, N / M =
+# 0.01, reads 0.38), so the floor only catches a broken product
+DENSE_N, DENSE_M = 8192, 485_577
+DENSE_CORR_MIN = 0.2
+# phase 5v: state_evolution from the same draws on the card and the CPU,
+# float32 (tests/test_torch_crossval.py holds it against JAX within 1e-6)
+SE_CARD_CPU_TOL = 1e-6
+
+
+def retries(hist, rho0):
+    """Each iteration's rejected tries of the damping tuner: rho_cross =
+    rho 0.9^k, rho the previous iteration's (``rho0`` at iteration 1)."""
+    out, rho = [], rho0
+    for h in hist:
+        out.append(int(round(np.log(float(h["rho_cross"]) / rho)
+                             / np.log(0.9))))
+        rho = float(h["rho"])
+    return out
+
+
+def phase_cross_val_b(geno, problem):
+    """Phase 4c: 10 cross-validated iterations (use_cross_val: 98% of the
+    people train, 2% are held out to re-damp x1 while their R2 falls) on
+    phase 4's instance; each iteration's cv_r2, rho_cross, retries, host
+    syncs and ms, the median beside phase 4's, corr(x_hat, beta) and the
+    launches, which must show the a-only kernels and nothing else."""
+    log("== phase 4c: cross-validated linear VAMP at config B")
+    from gvamp_tpu_torch import linear
+    from gvamp_tpu_torch.ops import matvec
+    beta, vars_t, probs_t, _, hist4 = problem
+    cfg = linear.VampConfig(max_iter=CFG_B_ITERS, rho=0.15, gam1_init=1e-8,
+                            gamw_init=2.0, use_cross_val=True)
+    matvec.reset_launches()
+    t0 = time.perf_counter()
+    x_hat, _, hist = linear.infer(geno, cfg, probs_t, vars_t, verbose=False)
+    t_infer = time.perf_counter() - t0
+    launches = dict(matvec.LAUNCHES)
+    log(f"  set-up and {len(hist)} iterations {t_infer:.2f} s")
+    log("  it     cv_r2  rho_cross  retries  R2_train_1  cg   wall_ms  syncs")
+    for h, k in zip(hist, retries(hist, cfg.rho)):
+        log(f"  {h['it']:2d} {float(h['cv_r2']):9.5f} "
+            f"{float(h['rho_cross']):10.5f} {k:8d} "
+            f"{float(h['R2_train_1']):11.5f} {h['cg_iters']:4d} "
+            f"{h['wall_ms']:9.2f} {h['host_syncs']:6d}")
+    med = float(np.median([h["wall_ms"] for h in hist[2:]]))
+    med4 = float(np.median([h["wall_ms"] for h in hist4[2:]]))
+    corr = float(np.corrcoef(x_hat, beta)[0, 1])
+    log(f"  steady-state median {med:.2f} ms/it against phase 4's "
+        f"{med4:.2f}; corr(x_hat, beta) = {corr:.5f} (limit {CV_CORR_MIN})")
+    if not (np.isfinite(x_hat).all() and all(
+            np.isfinite(float(h["cv_r2"])) for h in hist)):
+        raise AssertionError("cross-validation: non-finite values")
+    if not corr >= CV_CORR_MIN:
+        raise AssertionError(f"cross-validation: corr {corr:.4f}")
+    check_launches("config B cross-validation", launches,
+                   ("axm_i8a", "atxm_i8a"),
+                   ("axm_i8", "atxm_i8", "gram_i8a", "gram_i8"))
+    return launches
+
+
+def phase_modes_bm(geno, problem, run_bm):
+    """Phase 4v: the run modes' work at full width on phase 4m's container
+    (config Bm, built in memory): the last MODES_SERIES estimates of its
+    run written to a temporary directory and read back as a series
+    (cli._estimate_series), then scored (cli.score_series, each R2 within
+    SCORE_R2_TOL of 4m's R2_train_1 at that iteration), pvals-calc's LOO
+    over all of them in one pass (the last estimate's file equal to 4m's
+    loo_pvals within CARD_CPU_LOG10P_TOL) and LOCO for the last one (the
+    same against 4m's loco_pvals), and the matrix prediction (its last
+    column against 4m's A x1); the seconds of each, and the launches,
+    which must show axm_i8 and nothing of the tools."""
+    log("== phase 4v: the run modes at config Bm on phase 4m's container")
+    from gvamp_tpu_torch import cli
+    from gvamp_tpu_torch.io import vecio
+    from gvamp_tpu_torch.ops import matvec
+    hist = problem[4]
+    its = sorted(run_bm["ests"])
+    matvec.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        for it in its:
+            vecio.write_bin_shard(os.path.join(tmp, f"bm_it_{it}.bin"),
+                                  run_bm["ests"][it], 0)
+        opt = argparse.Namespace(test_iter_range=(its[0], its[-1]),
+                                 estimate_file=os.path.join(
+                                     tmp, f"bm_it_{its[0]}.bin"))
+        series = list(cli._estimate_series(opt, geno.M, geno.S))
+        ests = [e for _, e in series]
+        t0 = time.perf_counter()
+        scores = []
+        for it, est in series:
+            with contextlib.redirect_stdout(io.StringIO()):
+                scores.append(cli.score_series(geno, [(it, est)])[0])
+        t_score = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p_loo, _ = cli.pvals_series(geno, ests)
+        torch.cuda.synchronize()
+        t_loo = time.perf_counter() - t0
+        path = os.path.join(tmp, f"bm_it_{its[-1]}_pvals.bin")
+        vecio.write_bin_shard(path, p_loo[-1], 0)
+        p_file = vecio.read_bin_shard(path, geno.M, 0)
+        t0 = time.perf_counter()
+        _, p_loco = cli.pvals_series(geno, ests[-1:], loo=False,
+                                     chroms=1 + np.arange(CFG_B_M)
+                                     * BM_CHROMS // CFG_B_M)
+        t_loco = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        zs = cli.predict_series(geno, ests)
+        t_pred = time.perf_counter() - t0
+    launches = dict(matvec.LAUNCHES)
+    log(f"  series of {len(series)} estimates (iterations {its}): scoring "
+        f"{t_score:.2f} s, LOO over the series {t_loo:.2f} s, LOCO for it "
+        f"{its[-1]} {t_loco:.2f} s, matrix prediction {t_pred:.2f} s")
+    for it, sc in zip(its, scores):
+        r2 = float(hist[it - 1]["R2_train_1"])
+        log(f"  it {it}: score {sc:.6f}, R2_train_1 {r2:.6f} (limit "
+            f"{SCORE_R2_TOL:g})")
+        if not abs(sc - r2) < SCORE_R2_TOL:
+            raise AssertionError(f"run-mode score at it {it} is off")
+    tiny = np.finfo(np.float64).tiny  # p-values that underflowed to 0
+    for name, got, want in (("LOO", p_file, run_bm["p_loo"]),
+                            ("LOCO", p_loco[0], run_bm["p_loco"])):
+        lg, lw = (np.log10(np.maximum(p, tiny)) for p in (got, want))
+        d = float((np.abs(lg - lw) / np.maximum(1.0, -lw)).max())
+        log(f"  {name} of it {its[-1]} against phase 4m's: max |dlog10 p| / "
+            f"max(1, |log10 p|) = {d:.3e} (limit {CARD_CPU_LOG10P_TOL:g})")
+        if not (pvals_in_range(got) and d <= CARD_CPU_LOG10P_TOL):
+            raise AssertionError(f"pvals-calc {name} differs from phase 4m")
+    z = run_bm["z1"]
+    dz = float(np.abs(zs[:, -1] - z).max() / np.abs(z).max())
+    log(f"  prediction [{zs.shape[0]}, {zs.shape[1]}]: last column against "
+        f"phase 4m's A x1: max|diff| / max = {dz:.3e} (limit 1e-6)")
+    if not (zs.shape == (CFG_B_N, len(series)) and dz < 1e-6):
+        raise AssertionError("the matrix prediction is off")
+    check_launches("run modes at config Bm", launches, ("axm_i8",),
+                   ("axm_i8a", "atxm_i8a", "gram_i8a", "gram_i8"))
+    return launches
+
+
+def phase_dense():
+    """Phase 4d: the dense methylation path at DENSE_N x DENSE_M (Mpad
+    485,584, 15.9 GB of float32 on the card): X drawn on the card from a
+    seeded generator and standardised per probe, GenoDense.from_device (no
+    host copy), bench.py's phenotype on that X, then 10 linear iterations;
+    the statistics' seconds, each iteration's ms, corr(x_hat, beta) and
+    the peak memory.  No kernel of the port runs here: the products are
+    torch.matmul, as JAX's are plain XLA.  X is freed at the end."""
+    log(f"== phase 4d: dense methylation path, N={DENSE_N} x M={DENSE_M}")
+    from gvamp_tpu_torch import linear, sim
+    from gvamp_tpu_torch.data import GenoDense
+    from gvamp_tpu_torch.ops import matvec
+    N, M = DENSE_N, DENSE_M
+    Mpad = (M + 7) // 8 * 8
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    X = torch.zeros((Mpad, N), device="cuda")
+    for lo in range(0, M, 16_384):
+        x = torch.randn((min(M, lo + 16_384) - lo, N), generator=gen,
+                        device="cuda")
+        X[lo:lo + x.shape[0]] = ((x - x.mean(dim=1, keepdim=True))
+                                 / x.std(dim=1, keepdim=True))
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    geno = GenoDense.from_device(X, np.zeros(N), N=N, M=M,
+                                 standardize_phen=False)
+    torch.cuda.synchronize()
+    t_stats = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    vars_t, probs_t = sim.two_group_prior(M, 1000, 0.5)
+    beta = sim.simulate_mixture(rng, M, vars_t, probs_t)
+    t0 = time.perf_counter()
+    geno.set_phen(sim.simulate_linear_phenotype(geno, beta, 2.0, rng))
+    torch.cuda.synchronize()
+    t_sim = time.perf_counter() - t0
+    log(f"  X drawn and standardised {t_draw:.2f} s ({Mpad * N * 4 / 1e9:.2f}"
+        f" GB); statistics {t_stats:.2f} s; phenotype + statistics "
+        f"{t_sim:.2f} s")
+    matvec.reset_launches()
+    cfg = linear.VampConfig(max_iter=CFG_B_ITERS, rho=0.15, gam1_init=1e-8,
+                            gamw_init=2.0)
+    t0 = time.perf_counter()
+    x_hat, _, hist = linear.infer(geno, cfg, probs_t, vars_t, verbose=False)
+    t_infer = time.perf_counter() - t0
+    log(f"  infer set-up (SLQ basis, A^T y, A u) "
+        f"{t_infer - sum(h['wall_ms'] for h in hist) / 1e3:.2f} s")
+    for h in hist:
+        log(f"  {h['it']:2d} gam1 {float(h['gam1']):11.5g} gamw "
+            f"{float(h['gamw']):9.5g} R2_train_1 {float(h['R2_train_1']):8.5f}"
+            f" cg {h['cg_iters']:3d} {h['wall_ms']:9.2f} ms "
+            f"{h['host_syncs']:3d} syncs")
+    corr = float(np.corrcoef(x_hat, beta)[0, 1])
+    log(f"  steady-state median "
+        f"{np.median([h['wall_ms'] for h in hist[2:]]):.2f} ms/it; corr("
+        f"x_hat, beta) = {corr:.5f} (limit {DENSE_CORR_MIN}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (np.isfinite(x_hat).all() and len(hist) == CFG_B_ITERS
+            and corr >= DENSE_CORR_MIN):
+        raise AssertionError("the dense path missed its expectations")
+    if any(matvec.LAUNCHES.values()):
+        raise AssertionError(f"the dense path launched a packed kernel: "
+                             f"{matvec.LAUNCHES}")
+    del X, geno
+    torch.cuda.empty_cache()
+
+
+def phase_card_vs_cpu_dense():
+    """Phase 5v: the linear engine on a dense matrix (N=2000 x M=4096,
+    standard normal) on the card and on the CPU, 6 iterations, x1 within
+    5e-5 and the scalars within 2e-4 (phase 5's limits)."""
+    log("== phase 5v: dense card vs CPU, N=2000 x M=4096, 6 iterations")
+    from gvamp_tpu_torch import linear, sim
+    from gvamp_tpu_torch.data import GenoDense
+    N, M = 2000, 4096
+    rng = np.random.default_rng(7)
+    X = rng.standard_normal((M, N))
+    vars_t, probs_t = sim.two_group_prior(M, 40, 0.5)
+    beta = sim.simulate_mixture(rng, M, vars_t, probs_t)
+    cfg = linear.VampConfig(max_iter=6, rho=0.3, gam1_init=1e-8,
+                            gamw_init=2.0, seed=5)
+    out, y = {}, None
+    for dev in ("cuda", "cpu"):
+        g = GenoDense.from_arrays(X, np.zeros(N), N=N, device=dev,
+                                  standardize_phen=False)
+        if y is None:
+            y = sim.simulate_linear_phenotype(g, beta, 2.0, rng)
+        g.set_phen(y)
+        t0 = time.perf_counter()
+        out[dev] = linear.infer(g, cfg, probs_t, vars_t, verbose=False)
+        log(f"  {dev}: {time.perf_counter() - t0:.2f} s")
+    compare_card_cpu("dense", out["cuda"], out["cpu"])
+
+
+def compare_card_cpu(label, card, cpu, keys=("gam1", "gam2", "gamw",
+                                              "alpha2")):
+    """x1 within 5e-5 of max|x1| and the last iteration's ``keys`` within
+    2e-4 (phase 5's limits) between a card run and a CPU run, each
+    (x, state, history)."""
+    (x_c, _, h_c), (x_p, _, h_p) = card, cpu
+    dx = float(np.abs(x_c - x_p).max() / np.abs(x_p).max())
+    log(f"  {label}: max|x1 card - x1 cpu| / max|x1| = {dx:.3e} (limit 5e-5)")
+    if not dx < 5e-5:
+        raise AssertionError(f"{label}: card and CPU x1 disagree")
+    for k in keys:
+        a, b = float(h_c[-1][k]), float(h_p[-1][k])
+        log(f"  {k}: card {a:.7g} cpu {b:.7g} rel {abs(a - b) / abs(b):.3e} "
+            f"(limit 2e-4)")
+        if not abs(a - b) <= 2e-4 * abs(b):
+            raise AssertionError(f"{label}: card and CPU {k} disagree")
+
+
+def phase_state_evo_card_vs_cpu():
+    """Phase 5v: linear.state_evolution_from_draws on the card and on the
+    CPU from the same draws (float32, Mt = 131,072 Monte-Carlo samples,
+    a two-component prior and its neighbour), within SE_CARD_CPU_TOL."""
+    log("== phase 5v: state_evolution card vs CPU, float32")
+    from gvamp_tpu_torch import linear
+    from gvamp_tpu_torch.prior import Prior
+    n_mc = CFG_B_M
+    pr = (Prior(torch.tensor([0.99, 0.01]), torch.tensor([0.0, 50.0])),
+          Prior(torch.tensor([0.98, 0.02]), torch.tensor([0.0, 30.0])))
+    draws = linear.state_evolution_draws(3, 2, pr[0], pr[1], n_mc)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p0, p1 = (Prior(p.probs.to(dev), p.vars.to(dev)) for p in pr)
+        res[dev] = [float(v) for v in linear.state_evolution_from_draws(
+            *(d.to(dev) for d in draws), p0, 4.0, 0.3, p1, 2.5)]
+    d = max(abs(a - b) / abs(b) for a, b in zip(res["cuda"], res["cpu"]))
+    log(f"  (alpha1, eta1, gam2) card {res['cuda']} cpu {res['cpu']}: max "
+        f"rel diff {d:.3e} (limit {SE_CARD_CPU_TOL:g})")
+    if not d <= SE_CARD_CPU_TOL:
+        raise AssertionError("state_evolution: card and CPU disagree")
+
+
+def flagship_test_files(tmp, N, M, beta):
+    """A test set for the flagship data: N other people, the same markers
+    and truth, 2% missing calls; returns (bed, phen)."""
+    from gvamp_tpu_torch import sim
+    from gvamp_tpu_torch.data import GenoBed
+    from gvamp_tpu_torch.io import plink
+    rng = np.random.default_rng(43)
+    bed, phen = (os.path.join(tmp, f"test.{e}") for e in ("bed", "phen"))
+    plink.write_bed(bed, sim.random_genotypes(rng, M, N, miss_rate=0.02))
+    g = GenoBed.from_files(bed, None, N=N, Mt=M, device="cuda",
+                           standardize_phen=False)
+    plink.write_phen(phen, sim.simulate_linear_phenotype(
+        g, beta, 1 / (1 - 0.8), rng))
+    return bed, phen
+
+
+def cli_lines(argv) -> list:
+    """The lines a CLI run prints, and its return value."""
+    from gvamp_tpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = cli.main(argv)
+    return buf.getvalue().splitlines(), out
+
+
+def phase_cli_modes():
+    """Phase 6v: the run modes through the CLI on the card, on the flagship
+    files and a test set of 400 other people: sim; infere with
+    --use-cross-val 1 --state-evo 1 and its dumps; test over the dumped
+    series, its R2 at the last iteration against the library's float64
+    score on the CPU within 1e-5; both; pvals-calc with a .bim over the
+    series; predict_single and predict --predict-format matrix; then
+    --run-mode infere --type-data meth on a small .meth file.  Every output
+    file is checked for presence and shape, and no tool-only kernel may
+    launch."""
+    log("== phase 6v: CLI run modes (sim, cross-validated infere with "
+        "--state-evo, test, both, pvals-calc, predict), --type-data meth")
+    from gvamp_tpu_torch import cli, sim
+    from gvamp_tpu_torch.data import GenoBed, GenoDense
+    from gvamp_tpu_torch.io import plink, vecio
+    from gvamp_tpu_torch.ops import matvec
+    N, M, NT, n_it = 800, 240, 400, 6
+    matvec.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        bed, phen, bim, beta = flagship_files(tmp, N, M)
+        tbed, tphen = flagship_test_files(tmp, NT, M, beta)
+        out = os.path.join(tmp, "out")
+        pre = os.path.join(out, "")
+        base = ["--device", "cuda", "--N", str(N), "--Mt", str(M),
+                "--probs", "0.95,0.05", "--vars", "0.0,0.0667", "--rho",
+                "0.3", "--verbosity", "0", "--out-dir", out]
+        test = ["--bed-file-test", tbed, "--phen-files-test", tphen,
+                "--N-test", str(NT), "--Mt-test", str(M)]
+        t0 = time.perf_counter()
+        cli_lines(base + ["--run-mode", "sim", "--bed-file", bed,
+                          "--iterations", "3", "--h2", "0.8", "--CV", "12",
+                          "--out-name", "sim"])
+        bt = vecio.read_bin_shard(pre + "sim_beta_true.bin", M, 0)
+        ys = np.loadtxt(pre + "sim_y.txt")
+        xs = vecio.read_bin_shard(pre + "sim_it_3.bin", M, 0)
+        log(f"  sim: beta_true {bt.shape}, y {ys.shape}, corr(x_3, beta) "
+            f"{np.corrcoef(xs, bt)[0, 1]:.4f}")
+        if not (ys.shape[0] >= N and np.isfinite(xs).all()):
+            raise AssertionError("sim outputs malformed")
+        lines, _ = cli_lines(base + ["--run-mode", "infere", "--bed-file",
+                                     bed, "--phen-files", phen, "--bim-file",
+                                     bim, "--iterations", str(n_it),
+                                     "--use-cross-val", "1", "--state-evo",
+                                     "1", "--out-name", "cv"])
+        se = [ln for ln in lines if re.match(r"\s+it \d+: alpha1 ", ln)]
+        log("  " + "\n  ".join(se))
+        if len(se) != n_it - 1:
+            raise AssertionError(f"--state-evo printed {len(se)} lines")
+        names = [f"{pre}cv{suf}" for it in range(1, n_it + 1)
+                 for suf in (f"_it_{it}.bin", f"_r1_it_{it}.bin",
+                             f"_r2_it_{it}.bin", f"_it_{it}_x2_hat.bin",
+                             f"_z1_it_{it}.csv")]
+        names += [f"{pre}cv_{h}.csv" for h in ("gam1s", "gam2s", "R2trains")]
+        missing = [n for n in names if not os.path.getsize(n)]
+        if missing:
+            raise AssertionError(f"infere outputs missing: {missing}")
+        dumps = [vecio.read_bin_shard(f"{pre}cv_it_{it}.bin", M, 0)
+                 for it in range(1, n_it + 1)]
+        log(f"  infere --use-cross-val: corr(x_{n_it}, beta) "
+            f"{np.corrcoef(dumps[-1], beta)[0, 1]:.5f}")
+        lines, best = cli_lines(base + test + [
+            "--run-mode", "test", "--estimate-file", pre + "cv_it_2.bin",
+            "--test-iter-range", f"2,{n_it}", "--out-name", "t"])
+        r2_last = float(re.search(r"R2 = (\S+)", [
+            ln for ln in lines if ln.startswith(f"it {n_it}:")][0]).group(1))
+        g = GenoBed.from_files(tbed, tphen, N=NT, Mt=M, device="cpu",
+                               dtype=torch.float64)
+        with contextlib.redirect_stdout(io.StringIO()):
+            r2_lib = cli.score_series(g, [(n_it, dumps[-1])])[0]
+        log(f"  test: {lines[-1]}; R2 at it {n_it} {r2_last:.6f} against "
+            f"the CPU float64 score {r2_lib:.6f} (limit 1e-5)")
+        if not abs(r2_last - r2_lib) <= 1e-5:
+            raise AssertionError("test mode's R2 differs from the library's")
+        lines, r2_both = cli_lines(base + test + [
+            "--run-mode", "both", "--bed-file", bed, "--phen-files", phen,
+            "--iterations", str(n_it), "--out-name", "b"])
+        log(f"  both: {lines[-1]}")
+        if not np.isfinite(r2_both):
+            raise AssertionError("both mode's R2 is not finite")
+        cli_lines(base + ["--run-mode", "pvals-calc", "--bed-file", bed,
+                          "--phen-files", phen, "--bim-file", bim,
+                          "--estimate-file", pre + "cv_it_4.bin",
+                          "--test-iter-range", f"4,{n_it}",
+                          "--out-name", "p"])
+        for it in range(4, n_it + 1):
+            for suf in ("_pvals.bin", "_pvals_LOCO.bin"):
+                p = vecio.read_bin_shard(f"{pre}p_it_{it}{suf}", M, 0)
+                if not pvals_in_range(p):
+                    raise AssertionError(f"pvals-calc {suf} out of range")
+            for ch in range(1, 5):
+                pred = np.loadtxt(f"{pre}p_it_{it}_LOCO_chr_{ch}.csv")
+                if pred.shape[0] < N:
+                    raise AssertionError("pvals-calc predictor malformed")
+        cli_lines(base + test + ["--run-mode", "predict_single",
+                                 "--estimate-file", pre + f"cv_it_{n_it}.bin",
+                                 "--out-name", "ps"])
+        ps = np.loadtxt(pre + "ps_predict.csv")
+        for it in (n_it - 1, n_it):
+            vecio.write_bin_shard(f"{pre}gtemp_{it}_{it}_gibbs_est.bin",
+                                  dumps[it - 1], 0)
+        # the Gibbs-named series relative to the working directory: the
+        # extension is taken after the path's first dot, which the
+        # temporary directory's name may hold (ROADMAP.md Queue 3)
+        with contextlib.chdir(out):
+            cli_lines(base + test + [
+                "--run-mode", "predict", "--estimate-file",
+                f"gtemp_{n_it - 1}_{n_it - 1}_gibbs_est.bin",
+                "--test-iter-range", f"{n_it - 1},{n_it}", "--predict-format",
+                "matrix", "--out-name", "pm"])
+        pm = np.loadtxt(pre + "pm_predict_matrix.csv", delimiter=",")
+        # predict_single's CSV holds 6 significant digits ("%g")
+        dp = float(np.abs(pm[:, -1] - ps[:NT]).max() / np.abs(ps).max())
+        log(f"  pvals-calc: LOO, LOCO and 4 predictors for it 4-{n_it}; "
+            f"predict_single {ps.shape}, predict matrix {pm.shape}, its "
+            f"last column against predict_single {dp:.2e} (limit 1e-5)")
+        if not (ps.shape[0] >= NT and pm.shape == (NT, 2) and dp < 1e-5):
+            raise AssertionError("predict outputs malformed")
+        # --type-data meth: the recipe of tests/test_cli.py:251-281
+        rng = np.random.default_rng(33)
+        Nm, Mm = 300, 96
+        X = rng.standard_normal((Mm, Nm))
+        meth = os.path.join(tmp, "m.meth")
+        plink.write_meth(meth, X)
+        gd = GenoDense.from_arrays(X, np.zeros(Nm), N=Nm, device="cuda",
+                                   standardize_phen=False)
+        vars_t, probs_t = sim.two_group_prior(Mm, 8, 0.8)
+        bm = sim.simulate_mixture(rng, Mm, vars_t, probs_t)
+        plink.write_phen(os.path.join(tmp, "m.phen"),
+                         sim.simulate_linear_phenotype(gd, bm, 5.0, rng))
+        cli_lines(["--device", "cuda", "--run-mode", "infere",
+                   "--type-data", "meth", "--bed-file", meth,
+                   "--phen-files", os.path.join(tmp, "m.phen"), "--N",
+                   str(Nm), "--Mt", str(Mm), "--iterations", "6", "--rho",
+                   "0.3", "--vars", ",".join(map(str, vars_t)), "--probs",
+                   ",".join(map(str, probs_t)), "--verbosity", "0",
+                   "--out-dir", out, "--out-name", "meth"])
+        xm = vecio.read_bin_shard(pre + "meth_it_6.bin", Mm, 0)
+        cm = float(np.corrcoef(xm, bm)[0, 1])
+        log(f"  --type-data meth: corr(x_6, beta) {cm:.5f} (limit 0.9, "
+            f"tests/test_cli.py's)")
+        if not cm > 0.9:
+            raise AssertionError("the meth run missed its expectation")
+    log(f"  phase 6v in {time.perf_counter() - t0:.2f} s")
+    check_no_tool_launches("CLI run modes", matvec.LAUNCHES)
+
+
+def phase_modes_alone():
+    """--modes: phases 4c, 4v, 4d, 5v and 6v on instances of their own
+    (configs B and Bm drawn one after the other from one generator): the
+    SLQ run at config B beside 4c, phase 4m at config Bm before 4v."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    words = synth_words(gen, False, CFG_B_N, CFG_B_M)
+    _, geno, problem = phase_main_path(words)
+    phase_cross_val_b(geno, problem)
+    del words, geno
+    torch.cuda.empty_cache()
+    words = synth_words(gen, True, CFG_B_N, CFG_B_M)
+    _, geno, problem, run_bm = phase_config_bm(words)
+    phase_modes_bm(geno, problem, run_bm)
+    del words, geno
+    torch.cuda.empty_cache()
+    phase_dense()
+    phase_card_vs_cpu_modes()
+    phase_cli_modes()
+
+
+def phase_card_vs_cpu_modes():
+    """Phase 5v: cross-validated linear, complete and with 2% missing
+    calls, the dense linear engine, and state_evolution, card against
+    CPU."""
+    phase_card_vs_cpu(0.0, cross_val=True)
+    phase_card_vs_cpu(0.02, cross_val=True)
+    phase_card_vs_cpu_dense()
+    phase_state_evo_card_vs_cpu()
+
+
 # the kernels that only the tools launch (phase 7), and the tools
 TOOL_KERNELS = ("axm_bf16", "atxm_bf16", "axm_i8s", "atx_a") + STUDY
 TOOLS = ("kernel_check", "bench_gram", "profile_kernels", "bench_stream",
@@ -3153,6 +3812,10 @@ def main(argv=None):
                     help="only build and the phases of the engine options "
                          "(3r, 4q at config B, 4r, 5q, 6q), the SLQ run "
                          "beside the probe run")
+    ap.add_argument("--modes", action="store_true",
+                    help="only build and the phases of the run modes, "
+                         "cross-validation and the dense path (4c, 4v, 4d, "
+                         "5v, 6v), phases 4 and 4m beside them")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     phase_environment()
@@ -3176,6 +3839,11 @@ def main(argv=None):
         log(f"options run: phases 3r, 4q at config B, 4r, 5q and 6q "
             f"passed in {time.perf_counter() - t_start:.1f} s")
         return
+    if args.modes:
+        phase_modes_alone()
+        log(f"modes run: phases 4, 4c, 4m, 4v, 4d, 5v and 6v passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     # the staged study products draw from their own generator, so that the
@@ -3196,6 +3864,8 @@ def main(argv=None):
     full_g = phase_kernels_gram(words, gen, True)
     phase_kernels_window(words, "config B")
     launches, geno, problem = phase_main_path(words)
+    launches_v = {"cross-validation at config B (phase 4c)":
+                  phase_cross_val_b(geno, problem)}
     launches_q = {"config B probe path": phase_probe_b(geno, problem),
                   "config B red": phase_red(geno, problem, "config B", True)}
     launches_f = phase_fused_linear("config B", geno, problem, True)
@@ -3213,7 +3883,9 @@ def main(argv=None):
                                       "config Bm"))
     full_gm = phase_kernels_gram(words, gen, False)
     phase_kernels_window(words, "config Bm")
-    launches_m, geno, problem = phase_config_bm(words)
+    launches_m, geno, problem, run_bm = phase_config_bm(words)
+    launches_v["run modes at config Bm (phase 4v)"] = phase_modes_bm(
+        geno, problem, run_bm)
     launches_q["config Bm red"] = phase_red(geno, problem, "config Bm",
                                             False)
     launches_mf = phase_fused_linear("config Bm", geno, problem, False)
@@ -3230,6 +3902,7 @@ def main(argv=None):
         phase_dual_x(words, words_m)
     del words, words_m
     torch.cuda.empty_cache()
+    phase_dense()
     phase_moments_biobank()
     for use_xxt in (False, True):
         phase_card_vs_cpu(0.0, use_xxt)
@@ -3244,12 +3917,14 @@ def main(argv=None):
                              ("bin_class", 0.0), ("robust", 0.0)):
         phase_card_vs_cpu_multi(model, miss_rate)
     phase_card_vs_cpu_options()
+    phase_card_vs_cpu_modes()
     phase_cli()
     phase_cli_xxt()
     phase_cli_probit()
     phase_cli_restart()
     phase_cli_multi()
     phase_cli_options()
+    phase_cli_modes()
     launches_tools = phase_tools()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # times at B = 1 on the whole matrix of the path that runs the kernel:
@@ -3301,6 +3976,9 @@ def main(argv=None):
                         + GRAM_PRIM_KERNELS))
     for run, c in launches_q.items():
         log(f"{run} (phases 4q / 4r): launches "
+            + ", ".join(f"{n} {c[n]}" for n in PRODUCT_KERNELS if c[n]))
+    for run, c in launches_v.items():
+        log(f"{run}: launches "
             + ", ".join(f"{n} {c[n]}" for n in PRODUCT_KERNELS if c[n]))
     log(smi())
     log(json.dumps({"kernels": kernels}))

@@ -1,13 +1,12 @@
 """gvamp_tpu_torch: the PyTorch / CUDA port of gvamp_tpu for NVIDIA Hopper.
 
 A second package beside the JAX reference ``gvamp_tpu``.  It runs on one
-device the linear VAMP engine (primal, with the two-pass or the opt-in
-fused Gram, or dual) and the probit engine with fixed covariates, on
-complete (imputed) genotypes and on genotypes with missing calls, then the
-LOO and LOCO association p-values.  The packed-genotype products run in
-hand-written CUDA kernels on the card (``csrc/matvec.cu``,
-``csrc/fragments.cu``, ``csrc/gram_aat.cu``) and in their plain PyTorch
-versions on the CPU.
+device the linear, probit and Huber VAMP engines, one phenotype or
+several (``multi``), on complete (imputed) genotypes, on genotypes with
+missing calls and on dense methylation data, the LOO and LOCO association
+p-values, and every run mode of the JAX CLI.  The packed-genotype
+products run in hand-written CUDA kernels on the card (``csrc/``) and in
+their plain PyTorch versions on the CPU.
 
 The package stands alone: it imports ``torch`` and never ``jax``, and
 nothing of ``gvamp_tpu``, not even its modules that import no JAX.  What

@@ -7,7 +7,9 @@ generator is stored as its ``get_state()`` bytes and listed under
 ``gen_fields`` (a key of the port; JAX's typed PRNG keys are listed under
 ``key_fields``).  ``load_state`` reads the port's own checkpoints and the
 linear and probit ones the JAX package writes, with SLQ traces or probe
-columns, and those from before the SLQ traces.
+columns, and those from before the SLQ traces; a linear checkpoint without
+the cross-validation field ``cv_r2`` (the port's before it ran the tuner)
+resumes with -1, a fresh state's value.
 """
 
 from __future__ import annotations
@@ -21,9 +23,11 @@ from gvamp_tpu_torch.io import vecio
 
 # CG warm-start fields added to the JAX states after early checkpoints
 # were written: a checkpoint without them resumes with zeros (a cold warm
-# start, which the engines' guards detect), as gvamp_tpu/ckpt.py:121-171
+# start, which the engines' guards detect), as gvamp_tpu/ckpt.py:121-171;
+# and cv_r2, which the port's checkpoints lacked before it ran the
+# cross-validation tuner, with -1
 _WARM_START_FIELDS = {"gmu", "gmu_n", "mu_cg", "mu_probe", "mu_probe_n",
-                      "tau_gmu", "mu_prevb", "gmu_prev"}
+                      "tau_gmu", "mu_prevb", "gmu_prev", "cv_r2"}
 
 
 def save_state(path: str, state, **extra) -> None:
@@ -92,20 +96,21 @@ def _fill_warm_start(vals: dict, missing: list, meta: dict) -> None:
         # zeros disarm the secant extrapolation until two fresh exits exist
         if f in missing:
             vals[f] = np.zeros_like(vals["gmu"])
+    if "cv_r2" in missing:  # no held-out R2 accepted yet
+        vals["cv_r2"] = np.asarray(-1.0, x1.dtype)
 
 
 def load_state(path: str, state_cls, device="cuda", dtype=None):
     """npz -> (state_cls instance on ``device``, metadata).  Floating
     fields take ``dtype`` where given; ``it`` becomes a host int; a
     ``gen_fields`` entry becomes a new CPU generator restored from its
-    bytes.  JAX's cross-validation field ``cv_r2`` (not ported) is
-    dropped, and the warm-start fields a checkpoint lacks are zero-filled.
-    Raises ValueError on a JAX Huber checkpoint (its PRNG key)."""
+    bytes.  The warm-start fields a checkpoint lacks are zero-filled, and
+    a missing ``cv_r2`` is -1.  Raises ValueError on a JAX Huber checkpoint
+    (its PRNG key)."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(bytes(z["_meta"]).decode())
         _check_resumable(path, meta)
-        vals = {name: z[f"f_{name}"] for name in meta["fields"]
-                if name != "cv_r2"}
+        vals = {name: z[f"f_{name}"] for name in meta["fields"]}
     gen_fields = set(meta.get("gen_fields", []))
     unknown = set(vals) - set(state_cls._fields)
     if unknown:

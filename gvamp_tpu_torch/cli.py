@@ -1,11 +1,28 @@
 """Run-mode entry point of the PyTorch port: ``python -m gvamp_tpu_torch.cli``.
 
 The flags are those of the JAX package's CLI (parsed by the port's copy of
-its ``Options``), plus ``--device`` (default ``cuda``) for the port.  This
-slice runs ``--run-mode infere`` and ``--run-mode restart`` on one device
-(``cli.py:61-80, 113-242, 400-520`` of the JAX package), for one phenotype
-or, with several comma-separated ``--phen-files``, for T phenotypes in one
-joint run of the multi-trait engines (``gvamp_tpu_torch.multi``).
+its ``Options``), plus ``--device`` (default ``cuda``) for the port.  It
+runs every run mode of the JAX CLI (``gvamp_tpu/cli.py``) on one device:
+
+  infere          fit the model, dump per iteration
+  restart         continue a checkpoint (``--resume``) or start from an
+                  estimate file with gam1 and gamw injected
+  test            R2 (bin_class: TPR / FPR / accuracy) sweep of a stored
+                  estimate series over a test set
+  both            infere, then score the estimate on the test set
+  pvals-calc      LOO / LOCO p-values of a stored series, one forward
+                  product and one moments pass for the whole series
+  predict         predictions of a Gibbs-named series: one matrix CSV or
+                  one file per individual (``--predict-format``)
+  predict_single  one estimate's prediction CSV
+  sim             simulate a truth and a phenotype, then infer
+
+for one phenotype or, with several comma-separated ``--phen-files``, for
+T phenotypes in one joint run of the multi-trait engines
+(``gvamp_tpu_torch.multi``), whose series ``test``, ``both`` and
+``pvals-calc`` score trait by trait.  ``--type-data meth`` reads a dense
+raw-double matrix (``data.GenoDense``) for every mode but the predict
+ones, which read .bed genotypes in the JAX CLI whatever --type-data says.
 ``--model linear`` writes the reference-layout dumps per iteration:
 
   {out}_it_{i}.bin  {out}_r1_it_{i}.bin  {out}_r2_it_{i}.bin
@@ -21,11 +38,7 @@ heavy-tailed noise) write
   {out}{tag}_z1_it_{i}.csv  {out}{tag}_p1_it_{i}.csv
 
 with ``tag`` ``_probit`` or ``_robust``.  ``--checkpoint PATH`` writes the
-full engine state and its config at every dump; ``--run-mode restart``
-either continues such a checkpoint (``--resume PATH``: ``--iterations``
-more iterations under the checkpoint's config) or starts from an estimate
-file (``--estimate-file``: r1 for the linear model, with ``--gam1-init``
-and ``--gamw-init`` injected, as the JAX CLI does).
+full engine state and its config at every dump.
 A multi-trait run writes each trait's estimate as
 ``{out}_phen{t}{tag}_it_{i}.bin``, a linear one the ``_phen{t}_gam1s`` /
 ``_gam2s`` / ``_R2trains`` histories, and ``--checkpoint`` the joint state
@@ -35,6 +48,9 @@ at every iteration with the trait count ``T`` in its metadata;
 as the JAX CLI refuses them.  ``--use-slq 0`` takes the Onsager traces
 from probe columns riding the block CG, ``--red 1`` (``--model linear``,
 one phenotype) solves on a moving 10% window of the samples,
+``--use-cross-val 1`` holds out the last 2% of the samples to tune the
+damping on their R2, ``--state-evo 1`` prints the state-evolution
+prediction beside each iteration's measured alpha1, eta1 and gam2,
 ``--sync-every K`` fetches the metrics (and runs the dumps and the
 stopping test) once per K iterations, ``--phase-timers 1`` prints each
 phase's wall clock per iteration, ``--store-pip 1`` writes the final
@@ -50,9 +66,10 @@ computed); a multi-trait linear run writes them per trait under
 ``{out}_phen{t}``.  Genotypes with missing calls run through the general
 kernels; ``--use-XXT-denoiser 1`` runs the dual (N-space) LMMSE solve
 through the fused dual Gram kernels; ``--deflate-k K`` preconditions the
-primal solves with the top K eigenpairs of A^T A.  Every other run mode,
-model and option outside the slice raises ``NotImplementedError`` naming
-its ROADMAP.md item (Queue 1 item 11).
+primal solves with the top K eigenpairs of A^T A.  A device mesh
+(``--devices``, ``--distributed``) raises ``NotImplementedError`` naming
+its ROADMAP.md item; on dense data the options that need the packed
+operator raise it naming the option, where the JAX package fails.
 
 Example::
 
@@ -68,37 +85,41 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import re
 import sys
 
 import numpy as np
 import torch
 
-from gvamp_tpu_torch import linear, multi, probit, robust
+from gvamp_tpu_torch import linear, multi, probit, robust, sim
 from gvamp_tpu_torch.ckpt import (load_state, read_meta, save_state,
                                   write_scalar_history)
-from gvamp_tpu_torch.data import GenoBed
+from gvamp_tpu_torch.data import GenoBed, GenoDense
 from gvamp_tpu_torch.io import plink, vecio
 from gvamp_tpu_torch.ops import pvals
+from gvamp_tpu_torch.ops.special import normal_cdf
 from gvamp_tpu_torch.options import Options
 from gvamp_tpu_torch.prior import Prior, initialize_prior, pip
 
 
 def _check_slice(opt: Options) -> None:
-    """Raise on every flag outside the ported slice."""
+    """Raise on the flags the port does not run."""
     if opt.backend != "auto":
         raise ValueError("--backend picks a JAX backend; the port routes by "
                          "--dtype (float32: CUDA kernels, float64: CPU)")
-    for on, what, item in (
-            (opt.run_mode not in ("infere", "restart"),
-             f"--run-mode {opt.run_mode}", 11),
-            (opt.type_data != "bed", f"--type-data {opt.type_data}", 11),
-            (opt.state_evo != 0, "--state-evo", 11),
-            (opt.devices > 1 or opt.distributed != 0, "a device mesh "
-                                                     "(--devices, "
-                                                     "--distributed)", 11)):
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP.md Queue 1 item {item}")
+    if opt.devices > 1 or opt.distributed != 0:
+        raise NotImplementedError(
+            "a device mesh (--devices, --distributed) is not ported yet: "
+            "ROADMAP.md Queue 1 item 11")
+    if opt.type_data == "meth" and opt.run_mode in ("predict",
+                                                    "predict_single"):
+        # gvamp_tpu/cli.py:765-770 reads --bed-file-test as packed .bed
+        # genotypes whatever --type-data says
+        raise NotImplementedError(
+            f"--run-mode {opt.run_mode} with --type-data meth: the JAX "
+            f"package's predict modes read --bed-file-test as a .bed file "
+            f"whatever --type-data says; the port refuses rather than read "
+            f"a .meth file as packed genotypes")
 
 
 _TAGS = {"linear": "", "bin_class": "_probit", "robust": "_robust"}
@@ -203,12 +224,38 @@ def run_inference(opt: Options, geno: GenoBed, gam1=None, gamw=None,
         x1_init=x1_init, callbacks=[dumper(cfg)], **common)
     if hist:
         write_scalar_history(opt.out_prefix, hist)
+    if opt.state_evo and hist:
+        _print_state_evolution(geno, hist, opt.seed)
     # the JAX CLI's test (cli.py:176): the default 0 computes no p-values
     if opt.store_pvals:
         _store_pvals_after_infer(opt, geno, state)
     if opt.store_pip:
         _store_pip(opt, geno, state)
     return x_est, state, hist
+
+
+def _print_state_evolution(geno, hist, seed: int) -> None:
+    """--state-evo (``gvamp_tpu/cli.py:332-353``): per iteration, the
+    state-evolution prediction of (alpha1, eta1, gam2) from the prior,
+    gam1 and rho in the metrics history beside the measured values, the
+    live version of the reference's dormant state_evo (vamp.cpp:1376-1411);
+    no pass over the genotypes.  The draws come from
+    ``linear.state_evolution_draws``."""
+    def prior(h):
+        return Prior(*(torch.as_tensor(np.asarray(h[k]), dtype=geno.dtype,
+                                       device=geno.device)
+                       for k in ("probs", "vars")))
+
+    print("state evolution (predicted | measured):")
+    for i in range(1, len(hist)):
+        m, mp = hist[i], hist[i - 1]
+        a_bar, eta_bar, gam2_bar = linear.state_evolution(
+            seed, i, prior(m), float(m["gam1"]), float(m["rho"]), prior(mp),
+            float(mp["gam1"]), geno.Mt)
+        print(f"  it {int(m['it'])}: alpha1 {float(a_bar):.6f} | "
+              f"{float(m['alpha1']):.6f}   eta1 {float(eta_bar):.6g} | "
+              f"{float(m['eta1']):.6g}   gam2 {float(gam2_bar):.6g} | "
+              f"{float(m['gam2']):.6g}")
 
 
 def _store_pip(opt: Options, geno: GenoBed, state, tag: str = "",
@@ -463,14 +510,401 @@ def _loco_predictor_writer(opt: Options, geno: GenoBed, tag: str = ""):
     return cb
 
 
-def _load_geno(opt: Options, device) -> GenoBed:
-    """The training container on ``device``; binary phenotypes stay raw
-    0/1 (gvamp_tpu/cli.py:68-76)."""
+# --------------------------------------------------------------------------
+# the run modes that score, test and simulate (gvamp_tpu/cli.py:526-915)
+# --------------------------------------------------------------------------
+
+
+def _series_paths(path: str, lo: int, hi: int) -> list:
+    """Per-iteration estimate paths from one example path
+    (``gvamp_tpu/cli.py:526-543``; the reference splices the iteration into
+    the name, main_real.cpp:160-181): ``it_{N}.`` is parsed in the
+    basename only, so a directory or stem holding "it" does not confuse
+    it; a name without an iteration tag gets ``_it_{N}`` before its
+    extension."""
+    d, base = os.path.split(path)
+    m = re.search(r"^(?P<stem>.*it_)\d+\.(?P<ext>[^.]+)$", base)
+    if m:
+        fmt = m.group("stem") + "{it}." + m.group("ext")
+    else:
+        root, ext = os.path.splitext(base)
+        fmt = root + "_it_{it}" + ext
+    return [os.path.join(d, fmt.format(it=it)) for it in range(lo, hi + 1)]
+
+
+def _tagged(path: str, tag: str) -> str:
+    """A trait tag inserted before the trailing ``_it_{N}`` (or the
+    extension) of a path (``gvamp_tpu/cli.py:561-570``)."""
+    if not tag:
+        return path
+    d, base = os.path.split(path)
+    m = re.search(r"^(?P<stem>.*?)(?P<it>_(?:probit_|robust_)?it_\d+)?"
+                  r"\.(?P<ext>[^.]+)$", base)
+    return os.path.join(
+        d, f"{m.group('stem')}{tag}{m.group('it') or ''}.{m.group('ext')}")
+
+
+def _estimate_series(opt: Options, M: int, S: int, tag: str = ""):
+    """Yield (it, estimate) over --test-iter-range from --estimate-file
+    (``gvamp_tpu/cli.py:546-558``): the one file at range -1, else each
+    iteration's; ``tag`` selects a multi-trait series (``_phen{t}``)."""
+    lo, hi = opt.test_iter_range
+    path = opt.estimate_file
+    if lo == -1:
+        yield -1, vecio.read_estimate(_tagged(path, tag), M, S)
+        return
+    for it, p in zip(range(lo, hi + 1), _series_paths(path, lo, hi)):
+        yield it, vecio.read_estimate(_tagged(p, tag), M, S)
+
+
+def _trait_tags(opt: Options, test: bool = False) -> list:
+    """[("", phen)] for one trait; [("_phen0", phen0), ...] for several,
+    the series tags of the multi-trait dumps (``gvamp_tpu/cli.py:573-579``)."""
+    phens = (opt.phen_files_test if test else opt.phen_files) or opt.phen_files
+    if len(phens) <= 1:
+        return [("", phens[0] if phens else None)]
+    return [(f"_phen{t}", pf) for t, pf in enumerate(phens)]
+
+
+def score_bin_class(geno, z_planar, m_cov_planar):
+    """(TPR, FPR, accuracy) of a probit prediction on a container
+    (``gvamp_tpu/cli.py:629-646``, main_real_probit.cpp:131-157):
+    classified by Phi(z + Z cov_eff) >= 0.5; the four counts reach the host
+    in one transfer."""
+    nm = geno.n_mask_planar > 0
+    pred = (normal_cdf(z_planar + m_cov_planar) >= 0.5) & nm
+    truth = (geno.filter_pheno() >= 0.5) & nm
+    tp, fp, fn, tn = (int(v) for v in torch.stack([
+        (pred & truth).sum(), (pred & ~truth & nm).sum(),
+        (~pred & truth & nm).sum(), (~pred & ~truth & nm).sum()]).cpu())
+    return tp / max(tp + fn, 1), fp / max(fp + tn, 1), (tp + tn) / geno.N
+
+
+def score_series(geno, series, model: str = "linear", m_cov=None):
+    """``--run-mode test``'s sweep over (it, estimate) pairs
+    (``gvamp_tpu/cli.py:597-625``) on a loaded container: each estimate's
+    prediction A x on the device, its R2 (linear, robust) or, for
+    bin_class with the covariate term ``m_cov`` [N] (zeros when None), its
+    accuracy from the confusion counts; one scalar fetch each.  Prints one
+    line per estimate and the best; returns (best score, its iteration)."""
+    y_pl = geno.filter_pheno()
+    y = geno.deplanarize(y_pl)[: geno.N]
+    best, best_it = -np.inf, -1
+    sqn = np.sqrt(geno.N)
+    m_cov_pl = None
+    if model == "bin_class":
+        m_cov_pl = geno.planarize(np.zeros(geno.N) if m_cov is None
+                                  else m_cov)
+    sd = np.std(y, ddof=1)
+    for it, est in series:
+        z = geno.ax(geno.pad_m(est * sqn))
+        if model == "bin_class":
+            tpr, fpr, acc = score_bin_class(geno, z, m_cov_pl)
+            print(f"it {it}: TPR={tpr:.4f} FPR={fpr:.4f} acc={acc:.4f}")
+            score = acc
+        else:
+            err2 = float(torch.square(y_pl - z).sum())
+            score = 1.0 - err2 / (sd * sd * geno.N)
+            print(f"it {it}: R2 = {score:.6f}")
+        if score > best:
+            best, best_it = score, it
+    print(f"max score = {best:.6f} at it = {best_it}")
+    return best, best_it
+
+
+def pvals_series(geno, ests, loo: bool = True, chroms=None,
+                 predictor_cb=None):
+    """``--run-mode pvals-calc``'s p-values for E stored estimates
+    (``gvamp_tpu/cli.py:742-762``; reference nE batch, data.cpp:1155-1183):
+    one ``axm`` over the whole series and one moments pass give every
+    estimate's LOO p-values; with ``chroms`` each estimate's LOCO ones,
+    ``predictor_cb(e)`` giving its per-chromosome predictor callback.
+    Returns (LOO float64[E, M] or None, [LOCO float64[M] per estimate] or
+    None)."""
+    sqn = np.sqrt(geno.N)
+    x1s = torch.stack([geno.pad_m(est * sqn) for est in ests], dim=1)
+    z1s = geno.axm(x1s)
+    p_loo = pvals.loo_pvals_multi(geno, z1s, x1s) if loo else None
+    p_loco = None
+    if chroms is not None:
+        p_loco = [pvals.loco_pvals(
+            geno, z1s[..., e].contiguous(), x1s[:, e].contiguous(), chroms,
+            predictor_cb=predictor_cb(e) if predictor_cb else None)
+            for e in range(len(ests))]
+    return p_loo, p_loco
+
+
+def predict_series(geno, ests) -> np.ndarray:
+    """Predictions A x of stored estimates on a container, one forward
+    product each (``gvamp_tpu/cli.py:771-790``): float [N, E] in the
+    original sample order."""
+    sqn = np.sqrt(geno.N)
+    return np.stack([geno.deplanarize(geno.ax(geno.pad_m(est * sqn)))[
+        : geno.N] for est in ests], axis=1)
+
+
+def mode_test(opt: Options, device):
+    """``--run-mode test`` (``gvamp_tpu/cli.py:582-626``, main_real.cpp:
+    129-244, main_real_probit.cpp:117-157): R2 or confusion sweep of the
+    stored estimates over the test set; a multi-trait series trait by
+    trait, each against its own --phen-files-test phenotype."""
+    geno = _load_geno(opt, device, test=True)
+    traits = _trait_tags(opt, test=True)
+    results = []
+    for tag, pf in traits:
+        if len(traits) > 1:
+            y_raw, isna = plink.read_phen(pf)
+            geno.set_phen(np.where(isna, np.nan, y_raw),
+                          standardize=opt.model != "bin_class")
+            print(f"trait {tag or pf}:")
+        m_cov = None
+        if opt.model == "bin_class" and opt.cov_estimate_file and opt.C:
+            m_cov = geno.covs_np @ vecio.read_estimate(opt.cov_estimate_file,
+                                                       opt.C, 0)
+        results.append(score_series(
+            geno, _estimate_series(opt, geno.M, geno.S, tag=tag), opt.model,
+            m_cov))
+    return results if len(traits) > 1 else results[0]
+
+
+def mode_both(opt: Options, device):
+    """``--run-mode both`` (``gvamp_tpu/cli.py:649-724``, main_real.cpp:
+    245-330): infere on the training set, then score on the test set.
+    Linear and robust report R2 with the training phenotype's intercept
+    and scale (recomputed per trait in a multi-trait run); bin_class the
+    confusion counts with the learned covariate effects, when the test
+    covariate rows match, and a warning when they do not."""
+    geno = _load_geno(opt, device)
+    x_est, state, _ = run_inference(opt, geno)
+    x_est = np.asarray(x_est)
+    traits = _trait_tags(opt, test=True)
+    several = x_est.ndim == 2
+    if several:
+        scales = []
+        for _, pf in _trait_tags(opt, test=False):
+            yt, isna = plink.read_phen(pf)
+            y_v = np.where(isna, np.nan, yt)
+            avg = float(np.nanmean(y_v))
+            scales.append((avg, float(np.sqrt(((~isna).sum() - 1)
+                                              / np.nansum((y_v - avg) ** 2)))))
+    else:
+        scales = [(geno.intercept, geno.scale)]
+    geno_t = _load_geno(opt, device, test=True)
+    sqn = np.sqrt(geno_t.N)
+    bin_class = opt.model == "bin_class"
+    eff_all = None
+    if bin_class and opt.C > 0 and getattr(state, "cov_eff", None) is not None:
+        # the fixed covariate effects carry to the test set
+        # (main_real_probit.cpp:241-258); [C, T] in a multi-trait run
+        eff_all = state.cov_eff.cpu().numpy()[: opt.C]
+    scores = []
+    for t, (tag, pf) in enumerate(traits):
+        if several:
+            y_raw, isna = plink.read_phen(pf)
+            geno_t.set_phen(np.where(isna, np.nan, y_raw),
+                            standardize=not bin_class)
+        est_t = x_est[:, t] if several else x_est
+        z_pl = geno_t.ax(geno_t.pad_m(est_t[: geno_t.M] * sqn))
+        label = tag and f" ({tag})" or ""
+        if bin_class:
+            m_cov = np.zeros(geno_t.N)
+            if eff_all is not None:
+                if (geno_t.covs is not None
+                        and geno_t.covs_np.shape[0] == geno_t.N):
+                    m_cov = geno_t.covs_np @ (eff_all[:, t] if eff_all.ndim
+                                              == 2 else eff_all)
+                else:
+                    have = (geno_t.covs_np.shape[0]
+                            if geno_t.covs is not None else 0)
+                    print(f"WARNING: learned covariate effects NOT applied "
+                          f"to test predictions — --cov-file has {have} "
+                          f"rows, test set has {geno_t.N} individuals",
+                          flush=True)
+            tpr, fpr, acc = score_bin_class(geno_t, z_pl,
+                                            geno_t.planarize(m_cov))
+            print(f"test{label}: TPR={tpr:.4f} FPR={fpr:.4f} acc={acc:.4f}")
+            scores.append(acc)
+            continue
+        intercept, scale = scales[min(t, len(scales) - 1)]
+        z = intercept + scale * geno_t.deplanarize(z_pl)[: geno_t.N]
+        y = geno_t.deplanarize(geno_t.filter_pheno())[: geno_t.N]
+        sd = np.std(y, ddof=1)
+        r2 = 1.0 - float(np.sum((y - z) ** 2)) / (sd * sd * geno_t.N)
+        print(f"test R2{label} = {r2:.6f}")
+        scores.append(r2)
+    return scores if several else scores[0]
+
+
+def mode_pvals_calc(opt: Options, device):
+    """``--run-mode pvals-calc`` (``gvamp_tpu/cli.py:727-762``,
+    main_real.cpp:331-452): LOO (--store-pvals 0 or 1) and, with a .bim,
+    LOCO (0 or 2) p-values of the stored estimates, written as
+    ``{out}{tag}_pvals.bin`` / ``_pvals_LOCO.bin`` with each estimate's
+    ``_it_{N}`` tag and the LOCO predictors; a multi-trait series trait by
+    trait against its own phenotype."""
+    geno = _load_geno(opt, device)
+    traits = _trait_tags(opt)
+    for ttag, pf in traits:
+        if len(traits) > 1:
+            y_raw, isna = plink.read_phen(pf)
+            geno.set_phen(np.where(isna, np.nan, y_raw),
+                          standardize=opt.model != "bin_class")
+        series = list(_estimate_series(opt, geno.M, geno.S, tag=ttag))
+        tags = [ttag + (f"_it_{it}" if it != -1 else "") for it, _ in series]
+        p_loo, p_loco = pvals_series(
+            geno, [est for _, est in series], loo=opt.store_pvals in (0, 1),
+            chroms=(geno.chromosomes() if opt.bim_file
+                    and opt.store_pvals in (0, 2) else None),
+            predictor_cb=lambda e: _loco_predictor_writer(opt, geno, tags[e]))
+        for e, tag in enumerate(tags):
+            if p_loo is not None:
+                vecio.write_bin_shard(f"{opt.out_prefix}{tag}_pvals.bin",
+                                      p_loo[e], geno.S)
+            if p_loco is not None:
+                vecio.write_bin_shard(f"{opt.out_prefix}{tag}_pvals_LOCO.bin",
+                                      p_loco[e], geno.S)
+
+
+def mode_predict(opt: Options, device, single: bool = False):
+    """``--run-mode predict`` / ``predict_single`` (``gvamp_tpu/cli.py:
+    765-803``, main_real.cpp:487-594) on the --bed-file-test genotypes:
+    one estimate's prediction as ``{out}_predict.csv``, or over
+    --test-iter-range the Gibbs-named series ``<stem>temp_<it>_<it>_gibbs_
+    est.<ext>`` as one [N, iterations] ``{out}_predict_matrix.csv``
+    (--predict-format matrix) or one file per individual, the reference's
+    layout, with a warning above 10,000 people."""
     dtype = torch.float64 if opt.dtype == "float64" else torch.float32
     geno = GenoBed.from_files(
-        opt.bed_file, opt.phen_files[0], N=opt.N, Mt=opt.Mt,
+        opt.bed_file_test, None, N=opt.N_test, Mt=opt.Mt_test,
         alpha_scale=opt.alpha_scale, dtype=dtype,
-        standardize_phen=opt.model != "bin_class",
+        device=torch.device(device), standardize_phen=False)
+    if single:
+        est = vecio.read_estimate(opt.estimate_file, geno.M, geno.S)
+        full = np.zeros(4 * geno.layout.mbytes)
+        full[: geno.N] = predict_series(geno, [est])[:, 0]
+        vecio.write_txt(opt.out_prefix + "_predict.csv", full)
+        return
+    lo, hi = opt.test_iter_range
+    path = opt.estimate_file
+    ext = path[path.find(".") + 1:]
+    stem = path[: path.rfind("temp")]
+    zs = predict_series(geno, [
+        vecio.read_estimate(f"{stem}temp_{it}_{it}_gibbs_est.{ext}", geno.M,
+                            geno.S) for it in range(lo, hi + 1)])
+    if opt.predict_format == "matrix":
+        np.savetxt(f"{opt.out_prefix}_predict_matrix.csv", zs, delimiter=",")
+        return
+    if geno.N > 10000:
+        print(f"WARNING: --predict-format per-individual writes {geno.N} "
+              "files (reference main_real.cpp:538-545 behavior); use "
+              "--predict-format matrix for one CSV", flush=True)
+    for i in range(geno.N):
+        vecio.write_txt(f"{opt.out_prefix}_predict_{i}.csv", zs[i])
+
+
+def mode_sim(opt: Options, device):
+    """``--run-mode sim`` (``gvamp_tpu/cli.py:806-903``): simulate a truth
+    and a phenotype on the .bed (or .meth) genotypes, write them
+    (``{out}_beta_true.bin``, ``{out}_y.txt``), then infer with the truth's
+    diagnostics.  --sim-model picks the recipe: default (sim.cpp), realistic
+    (sim_realistic.cpp:88-95), heavy-tails (sim_heavy_tails.cpp:87-89) or
+    probit (sim_probit.cpp:170-205, alternating +-0.25 covariate effects).
+    The numpy generator is seeded by --seed, so the draws are the JAX
+    CLI's; --num-mix-comp L builds the initial prior from the CVhat
+    heuristic (sim_probit.cpp:53-77) when --vars is not given."""
+    geno = _load_geno(opt, device)
+    rng = np.random.default_rng(opt.seed)
+    h2 = opt.h2 if opt.h2 != -1 else 0.5
+    cv = opt.CV or max(geno.Mt // 100, 1)
+    if opt.sim_model == "realistic":
+        vars_t, probs_t = sim.realistic_prior(geno.Mt, h2)
+    elif opt.sim_model == "heavy-tails":
+        vars_t, probs_t = sim.heavy_tails_prior(geno.Mt, cv, h2)
+    else:
+        vars_t, probs_t = sim.two_group_prior(geno.Mt, cv, h2)
+    cov_eff = None
+    if opt.sim_model == "probit" and opt.cov_file and opt.C > 0:
+        geno.read_covariates(opt.cov_file, opt.C)
+        cov_eff = (2.0 * (np.arange(opt.C) % 2) - 1.0) * 0.25
+    if opt.true_signal_files:
+        beta = vecio.read_estimate(opt.true_signal_files[0], geno.M, geno.S)
+        y = vecio.read_txt_shard(opt.phen_files[0], geno.N, 0)
+    else:
+        beta = sim.simulate_mixture(rng, geno.M, vars_t, probs_t)
+        if opt.sim_model == "probit":
+            y = sim.simulate_probit_phenotype(geno, beta, opt.probit_var, rng,
+                                              cov_effects=cov_eff)
+        else:
+            y = sim.simulate_linear_phenotype(geno, beta, 1.0 / (1.0 - h2),
+                                              rng)
+        vecio.write_bin_shard(opt.out_prefix + "_beta_true.bin", beta, geno.S)
+        vecio.write_txt(opt.out_prefix + "_y.txt", y)
+    geno.set_phen(y)
+    probs_i, vars_i = opt.probs, opt.vars
+    if not opt.vars and opt.num_mix_comp > 1:
+        L = opt.num_mix_comp
+        cvhat = max(cv // 2, 1)
+        pe = cvhat / geno.Mt / (2.0 - 1.0 / 2.0 ** (L - 1))
+        curr_var = 0.01 / cvhat
+        probs_i, vars_i = [1.0 - cvhat / geno.Mt], [0.0]
+        for _ in range(1, L):
+            probs_i.append(pe)
+            vars_i.append(curr_var)
+            curr_var *= 10.0
+            pe /= 2.0
+    elif not opt.vars:
+        probs_i, vars_i = list(probs_t), list(vars_t)
+    probs, vars_user = initialize_prior(probs_i or None, vars_i or None,
+                                        N=geno.N, Mt=geno.Mt)
+    common = dict(max_iter=opt.iterations, rho=opt.rho,
+                  cg_max_iter=opt.CG_max_iter,
+                  stop_criteria_thr=opt.stop_criteria_thr, seed=opt.seed,
+                  gam1_init=1e-8, em_max_iter=opt.EM_max_iter,
+                  em_err_thr=opt.EM_err_thr, learn_vars=bool(opt.learn_vars))
+    if opt.sim_model == "probit":
+        model, eng = "bin_class", probit
+        cfg = probit.ProbitConfig(probit_var=opt.probit_var, **common)
+    else:
+        model, eng = "linear", linear
+        cfg = linear.VampConfig(gamw_init=2.0, **common)
+    x_est, _, hist = eng.infer(
+        geno, cfg, probs, vars_user, true_signal=beta,
+        callbacks=[_dumper(opt.out_prefix, opt.dump_every, model)],
+        verbose=opt.verbosity > 0)
+    write_scalar_history(opt.out_prefix, hist)
+    return x_est
+
+
+def mode_infere(opt: Options, device):
+    """``--run-mode infere``: fit the model, dump per iteration."""
+    return run_inference(opt, _load_geno(opt, device))
+
+
+MODES = {
+    "infere": mode_infere,
+    "test": mode_test,
+    "both": mode_both,
+    "restart": mode_restart,
+    "pvals-calc": mode_pvals_calc,
+    "predict": lambda o, d: mode_predict(o, d, single=False),
+    "predict_single": lambda o, d: mode_predict(o, d, single=True),
+    "sim": mode_sim,
+}
+
+
+def _load_geno(opt: Options, device, test: bool = False):
+    """The training container (``test``: the test set's, from
+    --bed-file-test, --phen-files-test, --N-test and --Mt-test) on
+    ``device``: ``GenoDense`` under --type-data meth, else ``GenoBed``;
+    binary phenotypes stay raw 0/1 (gvamp_tpu/cli.py:61-80)."""
+    dtype = torch.float64 if opt.dtype == "float64" else torch.float32
+    phen = opt.phen_files_test if test else opt.phen_files
+    container = GenoDense if opt.type_data == "meth" else GenoBed
+    geno = container.from_files(
+        opt.bed_file_test if test else opt.bed_file,
+        phen[0] if phen else None, N=opt.N_test if test else opt.N,
+        Mt=opt.Mt_test if test else opt.Mt, alpha_scale=opt.alpha_scale,
+        dtype=dtype, standardize_phen=opt.model != "bin_class",
         device=torch.device(device), bim_path=opt.bim_file)
     if opt.cov_file and opt.C > 0:
         geno.read_covariates(opt.cov_file, opt.C)
@@ -486,9 +920,7 @@ def main(argv=None):
     _check_slice(opt)
 
     def run():
-        if opt.run_mode == "restart":
-            return mode_restart(opt, ns.device)
-        return run_inference(opt, _load_geno(opt, ns.device))
+        return MODES[opt.run_mode](opt, ns.device)
 
     if opt.profile_dir:
         return _profiled(run, opt.profile_dir, torch.device(ns.device))

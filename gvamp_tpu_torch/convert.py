@@ -62,8 +62,10 @@ def state_from_numpy(d: dict, device="cuda",
     """``gvamp_tpu.linear.LinState`` fields (as arrays) -> port state on the
     card unless ``device`` names another, primal and dual (``*_n``) fields
     alike, the probe columns' warm starts and Gram products included
-    (``mu_probe`` [Mpad, P], ``mu_probe_n`` [4, Nb, P]); the
-    cross-validation field ``cv_r2`` (not ported) is ignored."""
+    (``mu_probe`` [Mpad, P], ``mu_probe_n`` [4, Nb, P]) and the
+    cross-validation field ``cv_r2`` (-1 where ``d`` lacks it)."""
+    if "cv_r2" not in d:
+        d = dict(d, cv_r2=np.asarray(-1.0))
     return linear.LinState(**_fields(d, linear.LinState, device, dtype))
 
 

@@ -31,7 +31,9 @@ only here) takes the Onsager traces from T*P probe columns riding the
 block CG.  ``sync_every`` > 1 runs chunks of that many iterations between
 metrics fetches (``linear.run_chunks``); the callbacks and the all-stopped
 exit run once per chunk, with no exit inside a chunk, where stopped traits
-stay frozen.  ``use_cross_val`` raises as in the single-trait engine.
+stay frozen.  ``use_cross_val`` raises: the JAX package's CLI refuses it
+for several phenotypes (``gvamp_tpu/cli.py:247-262``), and its multi-trait
+engines have no damping tuner.
 """
 
 from __future__ import annotations
@@ -326,12 +328,21 @@ def make_slq_basis(mp: MultiPhen, cfg, bern) -> slq.SlqBasis:
                      cfg.slq_k)
 
 
+def _check_cfg(cfg: VampConfig) -> None:
+    """Raise on the linear option the multi-trait engines do not run."""
+    if cfg.use_cross_val:
+        raise NotImplementedError(
+            "use_cross_val: the multi-trait engines have no cross-validation "
+            "damping tuner (the JAX CLI refuses --use-cross-val for several "
+            "--phen-files)")
+
+
 def make_aux(mp: MultiPhen, cfg: VampConfig, bern=None,
              defl_v0=None) -> MultiAux:
     """Set-up: the probe (``bern`` replaces the drawn one), the deflation
     basis, A_t^T y_t, and the SLQ basis or, on the probe path, the T*P-wide
     pass A_t u_j (``gvamp_tpu/multi.py:340-360``)."""
-    linear.check_slice(cfg)
+    _check_cfg(cfg)
     bern = _bern(mp, cfg, bern)
     axm_fn, atxm_fn = mp.fns()
     yf = mp.filter_pheno()
@@ -434,7 +445,7 @@ def _keep(live, new, old):
 def make_step(mp: MultiPhen, cfg: VampConfig):
     """The per-iteration multi-trait linear step (multi.py:363-641):
     (state, aux) -> (state, metrics)."""
-    linear.check_slice(cfg)
+    _check_cfg(cfg)
     Mt = float(mp.geno.Mt)
     N = float(mp.geno.N)
     T, P = mp.T, cfg.n_probes

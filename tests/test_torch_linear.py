@@ -119,10 +119,12 @@ def _check_one_step(problem, dt):
     for k in SCALARS:
         assert _rel(m_t[k].detach(), m_j[k]) < STEP_TOL[dt], k
     assert _rel(state_t.x1, state_j.x1) < STEP_TOL[dt]
-    # the port's state is JAX's without the cross-validation field, whose
-    # branch is not ported; the dual (*_n) fields stay zero in primal mode
+    # the port's state holds JAX's fields, the cross-validation one too
+    # (-1 here, where no held-out R2 was taken); the dual (*_n) fields stay
+    # zero in primal mode
     back = convert.state_to_numpy(state_t)
-    assert set(jlinear.LinState._fields) - set(back) == {"cv_r2"}
+    assert set(jlinear.LinState._fields) == set(back)
+    assert back["cv_r2"] == np.asarray(state_j.cv_r2) == -1
     for k in ("mu_cg_n", "mu_probe_n", "gmu_n"):
         assert not back[k].any() and back[k].shape == np.asarray(
             getattr(state_j, k)).shape
@@ -281,12 +283,13 @@ def test_cli_infere_dumps_match_library(problem, tmp_path):
                "--store-pip", "1"])
     p = vecio.read_bin_shard(str(tmp_path / "out" / "pip_pip.bin"), M, 0)
     assert np.all((p >= 0) & (p <= 1))
-    # an option outside the slice raises naming its item
+    # an option outside the port raises naming its item (--state-evo, once
+    # refused here, runs: tests/test_torch_modes.py)
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md Queue 1 item 11"):
         tcli.main(["--device", "cpu", "--bed-file", bed, "--phen-files",
                    phen, "--N", str(N), "--Mt", str(M), "--probs",
-                   "0.9,0.1", "--vars", "0.0,0.01", "--state-evo", "1"])
+                   "0.9,0.1", "--vars", "0.0,0.01", "--devices", "2"])
 
 
 # |log10 p| of the CLI's f32 p-values against JAX's loo_pvals on the same
@@ -375,12 +378,15 @@ def test_out_of_slice_options_raise(problem):
     # match_jax), deflate_k > 0 when deflation was (tests/test_torch_
     # deflate.py), red, use_slq=False, sync_every and phase_timers when
     # the probe path and the driver options were (tests/test_torch_probe.py,
-    # test_torch_red.py, test_torch_driver.py): they run here
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tlinear.infer(t, tlinear.VampConfig(use_cross_val=True), probs_t,
-                      vars_t, verbose=False)
+    # test_torch_red.py, test_torch_driver.py), use_cross_val when the
+    # damping tuner was (tests/test_torch_crossval.py): they run here; the
+    # multi-trait engines refuse the tuner, as the JAX CLI does
+    from gvamp_tpu_torch import multi as tmulti
+    with pytest.raises(NotImplementedError, match="use_cross_val"):
+        tmulti._check_cfg(tlinear.VampConfig(use_cross_val=True))
     for kw, opts in ((dict(use_xxt=True, use_slq=False), {}),
                      (dict(red=True), {}), (dict(use_slq=False), {}),
+                     (dict(use_cross_val=True), {}),
                      ({}, dict(sync_every=2)), ({}, dict(phase_timers=True))):
         x, _, h = tlinear.infer(t, tlinear.VampConfig(max_iter=2, **kw),
                                 probs_t, vars_t, verbose=False, **opts)
