@@ -8,6 +8,7 @@ Run from the repository root on a machine with a CUDA card and nvcc:
     python3 chip_smoke.py --bf16-split     # phase 1, the build, phase 3w
     python3 chip_smoke.py --options        # the build, 3r, 4q at B, 4r, 5q, 6q
     python3 chip_smoke.py --modes          # the build, 4, 4c, 4m, 4v, 4d, 5v, 6v
+    python3 chip_smoke.py --mesh           # the build, 4, 8b, 8x, 8c, 8d, 8n
 
 Phases, each of which raises on failure (exit code != 0):
 
@@ -212,6 +213,29 @@ Phases, each of which raises on failure (exit code != 0):
    axm_bf16, atxm_bf16, axm_i8s, atx_a or the eleven study kernels
    (phases 4-6 fail if one does); their launches in the kernels line are
    those of this phase.
+8. the marker mesh (gvamp_tpu_torch/dist.py), both shards of a 2-shard
+   mesh on the one card (the JAX package's mesh with two devices):
+   8b. config B on 2 shards: the slabs split from phase 4's words, the
+   statistics equal to phase 4's bit for bit, phase 4's phenotype, 10
+   linear iterations within phase 4's CORR_MIN / R2_RANGE; axm_i8a and
+   atxm_i8a launched twice per product call (the mesh's call counter),
+   atx twice at load, the host syncs of every iteration those of phase
+   4's beside its CG count, the largest x1 difference to phase 4
+   relative to max|x1| and the median ms per iteration beside phase 4's;
+   8x. the dual path at config X on 2 shards: 10 iterations within phase
+   4x's X_CORR_MIN / X_R2_RANGE, gram_aat_i8a twice per call, ax four
+   times (the people statistics' two calls);
+   8c. card against CPU on 2 shards (phase 5's problem and limits,
+   complete and with 2% missing calls, the latter with its LOO / LOCO
+   p-values);
+   8d. the CLI with --distributed 1 --n-processes 1 at phase 6's
+   flagship size: a real NCCL process group of one rank (its backend and
+   world size printed), whose dumps, histories and p-value files equal
+   those of the same run without --distributed bit for bit;
+   8n. two NCCL ranks of one card each against one process with
+   --devices 2, where two or more cards are visible; otherwise the phase
+   prints that it did not run and why.  Phases 8b and 8x run after
+   phases 4 and 4x, 8c after phase 5v, 8d and 8n after phase 6v.
 
 The last two lines of standard output are one JSON object with the
 kernels' numbers (each with its bound on the card) and one with the
@@ -1013,15 +1037,15 @@ def phase_kernels_config_bm(words, gen):
     return full
 
 
-def make_problem(words, label, complete, n=CFG_B_N, m=CFG_B_M):
+def make_problem(words, label, complete, n=CFG_B_N, m=CFG_B_M, mesh=None):
     """Load and phenotype simulation (bench.py:89-111's recipe: two-group
-    prior, 1,000 causal markers, h2 = 0.5) on ``words``; returns (geno,
-    beta, vars_t, probs_t)."""
+    prior, 1,000 causal markers, h2 = 0.5) on ``words`` (split over
+    ``mesh`` where given); returns (geno, beta, vars_t, probs_t)."""
     from gvamp_tpu_torch import sim
     from gvamp_tpu_torch.data import GenoBed
     t0 = time.perf_counter()
     geno = GenoBed.from_device_words(words, np.zeros(n), N=n, M=m,
-                                     standardize_phen=False)
+                                     standardize_phen=False, mesh=mesh)
     torch.cuda.synchronize()
     t_stats = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1917,22 +1941,25 @@ def small_problem(tmp, seed, N, M, miss_rate=0.0):
 
 
 def phase_card_vs_cpu(miss_rate, use_xxt=False, fused=False, use_slq=True,
-                      red=False, cross_val=False):
+                      red=False, cross_val=False, shards=1):
     """The linear engine on the card and on the CPU (plain versions) from
     the same data and probe: phase 5, with use_slq=False (the probe
     path) or red=True (the same window starts, drawn on the host) phase
     5q, with cross_val=True (cv_r2 and rho_cross held too, the damping
-    tuner's decisions printed) phase 5v."""
+    tuner's decisions printed) phase 5v, with ``shards`` > 1 (a marker
+    mesh of that many shards on each side) phase 8c."""
     label = "complete" if miss_rate == 0 else f"{miss_rate:.0%} missing"
     label += ", dual (XXT)" if use_xxt else ""
     label += ", fused primal Gram" if fused else ""
     label += ", use_slq=False" if not use_slq else ""
     label += ", red" if red else ""
     label += ", cross-validation" if cross_val else ""
-    phase = ("5v" if cross_val else "5" if use_slq and not red else "5q")
+    label += f", {shards} shards" if shards > 1 else ""
+    phase = ("8c" if shards > 1 else "5v" if cross_val
+             else "5" if use_slq and not red else "5q")
     log(f"== phase {phase}: card vs CPU, N=2000 x M=4096, 6 iterations, "
         f"{label}")
-    from gvamp_tpu_torch import linear, sim
+    from gvamp_tpu_torch import dist, linear, sim
     from gvamp_tpu_torch.data import GenoBed
     from gvamp_tpu_torch.ops import matvec, pvals
     N, M = 2000, 4096
@@ -1951,8 +1978,9 @@ def phase_card_vs_cpu(miss_rate, use_xxt=False, fused=False, use_slq=True,
                                                         miss_rate)
         y = None
         for dev in ("cuda", "cpu"):
-            g = GenoBed.from_files(bed, None, N=N, Mt=M, device=dev,
-                                   standardize_phen=False)
+            g = GenoBed.from_files(
+                bed, None, N=N, Mt=M, device=dev, standardize_phen=False,
+                mesh=dist.Mesh(shards, dev) if shards > 1 else None)
             if g.geno_complete != (miss_rate == 0):
                 raise AssertionError(f"{dev}: geno_complete is wrong")
             if y is None:
@@ -1960,8 +1988,15 @@ def phase_card_vs_cpu(miss_rate, use_xxt=False, fused=False, use_slq=True,
             g.set_phen(y)
             t0 = time.perf_counter()
             matvec.reset_launches()
+            if g.mesh is not None:
+                g.mesh.calls.clear()
             x, state, hist = linear.infer(g, cfg, probs_t, vars_t,
                                           verbose=False)
+            if dev == "cuda" and shards > 1:
+                check_mesh_launches(
+                    f"card, {label}", g.mesh, dict(matvec.LAUNCHES),
+                    ("axm_i8a", "atxm_i8a") if miss_rate == 0
+                    else ("axm_i8", "atxm_i8"))
             if dev == "cuda" and (use_xxt or fused) and \
                     not matvec.LAUNCHES[gram]:
                 raise AssertionError(f"the card's run did not launch "
@@ -1972,7 +2007,8 @@ def phase_card_vs_cpu(miss_rate, use_xxt=False, fused=False, use_slq=True,
                                else ("axm_i8", "atxm_i8"))
             check_no_tool_launches(f"card vs CPU, {dev}", matvec.LAUNCHES)
             p = None
-            if miss_rate and not use_xxt and not fused and phase == "5":
+            if miss_rate and not use_xxt and not fused and phase in ("5",
+                                                                      "8c"):
                 p = (pvals.loo_pvals(g, state.z1, state.x1),
                      pvals.loco_pvals(g, state.z1, state.x1, chroms))
             out[dev] = x, hist, p
@@ -3722,6 +3758,26 @@ def phase_modes_alone():
     phase_cli_modes()
 
 
+def phase_mesh_alone():
+    """--mesh: phase 4 and the mesh phases 8b, 8x, 8c, 8d and 8n (config X
+    drawn after config B from one generator)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    words = synth_words(gen, False, CFG_B_N, CFG_B_M)
+    _, geno, problem = phase_main_path(words)
+    phase_mesh_b(words, geno, problem)
+    del words, geno
+    torch.cuda.empty_cache()
+    words = synth_words(gen, False, CFG_X_N, CFG_X_M)
+    phase_mesh_x(words)
+    del words
+    torch.cuda.empty_cache()
+    for miss_rate in (0.0, 0.02):
+        phase_card_vs_cpu(miss_rate, shards=MESH_SHARDS)
+    phase_cli_distributed()
+    phase_nccl_two_ranks()
+
+
 def phase_card_vs_cpu_modes():
     """Phase 5v: cross-validated linear, complete and with 2% missing
     calls, the dense linear engine, and state_evolution, card against
@@ -3730,6 +3786,234 @@ def phase_card_vs_cpu_modes():
     phase_card_vs_cpu(0.02, cross_val=True)
     phase_card_vs_cpu_dense()
     phase_state_evo_card_vs_cpu()
+
+
+# --------------------------------------------------------------------------
+# phase 8: the marker mesh
+# --------------------------------------------------------------------------
+
+MESH_SHARDS = 2
+
+
+def check_mesh_launches(label, mesh, launches, used, unused=()):
+    """Every kernel of ``used`` launched, once per slab of each call of its
+    wrapper over the mesh (``mesh.calls``), and none of ``unused``."""
+    check_launches(label, launches, used, unused)
+    log(f"  calls over the {mesh.n_local} slabs: "
+        + ", ".join(f"{n} {mesh.calls.get(n, 0)}" for n in used))
+    for n in used:
+        if launches[n] != mesh.n_local * mesh.calls.get(n, 0):
+            raise AssertionError(
+                f"{label}: {n} launched {launches[n]} times for "
+                f"{mesh.calls.get(n, 0)} calls over {mesh.n_local} slabs")
+
+
+def phase_mesh_b(words, geno1, problem):
+    """Phase 8b: config B on a 2-shard mesh beside phase 4's run (``geno1``,
+    ``problem``) on the same words and phenotype.  Returns the launches of
+    its 10 iterations."""
+    log(f"== phase 8b: config B on a {MESH_SHARDS}-shard marker mesh, both "
+        f"slabs on the card")
+    from gvamp_tpu_torch import dist
+    from gvamp_tpu_torch.data import GenoBed
+    from gvamp_tpu_torch.ops import matvec
+    beta, vars_t, probs_t, x1, hist1 = problem
+    n, m = CFG_B_N, CFG_B_M
+    torch.cuda.reset_peak_memory_stats()
+    matvec.reset_launches()
+    mesh = dist.Mesh(MESH_SHARDS, "cuda")
+    t0 = time.perf_counter()
+    geno = GenoBed.from_device_words(words, np.zeros(n), N=n, M=m,
+                                     standardize_phen=False, mesh=mesh)
+    complete = geno.geno_complete
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    load = dict(matvec.LAUNCHES)
+    log(f"  {mesh}: slabs {[tuple(g.shape) for g in geno.words]}; split, "
+        f"statistics and completeness {t_load:.2f} s; atx launched "
+        f"{load['atx']} times at load")
+    if complete is not True or load["atx"] != MESH_SHARDS:
+        raise AssertionError(f"config B, {MESH_SHARDS} shards: complete "
+                             f"{complete}, atx launched {load['atx']} times")
+    geno.set_phen(geno1.deplanarize(geno1.y_planar)[:n])
+    same = [bool(torch.equal(a, b)) for a, b in
+            ((geno.mave, geno1.mave), (geno.msig, geno1.msig),
+             (geno.y_planar, geno1.y_planar))]
+    log(f"  mave, msig, phenotype equal to phase 4's bit for bit: {same}")
+    if not all(same):
+        raise AssertionError("the mesh's statistics differ from phase 4's")
+    matvec.reset_launches()
+    mesh.calls.clear()
+    x_hat, _, hist = run_infer(geno, beta, vars_t, probs_t,
+                               f"config B, {MESH_SHARDS} shards", CORR_MIN,
+                               R2_RANGE)
+    launches = dict(matvec.LAUNCHES)
+    check_mesh_launches(f"config B, {MESH_SHARDS} shards", mesh, launches,
+                        ("axm_i8a", "atxm_i8a"),
+                        ("axm_i8", "atxm_i8", "gram_i8a", "gram_i8", "atx"))
+    dx = float(np.abs(x_hat - x1).max() / np.abs(x1).max())
+    med, med1 = (np.median([h["wall_ms"] for h in hh[2:]])
+                 for hh in (hist, hist1))
+    log(f"  against phase 4: max|x1 - x1(phase 4)| / max|x1| = {dx:.3e}; "
+        f"median {med:.2f} ms/it (phase 4: {med1:.2f}); CG "
+        f"{[h['cg_iters'] for h in hist]} (phase 4: "
+        f"{[h['cg_iters'] for h in hist1]}); host syncs "
+        f"{[h['host_syncs'] for h in hist]} (phase 4: "
+        f"{[h['host_syncs'] for h in hist1]})")
+    # a mesh adds no host sync: where the CG counts are the same, so are
+    # the syncs, and otherwise they differ by the CG's exit tests alone
+    for h, h1 in zip(hist, hist1):
+        if h["host_syncs"] - h["cg_iters"] != h1["host_syncs"] - h1[
+                "cg_iters"]:
+            raise AssertionError(f"config B, {MESH_SHARDS} shards: iteration "
+                                 f"{h['it']} took {h['host_syncs']} host "
+                                 f"syncs, phase 4 {h1['host_syncs']}")
+    del geno
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mesh_x(words):
+    """Phase 8x: the dual path at config X on a 2-shard mesh, through the
+    fused dual Gram per slab.  Returns the launches of its run."""
+    log(f"== phase 8x: dual (XXT) mode at config X on a {MESH_SHARDS}-shard "
+        f"marker mesh")
+    from gvamp_tpu_torch import dist
+    from gvamp_tpu_torch.ops import matvec
+    mesh = dist.Mesh(MESH_SHARDS, "cuda")
+    geno, beta, vars_t, probs_t = make_problem(
+        words, f"config X, {MESH_SHARDS} shards", True, CFG_X_N, CFG_X_M,
+        mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    matvec.reset_launches()
+    mesh.calls.clear()
+    run_infer(geno, beta, vars_t, probs_t,
+              f"config X dual, {MESH_SHARDS} shards", X_CORR_MIN, X_R2_RANGE,
+              use_xxt=True)
+    launches = dict(matvec.LAUNCHES)
+    check_mesh_launches(f"config X dual, {MESH_SHARDS} shards", mesh,
+                        launches, ("gram_aat_i8a", "ax"),
+                        ("gram_aat_i8", "axm_i8", "atxm_i8"))
+    if launches["ax"] != 2 * MESH_SHARDS:
+        raise AssertionError(f"config X, {MESH_SHARDS} shards: ax launched "
+                             f"{launches['ax']} times, expected "
+                             f"{2 * MESH_SHARDS}")
+    del geno
+    torch.cuda.empty_cache()
+    return launches
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def flagship_cli(bed, phen, bim, N, M, out, name, n_it, device="cuda"):
+    """phase 6's flagship linear CLI run with --store-pvals 1 and a .bim."""
+    return ["--device", device, "--run-mode", "infere", "--model",
+            "linear", "--bed-file", bed, "--phen-files", phen,
+            "--bim-file", bim, "--N", str(N), "--Mt", str(M),
+            "--iterations", str(n_it), "--rho", "0.3",
+            "--probs", "0.95,0.05", "--vars", "0.0,0.0667",
+            "--store-pvals", "1", "--verbosity", "0",
+            "--out-dir", out, "--out-name", name]
+
+
+def outputs(out, name) -> dict:
+    """{suffix: bytes} of every file a CLI run wrote as ``name``."""
+    return {f[len(name):]: open(os.path.join(out, f), "rb").read()
+            for f in sorted(os.listdir(out)) if f.startswith(name + "_")}
+
+
+def phase_cli_distributed():
+    """Phase 8d: --distributed 1 --n-processes 1 through the CLI on the
+    card: one NCCL rank, whose collectives are copies, writes what the run
+    without --distributed writes."""
+    log("== phase 8d: CLI --distributed 1 --n-processes 1 on the card "
+        "(NCCL)")
+    from gvamp_tpu_torch import cli
+    from gvamp_tpu_torch.ops import matvec
+    N, M, n_it = 800, 240, 8
+    with tempfile.TemporaryDirectory() as tmp:
+        bed, phen, bim, _ = flagship_files(tmp, N, M)
+        out = os.path.join(tmp, "out")
+        cli.main(flagship_cli(bed, phen, bim, N, M, out, "plain", n_it))
+        matvec.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(flagship_cli(bed, phen, bim, N, M, out, "nccl", n_it)
+                     + ["--distributed", "1", "--coordinator",
+                        f"localhost:{free_port()}", "--n-processes", "1",
+                        "--process-id", "0"])
+        t_run = time.perf_counter() - t0
+        check_no_tool_launches("CLI --distributed 1", matvec.LAUNCHES)
+        lines = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("replicated:")]
+        plain, nccl = outputs(out, "plain"), outputs(out, "nccl")
+    log(f"  {lines[0] if lines else 'no replication line'}; {t_run:.2f} s; "
+        f"process group left: {torch.distributed.is_initialized()}")
+    if not lines or not lines[0].endswith("over 1 processes (nccl)"):
+        raise AssertionError(f"the run did not report one NCCL rank: {lines}")
+    diff = [k for k in plain if plain[k] != nccl.get(k)]
+    log(f"  {len(plain)} files; equal to the run without --distributed bit "
+        f"for bit: {not diff and plain.keys() == nccl.keys()}")
+    if diff or plain.keys() != nccl.keys() or len(plain) < 5 * n_it:
+        raise AssertionError(f"--distributed 1 differs in {diff}")
+
+
+def phase_nccl_two_ranks():
+    """Phase 8n: two NCCL ranks, one card each, through the CLI against
+    one process with --devices 2, where two cards are visible."""
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"== phase 8n did not run: {n_cards} CUDA device visible; NCCL "
+            f"puts one rank on a card (two ranks on one card fail with "
+            f"'Duplicate GPU detected'), so two ranks need two cards")
+        return
+    log(f"== phase 8n: two NCCL ranks on cards 0 and 1 against one process "
+        f"with --devices 2")
+    from gvamp_tpu_torch import cli
+    N, M, n_it = 800, 240, 8
+    with tempfile.TemporaryDirectory() as tmp:
+        bed, phen, bim, _ = flagship_files(tmp, N, M)
+        out = os.path.join(tmp, "out")
+        cli.main(flagship_cli(bed, phen, bim, N, M, out, "one", n_it)
+                 + ["--devices", "2"])
+        port = free_port()
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "gvamp_tpu_torch.cli"]
+            + flagship_cli(bed, phen, bim, N, M, out, "two", n_it)
+            + ["--distributed", "1", "--coordinator", f"localhost:{port}",
+               "--n-processes", "2", "--process-id", str(i)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for i in range(2)]
+        try:
+            outs = [p.communicate(timeout=300)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for p, o in zip(procs, outs):
+            if p.returncode != 0:
+                raise AssertionError(f"an NCCL rank failed:\n{o[-3000:]}")
+        one, two = outputs(out, "one"), outputs(out, "two")
+    same = [k for k in one if one[k] == two.get(k)]
+    log(f"  {len(same)} of {len(one)} files equal bit for bit")
+    # the estimates within 1e-6 of their largest entry: the ranks' partials
+    # meet in NCCL's order, one process's in shard order
+    for k in one:
+        if k.endswith(".bin") and "pvals" not in k:
+            a, b = (np.frombuffer(v, np.float64) for v in (one[k],
+                                                            two.get(k, b"")))
+            if a.shape != b.shape or not (
+                    np.abs(a - b).max() <= 1e-6 * np.abs(a).max()):
+                raise AssertionError(f"two NCCL ranks differ in {k}")
 
 
 # the kernels that only the tools launch (phase 7), and the tools
@@ -3816,6 +4100,9 @@ def main(argv=None):
                     help="only build and the phases of the run modes, "
                          "cross-validation and the dense path (4c, 4v, 4d, "
                          "5v, 6v), phases 4 and 4m beside them")
+    ap.add_argument("--mesh", action="store_true",
+                    help="only build, phase 4 and the marker mesh's phases "
+                         "(8b, 8x, 8c, 8d, 8n)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     phase_environment()
@@ -3844,6 +4131,11 @@ def main(argv=None):
         log(f"modes run: phases 4, 4c, 4m, 4v, 4d, 5v and 6v passed in "
             f"{time.perf_counter() - t_start:.1f} s")
         return
+    if args.mesh:
+        phase_mesh_alone()
+        log(f"mesh run: phases 4, 8b, 8x, 8c, 8d and 8n passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     # the staged study products draw from their own generator, so that the
@@ -3864,6 +4156,8 @@ def main(argv=None):
     full_g = phase_kernels_gram(words, gen, True)
     phase_kernels_window(words, "config B")
     launches, geno, problem = phase_main_path(words)
+    launches_mesh = {f"config B, {MESH_SHARDS} shards (phase 8b)":
+                     phase_mesh_b(words, geno, problem)}
     launches_v = {"cross-validation at config B (phase 4c)":
                   phase_cross_val_b(geno, problem)}
     launches_q = {"config B probe path": phase_probe_b(geno, problem),
@@ -3900,6 +4194,8 @@ def main(argv=None):
     full_x = phase_kernels_config_x(words, words_m, gen)
     launches_x, launches_xm, launches_q["config X dual probe path"] = \
         phase_dual_x(words, words_m)
+    launches_mesh[f"config X dual, {MESH_SHARDS} shards (phase 8x)"] = \
+        phase_mesh_x(words)
     del words, words_m
     torch.cuda.empty_cache()
     phase_dense()
@@ -3918,6 +4214,8 @@ def main(argv=None):
         phase_card_vs_cpu_multi(model, miss_rate)
     phase_card_vs_cpu_options()
     phase_card_vs_cpu_modes()
+    for miss_rate in (0.0, 0.02):
+        phase_card_vs_cpu(miss_rate, shards=MESH_SHARDS)
     phase_cli()
     phase_cli_xxt()
     phase_cli_probit()
@@ -3925,6 +4223,8 @@ def main(argv=None):
     phase_cli_multi()
     phase_cli_options()
     phase_cli_modes()
+    phase_cli_distributed()
+    phase_nccl_two_ranks()
     launches_tools = phase_tools()
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     # times at B = 1 on the whole matrix of the path that runs the kernel:
@@ -3979,6 +4279,9 @@ def main(argv=None):
             + ", ".join(f"{n} {c[n]}" for n in PRODUCT_KERNELS if c[n]))
     for run, c in launches_v.items():
         log(f"{run}: launches "
+            + ", ".join(f"{n} {c[n]}" for n in PRODUCT_KERNELS if c[n]))
+    for run, c in launches_mesh.items():
+        log(f"marker mesh, {run}: launches "
             + ", ".join(f"{n} {c[n]}" for n in PRODUCT_KERNELS if c[n]))
     log(smi())
     log(json.dumps({"kernels": kernels}))

@@ -100,17 +100,27 @@ def _fill_warm_start(vals: dict, missing: list, meta: dict) -> None:
         vals["cv_r2"] = np.asarray(-1.0, x1.dtype)
 
 
-def load_state(path: str, state_cls, device="cuda", dtype=None):
+def load_state(path: str, state_cls, device="cuda", dtype=None,
+               mpad: int | None = None):
     """npz -> (state_cls instance on ``device``, metadata).  Floating
     fields take ``dtype`` where given; ``it`` becomes a host int; a
     ``gen_fields`` entry becomes a new CPU generator restored from its
     bytes.  The warm-start fields a checkpoint lacks are zero-filled, and
     a missing ``cv_r2`` is -1.  Raises ValueError on a JAX Huber checkpoint
-    (its PRNG key)."""
+    (its PRNG key) and, with ``mpad`` given, on a checkpoint whose marker
+    vectors have another padded length: one written under another shard
+    count, whose Mpad differs (the JAX package resumes such a state into
+    mismatched shapes)."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(bytes(z["_meta"]).decode())
         _check_resumable(path, meta)
         vals = {name: z[f"f_{name}"] for name in meta["fields"]}
+    if mpad is not None and vals["x1"].shape[0] != mpad:
+        raise ValueError(
+            f"checkpoint {path} holds marker vectors of Mpad="
+            f"{vals['x1'].shape[0]}; this run pads the markers to Mpad={mpad} "
+            f"(Mpad is rounded to 512 times the shard count): resume with "
+            f"the --devices / --n-processes that wrote it")
     gen_fields = set(meta.get("gen_fields", []))
     unknown = set(vals) - set(state_cls._fields)
     if unknown:

@@ -2,7 +2,8 @@
 
 The flags are those of the JAX package's CLI (parsed by the port's copy of
 its ``Options``), plus ``--device`` (default ``cuda``) for the port.  It
-runs every run mode of the JAX CLI (``gvamp_tpu/cli.py``) on one device:
+runs every run mode of the JAX CLI (``gvamp_tpu/cli.py``) on one device or
+on a marker mesh:
 
   infere          fit the model, dump per iteration
   restart         continue a checkpoint (``--resume``) or start from an
@@ -66,10 +67,22 @@ computed); a multi-trait linear run writes them per trait under
 ``{out}_phen{t}``.  Genotypes with missing calls run through the general
 kernels; ``--use-XXT-denoiser 1`` runs the dual (N-space) LMMSE solve
 through the fused dual Gram kernels; ``--deflate-k K`` preconditions the
-primal solves with the top K eigenpairs of A^T A.  A device mesh
-(``--devices``, ``--distributed``) raises ``NotImplementedError`` naming
-its ROADMAP.md item; on dense data the options that need the packed
-operator raise it naming the option, where the JAX package fails.
+primal solves with the top K eigenpairs of A^T A.  On dense data the
+options that need the packed operator raise ``NotImplementedError`` naming
+the option, where the JAX package fails.
+
+The marker mesh (``gvamp_tpu_torch.dist``): ``--devices K`` splits the
+packed matrix into K marker shards (0, the default, means one per visible
+card on CUDA and 1 on the CPU; on the CPU every shard sits on the one CPU
+device, on CUDA they go round-robin over the visible cards).
+``--distributed 1`` with ``--coordinator HOST:PORT``, ``--n-processes``
+and ``--process-id`` (or the ``GVAMP_*`` / ``torch.distributed``
+variables) first joins a process group, ``nccl`` on CUDA and ``gloo`` on
+the CPU; each process then owns ``--devices`` shards (default 1), reads
+only their byte ranges of the .bed, and runs the engines on replicated
+marker vectors.  Only the first process writes files and logs; every
+process checks at the end of an inference that all hold the same state,
+and a barrier ends the run.
 
 Example::
 
@@ -91,7 +104,7 @@ import sys
 import numpy as np
 import torch
 
-from gvamp_tpu_torch import linear, multi, probit, robust, sim
+from gvamp_tpu_torch import dist, linear, multi, probit, robust, sim
 from gvamp_tpu_torch.ckpt import (load_state, read_meta, save_state,
                                   write_scalar_history)
 from gvamp_tpu_torch.data import GenoBed, GenoDense
@@ -107,10 +120,6 @@ def _check_slice(opt: Options) -> None:
     if opt.backend != "auto":
         raise ValueError("--backend picks a JAX backend; the port routes by "
                          "--dtype (float32: CUDA kernels, float64: CPU)")
-    if opt.devices > 1 or opt.distributed != 0:
-        raise NotImplementedError(
-            "a device mesh (--devices, --distributed) is not ported yet: "
-            "ROADMAP.md Queue 1 item 11")
     if opt.type_data == "meth" and opt.run_mode in ("predict",
                                                     "predict_single"):
         # gvamp_tpu/cli.py:765-770 reads --bed-file-test as packed .bed
@@ -123,6 +132,56 @@ def _check_slice(opt: Options) -> None:
 
 
 _TAGS = {"linear": "", "bin_class": "_probit", "robust": "_robust"}
+
+
+# the run's files: written by the first process only, the others holding
+# the same replicated values (gvamp_tpu/cli.py gates them on dist.is_main)
+
+def _write_bin(path: str, x, offset: int) -> None:
+    if dist.is_main():
+        vecio.write_bin_shard(path, x, offset)
+
+
+def _write_txt(path: str, x) -> None:
+    if dist.is_main():
+        vecio.write_txt(path, x)
+
+
+def _save_state(path: str, state, **extra) -> None:
+    if dist.is_main():
+        save_state(path, state, **extra)
+
+
+def _write_history(prefix: str, hist) -> None:
+    if dist.is_main():
+        write_scalar_history(prefix, hist)
+
+
+def _mesh(opt: Options, device):
+    """The run's marker mesh, or None for one device: ``--devices`` shards
+    per process under ``--distributed`` (default 1), else ``--devices``
+    shards in this process (0: one per visible card on CUDA, 1 on the
+    CPU)."""
+    device = torch.device(device)
+    if opt.distributed:
+        return dist.Mesh(opt.devices or 1, device)
+    n = opt.devices
+    if n == 0 and device.type == "cuda" and torch.cuda.is_available():
+        n = torch.cuda.device_count()
+    return dist.Mesh(n, device) if n > 1 else None
+
+
+def _check_replicated(geno, state) -> None:
+    """The end of an inference over several processes: one collective
+    check that every process holds the same state."""
+    mesh = geno.mesh
+    if mesh is None or not mesh.distributed:
+        return
+    n = mesh.assert_replicated(*[v for v in state
+                                 if isinstance(v, torch.Tensor)])
+    if dist.is_main():
+        print(f"replicated: {n} state tensors agree over {mesh.world} "
+              f"processes ({dist.backend()})", flush=True)
 
 
 def _dumper(prefix: str, every: int, model: str = "linear",
@@ -140,7 +199,7 @@ def _dumper(prefix: str, every: int, model: str = "linear",
         # over the padded 4*mbytes width, original order
         full = np.zeros(4 * geno.layout.mbytes)
         full[: geno.N] = geno.deplanarize(vec)[: geno.N]
-        vecio.write_txt(path, full)
+        _write_txt(path, full)
 
     def cb(it, state, metrics, geno):
         if every == 0 or it % every:
@@ -152,13 +211,13 @@ def _dumper(prefix: str, every: int, model: str = "linear",
             vecs += [(f"_r2_it_{it}.bin", state.r2),
                      (f"_it_{it}_x2_hat.bin", state.x2)]
         for name, vec in vecs:
-            vecio.write_bin_shard(prefix + name,
-                                  vec[: geno.M].cpu().numpy() * scale, geno.S)
+            _write_bin(prefix + name, vec[: geno.M].cpu().numpy() * scale,
+                       geno.S)
         for nm in ("z1",) if model == "linear" else ("z1", "p1"):
             planar_csv(f"{prefix}{tag}_{nm}_it_{it}.csv", getattr(state, nm),
                        geno)
         if checkpoint:
-            save_state(checkpoint, state, it=it, model=model, **meta)
+            _save_state(checkpoint, state, it=it, model=model, **meta)
 
     return cb
 
@@ -205,6 +264,7 @@ def run_inference(opt: Options, geno: GenoBed, gam1=None, gamw=None,
             cfg = robust.RobustConfig(**_common_cfg(opt, gam1, 1e-8))
         res = _ENGINES[opt.model][0].infer(geno, cfg, probs, vars_user,
                                            callbacks=[dumper(cfg)], **common)
+        _check_replicated(geno, res[1])
         if opt.store_pip:
             _store_pip(opt, geno, res[1], _TAGS[opt.model])
         return res
@@ -222,8 +282,9 @@ def run_inference(opt: Options, geno: GenoBed, gam1=None, gamw=None,
     x_est, state, hist = linear.infer(
         geno, cfg, probs, vars_user, freeze=freeze, r1_init=r1_init,
         x1_init=x1_init, callbacks=[dumper(cfg)], **common)
+    _check_replicated(geno, state)
     if hist:
-        write_scalar_history(opt.out_prefix, hist)
+        _write_history(opt.out_prefix, hist)
     if opt.state_evo and hist:
         _print_state_evolution(geno, hist, opt.seed)
     # the JAX CLI's test (cli.py:176): the default 0 computes no p-values
@@ -266,7 +327,7 @@ def _store_pip(opt: Options, geno: GenoBed, state, tag: str = "",
     ``{out}{tag}_pip.bin``, or per trait ``{out}_phen{t}{tag}_pip.bin``."""
     def one(r1, gam1, probs, vars_, name):
         p = pip(r1, gam1, Prior(probs=probs, vars=vars_))[: geno.M]
-        vecio.write_bin_shard(name, p.cpu().numpy(), geno.S)
+        _write_bin(name, p.cpu().numpy(), geno.S)
         print(f"pip -> {name}")
 
     if T:
@@ -341,6 +402,7 @@ def _run_multi(opt: Options, geno: GenoBed, probs, vars_user, gam1=None,
         mp, cfg, probs, vars_user, resume_state=resume,
         verbose=opt.verbosity > 0, sync_every=opt.sync_every,
         callbacks=[_multi_dump_cb(opt, mp, cfg, _TAGS[opt.model])])
+    _check_replicated(geno, state)
     if opt.model == "linear":
         if hist:
             _write_multi_scalar_history(opt.out_prefix, hist, mp.T)
@@ -362,11 +424,11 @@ def _multi_dump_cb(opt: Options, mp, cfg, tag: str = ""):
         if opt.dump_every and it % opt.dump_every == 0:
             x = state.x1[: g.M].cpu().numpy() / np.sqrt(g.N)
             for t in range(mp.T):
-                vecio.write_bin_shard(
+                _write_bin(
                     f"{opt.out_prefix}_phen{t}{tag}_it_{it}.bin", x[:, t],
                     g.S)
         if opt.checkpoint:
-            save_state(opt.checkpoint, state, it=it, model=opt.model,
+            _save_state(opt.checkpoint, state, it=it, model=opt.model,
                        T=mp.T, cfg=dataclasses.asdict(cfg))
 
     return cb
@@ -377,7 +439,7 @@ def _write_multi_scalar_history(prefix: str, hist, T: int) -> None:
     (vamp.cpp:778-794 per trait)."""
     keys = ("gam1", "gam2", "R2_train_1", "R2_train_2")
     for t in range(T):
-        write_scalar_history(f"{prefix}_phen{t}", [
+        _write_history(f"{prefix}_phen{t}", [
             {k: np.asarray(h[k])[t] for k in keys if k in h} for h in hist])
 
 
@@ -391,14 +453,13 @@ def _store_pvals_multi(opt: Options, geno: GenoBed, ys, state) -> None:
         z1_t = state.z1[..., t].contiguous()
         x1_t = state.x1[:, t].contiguous()
         name = f"{opt.out_prefix}_phen{t}_pvals"
-        vecio.write_bin_shard(name + ".bin", pvals.loo_pvals(geno, z1_t, x1_t),
-                              geno.S)
+        _write_bin(name + ".bin", pvals.loo_pvals(geno, z1_t, x1_t), geno.S)
         print(f"pvals -> {name}.bin")
         if opt.bim_file:
             ploco = pvals.loco_pvals(
                 geno, z1_t, x1_t, geno.chromosomes(),
                 predictor_cb=_loco_predictor_writer(opt, geno, f"_phen{t}"))
-            vecio.write_bin_shard(name + "_LOCO.bin", ploco, geno.S)
+            _write_bin(name + "_LOCO.bin", ploco, geno.S)
 
 
 def mode_restart(opt: Options, device):
@@ -434,7 +495,7 @@ def _resume_run(opt: Options, device):
     geno = _load_geno(opt, device)
     eng, cfg_cls, state_cls = _ENGINES[model]
     state, _ = load_state(opt.resume, state_cls, device=geno.device,
-                          dtype=geno.dtype)
+                          dtype=geno.dtype, mpad=geno.Mpad)
     cfg_d = dict(meta.get("cfg", {}))
     if cfg_d:
         # a run from before the SLQ traces carries probe columns, and one
@@ -456,8 +517,9 @@ def _resume_run(opt: Options, device):
         geno, cfg, probs, vars_user, resume_state=state, callbacks=[dump],
         verbose=opt.verbosity > 0, sync_every=opt.sync_every,
         phase_timers=bool(opt.phase_timers))
+    _check_replicated(geno, state)
     if hist:
-        write_scalar_history(opt.out_prefix, hist)
+        _write_history(opt.out_prefix, hist)
     return x_est, state, hist
 
 
@@ -473,7 +535,7 @@ def _resume_multi(opt: Options, device, meta: dict):
     geno = _load_geno(opt, device)
     _, cfg_cls, state_cls = _MULTI[opt.model]
     state, _ = load_state(opt.resume, state_cls, device=geno.device,
-                          dtype=geno.dtype)
+                          dtype=geno.dtype, mpad=geno.Mpad)
     cfg_d = dict(meta.get("cfg", {}))
     cfg_d.setdefault("use_slq", False)
     cfg_d.setdefault("cg_extrapolate", False)
@@ -488,14 +550,13 @@ def _resume_multi(opt: Options, device, meta: dict):
 def _store_pvals_after_infer(opt: Options, geno: GenoBed, state) -> None:
     """End-of-run LOO (+ LOCO with a .bim) p-values (vamp.cpp:761-776)."""
     p = pvals.loo_pvals(geno, state.z1, state.x1)
-    vecio.write_bin_shard(opt.out_prefix + "_pvals.bin", p, geno.S)
+    _write_bin(opt.out_prefix + "_pvals.bin", p, geno.S)
     print(f"pvals -> {opt.out_prefix}_pvals.bin")
     if opt.bim_file:
         ploco = pvals.loco_pvals(
             geno, state.z1, state.x1, geno.chromosomes(),
             predictor_cb=_loco_predictor_writer(opt, geno))
-        vecio.write_bin_shard(opt.out_prefix + "_pvals_LOCO.bin", ploco,
-                              geno.S)
+        _write_bin(opt.out_prefix + "_pvals_LOCO.bin", ploco, geno.S)
         print(f"LOCO pvals -> {opt.out_prefix}_pvals_LOCO.bin")
 
 
@@ -506,7 +567,7 @@ def _loco_predictor_writer(opt: Options, geno: GenoBed, tag: str = ""):
     def cb(ch, y_chrom):
         full = np.zeros(4 * geno.layout.mbytes)
         full[: geno.N] = geno.deplanarize(y_chrom)[: geno.N]
-        vecio.write_txt(f"{opt.out_prefix}{tag}_LOCO_chr_{ch}.csv", full)
+        _write_txt(f"{opt.out_prefix}{tag}_LOCO_chr_{ch}.csv", full)
     return cb
 
 
@@ -758,11 +819,11 @@ def mode_pvals_calc(opt: Options, device):
             predictor_cb=lambda e: _loco_predictor_writer(opt, geno, tags[e]))
         for e, tag in enumerate(tags):
             if p_loo is not None:
-                vecio.write_bin_shard(f"{opt.out_prefix}{tag}_pvals.bin",
-                                      p_loo[e], geno.S)
+                _write_bin(f"{opt.out_prefix}{tag}_pvals.bin", p_loo[e],
+                           geno.S)
             if p_loco is not None:
-                vecio.write_bin_shard(f"{opt.out_prefix}{tag}_pvals_LOCO.bin",
-                                      p_loco[e], geno.S)
+                _write_bin(f"{opt.out_prefix}{tag}_pvals_LOCO.bin",
+                           p_loco[e], geno.S)
 
 
 def mode_predict(opt: Options, device, single: bool = False):
@@ -777,12 +838,13 @@ def mode_predict(opt: Options, device, single: bool = False):
     geno = GenoBed.from_files(
         opt.bed_file_test, None, N=opt.N_test, Mt=opt.Mt_test,
         alpha_scale=opt.alpha_scale, dtype=dtype,
-        device=torch.device(device), standardize_phen=False)
+        device=torch.device(device), standardize_phen=False,
+        mesh=_mesh(opt, device))
     if single:
         est = vecio.read_estimate(opt.estimate_file, geno.M, geno.S)
         full = np.zeros(4 * geno.layout.mbytes)
         full[: geno.N] = predict_series(geno, [est])[:, 0]
-        vecio.write_txt(opt.out_prefix + "_predict.csv", full)
+        _write_txt(opt.out_prefix + "_predict.csv", full)
         return
     lo, hi = opt.test_iter_range
     path = opt.estimate_file
@@ -792,14 +854,16 @@ def mode_predict(opt: Options, device, single: bool = False):
         vecio.read_estimate(f"{stem}temp_{it}_{it}_gibbs_est.{ext}", geno.M,
                             geno.S) for it in range(lo, hi + 1)])
     if opt.predict_format == "matrix":
-        np.savetxt(f"{opt.out_prefix}_predict_matrix.csv", zs, delimiter=",")
+        if dist.is_main():
+            np.savetxt(f"{opt.out_prefix}_predict_matrix.csv", zs,
+                       delimiter=",")
         return
     if geno.N > 10000:
         print(f"WARNING: --predict-format per-individual writes {geno.N} "
               "files (reference main_real.cpp:538-545 behavior); use "
               "--predict-format matrix for one CSV", flush=True)
     for i in range(geno.N):
-        vecio.write_txt(f"{opt.out_prefix}_predict_{i}.csv", zs[i])
+        _write_txt(f"{opt.out_prefix}_predict_{i}.csv", zs[i])
 
 
 def mode_sim(opt: Options, device):
@@ -837,8 +901,8 @@ def mode_sim(opt: Options, device):
         else:
             y = sim.simulate_linear_phenotype(geno, beta, 1.0 / (1.0 - h2),
                                               rng)
-        vecio.write_bin_shard(opt.out_prefix + "_beta_true.bin", beta, geno.S)
-        vecio.write_txt(opt.out_prefix + "_y.txt", y)
+        _write_bin(opt.out_prefix + "_beta_true.bin", beta, geno.S)
+        _write_txt(opt.out_prefix + "_y.txt", y)
     geno.set_phen(y)
     probs_i, vars_i = opt.probs, opt.vars
     if not opt.vars and opt.num_mix_comp > 1:
@@ -867,11 +931,12 @@ def mode_sim(opt: Options, device):
     else:
         model, eng = "linear", linear
         cfg = linear.VampConfig(gamw_init=2.0, **common)
-    x_est, _, hist = eng.infer(
+    x_est, state, hist = eng.infer(
         geno, cfg, probs, vars_user, true_signal=beta,
         callbacks=[_dumper(opt.out_prefix, opt.dump_every, model)],
         verbose=opt.verbosity > 0)
-    write_scalar_history(opt.out_prefix, hist)
+    _check_replicated(geno, state)
+    _write_history(opt.out_prefix, hist)
     return x_est
 
 
@@ -905,7 +970,8 @@ def _load_geno(opt: Options, device, test: bool = False):
         phen[0] if phen else None, N=opt.N_test if test else opt.N,
         Mt=opt.Mt_test if test else opt.Mt, alpha_scale=opt.alpha_scale,
         dtype=dtype, standardize_phen=opt.model != "bin_class",
-        device=torch.device(device), bim_path=opt.bim_file)
+        device=torch.device(device), bim_path=opt.bim_file,
+        mesh=_mesh(opt, device))
     if opt.cov_file and opt.C > 0:
         geno.read_covariates(opt.cov_file, opt.C)
     return geno
@@ -918,13 +984,31 @@ def main(argv=None):
     ns, rest = pre.parse_known_args(argv)
     opt = Options.from_args(rest)
     _check_slice(opt)
+    device = ns.device
+    if opt.distributed:
+        # join the process group before any device use (gvamp_tpu/cli.py:
+        # 921-943); the first process alone logs
+        rank = dist.initialize(
+            opt.coordinator or None, opt.n_processes or None,
+            opt.process_id if opt.process_id >= 0 else None, device=device)
+        device = dist.process_device(device)
+        if rank != 0:
+            opt.verbosity = 0
 
     def run():
-        return MODES[opt.run_mode](opt, ns.device)
+        return MODES[opt.run_mode](opt, device)
 
-    if opt.profile_dir:
-        return _profiled(run, opt.profile_dir, torch.device(ns.device))
-    return run()
+    try:
+        if opt.profile_dir:
+            out = _profiled(run, opt.profile_dir, torch.device(device))
+        else:
+            out = run()
+        if opt.distributed:
+            dist.barrier()
+    finally:
+        if opt.distributed:
+            dist.finalize()
+    return out
 
 
 def _profiled(run, out_dir: str, device: torch.device):

@@ -19,14 +19,22 @@ def geno_from_numpy(words: np.ndarray, y_raw: np.ndarray, N: int,
                     M: int | None = None, Mt: int | None = None, S: int = 0,
                     mave=None, msig=None, standardize_phen: bool = True,
                     alpha_scale: float = 1.0, device="cuda",
-                    dtype=torch.float32) -> GenoBed:
+                    dtype=torch.float32, mesh=None) -> GenoBed:
     """A port container from the JAX container's words uint32[Nw, Mpad],
     on the card unless ``device`` names another.  ``mave``/``msig`` given as
-    arrays skip the statistics pass."""
+    arrays skip the statistics pass.  Under ``mesh`` (a
+    ``dist.Mesh``, whose device replaces ``device``) the global words are
+    split into the mesh's local slabs: the same words as a JAX container
+    sharded over a K-device mesh, K the mesh's shard count."""
+    if mesh is not None:
+        words = mesh.split(np.ascontiguousarray(words, dtype=np.uint32)
+                           .view(np.int32))
+    else:
+        words = words_from_numpy(words, device)
     return GenoBed.from_device_words(
-        words_from_numpy(words, device), y_raw, N=N, M=M, Mt=Mt, S=S,
+        words, y_raw, N=N, M=M, Mt=Mt, S=S,
         standardize_phen=standardize_phen, alpha_scale=alpha_scale,
-        dtype=dtype, mave=mave, msig=msig)
+        dtype=dtype, mave=mave, msig=msig, mesh=mesh)
 
 
 def _fields(d: dict, state_cls, device, dtype, skip=()) -> dict:

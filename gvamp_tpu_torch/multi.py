@@ -58,7 +58,7 @@ from gvamp_tpu_torch.sync import host_bool
 class MultiOp(NamedTuple):
     """The shared packed words and the per-trait standardisation."""
 
-    words: torch.Tensor   # int32[Nw, Mpad] (shared)
+    words: torch.Tensor   # int32[Nw, Mpad] (shared; a mesh: the slabs)
     mave: torch.Tensor    # [Mpad, T]
     msig: torch.Tensor    # [Mpad, T]
     na: torch.Tensor      # [4, Nb, T] per-trait phenotype-NA indicator
@@ -126,7 +126,8 @@ class MultiPhen:
     def fns(self):
         """(axm_fn, atxm_fn) with per-column standardisation: X [Mpad, B]
         -> [4, Nb, B] and V [4, Nb, B] -> [Mpad, B], column j under trait
-        ``cols[j]``'s statistics and NA mask (``cols`` from ``self.cols``)."""
+        ``cols[j]``'s statistics and NA mask (``cols`` from ``self.cols``).
+        Under a mesh the kernels run per slab, as ``GenoBed``'s."""
         geno = self.geno
         dtype, scale = geno.dtype, geno.inv_sqrt_n
 
@@ -134,15 +135,18 @@ class MultiPhen:
             # complete genotypes: b's contractions collapse to per-column
             # scalars as in the single-trait path; the phenotype-NA masks
             # stay per trait (multi.py:110-147)
+            axm_a = geno._sharded(matvec.axm_i8a, ("m",), "sum")
+            atxm_a = geno._sharded(matvec.atxm_i8a, (None,), "m")
+
             def axm_fn(op: MultiOp, X, cols):
                 W = op.msig[:, cols] * X.to(dtype)
                 U = op.mave[:, cols] * W
-                z = matvec.axm_i8a(op.words, W) - U.sum(dim=0)[None, None, :]
+                z = axm_a(op.words, W) - U.sum(dim=0)[None, None, :]
                 return z * op.na[:, :, cols] * scale
 
             def atxm_fn(op: MultiOp, V, cols):
                 v = V.to(dtype) * op.na[:, :, cols]
-                av = matvec.atxm_i8a(op.words, v)
+                av = atxm_a(op.words, v)
                 sv = v.sum(dim=(0, 1))
                 return ((av - op.mave[:, cols] * sv[None, :])
                         * op.msig[:, cols] * scale)
@@ -157,6 +161,8 @@ class MultiPhen:
                 return matvec.atxm_ref(words, V, dtype)
         else:
             axm_raw, atxm_raw = matvec.axm_i8, matvec.atxm_i8
+        axm_raw = geno._sharded(axm_raw, ("m", "m"), "sum")
+        atxm_raw = geno._sharded(atxm_raw, (None,), "m")
 
         def axm_fn(op: MultiOp, X, cols):
             W = op.msig[:, cols] * X.to(dtype)
@@ -174,7 +180,7 @@ class MultiPhen:
         """The fused per-column Gram ``gram_fn(op, X, cols) -> A^T (A X)``
         in one read of the words, or None: the routing of
         ``GenoBed.fn_gram`` (opt-in under ``GVAMP_FUSED_GRAM=1``; None
-        under ``GVAMP_NO_FUSED_GRAM=1``, in float64 and past
+        under ``GVAMP_NO_FUSED_GRAM=1``, in float64, under a mesh and past
         ``matvec.gram_fits``), with each column's trait NA mask passed to
         the kernel as a [4, Nb, B] mask."""
         geno = self.geno
@@ -182,7 +188,8 @@ class MultiPhen:
             return None
         if os.environ.get("GVAMP_NO_FUSED_GRAM", "") == "1":
             return None
-        if geno.dtype == torch.float64 or not matvec.gram_fits(geno.words):
+        if (geno.dtype == torch.float64 or geno.mesh is not None
+                or not matvec.gram_fits(geno.words)):
             return None
         dtype = geno.dtype
         scale2 = geno.inv_sqrt_n * geno.inv_sqrt_n

@@ -13,7 +13,9 @@ contractions of the decode (a, b) against the fixed vectors
 the packed matrix (``_moments``) gives them for every marker, and several
 estimates or chromosomes ride the same pass as extra vectors.
 
-The pass is plain PyTorch: the JAX package computes it in XLA, not in a
+Under a marker mesh the pass runs per slab and its moments are
+all-gathered; the tests then run on the replicated moments.  The pass is
+plain PyTorch: the JAX package computes it in XLA, not in a
 Pallas kernel.  Within an N-chunk the products run in true float32 (TF32
 is switched off for the pass, as JAX asks for ``Precision.HIGHEST``), and
 chunk partials combine with compensated two-sum, so the (hi, lo) pairs fold
@@ -136,8 +138,15 @@ def _pvals_of(geno, ycs, s):
     NA-masked) and the add-back scales s [Mpad, T], in one moments pass."""
     na = geno.na_planar
     vecs = torch.stack([na] + [v for yc in ycs for v in (yc, yc * yc)])
-    av_hi, av_lo, bv_hi, bv_lo, aa_hi, aa_lo = _moments(
-        geno.words, vecs, na, block=min(256, geno.Mpad))
+    if geno.mesh is None:
+        moments = _moments(geno.words, vecs, na, block=min(256, geno.Mpad))
+    else:
+        # per slab, each marker's moments all-gathered: [V, M] along axis
+        # 1, the a^2 sums along axis 0
+        moments = geno.mesh.shard_map(
+            lambda g, v, n: _moments(g, v, n, block=min(256, g.shape[1])),
+            (None, None), "m", dims=(1, 1, 1, 1, 0, 0))(geno.words, vecs, na)
+    av_hi, av_lo, bv_hi, bv_lo, aa_hi, aa_lo = moments
     avh = _fold64(av_hi, av_lo)
     bvh = _fold64(bv_hi, bv_lo)
     sumx, sumsqx, b_na, mave, msig = _shared_stats(

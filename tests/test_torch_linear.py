@@ -283,13 +283,24 @@ def test_cli_infere_dumps_match_library(problem, tmp_path):
                "--store-pip", "1"])
     p = vecio.read_bin_shard(str(tmp_path / "out" / "pip_pip.bin"), M, 0)
     assert np.all((p >= 0) & (p <= 1))
-    # an option outside the port raises naming its item (--state-evo, once
-    # refused here, runs: tests/test_torch_modes.py)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 11"):
-        tcli.main(["--device", "cpu", "--bed-file", bed, "--phen-files",
-                   phen, "--N", str(N), "--Mt", str(M), "--probs",
-                   "0.9,0.1", "--vars", "0.0,0.01", "--devices", "2"])
+    # the marker mesh, once refused here, runs: --devices 2 (two shards on
+    # the CPU, Mpad 1,024) writes the dumps of --devices 1 within f64 rtol
+    # 1e-8 (tests/test_torch_dist*.py hold it against JAX's mesh); the
+    # refusals left are those of ROADMAP.md Queue 3
+    mesh_run = ["--device", "cpu", "--bed-file", bed, "--phen-files", phen,
+                "--N", str(N), "--Mt", str(M), "--iterations", "2",
+                "--probs", ",".join(map(str, probs_t)),
+                "--vars", ",".join(map(str, vars_t)), "--verbosity", "0",
+                "--dtype", "float64", "--out-dir", str(tmp_path / "out")]
+    for k in ("1", "2"):
+        tcli.main(mesh_run + ["--devices", k, "--out-name", f"dev{k}"])
+    for it in (1, 2):
+        for name in (f"_it_{it}.bin", f"_r1_it_{it}.bin", f"_r2_it_{it}.bin",
+                     f"_it_{it}_x2_hat.bin"):
+            np.testing.assert_allclose(
+                vecio.read_bin_shard(f"{tmp_path}/out/dev2{name}", M, 0),
+                vecio.read_bin_shard(f"{tmp_path}/out/dev1{name}", M, 0),
+                rtol=1e-8, atol=1e-12, err_msg=name)
 
 
 # |log10 p| of the CLI's f32 p-values against JAX's loo_pvals on the same
