@@ -2251,13 +2251,9 @@ def phase_cli():
     N, M, n_it = 800, 240, 8
     with tempfile.TemporaryDirectory() as tmp:
         bed, phen, bim, beta = flagship_files(tmp, N, M)
-        args = ["--device", "cuda", "--run-mode", "infere", "--model",
-                "linear", "--bed-file", bed, "--phen-files", phen,
-                "--bim-file", bim, "--N", str(N), "--Mt", str(M),
-                "--iterations", str(n_it), "--rho", "0.3",
-                "--probs", "0.95,0.05", "--vars", "0.0,0.0667",
-                "--store-pvals", "1", "--verbosity", "0",
-                "--out-dir", os.path.join(tmp, "out"), "--out-name", "demo"]
+        args = flagship_cli_args(bed, phen, bim, N, M,
+                                 os.path.join(tmp, "out"), "demo", n_it,
+                                 pvals=True)
         matvec.reset_launches()
         cli.main(args)
         check_no_tool_launches("CLI linear", matvec.LAUNCHES)
@@ -3125,13 +3121,17 @@ def phase_probe_dual_x(geno, beta, vars_t, probs_t):
     return launches
 
 
-def flagship_cli_args(bed, phen, bim, N, M, out, name, n_it):
-    return ["--device", "cuda", "--model", "linear", "--bed-file", bed,
-            "--phen-files", phen, "--bim-file", bim, "--N", str(N), "--Mt",
-            str(M), "--iterations", str(n_it), "--rho", "0.3",
-            "--stop-criteria-thr", "0", "--probs", "0.95,0.05", "--vars",
-            "0.0,0.0667", "--verbosity", "0", "--out-dir", out,
-            "--out-name", name]
+def flagship_cli_args(bed, phen, bim, N, M, out, name, n_it, pvals=False):
+    """The flagship linear CLI run, the stopping test off; ``pvals`` adds
+    ``--run-mode infere --store-pvals 1`` (phase 6's recipe)."""
+    return (["--device", "cuda", "--model", "linear", "--bed-file", bed,
+             "--phen-files", phen, "--bim-file", bim, "--N", str(N), "--Mt",
+             str(M), "--iterations", str(n_it), "--rho", "0.3",
+             "--stop-criteria-thr", "0", "--probs", "0.95,0.05", "--vars",
+             "0.0,0.0667", "--verbosity", "0", "--out-dir", out,
+             "--out-name", name]
+            + (["--run-mode", "infere", "--store-pvals", "1"] if pvals
+               else []))
 
 
 # the names of the port's CUDA kernels in a profiler trace (csrc/)
@@ -3912,17 +3912,6 @@ def free_port() -> int:
     return port
 
 
-def flagship_cli(bed, phen, bim, N, M, out, name, n_it, device="cuda"):
-    """phase 6's flagship linear CLI run with --store-pvals 1 and a .bim."""
-    return ["--device", device, "--run-mode", "infere", "--model",
-            "linear", "--bed-file", bed, "--phen-files", phen,
-            "--bim-file", bim, "--N", str(N), "--Mt", str(M),
-            "--iterations", str(n_it), "--rho", "0.3",
-            "--probs", "0.95,0.05", "--vars", "0.0,0.0667",
-            "--store-pvals", "1", "--verbosity", "0",
-            "--out-dir", out, "--out-name", name]
-
-
 def outputs(out, name) -> dict:
     """{suffix: bytes} of every file a CLI run wrote as ``name``."""
     return {f[len(name):]: open(os.path.join(out, f), "rb").read()
@@ -3941,12 +3930,14 @@ def phase_cli_distributed():
     with tempfile.TemporaryDirectory() as tmp:
         bed, phen, bim, _ = flagship_files(tmp, N, M)
         out = os.path.join(tmp, "out")
-        cli.main(flagship_cli(bed, phen, bim, N, M, out, "plain", n_it))
+        cli.main(flagship_cli_args(bed, phen, bim, N, M, out, "plain", n_it,
+                                   pvals=True))
         matvec.reset_launches()
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            cli.main(flagship_cli(bed, phen, bim, N, M, out, "nccl", n_it)
+            cli.main(flagship_cli_args(bed, phen, bim, N, M, out, "nccl",
+                                       n_it, pvals=True)
                      + ["--distributed", "1", "--coordinator",
                         f"localhost:{free_port()}", "--n-processes", "1",
                         "--process-id", "0"])
@@ -3982,14 +3973,15 @@ def phase_nccl_two_ranks():
     with tempfile.TemporaryDirectory() as tmp:
         bed, phen, bim, _ = flagship_files(tmp, N, M)
         out = os.path.join(tmp, "out")
-        cli.main(flagship_cli(bed, phen, bim, N, M, out, "one", n_it)
-                 + ["--devices", "2"])
+        cli.main(flagship_cli_args(bed, phen, bim, N, M, out, "one", n_it,
+                                   pvals=True) + ["--devices", "2"])
         port = free_port()
         env = dict(os.environ)
         env["PYTHONPATH"] = os.path.dirname(os.path.abspath(__file__))
         procs = [subprocess.Popen(
             [sys.executable, "-m", "gvamp_tpu_torch.cli"]
-            + flagship_cli(bed, phen, bim, N, M, out, "two", n_it)
+            + flagship_cli_args(bed, phen, bim, N, M, out, "two", n_it,
+                                pvals=True)
             + ["--distributed", "1", "--coordinator", f"localhost:{port}",
                "--n-processes", "2", "--process-id", str(i)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

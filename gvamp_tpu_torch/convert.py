@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from gvamp_tpu_torch import linear
-from gvamp_tpu_torch.data import GenoBed, words_from_numpy
+from gvamp_tpu_torch.data import GenoBed, container_device, words_from_numpy
 
 
 def geno_from_numpy(words: np.ndarray, y_raw: np.ndarray, N: int,
@@ -23,9 +23,10 @@ def geno_from_numpy(words: np.ndarray, y_raw: np.ndarray, N: int,
     """A port container from the JAX container's words uint32[Nw, Mpad],
     on the card unless ``device`` names another.  ``mave``/``msig`` given as
     arrays skip the statistics pass.  Under ``mesh`` (a
-    ``dist.Mesh``, whose device replaces ``device``) the global words are
+    ``dist.Mesh``, whose device ``device`` must name) the global words are
     split into the mesh's local slabs: the same words as a JAX container
     sharded over a K-device mesh, K the mesh's shard count."""
+    device = container_device(device, mesh)
     if mesh is not None:
         words = mesh.split(np.ascontiguousarray(words, dtype=np.uint32)
                            .view(np.int32))

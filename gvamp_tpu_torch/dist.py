@@ -49,6 +49,7 @@ import torch
 import torch.distributed as tdist
 
 from gvamp_tpu_torch import native
+from gvamp_tpu_torch.data import require_device
 from gvamp_tpu_torch.io import plink
 from gvamp_tpu_torch.ops.layout import PlanarLayout
 
@@ -167,13 +168,16 @@ def _placement(device: torch.device, n_local: int, distributed: bool):
 class Mesh:
     """K = ``n_local`` x (process count) marker shards; this process owns
     ``shards``, on ``devices``, and keeps its replicated vectors on
-    ``device``.  With a process group (``distributed``) the collectives run
-    over it, even for one process, where they are copies."""
+    ``device``: the card unless the caller names another (without a card
+    a CUDA mesh raises).  With a process group (``distributed``) the
+    collectives run over it, even for one process, where they are
+    copies."""
 
-    def __init__(self, n_local: int = 1, device="cpu"):
+    def __init__(self, n_local: int = 1, device="cuda"):
         if n_local < 1:
             raise ValueError(f"a mesh needs at least one shard per process, "
                              f"got {n_local}")
+        require_device(device)
         self.distributed = tdist.is_initialized()
         self.world = world_size()
         self.rank = rank()

@@ -138,14 +138,11 @@ def _pvals_of(geno, ycs, s):
     NA-masked) and the add-back scales s [Mpad, T], in one moments pass."""
     na = geno.na_planar
     vecs = torch.stack([na] + [v for yc in ycs for v in (yc, yc * yc)])
-    if geno.mesh is None:
-        moments = _moments(geno.words, vecs, na, block=min(256, geno.Mpad))
-    else:
-        # per slab, each marker's moments all-gathered: [V, M] along axis
-        # 1, the a^2 sums along axis 0
-        moments = geno.mesh.shard_map(
-            lambda g, v, n: _moments(g, v, n, block=min(256, g.shape[1])),
-            (None, None), "m", dims=(1, 1, 1, 1, 0, 0))(geno.words, vecs, na)
+    # under a mesh per slab, each marker's moments all-gathered: [V, M]
+    # along axis 1, the a^2 sums along axis 0
+    moments = geno._sharded(
+        lambda g, v, n: _moments(g, v, n, block=min(256, g.shape[1])),
+        (None, None), "m", dims=(1, 1, 1, 1, 0, 0))(geno.words, vecs, na)
     av_hi, av_lo, bv_hi, bv_lo, aa_hi, aa_lo = moments
     avh = _fold64(av_hi, av_lo)
     bvh = _fold64(bv_hi, bv_lo)

@@ -21,6 +21,7 @@ from gvamp_tpu.data import GenoBed as JGenoBed
 from gvamp_tpu.io import plink
 from gvamp_tpu_torch import convert, dist
 from gvamp_tpu_torch.data import GenoBed as TGenoBed
+from gvamp_tpu_torch.data import GenoDense as TGenoDense
 from gvamp_tpu_torch.ops import pvals as tpvals
 from gvamp_tpu_torch.ops.layout import PlanarLayout
 from helpers import random_dataset
@@ -32,16 +33,23 @@ JAX_DTYPE = {torch.float32: jnp.float32, torch.float64: jnp.float64}
 JAX_BACKEND = {torch.float32: "pallas", torch.float64: "xla"}
 # f64: rtol 1e-10, the JAX package's own mesh limit.  f32: rtol 1e-5 (the
 # JAX package's, tests/test_data_layer.py:186-237) with an absolute floor
-# of 1e-6 of the largest entry, tests/test_torch_data.py's PRODUCT_TOL: the
-# port's plain digit products and JAX's interpret-mode Pallas kernels fold
-# the same exact integer sums in another order, and the centring
-# av - mave sv cancels, so small entries differ by up to 1.4e-6 absolute
-# (4.0e-7 of the largest entry) on these data, with a mesh or without one
-# (1.0e-6 / 3.2e-7 on one device); JAX's own absolute 1e-7 holds its
-# sharded kernels against an f64 reference on smaller values.  The dual
-# Gram: 5e-5 of its largest entry, the JAX package's own limit.
+# of 2e-7 of the largest entry.  The port's plain digit products and JAX's
+# interpret-mode Pallas kernels fold the same exact integer sums in another
+# order, and the centring av - mave sv cancels, so small entries differ by
+# more than JAX's own absolute 1e-7 (which holds its sharded kernels
+# against an f64 reference on smaller values) allows, with a mesh or
+# without one.  Measured on these data over the statistics and the four
+# products, each K case's largest absolute error / that over the largest
+# entry / the absolute floor it needs beside rtol 1e-5:
+#   K=2: complete 1.19e-6/2.96e-7/5.03e-7, missing 9.54e-7/2.51e-7/2.93e-7
+#   K=4: complete 1.07e-6/3.22e-7/5.15e-7, missing 1.43e-6/3.97e-7/2.88e-7
+#   K=8: complete 1.19e-6/3.44e-7/5.30e-7, missing 1.07e-6/2.68e-7/4.69e-7
+# so an absolute 1e-7 cannot be met here; the worst floor needed is
+# 1.53e-7 of the largest entry (K=8 complete, atxm), and 2e-7 sits just
+# above it.  The dual Gram: 5e-5 of its largest entry, the JAX package's
+# own limit.
 TOL = {torch.float64: dict(rtol=1e-10, atol=0.0),
-       torch.float32: dict(rtol=1e-5, atol=1e-6)}
+       torch.float32: dict(rtol=1e-5, atol=2e-7)}
 GRAM_TOL = 5e-5
 N, M, B = 130, 300, 3
 
@@ -82,6 +90,57 @@ def test_mesh_layout_and_local_collectives():
     torch.testing.assert_close(got[0], x.sum(0), rtol=0, atol=0)
     torch.testing.assert_close(got[1], 2 * x.sum(0), rtol=0, atol=0)
     assert mesh.assert_replicated(x, w) == 2
+
+
+def test_mesh_defaults_to_the_card():
+    """A mesh built without a device is on the card, or raises where there
+    is none: it never moves a run to the CPU on its own."""
+    if torch.cuda.is_available():
+        assert dist.Mesh(2).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dist.Mesh(2)
+
+
+def _entry_points(tmp_path):
+    """Each container entry point that takes a device, called with its
+    default device (the card) and the keywords given."""
+    rng = np.random.default_rng(5)
+    n, m = 40, 30
+    codes, y = random_dataset(rng, n, m)
+    bed = str(tmp_path / "d.bed")
+    plink.write_bed(bed, codes)
+    X = rng.normal(size=(m, n))
+    meth = str(tmp_path / "d.meth")
+    X.astype(np.float64).tofile(meth)
+    words = TGenoBed.from_arrays(make_bed(codes), y, N=n,
+                                 device="cpu").words.numpy().view(np.uint32)
+    return {
+        "bed_from_arrays": lambda **kw: TGenoBed.from_arrays(
+            make_bed(codes), y, N=n, **kw),
+        "bed_from_files": lambda **kw: TGenoBed.from_files(
+            bed, None, N=n, Mt=m, **kw),
+        "dense_from_arrays": lambda **kw: TGenoDense.from_arrays(
+            X, y, N=n, **kw),
+        "dense_from_files": lambda **kw: TGenoDense.from_files(
+            meth, None, N=n, Mt=m, **kw),
+        "geno_from_numpy": lambda **kw: convert.geno_from_numpy(
+            words, y, N=n, M=m, **kw),
+    }
+
+
+@pytest.mark.parametrize("entry", ["bed_from_arrays", "bed_from_files",
+                                   "dense_from_arrays", "dense_from_files",
+                                   "geno_from_numpy"])
+def test_entry_point_device_must_match_mesh(entry, tmp_path):
+    """A container entry point given a CPU mesh and its default device
+    (the card) raises instead of building on the mesh's CPU; naming the
+    mesh's device builds on it."""
+    call = _entry_points(tmp_path)[entry]
+    with pytest.raises(ValueError, match="disagrees with the mesh"):
+        call(mesh=dist.Mesh(2, "cpu"))
+    g = call(device="cpu", mesh=dist.Mesh(2, "cpu"))
+    assert g.device == torch.device("cpu") and g.mesh.n_shards == 2
 
 
 def test_checksum_sees_every_element():
