@@ -15,8 +15,8 @@ Phases, each of which raises on failure (exit code != 0):
 1. environment: torch / CUDA / nvcc / triton versions and the card's name
    and power limit; TF32 off for every float32 product;
 2. build the CUDA kernels (gvamp_tpu_torch/csrc/matvec.cu, fragments.cu,
-   bf16_split.cu, gram_aat.cu, gram_prim.cu and study.cu, one nvcc each,
-   started together); the ptxas
+   bf16_split.cu, gram_aat.cu, gram_prim.cu, study.cu and fused_ab.cu, one
+   nvcc each, started together); the ptxas
    report must show no spill store in any instantiation of any kernel;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    with CUDA-event times of both: (a) all twenty-five at small shapes (the
@@ -80,8 +80,10 @@ Phases, each of which raises on failure (exit code != 0):
    (s) the study kernels (stream, stream_sum, v0_stream, v1_decode_a,
    v2_decode_ab, v3_bitcast, and at B = 2 v5_dot1, v7_i8decode under both
    keys on the matrix's byte rows, a second 10.74 GB buffer freed before
-   3e, and v8_atxm_vt) on the whole config-B matrix and v6_fused_ab (B =
-   2) on the whole config-Bm matrix, timed beside their plain versions
+   3e, and v8_atxm_vt) on the whole config-B matrix and v6_fused_ab on
+   the whole config-Bm matrix (B = 2, its plain version on the whole
+   matrix; B = 16 and 64 on a band; each B also against axm_i8s and timed
+   in turns with it over three rounds), timed beside their plain versions
    and, for the first three, the one PyTorch call that computes the same
    sum (torch.sum, in turns with the kernel over five rounds);
    (r) axm_i8a, atxm_i8a, axm_i8 and atxm_i8 at B = 2 on --red's window of
@@ -329,13 +331,15 @@ PTXAS_ENTRY = {"atx": "atx_kernelILb1E",
                "v1_decode_a": r"row_sum_kernelILi\d+EL\w*DecodeE1ELi1E",
                "v2_decode_ab": r"row_sum_kernelILi\d+EL\w*DecodeE2ELi1E",
                "v3_bitcast": r"row_sum_kernelILi\d+EL\w*DecodeE1ELi4E",
-               "v5_dot1": "stage_dot_kernelILb0E",
-               "v6_fused_ab": "stage_dot_kernelILb1E",
+               "v5_dot1": "stage_dot_kernel",
+               "v6_fused_ab": "fused_ab_kernel",
                "v7_i8decode": "i8decode_kernel",
                "v7_i8decode_round2": "i8decode_kernel",
                "v8_atxm_vt": "atxm_vt_kernel"}
 SOURCE = "gvamp_tpu_torch/csrc/matvec.cu"
 STUDY_SOURCE = "gvamp_tpu_torch/csrc/study.cu"
+# v6_fused_ab's wgmma kernel, one instantiation per digit group width N
+FUSED_AB_SOURCE = "gvamp_tpu_torch/csrc/fused_ab.cu"
 # the fused dual Grams: one template, gram_aat_kernel<kBoth>, instantiated
 # for one plane (gram_aat_i8a) and for two (gram_aat_i8)
 GRAM_AAT_KERNELS = ("gram_aat_i8a", "gram_aat_i8")
@@ -502,7 +506,8 @@ def compare(name, label, got, want) -> float:
 # those markers); the full contraction length either way
 BAND_ROWS = 1024
 BAND_COLS = 8192
-FORWARD_KERNELS = ("axm_i8a", "axm_i8", "axm_i8s", "axm_bf16")
+FORWARD_KERNELS = ("axm_i8a", "axm_i8", "axm_i8s", "axm_bf16",
+                   "v6_fused_ab")
 TRANSPOSED_KERNELS = ("atxm_i8a", "atxm_i8", "atxm_bf16", "atx", "atx_a")
 
 
@@ -824,8 +829,10 @@ def check_study_products(gen) -> None:
     part tile of rows and of markers, and byte rows that take v7's 4-byte
     loads) at B = 1, 2 and 5 (D = 4, 8 and 20: the mma's 8 digit rows
     padded and split over the grid) and at the shape's own B of SHAPES (B
-    = 70: 280 digit rows, 35 blocks on the grid's z axis); v7 also against
-    axm_i8a on the words."""
+    = 70: 280 digit rows, 35 blocks on the grid's z axis; v6_fused_ab's
+    wgmma groups: D = 4 and 8 in one of 8 rows, 20 in one of 32, 68 in
+    one of 128, 280 in two of 256); v7 also against axm_i8a on the
+    words."""
     from gvamp_tpu_torch.ops import matvec, study
     widths = {(nw, m): B for nw, m, B in SHAPES}
     runs = 0
@@ -967,6 +974,56 @@ def phase_study_products(words, gen, names, config) -> dict:
                         names=names, reps=5, plain_reps=0)
     torch.cuda.empty_cache()
     return {n: (*r, None) for n, r in res.items()}
+
+
+# v6_fused_ab's widths on config Bm (phase 3s): B = 2, the ladder's; 16 and
+# 64 (D = 64 and 256 digit rows), which its wgmma kernel covers in one read
+# of the words where axm_i8s reads them once per 8 digit rows; and the
+# rounds in which the two run in turns
+FUSED_AB_WIDTHS = (2, 16, 64)
+FUSED_AB_ROUNDS = 3
+
+
+def phase_study_fused_ab(words, gen) -> tuple:
+    """v6_fused_ab on the whole config-Bm matrix at FUSED_AB_WIDTHS: bit
+    for bit against its plain version (on the whole matrix at B = 2, its
+    one call timed; on the band of the last BAND_ROWS word rows at 16 and
+    64) and against axm_i8s on the whole matrix (the same contract: one
+    quantisation, one int32 sum, one fold), then timed in turns with
+    axm_i8s over FUSED_AB_ROUNDS rounds (CUDA events; each side's median
+    kept) beside the bound.  Returns B = 2's (max_abs_err, ms, plain_ms,
+    None) for the kernels line."""
+    from gvamp_tpu_torch.ops import matvec, study
+    log("== phase 3s: v6_fused_ab vs its plain version and axm_i8s, "
+        "config-Bm words")
+    nw, m = words.shape
+    label = f"config Bm full {nw}x{m}"
+    out = None
+    for B in FUSED_AB_WIDTHS:
+        res = check_kernels(words, B, gen, label, names=("v6_fused_ab",),
+                            reps=1, plain_reps=0,
+                            band=B != 2)["v6_fused_ab"]
+        W = torch.randn((m, B), generator=gen, device=words.device)
+        U = torch.randn((m, B), generator=gen, device=words.device) * 3
+        compare("v6_fused_ab", f"{label} B={B} against axm_i8s",
+                (study.v6_fused_ab(words, W, U),),
+                (matvec.axm_i8s(words, W, U),))
+        reps = 5 if B <= 16 else 2
+        v6_ms, i8s_ms = zip(*[
+            (cuda_ms(lambda: study.v6_fused_ab(words, W, U), reps),
+             cuda_ms(lambda: matvec.axm_i8s(words, W, U), reps))
+            for _ in range(FUSED_AB_ROUNDS)])
+        ms = float(np.median(v6_ms))
+        b_ms, b_by = bound("v6_fused_ab", nw, m, B)
+        log(f"  {label} B={B:<3d} v6_fused_ab in turns with axm_i8s: "
+            f"kernel {' '.join(f'{t:.3f}' for t in v6_ms)} ms, axm_i8s "
+            f"{' '.join(f'{t:.3f}' for t in i8s_ms)} ms; median {ms:.3f} "
+            f"against {float(np.median(i8s_ms)):.3f}; bound {b_ms:.3f} ms by "
+            f"{b_by} ({b_ms / ms:.1%} of it)")
+        if B == 2:
+            out = (res[0], ms, res[2], None)
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_kernels_config_b(words, gen):
@@ -4062,7 +4119,8 @@ def kernel_rows(numbers):
             + f", {launches} launches on its path")
         rows.append({
             "name": n, "route": "cuda",
-            "source": (STUDY_SOURCE if n in STUDY else FRAGMENT_SOURCE
+            "source": (FUSED_AB_SOURCE if n == "v6_fused_ab" else
+                       STUDY_SOURCE if n in STUDY else FRAGMENT_SOURCE
                        if n in FRAGMENT_KERNELS else BF16_SOURCE
                        if n in BF16_KERNELS else GRAM_AAT_SOURCE
                        if n in GRAM_AAT_KERNELS else GRAM_PRIM_SOURCE
@@ -4164,9 +4222,7 @@ def main(argv=None):
     # config Bm: the general kernels, the fused general Gram, p-values
     words = synth_words(gen, True, CFG_B_N, CFG_B_M)
     full_m = phase_kernels_config_bm(words, gen)
-    log("== phase 3s: v6_fused_ab vs its plain version, config-Bm words")
-    full_s.update(phase_study_products(words, study_gen, ("v6_fused_ab",),
-                                      "config Bm"))
+    full_s["v6_fused_ab"] = phase_study_fused_ab(words, study_gen)
     full_gm = phase_kernels_gram(words, gen, False)
     phase_kernels_window(words, "config Bm")
     launches_m, geno, problem, run_bm = phase_config_bm(words)

@@ -119,6 +119,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "async.cuh"
 #include "mma.cuh"
 #include "swar.cuh"
 
@@ -186,9 +187,6 @@ static_assert(kFixedBytes + 4 * kRing * kT * (kMaxRowWords + 32) +
                   kSmemBudget,
               "the largest block's shared memory");
 
-// a spin longer than this (about 10 s) traps: a fault raises, never hangs
-constexpr long long kSpinCycles = 1LL << 34;
-
 // words per tile row in shared memory: the block's 4 rq words, the shift
 // of up to kRowShift, rounded up to a multiple of kPitchAlign
 __host__ __device__ __forceinline__ int64_t tile_pitch(int64_t rq) {
@@ -217,62 +215,6 @@ int64_t prim_scratch_ints(int64_t ncols) {
 
 // the shift of tile row r in 16-byte chunks
 __device__ __forceinline__ int swz(int r) { return ((r & 1) << 2) | (r & 2); }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// wait until the phase of `bar` with this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > kSpinCycles) __trap();
-}
-
-// one bulk copy of `bytes` (a multiple of 16) from global to shared memory,
-// both 16-byte aligned, completing on `bar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 __device__ __forceinline__ uint32_t ld_acquire(const uint32_t* p) {
   uint32_t v;

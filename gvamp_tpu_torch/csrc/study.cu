@@ -18,10 +18,11 @@
 // all of them.  v1_decode_a adds the SWAR a-decode of all four planes per
 // word (22 integer instructions per word in its SASS on an H100),
 // v2_decode_ab the b-decode too, v3_bitcast the split of the decoded
-// bytes into byte rows; v5_dot1 and v6_fused_ab stage the decode in shared
-// memory and contract it on the tensor cores (stage_dot below), and
-// v7_i8decode (on byte rows) and v8_atxm_vt take the tensor-core fragments
-// straight from the decode in registers (i8decode, atxm_vt below).
+// bytes into byte rows; v5_dot1 stages the decode in shared memory and
+// contracts it on the tensor cores (stage_dot below), and v7_i8decode (on
+// byte rows) and v8_atxm_vt take the tensor-core fragments straight from
+// the decode in registers (i8decode, atxm_vt below).  v6_fused_ab, both
+// planes against one digit scale, has a source of its own (fused_ab.cu).
 //
 // The row sums take `threads` per block and `load_bytes` per load (4, 8 or
 // 16), the two things the H100 tile sweep of bench_stream varies.  Each
@@ -247,43 +248,39 @@ int row_sum(const void* words, void* out, int64_t nw, int64_t mpad,
 }
 
 // --------------------------------------------------------------------------
-// stage_dot: zt[d][k][p] = sum_m a_k[m, p] * wdig[d][m]  (v5_dot1), or
-//            + b_k[m, p] * mudig[d][m]                    (v6_fused_ab)
+// stage_dot: zt[d][k][p] = sum_m a_k[m, p] * wdig[d][m]  (v5_dot1)
 //
-// Replaces `v5_dot1` / _v5_kernel (tools/bench_variants.py:164, 179) and
-// `v6_fused_ab` / _v6_kernel (:199, 215) with the contracts of axm_i8a and
-// axm_i8s (fragments.cu): int32[D, 4, 4*Nw], digit rows int8[D, Mpad] (mudig:
-// the digits of -U under W's joint scale), |sum| <= 254*Mpad (381*Mpad for
-// v6), which the wrappers keep below 2^31.
+// Replaces `v5_dot1` / _v5_kernel (tools/bench_variants.py:164, 179) with
+// the contract of axm_i8a (fragments.cu): int32[D, 4, 4*Nw], digit rows
+// int8[D, Mpad], |sum| <= 254*Mpad, which the wrapper keeps below 2^31.
 //
 // Bound on this card: the one read of the packed words, as for the row
-// sums.  The contraction (2*16*Nw*Mpad*D int8 operations, twice that for
-// v6) takes the tensor cores about a ninth of the read's time at D = 8;
-// the decode and the staging's shared-memory traffic (32 bytes per word,
-// 64 for v6) are what this rung measures.
+// sums.  The contraction (2*16*Nw*Mpad*D int8 operations) takes the tensor
+// cores about a ninth of the read's time at D = 8; the decode and the
+// staging's shared-memory traffic (32 bytes per word) are what this rung
+// measures.
 //
-// Design, the H100 counterpart of the TPU rungs' VMEM scratch and one MXU
-// dot per tile.  A block owns kTnw word rows and walks marker tiles of
+// Design, the H100 counterpart of the TPU rung's VMEM scratch and one MXU
+// dot per tile.  A block owns kDotTnw word rows and walks marker tiles of
 // kDotTm.  Per tile, (a) every thread loads word quads (16 bytes, four
 // neighbouring markers of one row), transposes their bytes with
 // __byte_perm and decodes each plane k, so that one u32 holds the dosages
 // of planar row (k, 4i+b) for four consecutive markers, and stores it into
-// the shared int8 scratch sa[k][4i+b][markers] (v6 appends the b-plane
-// after the a-plane in each row: [a8 | b8]); the tile's digit rows go to sw
-// beside it ([w8 | mu8] for v6).  (b) One contraction of the whole stacked
-// scratch (16*kTnw rows x K) against the digit rows (K x 8) runs as
+// the shared int8 scratch sa[k][4i+b][markers]; the tile's digit rows go
+// to sw beside it.  (b) One contraction of the whole stacked scratch
+// (16*kDotTnw rows x kDotTm) against the digit rows (kDotTm x 8) runs as
 // mma.sync m16n8k32 s8 x s8 -> s32, each warp owning a fixed set of 16-row
 // groups whose int32 sums stay in registers across the tiles.  The scratch
 // rows are padded by 4 words so that the fragment loads hit 32 banks.  The
 // next tile's words and digits are loaded while the current one is
-// contracted.  Tiles of 16 word rows (8 for v6) x 128 markers keep a
-// block's shared memory near 38 KB, so that five or six blocks share an SM
-// and hide each other's barriers and load latency.  A block handles 8
-// digit rows (the mma's n; gridDim.z takes the rest, and
-// digit rows past D are zero); marker tiles split over gridDim.y, and the
-// parts meet in atomicAdd on the zeroed output.  Word rows past Nw and
-// markers past Mpad are staged as the missing code (a = b = 0) against
-// zero digits; rows past Nw are never written.
+// contracted.  Tiles of 16 word rows x 128 markers keep a block's shared
+// memory near 38 KB, so that five or six blocks share an SM and hide each
+// other's barriers and load latency.  A block handles 8 digit rows (the
+// mma's n; gridDim.z takes the rest, and digit rows past D are zero);
+// marker tiles split over gridDim.y, and the parts meet in atomicAdd on
+// the zeroed output.  Word rows past Nw and markers past Mpad are staged
+// as the missing code (a = 0) against zero digits; rows past Nw are never
+// written.
 // --------------------------------------------------------------------------
 constexpr int kDotThreads = 256;
 constexpr int kDotWarps = kDotThreads / 32;
@@ -294,42 +291,35 @@ constexpr int kDotN = 8;          // digit rows per block: the mma's n
 static_assert(kDotWarps == kDotN && kDotQuads == 32, "stage_dot layout");
 constexpr int kDotPad = 4;        // words of padding per scratch row
 
-template <bool kAB>
-struct DotTile {
-  static constexpr int kTnw = kAB ? 8 : 16;          // word rows per block
-  static constexpr int kRows = 16 * kTnw;            // 4 planes x 4*kTnw
-  static constexpr int kK = (kAB ? 2 : 1) * kDotTm;  // contraction per tile
-  static constexpr int kStride = kK / 4 + kDotPad;   // scratch row, words
-  static constexpr int kGroupsPerWarp = kRows / 16 / kDotWarps;
-  static constexpr int kQuadsPerThread = kTnw * kDotQuads / kDotThreads;
-  static constexpr int kSmem = (kRows + kDotN) * kStride * 4;  // bytes
-};
+constexpr int kDotTnw = 16;                      // word rows per block
+constexpr int kDotRows = 16 * kDotTnw;           // 4 planes x 4*kDotTnw
+constexpr int kDotStride = kDotQuads + kDotPad;  // scratch row, words
+constexpr int kDotGroupsPerWarp = kDotRows / 16 / kDotWarps;
+constexpr int kDotQuadsPerThread = kDotTnw * kDotQuads / kDotThreads;
+constexpr int kDotSmem = (kDotRows + kDotN) * kDotStride * 4;  // bytes
 
-template <bool kAB>
 __global__ void __launch_bounds__(kDotThreads)
 stage_dot_kernel(const uint32_t* __restrict__ words,
                  const int32_t* __restrict__ wdig,   // int32 view [D, Mpad/4]
-                 const int32_t* __restrict__ mudig,  // the same (v6 only)
                  int32_t* __restrict__ out,          // [D, 4, 4*Nw]
                  int64_t nw, int64_t mpad, int64_t d_total,
                  int64_t tiles_per_part) {
-  using T = DotTile<kAB>;
   extern __shared__ int32_t smem[];
-  int32_t* sa = smem;                          // [kRows][kStride] scratch
-  int32_t* sw = smem + T::kRows * T::kStride;  // [kDotN][kStride] digits
+  int32_t* sa = smem;                          // [kDotRows][kDotStride]
+  int32_t* sw = smem + kDotRows * kDotStride;  // [kDotN][kDotStride] digits
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;  // the fragments' group, thread
-  const int64_t r0 = (int64_t)blockIdx.x * T::kTnw;
+  const int64_t r0 = (int64_t)blockIdx.x * kDotTnw;
   const int64_t nq = mpad / 4;
   const int64_t tiles = (nq + kDotQuads - 1) / kDotQuads;
   const int64_t j0 = (int64_t)blockIdx.y * tiles_per_part;
   const int64_t j1 = imin(tiles, j0 + tiles_per_part);
   const int64_t d = (int64_t)blockIdx.z * kDotN + warp;  // digit row loaded
 
-  int32_t acc[T::kGroupsPerWarp][4];
+  int32_t acc[kDotGroupsPerWarp][4];
 #pragma unroll
-  for (int h = 0; h < T::kGroupsPerWarp; ++h)
+  for (int h = 0; h < kDotGroupsPerWarp; ++h)
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[h][c] = 0;
 
@@ -340,56 +330,50 @@ stage_dot_kernel(const uint32_t* __restrict__ words,
   const uint4* src =
       reinterpret_cast<const uint4*>(words + imin(r0 + warp, nw - 1) * mpad);
   const int64_t row_step = kDotWarps * nq;  // uint4 per kDotWarps rows
-  int32_t* dst = sa + 4 * warp * T::kStride + lane;
+  int32_t* dst = sa + 4 * warp * kDotStride + lane;
   const bool live_d = d < d_total;
-  uint4 x[T::kQuadsPerThread];
-  int32_t wq = 0, muq = 0;  // this lane's digit quads of row d
+  uint4 x[kDotQuadsPerThread];
+  int32_t wq = 0;  // this lane's digit quad of row d
   auto load = [&](int64_t j) {
     const int64_t q = j * kDotQuads + lane;
 #pragma unroll
-    for (int s = 0; s < T::kQuadsPerThread; ++s)
+    for (int s = 0; s < kDotQuadsPerThread; ++s)
       x[s] = kDotWarps * s < rows_left && q < nq
                  ? __ldg(src + s * row_step + q)
                  : make_uint4(0x55555555u, 0x55555555u, 0x55555555u,
                               0x55555555u);
-    const bool live = live_d && q < nq;
-    wq = live ? __ldg(wdig + d * nq + q) : 0;
-    if constexpr (kAB) muq = live ? __ldg(mudig + d * nq + q) : 0;
+    wq = live_d && q < nq ? __ldg(wdig + d * nq + q) : 0;
   };
   if (j0 < j1) load(j0);
   for (int64_t j = j0; j < j1; ++j) {
     // (a) the decode of all four planes into the scratch, the digit rows
 #pragma unroll
-    for (int s = 0; s < T::kQuadsPerThread; ++s) {
+    for (int s = 0; s < kDotQuadsPerThread; ++s) {
       uint32_t y[4];
       transpose_quad(x[s], y);
 #pragma unroll
       for (int k = 0; k < 4; ++k)
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          int32_t* row =
-              dst + (k * 4 * T::kTnw + 4 * kDotWarps * s + b) * T::kStride;
-          row[0] = (int32_t)swar_a(y[b], k);
-          if constexpr (kAB) row[kDotQuads] = (int32_t)swar_b(y[b], k);
-        }
+        for (int b = 0; b < 4; ++b)
+          dst[(k * 4 * kDotTnw + 4 * kDotWarps * s + b) * kDotStride] =
+              (int32_t)swar_a(y[b], k);
     }
-    sw[warp * T::kStride + lane] = wq;
-    if constexpr (kAB) sw[warp * T::kStride + kDotQuads + lane] = muq;
+    sw[warp * kDotStride + lane] = wq;
     __syncthreads();
     if (j + 1 < j1) load(j + 1);  // in flight during the contraction
     // (b) one contraction of the stacked scratch against the digit rows
 #pragma unroll
-    for (int ks = 0; ks < T::kK / 32; ++ks) {
-      const int32_t* bw = sw + g * T::kStride + ks * 8 + t;
+    for (int ks = 0; ks < kDotTm / 32; ++ks) {
+      const int32_t* bw = sw + g * kDotStride + ks * 8 + t;
       const uint32_t b0 = (uint32_t)bw[0], b1 = (uint32_t)bw[4];
 #pragma unroll
-      for (int h = 0; h < T::kGroupsPerWarp; ++h) {
+      for (int h = 0; h < kDotGroupsPerWarp; ++h) {
         const int32_t* aw =
-            sa + ((warp * T::kGroupsPerWarp + h) * 16 + g) * T::kStride +
+            sa + ((warp * kDotGroupsPerWarp + h) * 16 + g) * kDotStride +
             ks * 8 + t;
-        const uint32_t a[4] = {(uint32_t)aw[0], (uint32_t)aw[8 * T::kStride],
+        const uint32_t a[4] = {(uint32_t)aw[0], (uint32_t)aw[8 * kDotStride],
                                (uint32_t)aw[4],
-                               (uint32_t)aw[8 * T::kStride + 4]};
+                               (uint32_t)aw[8 * kDotStride + 4]};
         mma_s8(acc[h], a, b0, b1);
       }
     }
@@ -399,12 +383,12 @@ stage_dot_kernel(const uint32_t* __restrict__ words,
   // blockIdx.z*8 + 2t + c
   const int64_t nb = 4 * nw;
 #pragma unroll
-  for (int h = 0; h < T::kGroupsPerWarp; ++h)
+  for (int h = 0; h < kDotGroupsPerWarp; ++h)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int r = (warp * T::kGroupsPerWarp + h) * 16 + g + 8 * half;
-      const int k = r / (4 * T::kTnw);
-      const int64_t p = 4 * r0 + r % (4 * T::kTnw);
+      const int r = (warp * kDotGroupsPerWarp + h) * 16 + g + 8 * half;
+      const int k = r / (4 * kDotTnw);
+      const int64_t p = 4 * r0 + r % (4 * kDotTnw);
       if (p >= nb) continue;
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
@@ -415,35 +399,33 @@ stage_dot_kernel(const uint32_t* __restrict__ words,
     }
 }
 
-template <bool kAB>
-int stage_dot(const void* words, const void* wdig, const void* mudig,
-              void* out, int64_t nw, int64_t mpad, int64_t d_total,
-              void* stream) {
-  using T = DotTile<kAB>;
+int stage_dot(const void* words, const void* wdig, void* out, int64_t nw,
+              int64_t mpad, int64_t d_total, void* stream) {
   if (nw <= 0 || mpad <= 0 || mpad % 4 != 0 || d_total <= 0)
     return (int)cudaErrorInvalidValue;
-  auto kernel = stage_dot_kernel<kAB>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
+      stage_dot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kDotSmem);
   if (err != cudaSuccess) return (int)err;
   // all of the SM's unified memory that can be shared, so that the most
   // blocks fit
-  err = cudaFuncSetAttribute(kernel,
+  err = cudaFuncSetAttribute(stage_dot_kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   int64_t target = 0;
-  if (const int e = dot_target(kernel, kDotThreads, T::kSmem, &target))
+  if (const int e =
+          dot_target(stage_dot_kernel, kDotThreads, kDotSmem, &target))
     return e;
   const int64_t tiles = cdiv(mpad / 4, kDotQuads);
-  const int64_t rows = cdiv(nw, T::kTnw), groups = cdiv(d_total, kDotN);
+  const int64_t rows = cdiv(nw, kDotTnw), groups = cdiv(d_total, kDotN);
   const int64_t per_part = part_length(tiles, rows * groups, target);
   const dim3 grid((unsigned)rows, (unsigned)cdiv(tiles, per_part),
                   (unsigned)groups);
-  kernel<<<grid, kDotThreads, T::kSmem, static_cast<cudaStream_t>(stream)>>>(
+  stage_dot_kernel<<<grid, kDotThreads, kDotSmem,
+                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<const int32_t*>(wdig),
-      static_cast<const int32_t*>(mudig), static_cast<int32_t*>(out), nw,
-      mpad, d_total, per_part);
+      static_cast<int32_t*>(out), nw, mpad, d_total, per_part);
   return (int)cudaGetLastError();
 }
 
@@ -833,13 +815,7 @@ int gvamp_study_v3_bitcast(const void* words, void* out, int64_t nw,
 int gvamp_study_v5_dot1(const void* words, const void* wdig, void* out,
                         int64_t nw, int64_t mpad, int64_t d_total,
                         void* stream) {
-  return stage_dot<false>(words, wdig, wdig, out, nw, mpad, d_total, stream);
-}
-
-int gvamp_study_v6_fused_ab(const void* words, const void* wdig,
-                            const void* mudig, void* out, int64_t nw,
-                            int64_t mpad, int64_t d_total, void* stream) {
-  return stage_dot<true>(words, wdig, mudig, out, nw, mpad, d_total, stream);
+  return stage_dot(words, wdig, out, nw, mpad, d_total, stream);
 }
 
 // bytes8 int8[N8, Mpad] (N8 = 4*Nw), wdig int8[D, Mpad], out int32[D, 4, N8]

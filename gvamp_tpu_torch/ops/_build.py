@@ -177,8 +177,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.gvamp_study_v5_dot1.argtypes = [vp] * 3 + [i64] * 3 + [vp]
             lib.gvamp_study_v5_dot1.restype = ctypes.c_int
-            lib.gvamp_study_v6_fused_ab.argtypes = [vp] * 4 + [i64] * 3 + [vp]
-            lib.gvamp_study_v6_fused_ab.restype = ctypes.c_int
+            lib.gvamp_fused_ab.argtypes = [vp] * 3 + [i64] * 5 + [vp]
+            lib.gvamp_fused_ab.restype = ctypes.c_int
             for name in ("gvamp_study_i8decode", "gvamp_study_v8_atxm_vt"):
                 fn = getattr(lib, name)
                 fn.argtypes = [vp] * 3 + [i64] * 3 + [vp]

@@ -27,11 +27,15 @@ by ``gvamp_tpu_torch/tools/bench_stream.py`` and ``bench_variants.py``:
   contraction per tile (replaces ``v5_dot1``,
   ``tools/bench_variants.py:179``)
 * ``v6_fused_ab``  A_a @ W - A_b @ U -> f32[4, Nb, B], ``axm_i8s``'s
-  contract (W and -U under one joint digit scale), the planes staged as
-  [a8 | b8] and contracted against [w8; -u8] in one K-concatenated
-  contraction (replaces ``v6_fused_ab``, ``tools/bench_variants.py:215``,
-  as intended: that wrapper lays the right-hand side out marker by marker,
-  so its a and b columns meet the wrong rows)
+  contract (W and -U under one joint digit scale), [a8 | b8] against
+  [w8; -u8] in one K-concatenated contraction (replaces ``v6_fused_ab``,
+  ``tools/bench_variants.py:215``, as intended: that wrapper lays the
+  right-hand side out marker by marker, so its a and b columns meet the
+  wrong rows); on the card ``csrc/fused_ab.cu``: the words through a ring
+  of bulk copies into shared memory, both planes decoded in registers as
+  the A operand of one wgmma chain per 32 markers, every digit row (up to
+  256) in one read of the words, the digits laid out by
+  ``fused_ab_digits``
 * ``v7_i8decode``  A_a @ W -> f32[4, Nb, B], ``axm_i8a``'s contract, from
   the words pre-expanded to byte rows int8[4*Nw, Mpad] (``expand_words``),
   tensor-core fragments taken straight from the SWAR decode of each byte
@@ -289,28 +293,6 @@ def v3_bitcast(words: torch.Tensor) -> torch.Tensor:
                     VARIANT_THREADS, VARIANT_LOAD_BYTES, lanes=4)
 
 
-def _stage_dot(name: str, words: torch.Tensor, w8t: torch.Tensor,
-               mu8t: torch.Tensor | None) -> torch.Tensor:
-    """The int32 digit products zt[D, 4, 4*Nw] of the staged contraction:
-    A_a against the digit rows ``w8t`` (v5_dot1), plus A_b against
-    ``mu8t`` (v6_fused_ab)."""
-    nw, m = words.shape
-    D = w8t.shape[0]
-    zt = torch.zeros((D, 4, 4 * nw), dtype=torch.int32, device=words.device)
-    if words.numel() and D:
-        from gvamp_tpu_torch.ops import _build
-        lib = _build.library()
-        if mu8t is None:
-            matvec._launch(name, lib.gvamp_study_v5_dot1, words.device,
-                           words.data_ptr(), w8t.data_ptr(), zt.data_ptr(),
-                           nw, m, D)
-        else:
-            matvec._launch(name, lib.gvamp_study_v6_fused_ab, words.device,
-                           words.data_ptr(), w8t.data_ptr(), mu8t.data_ptr(),
-                           zt.data_ptr(), nw, m, D)
-    return zt
-
-
 def v5_dot1(words: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """A_a @ W -> f32[4, Nb, B] (axm_i8a's contract), the decoded planes
     staged in shared memory and contracted on the tensor cores; any B in
@@ -318,32 +300,85 @@ def v5_dot1(words: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     if words.device.type == "cpu":
         return v5_dot1_ref(words, W)
     matvec._check_cuda("v5_dot1", words, W, torch.float32)
-    m = words.shape[1]
+    nw, m = words.shape
     if W.ndim != 2 or W.shape[0] != m:
         raise ValueError(f"v5_dot1: W must be [{m}, B], got {list(W.shape)}")
     matvec._check_bound("v5_dot1", m)
     w8t, ws = matvec._quant_rows(W)
-    return matvec._fold_digits_zt(_stage_dot("v5_dot1", words, w8t, None),
-                                  ws, W.shape[1])
+    D = w8t.shape[0]
+    zt = torch.zeros((D, 4, 4 * nw), dtype=torch.int32, device=words.device)
+    if words.numel() and D:
+        from gvamp_tpu_torch.ops import _build
+        matvec._launch("v5_dot1", _build.library().gvamp_study_v5_dot1,
+                       words.device, words.data_ptr(), w8t.data_ptr(),
+                       zt.data_ptr(), nw, m, D)
+    return matvec._fold_digits_zt(zt, ws, W.shape[1])
+
+
+# v6_fused_ab's digit groups: the widths N of its kernel (csrc/fused_ab.cu,
+# Fab<N>), D rounded up to the next, groups of the widest past it
+FUSED_AB_N = (8, 16, 32, 64, 128, 256)
+
+
+def fused_ab_n(D: int) -> int:
+    """The digit group's width for D digit rows (fused_ab.cu's
+    fused_ab_n)."""
+    return next((n for n in FUSED_AB_N if n >= D), FUSED_AB_N[-1])
+
+
+def fused_ab_kt(n: int) -> int:
+    """Markers per word tile at group width ``n`` (fused_ab.cu's
+    fused_ab_kt): 256, or 128 beyond n = 64, so that the stages of the
+    ring, each with its digits (2 Kt n bytes), fit in shared memory."""
+    return 256 if n <= 64 else 128
+
+
+def fused_ab_digits(w8t: torch.Tensor, mu8t: torch.Tensor, n: int,
+                    kt: int) -> torch.Tensor:
+    """The digit rows of W and of -U (int8[D, Mpad] each) as fused_ab.cu
+    reads them: int8[groups, tiles, 2, kt/16, n/8, 8, 16].  Each (group,
+    tile) is one contiguous block, one bulk copy, and each type of it (w8,
+    mu8) lies in wgmma's K-major core matrices: [16-marker chunk][group of
+    8 digit rows][8 digit rows][16 markers].  Group z holds digit rows
+    z n .. z n + n - 1, tile j markers j kt .. j kt + kt - 1; every entry
+    past D or past Mpad is zero."""
+    D, m = w8t.shape
+    groups, tiles = -(-D // n), -(-m // kt)
+    x = torch.zeros((2, groups * n, tiles * kt), dtype=torch.int8,
+                    device=w8t.device)
+    x[0, :D, :m] = w8t
+    x[1, :D, :m] = mu8t
+    x = x.view(2, groups, n // 8, 8, tiles, kt // 16, 16)
+    return x.permute(1, 4, 0, 5, 2, 3, 6).contiguous()
 
 
 def v6_fused_ab(words: torch.Tensor, W: torch.Tensor,
                 U: torch.Tensor) -> torch.Tensor:
     """A_a @ W - A_b @ U -> f32[4, Nb, B] (axm_i8s's contract: W and -U
-    quantised at one joint scale per column, one int32 sum, one fold), the
-    planes staged as [a8 | b8] and contracted against [w8; -u8]."""
+    quantised at one joint scale per column, one int32 sum, one fold),
+    [a8 | b8] against [w8; -u8] in one wgmma chain; every digit row up to
+    256 in one read of the words (groups of 256 over the grid beyond)."""
     if words.device.type == "cpu":
         return v6_fused_ab_ref(words, W, U)
     matvec._check_cuda("v6_fused_ab", words, W, torch.float32)
     matvec._check_cuda("v6_fused_ab", words, U, torch.float32)
-    m = words.shape[1]
+    nw, m = words.shape
     if W.ndim != 2 or W.shape[0] != m or U.shape != W.shape:
         raise ValueError(f"v6_fused_ab: W and U must be [{m}, B], got "
                          f"{list(W.shape)} and {list(U.shape)}")
     matvec._check_bound("v6_fused_ab", m, 381)
     w8t, mu8t, ws = matvec._quant_digits_pair(W, U)
-    return matvec._fold_digits_zt(_stage_dot("v6_fused_ab", words, w8t, mu8t),
-                                  ws, W.shape[1])
+    D = w8t.shape[0]
+    zt = torch.zeros((D, 4, 4 * nw), dtype=torch.int32, device=words.device)
+    if words.numel() and D:
+        n = fused_ab_n(D)
+        kt = fused_ab_kt(n)
+        dig = fused_ab_digits(w8t, mu8t, n, kt)
+        from gvamp_tpu_torch.ops import _build
+        matvec._launch("v6_fused_ab", _build.library().gvamp_fused_ab,
+                       words.device, words.data_ptr(), dig.data_ptr(),
+                       zt.data_ptr(), nw, m, D, n, kt)
+    return matvec._fold_digits_zt(zt, ws, W.shape[1])
 
 
 def _i8decode(name: str, bytes8: torch.Tensor,

@@ -9,6 +9,7 @@ held against these plain versions on the card by chip_smoke.py."""
 import functools
 import importlib
 import os
+import re
 import shutil
 import sys
 
@@ -274,11 +275,14 @@ def _jax_v6_intended(bv, words, W, U):
 
 
 @pytest.mark.parametrize("nw,m,B", [(256, 512, 2), (256, 1024, 2),
-                                    (256, 1024, 1)])
+                                    (256, 1024, 1), (256, 512, 16),
+                                    (256, 512, 64)])
 def test_v6_fused_ab_matches_the_intended_contract(jax_tools, nw, m, B):
     """The plain v6_fused_ab (axm_i8s's integers and fold) against
     axm_i8s_pallas, against JAX's _v6_kernel fed the intended per-tile
-    [w8; -u8] rows (forced interpret mode), and against float64."""
+    [w8; -u8] rows (forced interpret mode), and against float64; B = 16
+    and 64 (D = 64 and 256) are the widths that the kernel's one read of
+    the words covers."""
     _, bv = jax_tools
     rng = np.random.default_rng(nw + 3 * m + B)
     words = _words(rng, nw, m)
@@ -511,24 +515,30 @@ def test_build_compiles_each_source_then_links(tmp_path, monkeypatch, fail):
 # the mangled names of every instantiation of study.cu's kernels, as ptxas
 # reports them on the card (nvcc names the anonymous namespace by file):
 # stream per V; the row sums per <V, Decode, lanes> (stream_sum and
-# v0_stream, v1_decode_a, v2_decode_ab, v3_bitcast); stage_dot per <kAB>;
-# i8decode per <kVec> (both v7_i8decode keys); atxm_vt (v8_atxm_vt)
+# v0_stream, v1_decode_a, v2_decode_ab, v3_bitcast); stage_dot (v5_dot1);
+# i8decode per <kVec> (both v7_i8decode keys); atxm_vt (v8_atxm_vt); and
+# fused_ab.cu's fused_ab_kernel per digit group width N (v6_fused_ab)
 _NS = "_ZN40_GLOBAL__N__4cd102fc_8_study_cu_649beea1"
+_FAB_NS = "_ZN44_GLOBAL__N__22bb6098_11_fused_ab_cu_29e18db9"
+FUSED_AB_INSTANTIATIONS = [f"{_FAB_NS}15fused_ab_kernelILi{n}EEEvPKjPKhPillll"
+                           for n in study.FUSED_AB_N]
 STUDY_INSTANTIATIONS = (
     [f"{_NS}13stream_kernelILi{v}EEEvPKjPjllll" for v in (1, 2, 4)]
     + [f"{_NS}14row_sum_kernelILi{v}ELNS_6DecodeE{d}ELi{lanes}EEEvPKjPjll"
        for v in (1, 2, 4) for d, lanes in ((0, 1), (1, 1), (2, 1), (1, 4))]
-    + [f"{_NS}16stage_dot_kernelILb{b}EEEvPKjPKiS4_Pillll" for b in (0, 1)]
+    + [f"{_NS}16stage_dot_kernelEPKjPKiPillll"]
     + [f"{_NS}15i8decode_kernelILb{b}EEEvPKhS2_Pillll" for b in (0, 1)]
-    + [f"{_NS}14atxm_vt_kernelEPKjPKhPillll"])
+    + [f"{_NS}14atxm_vt_kernelEPKjPKhPillll"]
+    + FUSED_AB_INSTANTIATIONS)
 
 
 @pytest.mark.parametrize("spilling", STUDY_INSTANTIATIONS)
 def test_chip_smoke_checks_every_instantiation_for_spills(monkeypatch,
                                                           spilling):
     """chip_smoke's phase 2 reads a spill store in any instantiation of a
-    study kernel (every bytes per load and decode of the row sums, both
-    staged products, both load widths of i8decode, atxm_vt)."""
+    study kernel (every bytes per load and decode of the row sums, the
+    staged v5_dot1, both load widths of i8decode, atxm_vt, v6_fused_ab's
+    wgmma kernel at every digit group width)."""
     monkeypatch.syspath_prepend(REPO)
     smoke = importlib.import_module("chip_smoke")
     report = {f"_Z{smoke.PTXAS_ENTRY.get(k, f'{k}_kernel')}v": (32, 0)
@@ -538,3 +548,85 @@ def test_chip_smoke_checks_every_instantiation_for_spills(monkeypatch,
     report[spilling] = (255, 8)
     with pytest.raises(AssertionError, match=spilling):
         smoke.check_ptxas(report)
+
+
+def test_chip_smoke_names_the_fused_ab_kernel(monkeypatch):
+    """v6_fused_ab's ptxas entry matches every instantiation of
+    fused_ab_kernel and nothing of study.cu, v5_dot1's the one stage_dot;
+    its kernels line names csrc/fused_ab.cu; phase 3s runs it at the
+    ladder's B = 2 and at the widths its one read covers."""
+    monkeypatch.syspath_prepend(REPO)
+    smoke = importlib.import_module("chip_smoke")
+    names = list(STUDY_INSTANTIATIONS)
+    assert [n for n in names if re.search(smoke.PTXAS_ENTRY["v6_fused_ab"],
+                                          n)] == FUSED_AB_INSTANTIATIONS
+    assert [n for n in names if re.search(smoke.PTXAS_ENTRY["v5_dot1"], n)] \
+        == [f"{_NS}16stage_dot_kernelEPKjPKiPillll"]
+    assert smoke.FUSED_AB_SOURCE == "gvamp_tpu_torch/csrc/fused_ab.cu"
+    assert os.path.isfile(os.path.join(REPO, smoke.FUSED_AB_SOURCE))
+    assert smoke.FUSED_AB_WIDTHS == (2, 16, 64)
+    assert "v6_fused_ab" in smoke.FORWARD_KERNELS
+
+
+@pytest.mark.parametrize("D,n,kt,groups", [(4, 8, 256, 1), (8, 8, 256, 1),
+                                           (20, 32, 256, 1), (64, 64, 256, 1),
+                                           (68, 128, 128, 1),
+                                           (256, 256, 128, 1),
+                                           (280, 256, 128, 2)])
+def test_fused_ab_group_width(D, n, kt, groups):
+    """D digit rows take the narrowest wgmma group width of FUSED_AB_N that
+    holds them (256 past that, in groups), and its tile length."""
+    assert study.fused_ab_n(D) == n and study.fused_ab_kt(n) == kt
+    w8 = torch.ones((D, 16), dtype=torch.int8)
+    assert study.fused_ab_digits(w8, w8, n, kt).shape[:2] == (groups, 1)
+
+
+@pytest.mark.parametrize("m", [1000, 8])
+@pytest.mark.parametrize("D", [20, 280])
+def test_fused_ab_digit_layout(m, D):
+    """fused_ab_digits reads back to w8t and mu8t: entry [z, j, p, c, r8,
+    r, e] is digit row z n + 8 r8 + r of type p (w8, then mu8) at marker
+    j kt + 16 c + e, and every entry past D or past Mpad is zero."""
+    rng = np.random.default_rng(D + m)
+    w8 = torch.from_numpy(rng.integers(-127, 128, (D, m), dtype=np.int8))
+    mu8 = torch.from_numpy(rng.integers(-127, 128, (D, m), dtype=np.int8))
+    n = study.fused_ab_n(D)
+    kt = study.fused_ab_kt(n)
+    dig = study.fused_ab_digits(w8, mu8, n, kt)
+    groups, tiles = -(-D // n), -(-m // kt)
+    assert dig.shape == (groups, tiles, 2, kt // 16, n // 8, 8, 16)
+    assert dig.dtype == torch.int8 and dig.is_contiguous()
+    # one bulk copy per (group, tile), whole 16-byte core-matrix rows
+    assert dig[0, 0].numel() == 2 * kt * n and (2 * kt * n) % 16 == 0
+    z, j, p, c, r8, r, e = np.meshgrid(
+        *[np.arange(x) for x in dig.shape], indexing="ij")
+    row = z * n + 8 * r8 + r
+    col = j * kt + 16 * c + e
+    full = np.zeros((2, groups * n, tiles * kt), np.int8)
+    full[0, :D, :m] = w8.numpy()
+    full[1, :D, :m] = mu8.numpy()
+    np.testing.assert_array_equal(dig.numpy(), full[p, row, col])
+    pad = (row >= D) | (col >= m)
+    assert pad.any() and not dig.numpy()[pad].any()
+    inside = ~pad
+    assert (p[inside] == 0).sum() == (p[inside] == 1).sum() == D * m
+
+
+def test_bench_fused_ab_runs_on_cpu(capsys, monkeypatch):
+    """bench_fused_ab on the CPU: one line per width with both kernels'
+    rounds and the bound; a v6_fused_ab that differs from axm_i8s is a
+    fault (exit 1)."""
+    from gvamp_tpu_torch.tools import bench_fused_ab
+    argv = ["--device", "cpu", "64", "512", "1", "--widths", "1,16",
+            "--rounds", "2"]
+    assert bench_fused_ab.main(argv) == 0
+    out = capsys.readouterr().out
+    rows = [ln for ln in out.splitlines() if "v6_fused_ab" in ln]
+    assert [ln.split()[0] for ln in rows] == ["B=1", "B=16"]
+    assert all(ln.count(" ms") == 3 and "axm_i8s" in ln and "bound" in ln
+               for ln in rows)
+    monkeypatch.setattr(study, "v6_fused_ab",
+                        lambda w, W, U: study.v6_fused_ab_ref(w, W, U) + 1)
+    assert bench_fused_ab.main(argv) == 1
+    assert "FAULT v6_fused_ab B=1: differs from axm_i8s" in \
+        capsys.readouterr().out
