@@ -419,6 +419,30 @@ def log(msg=""):
     print(msg, flush=True)
 
 
+def clocked(infer, *args, callbacks=None, **kw):
+    """``infer(*args, **kw)`` (an engine's) with a clock among its
+    callbacks: each history entry gets ``host_ms``, the host time of its
+    chunk split evenly over the chunk's iterations, stamped after each
+    chunk's metrics fetch (which waits for the card).  The clock starts at
+    the call, so iteration 1's ``host_ms`` holds the engine's set-up."""
+    stamps = [time.perf_counter()]
+    its = []
+
+    def stamp(it, *_):
+        stamps.append(time.perf_counter())
+        its.append(it)
+
+    out = infer(*args, callbacks=list(callbacks or []) + [stamp], **kw)
+    hist = out[2]
+    sizes = ([len(hist) - (its[-1] - its[0])]
+             + [b - a for a, b in zip(its, its[1:])])
+    ms = [(t1 - t0) * 1e3 / k
+          for t0, t1, k in zip(stamps, stamps[1:], sizes) for _ in range(k)]
+    for h, v in zip(hist, ms):
+        h["host_ms"] = v
+    return out
+
+
 def phase_environment():
     log("== phase 1: environment")
     if not torch.cuda.is_available():
@@ -1144,21 +1168,21 @@ def run_infer(geno, beta, vars_t, probs_t, label, corr_min, r2_range,
     cfg = linear.VampConfig(max_iter=CFG_B_ITERS, rho=0.15, gam1_init=1e-8,
                             gamw_init=2.0, use_xxt=use_xxt)
     t0 = time.perf_counter()
-    x_hat, state, hist = linear.infer(geno, cfg, probs_t, vars_t,
-                                      callbacks=callbacks)
+    x_hat, state, hist = clocked(linear.infer, geno, cfg, probs_t, vars_t,
+                                 callbacks=callbacks)
     t_infer = time.perf_counter() - t0
-    t_iters = sum(h["wall_ms"] for h in hist) / 1e3
     what = ("people statistics, dual SLQ basis, A^T y, A u" if use_xxt
             else "SLQ basis, A^T y, A u")
-    log(f"  infer set-up ({what}) {t_infer - t_iters:.2f} s")
+    log(f"  infer {t_infer:.2f} s; iteration 1's host_ms holds the set-up "
+        f"({what})")
     log("  it      gam1        gam2        gamw     alpha1    alpha2   "
-        "R2_train_1  cg   wall_ms  syncs")
+        "R2_train_1  cg   host_ms  syncs")
     for h in hist:
         log(f"  {h['it']:2d} {float(h['gam1']):11.5g} {float(h['gam2']):11.5g} "
             f"{float(h['gamw']):11.5g} {float(h['alpha1']):9.4g} "
             f"{float(h['alpha2']):9.4g} {float(h['R2_train_1']):10.5f} "
-            f"{h['cg_iters']:4d} {h['wall_ms']:9.2f} {h['host_syncs']:5d}")
-    steady = [h["wall_ms"] for h in hist[2:]]
+            f"{h['cg_iters']:4d} {h['host_ms']:9.2f} {h['host_syncs']:5d}")
+    steady = [h["host_ms"] for h in hist[2:]]
     log(f"  steady-state (it 3-{len(hist)}) median {np.median(steady):.2f} ms/it;"
         f" peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     corr = float(np.corrcoef(x_hat, beta)[0, 1])
@@ -1278,7 +1302,7 @@ def phase_fused_linear(label, geno, problem, complete):
                  (x_two, h_two), ("gam1", "gam2", "gamw", "alpha2"))
     for name, h in (("two-pass", h_two), ("fused", hist)):
         log(f"  {label} {name}: steady-state median "
-            f"{np.median([x['wall_ms'] for x in h[2:]]):.2f} ms/it, CG "
+            f"{np.median([x['host_ms'] for x in h[2:]]):.2f} ms/it, CG "
             f"{[x['cg_iters'] for x in h]}")
     return launches
 
@@ -1296,20 +1320,21 @@ def run_probit(geno, beta, vars_t, probs_t, label, cfg):
     trajectory and checks it is finite.  Returns (x_hat, history)."""
     from gvamp_tpu_torch import probit
     t0 = time.perf_counter()
-    x_hat, _, hist = probit.infer(geno, cfg, probs_t, vars_t, verbose=False)
+    x_hat, _, hist = clocked(probit.infer, geno, cfg, probs_t, vars_t,
+                             verbose=False)
     t_all = time.perf_counter() - t0
-    log(f"  {label}: infer set-up (SLQ basis, A^T y, A u) "
-        f"{t_all - sum(h['wall_ms'] for h in hist) / 1e3:.2f} s")
+    log(f"  {label}: infer {t_all:.2f} s; iteration 1's host_ms holds the "
+        f"set-up (SLQ basis, A^T y, A u)")
     log("  it      gam1        tau1        tau2     alpha2     beta1   "
-        "cg   wall_ms  syncs")
+        "cg   host_ms  syncs")
     for h in hist:
         log(f"  {h['it']:2d} {float(h['gam1']):11.5g} {float(h['tau1']):11.5g} "
             f"{float(h['tau2']):11.5g} {float(h['alpha2']):9.4g} "
             f"{float(h['beta1']):9.4g} {h['cg_iters']:4d} "
-            f"{h['wall_ms']:9.2f} {h['host_syncs']:5d}")
+            f"{h['host_ms']:9.2f} {h['host_syncs']:5d}")
     corr = float(np.corrcoef(x_hat, beta)[0, 1])
     log(f"  steady-state median "
-        f"{np.median([h['wall_ms'] for h in hist[2:]]):.2f} ms/it; peak "
+        f"{np.median([h['host_ms'] for h in hist[2:]]):.2f} ms/it; peak "
         f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"corr(x_hat, beta) = {corr:.5f} (floor {PROBIT_CORR_MIN})")
     keys = ("gam1", "gam2", "tau1", "tau2", "alpha2")
@@ -1387,7 +1412,7 @@ def huber_phenotype(geno, beta, rng):
 
 
 def run_huber(geno, beta, vars_t, probs_t, label, cfg):
-    """robust.infer on ``geno``; prints each iteration's wall ms, CG count,
+    """robust.infer on ``geno``; prints each iteration's host ms, CG count,
     host syncs, deltaH, tau1 / tau2 and corr(x_hat, beta), the set-up
     seconds and the peak memory, and checks that every value is finite and
     the last corr reaches HUBER_CORR_MIN.  Returns (x_hat, history)."""
@@ -1401,24 +1426,24 @@ def run_huber(geno, beta, vars_t, probs_t, label, cfg):
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    x_hat, _, hist = robust.infer(geno, cfg, probs_t, vars_t, verbose=False,
-                                  callbacks=[corr_cb])
+    x_hat, _, hist = clocked(robust.infer, geno, cfg, probs_t, vars_t,
+                             verbose=False, callbacks=[corr_cb])
     t_all = time.perf_counter() - t0
-    t_iters = sum(h["wall_ms"] for h in hist) / 1e3
+    t_iters = sum(h["host_ms"] for h in hist[1:]) / 1e3
     what = "deflation basis, " if cfg.deflate_k else ""
-    log(f"  {label}: infer set-up ({what}SLQ basis, probe) "
-        f"{t_all - t_iters:.2f} s; peak memory "
+    log(f"  {label}: infer {t_all:.2f} s, iteration 1's host_ms holds the "
+        f"set-up ({what}SLQ basis, probe); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log("  it    wall_ms   cg  syncs    deltaH        tau1        tau2"
+    log("  it    host_ms   cg  syncs    deltaH        tau1        tau2"
         "        gam1    alpha2    corr")
     for h, c in zip(hist, corrs):
-        log(f"  {h['it']:2d} {h['wall_ms']:10.2f} {h['cg_iters']:4d} "
+        log(f"  {h['it']:2d} {h['host_ms']:10.2f} {h['cg_iters']:4d} "
             f"{h['host_syncs']:6d} {float(h['deltaH']):9.3g} "
             f"{float(h['tau1']):11.5g} {float(h['tau2']):11.5g} "
             f"{float(h['gam1']):11.5g} {float(h['alpha2']):9.4g} "
             f"{c:7.4f}")
-    log(f"  {label}: {len(hist)} iterations in {t_iters:.2f} s, median "
-        f"{np.median([h['wall_ms'] for h in hist]):.2f} ms/it, CG "
+    log(f"  {label}: iterations 2-{len(hist)} in {t_iters:.2f} s, median "
+        f"{np.median([h['host_ms'] for h in hist[1:]]):.2f} ms/it, CG "
         f"{sum(h['cg_iters'] for h in hist)} in all")
     if not (np.isfinite(x_hat).all() and all(
             np.isfinite(float(h[k])) for h in hist for k in HUBER_KEYS)):
@@ -1897,7 +1922,7 @@ def phase_dual_x(words, words_m):
             raise AssertionError(f"config X: fused and two-pass {k} differ")
     for n, (_, h, _) in runs.items():
         log(f"  config X {n}: steady-state median "
-            f"{np.median([x['wall_ms'] for x in h[2:]]):.2f} ms/it, CG "
+            f"{np.median([x['host_ms'] for x in h[2:]]):.2f} ms/it, CG "
             f"{[x['cg_iters'] for x in h]}")
     launches_q = phase_probe_dual_x(geno, beta, vars_t, probs_t)
     del geno
@@ -2632,27 +2657,28 @@ def run_multi(mp, model, cfg, prior, betas, label, x1_at=None):
     torch.cuda.reset_peak_memory_stats()
     matvec.reset_launches()
     t0 = time.perf_counter()
-    x_hat, _, hist = run(mp, cfg, *prior, verbose=False, callbacks=[keep])
+    x_hat, _, hist = clocked(run, mp, cfg, *prior, verbose=False,
+                             callbacks=[keep])
     torch.cuda.synchronize()
     t_all = time.perf_counter() - t0
     launches = dict(matvec.LAUNCHES)
-    t_iters = sum(h["wall_ms"] for h in hist) / 1e3
-    log(f"  {label}: infer set-up (probe, A_t^T y_t, SLQ basis at "
-        f"{mp.T * cfg.n_probes} columns) {t_all - t_iters:.2f} s; "
-        f"{len(hist)} iterations in {t_iters:.2f} s; peak memory "
+    t_iters = sum(h["host_ms"] for h in hist[1:]) / 1e3
+    log(f"  {label}: infer {t_all:.2f} s, iteration 1's host_ms holds the "
+        f"set-up (probe, A_t^T y_t, SLQ basis at {mp.T * cfg.n_probes} "
+        f"columns); iterations 2-{len(hist)} in {t_iters:.2f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     extra = {"linear": "R2_train_1", "bin_class": "beta1",
              "robust": "deltaH"}[model]
-    log(f"  it    wall_ms  syncs  cg per trait / {extra} per trait")
+    log(f"  it    host_ms  syncs  cg per trait / {extra} per trait")
     for h in hist:
-        log(f"  {h['it']:2d} {h['wall_ms']:10.2f} {h['host_syncs']:6d}  "
+        log(f"  {h['it']:2d} {h['host_ms']:10.2f} {h['host_syncs']:6d}  "
             f"{' '.join(f'{c:2d}' for c in h['cg_iters'])} / "
             + " ".join(f"{float(v):.4g}" for v in h[extra]))
     corrs = [float(np.corrcoef(x_hat[:, t], b)[0, 1])
              for t, b in enumerate(betas)]
     log(f"  corr(x_hat_t, beta_t): {' '.join(f'{c:.5f}' for c in corrs)} "
         f"(floor {MULTI_CORR_MIN[model]}); median "
-        f"{np.median([h['wall_ms'] for h in hist[2:]] or [0]):.2f} ms/it "
+        f"{np.median([h['host_ms'] for h in hist[2:]] or [0]):.2f} ms/it "
         f"from iteration 3; stopped {hist[-1]['stopped'].tolist()}")
     keys = MULTI_SCALARS[model]
     if not (np.isfinite(x_hat).all() and all(
@@ -3068,21 +3094,22 @@ def run_option(geno, beta, label, corr_min, prior, n_it=CFG_B_ITERS,
     cfg = linear.VampConfig(max_iter=n_it, rho=0.15, gam1_init=1e-8,
                             gamw_init=2.0, **cfg_kw)
     t0 = time.perf_counter()
-    x_hat, _, hist = linear.infer(geno, cfg, probs_t, vars_t, verbose=False)
+    x_hat, _, hist = clocked(linear.infer, geno, cfg, probs_t, vars_t,
+                             verbose=False)
     t_all = time.perf_counter() - t0
-    log(f"  {label}: set-up {t_all - sum(h['wall_ms'] for h in hist) / 1e3:.2f}"
-        f" s (A^T y, A u" + (", no SLQ basis" if not cfg.use_slq or cfg.red
-                             else ", SLQ basis") + ")")
-    log("  it    wall_ms  cg  probe  syncs  window      gam1      gamw    "
+    log(f"  {label}: infer {t_all:.2f} s, iteration 1's host_ms holds the "
+        f"set-up (A^T y, A u" + (", no SLQ basis" if not cfg.use_slq
+                                 or cfg.red else ", SLQ basis") + ")")
+    log("  it    host_ms  cg  probe  syncs  window      gam1      gamw    "
         "alpha2  R2_train_1")
     for h in hist:
-        log(f"  {h['it']:2d} {h['wall_ms']:10.2f} {h['cg_iters']:3d} "
+        log(f"  {h['it']:2d} {h['host_ms']:10.2f} {h['cg_iters']:3d} "
             f"{h['probe_iters']:6d} {h['host_syncs']:6d} "
             f"{str(h.get('red_sbw', '-')):>7s} {float(h['gam1']):9.4g} "
             f"{float(h['gamw']):9.4g} {float(h['alpha2']):9.4g} "
             f"{float(h['R2_train_1']):10.5f}")
     corr = float(np.corrcoef(x_hat, beta)[0, 1])
-    med = float(np.median([h["wall_ms"] for h in hist[2:]]))
+    med = float(np.median([h["host_ms"] for h in hist[2:]]))
     log(f"  {label}: steady-state (it 3-{len(hist)}) median {med:.2f} ms/it;"
         f" corr(x_hat, beta) {corr:.5f} (limit {corr_min}); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -3382,18 +3409,19 @@ def phase_cross_val_b(geno, problem):
                             gamw_init=2.0, use_cross_val=True)
     matvec.reset_launches()
     t0 = time.perf_counter()
-    x_hat, _, hist = linear.infer(geno, cfg, probs_t, vars_t, verbose=False)
+    x_hat, _, hist = clocked(linear.infer, geno, cfg, probs_t, vars_t,
+                             verbose=False)
     t_infer = time.perf_counter() - t0
     launches = dict(matvec.LAUNCHES)
     log(f"  set-up and {len(hist)} iterations {t_infer:.2f} s")
-    log("  it     cv_r2  rho_cross  retries  R2_train_1  cg   wall_ms  syncs")
+    log("  it     cv_r2  rho_cross  retries  R2_train_1  cg   host_ms  syncs")
     for h, k in zip(hist, retries(hist, cfg.rho)):
         log(f"  {h['it']:2d} {float(h['cv_r2']):9.5f} "
             f"{float(h['rho_cross']):10.5f} {k:8d} "
             f"{float(h['R2_train_1']):11.5f} {h['cg_iters']:4d} "
-            f"{h['wall_ms']:9.2f} {h['host_syncs']:6d}")
-    med = float(np.median([h["wall_ms"] for h in hist[2:]]))
-    med4 = float(np.median([h["wall_ms"] for h in hist4[2:]]))
+            f"{h['host_ms']:9.2f} {h['host_syncs']:6d}")
+    med = float(np.median([h["host_ms"] for h in hist[2:]]))
+    med4 = float(np.median([h["host_ms"] for h in hist4[2:]]))
     corr = float(np.corrcoef(x_hat, beta)[0, 1])
     log(f"  steady-state median {med:.2f} ms/it against phase 4's "
         f"{med4:.2f}; corr(x_hat, beta) = {corr:.5f} (limit {CV_CORR_MIN})")
@@ -3531,18 +3559,19 @@ def phase_dense():
     cfg = linear.VampConfig(max_iter=CFG_B_ITERS, rho=0.15, gam1_init=1e-8,
                             gamw_init=2.0)
     t0 = time.perf_counter()
-    x_hat, _, hist = linear.infer(geno, cfg, probs_t, vars_t, verbose=False)
+    x_hat, _, hist = clocked(linear.infer, geno, cfg, probs_t, vars_t,
+                             verbose=False)
     t_infer = time.perf_counter() - t0
-    log(f"  infer set-up (SLQ basis, A^T y, A u) "
-        f"{t_infer - sum(h['wall_ms'] for h in hist) / 1e3:.2f} s")
+    log(f"  infer {t_infer:.2f} s; iteration 1's host_ms holds the set-up "
+        f"(SLQ basis, A^T y, A u)")
     for h in hist:
         log(f"  {h['it']:2d} gam1 {float(h['gam1']):11.5g} gamw "
             f"{float(h['gamw']):9.5g} R2_train_1 {float(h['R2_train_1']):8.5f}"
-            f" cg {h['cg_iters']:3d} {h['wall_ms']:9.2f} ms "
+            f" cg {h['cg_iters']:3d} {h['host_ms']:9.2f} ms "
             f"{h['host_syncs']:3d} syncs")
     corr = float(np.corrcoef(x_hat, beta)[0, 1])
     log(f"  steady-state median "
-        f"{np.median([h['wall_ms'] for h in hist[2:]]):.2f} ms/it; corr("
+        f"{np.median([h['host_ms'] for h in hist[2:]]):.2f} ms/it; corr("
         f"x_hat, beta) = {corr:.5f} (limit {DENSE_CORR_MIN}); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not (np.isfinite(x_hat).all() and len(hist) == CFG_B_ITERS
@@ -3909,7 +3938,7 @@ def phase_mesh_b(words, geno1, problem):
                         ("axm_i8a", "atxm_i8a"),
                         ("axm_i8", "atxm_i8", "gram_i8a", "gram_i8", "atx"))
     dx = float(np.abs(x_hat - x1).max() / np.abs(x1).max())
-    med, med1 = (np.median([h["wall_ms"] for h in hh[2:]])
+    med, med1 = (np.median([h["host_ms"] for h in hh[2:]])
                  for hh in (hist, hist1))
     log(f"  against phase 4: max|x1 - x1(phase 4)| / max|x1| = {dx:.3e}; "
         f"median {med:.2f} ms/it (phase 4: {med1:.2f}); CG "

@@ -19,6 +19,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from gvamp_tpu_torch.sync import host_bool
+from gvamp_tpu_torch.trace import annotate, spanned
 
 
 class CGResult(NamedTuple):
@@ -30,6 +31,7 @@ class CGResult(NamedTuple):
     zmu: Optional[torch.Tensor] = None     # tracked A @ mu[:, 0] (fwd_mult)
 
 
+@spanned("cg.solve")
 def solve_block(
     mult_block: Callable[[torch.Tensor], torch.Tensor],
     V: torch.Tensor,          # [M, B] right-hand sides
@@ -131,11 +133,13 @@ def solve_block(
             s = body_with(s, *fwd_mult(s["p"]))
         else:
             s = body_with(s, mult_block(s["p"]))
+    annotate("cg.solve", steps=s["i"])
     return CGResult(mu=s["mu"], iters=s["iters"], rel_err=s["rel_err"],
                     r=s["r"], rider_out=ax_rider,
                     zmu=s["zmu"] if fwd_mult is not None else None)
 
 
+@spanned("cg.warm_start")
 def tracked_warm_start(V, mu0_raw, gmu_raw, tau_now, tau_ref, gam2_cols,
                        it: int, refresh: int, multb):
     """Safe CG warm start from a tracked Gram product: (mu0, r0).  The
@@ -156,6 +160,7 @@ def tracked_warm_start(V, mu0_raw, gmu_raw, tau_now, tau_ref, gam2_cols,
     return mu0, V - (tau_now * gmu + gam2_cols * mu0)
 
 
+@spanned("cg.warm_start")
 def tracked_warm_start_fwd(V, mu0_raw, gmu_raw, zmu_raw, tau_now, tau_ref,
                            gam2_cols, it: int, refresh: int, multb_fwd):
     """``tracked_warm_start`` plus the carried forward product

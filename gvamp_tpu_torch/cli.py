@@ -57,7 +57,9 @@ stopping test) once per K iterations, ``--phase-timers 1`` prints each
 phase's wall clock per iteration, ``--store-pip 1`` writes the final
 posterior inclusion probabilities ``{out}{tag}_pip.bin`` (per trait
 ``{out}_phen{t}{tag}_pip.bin``), and ``--profile-dir DIR`` writes a
-``torch.profiler`` Chrome trace of the run mode, ``DIR/trace.json``.
+``torch.profiler`` Chrome trace of the run mode, ``DIR/trace.json``, with
+the program's spans (``gvamp_tpu_torch.trace``) on a row of their own, and
+prints one line per span name.
 With ``--store-pvals`` 1 or 2 a linear run then writes the LOO p-values
 ``{out}_pvals.bin`` and, when a ``--bim-file`` is given, the LOCO
 p-values ``{out}_pvals_LOCO.bin`` and each chromosome's genetic predictor
@@ -97,6 +99,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import re
 import sys
@@ -104,7 +107,7 @@ import sys
 import numpy as np
 import torch
 
-from gvamp_tpu_torch import dist, linear, multi, probit, robust, sim
+from gvamp_tpu_torch import dist, linear, multi, probit, robust, sim, trace
 from gvamp_tpu_torch.ckpt import (load_state, read_meta, save_state,
                                   write_scalar_history)
 from gvamp_tpu_torch.data import GenoBed, GenoDense
@@ -1014,9 +1017,11 @@ def main(argv=None):
 def _profiled(run, out_dir: str, device: torch.device):
     """--profile-dir (``gvamp_tpu/cli.py:934-939``): the run mode under
     ``torch.profiler``, host activity always and the card's on CUDA, its
-    Chrome trace written as ``out_dir/trace.json``.  A profiler that cannot
-    start raises, and so does a CUDA run whose trace holds no device
-    activity."""
+    Chrome trace written as ``out_dir/trace.json`` with the program's spans
+    added (``_add_spans``), and one line per span name printed: count,
+    host ms in all, host ms less the spans' children, counted syncs.  A
+    profiler that cannot start raises, and so does a CUDA run whose trace
+    holds no device activity."""
     from torch.autograd import kineto_available
     from torch.profiler import ProfilerActivity, profile
     if not kineto_available():
@@ -1025,6 +1030,7 @@ def _profiled(run, out_dir: str, device: torch.device):
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
+    trace.clear()
     with profile(activities=acts) as prof:
         out = run()
     if device.type == "cuda" and not any(
@@ -1035,8 +1041,40 @@ def _profiled(run, out_dir: str, device: torch.device):
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "trace.json")
     prof.export_chrome_trace(path)
+    _add_spans(path, trace.spans())
     print(f"profile -> {path}")
+    print(f"{'span':<16} {'count':>7} {'host ms':>11} {'self ms':>11} "
+          f"{'syncs':>7}")
+    for name, n, total, own, syncs in trace.summary():
+        print(f"{name:<16} {n:7d} {total:11.3f} {own:11.3f} {syncs:7d}")
+    trace.clear()
     return out
+
+
+def _add_spans(path: str, spans: list) -> None:
+    """Write ``spans`` into the Chrome trace at ``path`` as complete events
+    on a process row of their own, their ``time.time_ns`` stamps moved to
+    the file's time base (``baseTimeNanoseconds``, 0 where it has none;
+    timestamps in microseconds)."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    events = doc["traceEvents"]
+    pid = 1 + max([e["pid"] for e in events
+                   if isinstance(e.get("pid"), int)] or [0])
+    events.append({"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+                   "args": {"name": "gvamp_tpu_torch spans"}})
+    for s in spans:
+        if s.end_ns is None:
+            continue
+        events.append({"ph": "X", "name": s.name, "cat": "program",
+                       "pid": pid, "tid": 0,
+                       "ts": (s.start_ns - base) / 1e3,
+                       "dur": (s.end_ns - s.start_ns) / 1e3,
+                       "args": dict(s.attrs, syncs=s.syncs,
+                                    launches=s.launches, seq=s.seq)})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 if __name__ == "__main__":

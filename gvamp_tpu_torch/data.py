@@ -59,6 +59,7 @@ from gvamp_tpu_torch import native
 from gvamp_tpu_torch.io import plink
 from gvamp_tpu_torch.ops import matvec
 from gvamp_tpu_torch.ops.layout import PlanarLayout
+from gvamp_tpu_torch.trace import span, spanned
 
 
 def _round_up(x: int, m: int) -> int:
@@ -136,6 +137,7 @@ class BedOp(NamedTuple):
     m_mask: torch.Tensor      # [Mpad]
 
 
+@spanned("marker_stats")
 def _marker_stats(words, na_planar, nonas, alpha_scale, block, dt):
     """Blocked two-moment pass over the packed matrix -> (mave, msig).
 
@@ -144,7 +146,9 @@ def _marker_stats(words, na_planar, nonas, alpha_scale, block, dt):
     with compensated two-sum, then mave = S_a/S_b and
     sumsqr = S_aa - mave*S_a with the lo corrections applied after the
     cancelling hi subtraction.  Plain PyTorch: the JAX pass is XLA code, not
-    a Pallas kernel."""
+    a Pallas kernel.  Under a profiler the pass is a ``marker_stats`` span,
+    each block a ``stats.decode`` (the decode and the three sums) and a
+    ``stats.chain`` (the compensated chain over the C chunks)."""
     nw, m = words.shape
     na = na_planar.to(dt)
     nb = na.shape[1]
@@ -152,19 +156,21 @@ def _marker_stats(words, na_planar, nonas, alpha_scale, block, dt):
     C = nb // nc
     sums = torch.zeros((6, m), dtype=dt, device=words.device)
     for j in range(0, m, block):
-        a, b = matvec.decode_planar_dense(words[:, j:j + block], dt)
-        w = a.shape[2]
-        am = a * na[:, :, None]
-        pa = am.reshape(4, C, nc, w).sum(dim=(0, 2))
-        pb = (b * na[:, :, None]).reshape(4, C, nc, w).sum(dim=(0, 2))
-        pq = (a * am).reshape(4, C, nc, w).sum(dim=(0, 2))
-        z = torch.zeros((w,), dtype=dt, device=words.device)
-        ah = al = bh = bl = ch = cl = z
-        for c in range(C):
-            ah, al = matvec.two_sum(ah, al, pa[c])
-            bh, bl = matvec.two_sum(bh, bl, pb[c])
-            ch, cl = matvec.two_sum(ch, cl, pq[c])
-        sums[:, j:j + w] = torch.stack([ah, al, bh, bl, ch, cl])
+        with span("stats.decode"):
+            a, b = matvec.decode_planar_dense(words[:, j:j + block], dt)
+            w = a.shape[2]
+            am = a * na[:, :, None]
+            pa = am.reshape(4, C, nc, w).sum(dim=(0, 2))
+            pb = (b * na[:, :, None]).reshape(4, C, nc, w).sum(dim=(0, 2))
+            pq = (a * am).reshape(4, C, nc, w).sum(dim=(0, 2))
+        with span("stats.chain", chunks=C):
+            z = torch.zeros((w,), dtype=dt, device=words.device)
+            ah = al = bh = bl = ch = cl = z
+            for c in range(C):
+                ah, al = matvec.two_sum(ah, al, pa[c])
+                bh, bl = matvec.two_sum(bh, bl, pb[c])
+                ch, cl = matvec.two_sum(ch, cl, pq[c])
+            sums[:, j:j + w] = torch.stack([ah, al, bh, bl, ch, cl])
     sah, sal, sbh, sbl, qh, ql = sums
     sa = sah + sal
     sb = sbh + sbl

@@ -20,6 +20,10 @@ replicated:
     every process, on identical inputs; ``Mesh.assert_replicated`` checks
     at the end of a run that the processes still agree.
 
+Under a profiler each of the three collectives is a span
+(``all_reduce`` / ``all_gather``, with the local bytes it sends;
+``gvamp_tpu_torch.trace``).
+
 Processes: :func:`initialize` joins a ``torch.distributed`` process group
 (``nccl`` for a CUDA run, ``gloo`` on the CPU); each process owns
 ``n_local`` consecutive shards, rank-major, as JAX's global mesh orders its
@@ -52,6 +56,7 @@ from gvamp_tpu_torch import native
 from gvamp_tpu_torch.data import require_device
 from gvamp_tpu_torch.io import plink
 from gvamp_tpu_torch.ops.layout import PlanarLayout
+from gvamp_tpu_torch.trace import span
 
 
 def _env_int(name: str):
@@ -232,25 +237,27 @@ class Mesh:
     def all_reduce_sum(self, parts: list) -> torch.Tensor:
         """The local partials summed in shard order on ``device``, then
         summed over the processes."""
-        total = parts[0].to(self.device)
-        for p in parts[1:]:
-            total = total + p.to(self.device)
-        if self.distributed:
-            total = total.contiguous()
-            tdist.all_reduce(total)
+        with span("all_reduce", bytes=_nbytes(parts[0])):
+            total = parts[0].to(self.device)
+            for p in parts[1:]:
+                total = total + p.to(self.device)
+            if self.distributed:
+                total = total.contiguous()
+                tdist.all_reduce(total)
         return total
 
     def all_gather_m(self, parts: list, dim: int = 0) -> torch.Tensor:
         """The local slabs along ``dim`` (the marker axis), then every
         process's in rank order: the replicated full array on ``device``."""
-        local = (parts[0].to(self.device) if len(parts) == 1 else
-                 torch.cat([p.to(self.device) for p in parts], dim=dim))
-        if not self.distributed:
-            return local
-        local = local.contiguous()
-        out = [torch.empty_like(local) for _ in range(self.world)]
-        tdist.all_gather(out, local)
-        return out[0] if self.world == 1 else torch.cat(out, dim=dim)
+        with span("all_gather", bytes=sum(_nbytes(p) for p in parts)):
+            local = (parts[0].to(self.device) if len(parts) == 1 else
+                     torch.cat([p.to(self.device) for p in parts], dim=dim))
+            if not self.distributed:
+                return local
+            local = local.contiguous()
+            out = [torch.empty_like(local) for _ in range(self.world)]
+            tdist.all_gather(out, local)
+            return out[0] if self.world == 1 else torch.cat(out, dim=dim)
 
     def shard_map(self, fn, in_specs, out: str, m_axis: int = 1, dims=0):
         """``fn(slab, *args)`` over the local slabs, the counterpart of a
@@ -291,9 +298,10 @@ class Mesh:
         if not self.distributed or not sums:
             return len(sums)
         local = torch.stack(sums)
-        out = [torch.empty_like(local) for _ in range(self.world)]
-        tdist.all_gather(out, local)
-        allv = torch.stack(out).cpu()
+        with span("all_gather", bytes=_nbytes(local)):
+            out = [torch.empty_like(local) for _ in range(self.world)]
+            tdist.all_gather(out, local)
+            allv = torch.stack(out).cpu()
         bad = [i for i in range(allv.shape[1])
                if not bool((allv[:, i] == allv[0, i]).all())]
         if bad:
@@ -303,6 +311,10 @@ class Mesh:
                 f"{[allv[:, i].tolist() for i in bad]}): a replicated vector "
                 f"diverged")
         return len(sums)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _checksum(t: torch.Tensor, device) -> torch.Tensor:

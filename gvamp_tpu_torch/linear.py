@@ -35,7 +35,8 @@ The JAX step is one jitted program; here it runs eagerly.  Each loop exit or
 branch on a device value is a counted host sync (``gvamp_tpu_torch.sync``),
 and ``infer`` records the count per iteration.  ``run_chunks`` is the
 driver of every engine (``sync_every`` iterations per metrics fetch), and
-``make_phase_step`` composes the phases, timed under ``phase_timers``.
+``make_phase_step`` composes the phases, each a span under a profiler
+(``gvamp_tpu_torch.trace``) and timed under ``phase_timers``.
 ``state_evolution`` is the ``--state-evo`` diagnostic's prediction.
 """
 
@@ -44,13 +45,12 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from gvamp_tpu_torch import cg, slq
+from gvamp_tpu_torch import cg, slq, trace
 from gvamp_tpu_torch.prior import GAMMA_MAX, GAMMA_MIN, Prior, g1, g1d, update_prior
 from gvamp_tpu_torch.sync import SYNCS, host_bool, host_values
 
@@ -727,33 +727,26 @@ def make_step(geno, cfg: VampConfig, init_est: bool = False,
     return make_phase_step(phases, timer_device)
 
 
-def _stamp(device) -> float:
-    """A host clock stamp after the device's queued work has finished."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return time.perf_counter()
-
-
 def make_phase_step(phases, timer_device=None):
     """Compose (name, phase) pairs into a step (state, aux, w=None) ->
     (state, metrics); ``w`` seeds the phases' carry (the Huber draws).
-    With ``timer_device`` each phase is timed, its stamp taken after
-    ``torch.cuda.synchronize`` on a card, into ``phase_ms_<name>``
-    (``timed_step_from_phases``, ``gvamp_tpu/linear.py:1061-1094``); the
-    phases and their order are the same, so a timed step gives the untimed
-    one's numbers bit for bit."""
-    dev = None if timer_device is None else torch.device(timer_device)
+    Each phase is a span of its name under a profiler.  With
+    ``timer_device`` each phase is timed between two synchronises of a card
+    (``trace.timed``) into ``phase_ms_<name>`` (``timed_step_from_phases``,
+    ``gvamp_tpu/linear.py:1061-1094``); the phases and their order are the
+    same, so a timed step gives the untimed one's numbers bit for bit."""
 
     def step(state, aux, w=None):
         out = {} if w is None else dict(w)
         times = {}
-        t = _stamp(dev) if dev is not None else 0.0
         for name, fn in phases:
-            out = fn(out, state, aux)
-            if dev is not None:
-                t2 = _stamp(dev)
-                times[name] = (t2 - t) * 1e3
-                t = t2
+            if timer_device is None:
+                with trace.span(name):
+                    out = fn(out, state, aux)
+            else:
+                with trace.timed(name, timer_device) as t:
+                    out = fn(out, state, aux)
+                times[name] = t.ms
         new_state, metrics = out
         for name, ms in times.items():
             metrics[f"phase_ms_{name}"] = ms
@@ -762,6 +755,7 @@ def make_phase_step(phases, timer_device=None):
     return step
 
 
+@trace.spanned("fetch")
 def fetch_metrics(metrics_list: list) -> list:
     """Every tensor metric of several steps to the host in one transfer
     (one counted sync); ``cg_iters`` and ``probe_iters`` as ints (int
@@ -788,27 +782,25 @@ def run_chunks(step, state, aux, max_iter: int, chunk: int = 1,
     feeds each step its Huber draws.  Yields (state, [metrics of each
     step]) per chunk, for the caller's callbacks and stopping test; each
     entry holds ``host_syncs`` (its step's, the chunk's fetch counted on
-    the last) and ``wall_ms`` (the chunk's host time split evenly, which
-    waits for the device at the fetch)."""
+    the last).  Under a profiler each step is an ``iteration`` span (``it``:
+    the iteration it makes) and each fetch a ``fetch`` span."""
     chunk = max(1, int(chunk))
     while state.it < max_iter:
         k = chunk if max_iter - state.it >= chunk else 1
-        t0 = time.perf_counter()
         raw, syncs = [], []
         for _ in range(k):
             s0 = SYNCS["count"]
-            if draws is None:
-                state, metrics = step(state, aux)
-            else:
-                state, metrics = step(state, aux, next(draws))
+            with trace.span("iteration", it=state.it + 1):
+                if draws is None:
+                    state, metrics = step(state, aux)
+                else:
+                    state, metrics = step(state, aux, next(draws))
             raw.append(metrics)
             syncs.append(SYNCS["count"] - s0)
         s0 = SYNCS["count"]
         ms = fetch_metrics(raw)
         syncs[-1] += SYNCS["count"] - s0
-        wall = (time.perf_counter() - t0) * 1e3 / k
         for m, s in zip(ms, syncs):
-            m["wall_ms"] = wall
             m["host_syncs"] = s
         yield state, ms
 
@@ -822,6 +814,7 @@ def print_phase_ms(m: dict) -> None:
             flush=True)
 
 
+@trace.spanned("infer", engine="linear")
 def infer(geno, cfg: VampConfig, probs, vars_user, true_signal=None,
           freeze=None, callbacks=None, r1_init=None, x1_init=None, gam1=None,
           gamw=None, verbose: bool = True, sync_every: int = 1,
@@ -834,9 +827,8 @@ def infer(geno, cfg: VampConfig, probs, vars_user, true_signal=None,
     chunks of that many iterations between metrics fetches; the callbacks
     and the stopping test run once per chunk (``run_chunks``).
     ``phase_timers`` times each phase into ``phase_ms_*`` and overrides
-    ``sync_every``.  Each history entry also holds ``wall_ms`` and
-    ``host_syncs`` (device values read on the host, the metrics fetch
-    included).  ``bern``, ``defl_v0`` and ``red_sbw`` replace the drawn
+    ``sync_every``.  Each history entry also holds ``host_syncs`` (device
+    values read on the host, the metrics fetch included).  ``bern``, ``defl_v0`` and ``red_sbw`` replace the drawn
     probe, deflation start block and window starts (entry it - 1 for
     iteration it; parity tests pass JAX's).
 

@@ -46,7 +46,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from gvamp_tpu_torch import cg, linear, probit, robust, slq
+from gvamp_tpu_torch import cg, linear, probit, robust, slq, trace
 from gvamp_tpu_torch.linear import (VampConfig, _check_resume_probe_cols,
                                     _clamp_gamma, probe_cols, run_chunks,
                                     slq_on)
@@ -682,6 +682,7 @@ def _finish(mp: MultiPhen, state):
     return state.x1[: mp.geno.M].cpu().numpy() / sqn
 
 
+@trace.spanned("infer", engine="multi")
 def infer(mp: MultiPhen, cfg: VampConfig, probs, vars_user,
           verbose: bool = True, callbacks=None, sync_every: int = 1,
           resume_state: MultiState = None, bern=None, defl_v0=None):
@@ -1113,6 +1114,7 @@ def make_huber_step(mp: MultiPhen, cfg):
     return step
 
 
+@trace.spanned("infer", engine="multi_probit")
 def infer_probit(mp: MultiPhen, cfg, probs, vars_user, verbose: bool = True,
                  callbacks=None, sync_every: int = 1, resume_state=None,
                  bern=None, defl_v0=None):
@@ -1137,6 +1139,7 @@ def infer_probit(mp: MultiPhen, cfg, probs, vars_user, verbose: bool = True,
     return _finish(mp, state), state, history
 
 
+@trace.spanned("infer", engine="multi_huber")
 def infer_huber(mp: MultiPhen, cfg, probs, vars_user, verbose: bool = True,
                 callbacks=None, sync_every: int = 1, resume_state=None,
                 bern=None, defl_v0=None, mc_draws=None):

@@ -60,12 +60,19 @@ the same roundings (see ``gram_aat_i8a_ref`` and ``gram_i8a_ref``).
 A wrapper takes its plain version only for a tensor on the CPU.  For a CUDA
 tensor it launches its kernel or raises; it never falls back.
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that its
-main path went through the kernels.
+main path went through the kernels; ``trace.LAUNCHED`` keeps their running
+total.  Under a profiler each call of a public product wrapper is a
+``product`` span with the wrapper's name and the width B it was passed
+(``gvamp_tpu_torch.trace``).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from gvamp_tpu_torch import trace
 
 _M1 = 0x01010101
 _M3 = 0x03030303
@@ -135,6 +142,26 @@ LAUNCHES = {"axm_i8a": 0, "atxm_i8a": 0, "axm_i8": 0, "atxm_i8": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# the products of one vector: B = 1
+_ONE_VECTOR = ("atx", "ax", "atx_a")
+
+
+def _product(fn):
+    """A public product wrapper, spanned under a profiler as ``product``
+    with its name and the width B of its right-hand side."""
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def wrapper(words, X, *rest, **kw):
+        if not trace.on():
+            return fn(words, X, *rest, **kw)
+        with trace.span("product", name=name,
+                        B=1 if name in _ONE_VECTOR else int(X.shape[-1])):
+            return fn(words, X, *rest, **kw)
+
+    return wrapper
 
 
 # --------------------------------------------------------------------------
@@ -863,8 +890,10 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     LAUNCHES[name] += 1
+    trace.LAUNCHED["count"] += 1
 
 
+@_product
 def axm_i8a(words: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """A_a @ W -> f32[4, Nb, B] on complete genotypes; the caller subtracts
     the b-side scalar colsum(mave W).
@@ -889,6 +918,7 @@ def axm_i8a(words: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     return _fold_digits_zt(zt, ws, W.shape[1])
 
 
+@_product
 def atxm_i8a(words: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     """A_a^T V -> f32[Mpad, B] on complete genotypes; the caller subtracts
     mave * colsum(V)."""
@@ -908,6 +938,7 @@ def atxm_i8a(words: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
     return _fold_digits_t(av, s0, V.shape[2])
 
 
+@_product
 def axm_i8(words: torch.Tensor, W: torch.Tensor,
            U: torch.Tensor) -> torch.Tensor:
     """A_a @ W - A_b @ U -> f32[4, Nb, B] on genotypes with missing calls.
@@ -937,6 +968,7 @@ def axm_i8(words: torch.Tensor, W: torch.Tensor,
     return _fold_digits_zt(za, ws, B) - _fold_digits_zt(zb, us, B)
 
 
+@_product
 def atxm_i8(words: torch.Tensor, V: torch.Tensor):
     """(A_a^T V, A_b^T V) -> f32[Mpad, B] x2 on genotypes with missing
     calls; the caller forms av - mave * bv."""
@@ -986,6 +1018,7 @@ def atx_launch(name: str, words: torch.Tensor, v_planar: torch.Tensor):
     return getattr(lib, f"gvamp_{name}"), args, finish
 
 
+@_product
 def atx(words: torch.Tensor, v_planar: torch.Tensor):
     """(A_a^T v, A_b^T v) -> f32[Mpad] x2 for one planar vector v[4, Nb].
 
@@ -1030,6 +1063,7 @@ def ax_launch(words: torch.Tensor, w: torch.Tensor, u: torch.Tensor):
     return lib.gvamp_ax, args, finish
 
 
+@_product
 def ax(words: torch.Tensor, w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """z[4, Nb] = sum_m a_k[m, p] w[m] - b_k[m, p] u[m] in f32 (the raw
     single-vector product of the people statistics)."""
@@ -1040,6 +1074,7 @@ def ax(words: torch.Tensor, w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return finish()
 
 
+@_product
 def atx_a(words: torch.Tensor, v_planar: torch.Tensor) -> torch.Tensor:
     """A_a^T v -> f32[Mpad] for one planar vector v[4, Nb]; on complete
     genotypes the caller takes the b-side as sum(v)."""
@@ -1050,6 +1085,7 @@ def atx_a(words: torch.Tensor, v_planar: torch.Tensor) -> torch.Tensor:
     return finish()
 
 
+@_product
 def axm_i8s(words: torch.Tensor, W: torch.Tensor,
             U: torch.Tensor) -> torch.Tensor:
     """A_a @ W - A_b @ U -> f32[4, Nb, B] on genotypes with missing calls,
@@ -1185,6 +1221,7 @@ def _bf16_parts(lib_parts, name: str, nw: int, m: int, B: int) -> int:
     return parts
 
 
+@_product
 def axm_bf16(words: torch.Tensor, W: torch.Tensor,
              U: torch.Tensor) -> torch.Tensor:
     """A_a @ W - A_b @ U -> f32[4, Nb, B] from the three bf16 parts of W
@@ -1219,6 +1256,7 @@ def axm_bf16(words: torch.Tensor, W: torch.Tensor,
     return bf16_fold_z(out, B, E)
 
 
+@_product
 def atxm_bf16(words: torch.Tensor, V: torch.Tensor):
     """(A_a^T V, A_b^T V) -> f32[Mpad, B] x2 from the three bf16 parts of
     V; columns in chunks of ``_BMAX_BF16``, as ``atxm_pallas``."""
@@ -1308,6 +1346,7 @@ def gram_aat_launch(name: str, words, V, mave, msig2):
     return getattr(lib, f"gvamp_{name}"), args, finish
 
 
+@_product
 def gram_aat_i8a(words: torch.Tensor, V: torch.Tensor, mave: torch.Tensor,
                  msig2: torch.Tensor) -> torch.Tensor:
     """Fused dual Gram on complete genotypes, one read of the words:
@@ -1323,6 +1362,7 @@ def gram_aat_i8a(words: torch.Tensor, V: torch.Tensor, mave: torch.Tensor,
     return finish()
 
 
+@_product
 def gram_aat_i8(words: torch.Tensor, V: torch.Tensor, mave: torch.Tensor,
                 msig2: torch.Tensor) -> torch.Tensor:
     """Fused dual Gram on genotypes with missing calls, one read of the
@@ -1419,6 +1459,7 @@ def gram_launch(name: str, words, W, na_planar, other):
     return getattr(lib, f"gvamp_{name}"), args, finish
 
 
+@_product
 def gram_i8a(words: torch.Tensor, W: torch.Tensor, na_planar: torch.Tensor,
              colsum_u: torch.Tensor):
     """Fused primal Gram on complete genotypes, one read of the words:
@@ -1438,6 +1479,7 @@ def gram_i8a(words: torch.Tensor, W: torch.Tensor, na_planar: torch.Tensor,
     return finish()
 
 
+@_product
 def gram_i8(words: torch.Tensor, W: torch.Tensor, U: torch.Tensor,
             na_planar: torch.Tensor):
     """Fused primal Gram on genotypes with missing calls, one read of the

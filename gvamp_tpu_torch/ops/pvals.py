@@ -22,6 +22,12 @@ chunk partials combine with compensated two-sum, so the (hi, lo) pairs fold
 to float64-grade sums on the host.  The t-test itself runs on the host in
 float64 (scipy ``betainc``) whatever the engine dtype: f32 would flush
 p-values below ~1e-38 to zero.
+
+Under a profiler each call is a ``pvals.loo`` or ``pvals.loco`` span
+holding ``pvals.predictor`` (the target vectors: for LOCO the wide forward
+product of the per-chromosome predictors), ``pvals.moments`` (the moments
+pass and its fold on the host, which waits for the device) and
+``pvals.tests`` (the host t-tests) (``gvamp_tpu_torch.trace``).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from gvamp_tpu_torch.ops import matvec
+from gvamp_tpu_torch.trace import span, spanned
 
 
 @contextlib.contextmanager
@@ -137,29 +144,33 @@ def _pvals_of(geno, ycs, s):
     """Per-target p-values [T, Mpad] from target vectors ycs (each [4, Nb],
     NA-masked) and the add-back scales s [Mpad, T], in one moments pass."""
     na = geno.na_planar
-    vecs = torch.stack([na] + [v for yc in ycs for v in (yc, yc * yc)])
-    # under a mesh per slab, each marker's moments all-gathered: [V, M]
-    # along axis 1, the a^2 sums along axis 0
-    moments = geno._sharded(
-        lambda g, v, n: _moments(g, v, n, block=min(256, g.shape[1])),
-        (None, None), "m", dims=(1, 1, 1, 1, 0, 0))(geno.words, vecs, na)
-    av_hi, av_lo, bv_hi, bv_lo, aa_hi, aa_lo = moments
-    avh = _fold64(av_hi, av_lo)
-    bvh = _fold64(bv_hi, bv_lo)
-    sumx, sumsqx, b_na, mave, msig = _shared_stats(
-        geno, avh[0], bvh[0], _fold64(aa_hi, aa_lo))
-    out = np.ones((len(ycs), geno.Mpad), dtype=np.float64)
-    for e in range(len(ycs)):
-        a_y, b_y, b_yy = avh[1 + 2 * e], bvh[1 + 2 * e], bvh[2 + 2 * e]
-        vy = msig * (a_y - mave * b_y)       # sum value * y_target
-        se = s[:, e]
-        sumxy = vy + se * sumsqx
-        sumy = b_y + se * sumx
-        sumsqy = b_yy + 2 * se * vy + se**2 * sumsqx
-        out[e] = _reg1d_pvals(sumx, sumsqx, sumxy, sumy, sumsqy, b_na)
+    with span("pvals.moments", targets=len(ycs)):
+        vecs = torch.stack([na] + [v for yc in ycs for v in (yc, yc * yc)])
+        # under a mesh per slab, each marker's moments all-gathered: [V, M]
+        # along axis 1, the a^2 sums along axis 0
+        moments = geno._sharded(
+            lambda g, v, n: _moments(g, v, n, block=min(256, g.shape[1])),
+            (None, None), "m", dims=(1, 1, 1, 1, 0, 0))(geno.words, vecs, na)
+        av_hi, av_lo, bv_hi, bv_lo, aa_hi, aa_lo = moments
+        avh = _fold64(av_hi, av_lo)
+        bvh = _fold64(bv_hi, bv_lo)
+        aah = _fold64(aa_hi, aa_lo)
+    with span("pvals.tests"):
+        sumx, sumsqx, b_na, mave, msig = _shared_stats(geno, avh[0], bvh[0],
+                                                       aah)
+        out = np.ones((len(ycs), geno.Mpad), dtype=np.float64)
+        for e in range(len(ycs)):
+            a_y, b_y, b_yy = avh[1 + 2 * e], bvh[1 + 2 * e], bvh[2 + 2 * e]
+            vy = msig * (a_y - mave * b_y)       # sum value * y_target
+            se = s[:, e]
+            sumxy = vy + se * sumsqx
+            sumy = b_y + se * sumx
+            sumsqy = b_yy + 2 * se * vy + se**2 * sumsqx
+            out[e] = _reg1d_pvals(sumx, sumsqx, sumxy, sumy, sumsqy, b_na)
     return out
 
 
+@spanned("pvals.loo")
 def loo_pvals_multi(geno, z1s_planar, x1s_internal):
     """LOO p-values for E estimates in one decode pass (reference
     pvals_calc's nE batch, data.cpp:1155-1183).
@@ -167,10 +178,12 @@ def loo_pvals_multi(geno, z1s_planar, x1s_internal):
     z1s_planar: [4, Nb, E] forward products A @ x1_e; x1s_internal:
     [Mpad, E] internal-scale estimates.  Returns float64[E, M]."""
     na = geno.na_planar
-    y = geno.filter_pheno()
-    E = int(x1s_internal.shape[1])
-    ycs = [(y - z1s_planar[..., e].to(geno.dtype)) * na for e in range(E)]
-    s = _np64(x1s_internal) / np.sqrt(geno.N)
+    with span("pvals.predictor"):
+        y = geno.filter_pheno()
+        E = int(x1s_internal.shape[1])
+        ycs = [(y - z1s_planar[..., e].to(geno.dtype)) * na
+               for e in range(E)]
+        s = _np64(x1s_internal) / np.sqrt(geno.N)
     return _pvals_of(geno, ycs, s)[:, : geno.M]
 
 
@@ -183,6 +196,7 @@ def loo_pvals(geno, z1_planar, x1_internal):
                            x1_internal[:, None])[0]
 
 
+@spanned("pvals.loco")
 def loco_pvals(geno, z1_planar, x1_internal, chroms, predictor_cb=None):
     """LOCO p-values (reference pvals_calc_LOCO, data.cpp:1235-1353).
 
@@ -203,15 +217,15 @@ def loco_pvals(geno, z1_planar, x1_internal, chroms, predictor_cb=None):
     if not present:
         return pvals[: geno.M]
 
-    masks = np.stack([(chroms_pad == ch) for ch in present], axis=1)
-    masks = torch.as_tensor(masks, dtype=geno.dtype, device=geno.device)
-    y_chroms = geno.axm(x1_internal.to(geno.dtype)[:, None] * masks)
-    if predictor_cb is not None:
-        for j, ch in enumerate(present):
-            predictor_cb(ch, y_chroms[..., j])
-
-    ycs = [(ym + y_chroms[..., j]) * na for j in range(len(present))]
-    s = _np64(x1_internal) / np.sqrt(geno.N)
+    with span("pvals.predictor"):
+        masks = np.stack([(chroms_pad == ch) for ch in present], axis=1)
+        masks = torch.as_tensor(masks, dtype=geno.dtype, device=geno.device)
+        y_chroms = geno.axm(x1_internal.to(geno.dtype)[:, None] * masks)
+        if predictor_cb is not None:
+            for j, ch in enumerate(present):
+                predictor_cb(ch, y_chroms[..., j])
+        ycs = [(ym + y_chroms[..., j]) * na for j in range(len(present))]
+        s = _np64(x1_internal) / np.sqrt(geno.N)
     p = _pvals_of(geno, ycs, np.repeat(s[:, None], len(present), axis=1))
     for j, ch in enumerate(present):
         sel = chroms_pad == ch

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from gvamp_tpu_torch.sync import host_bool
+from gvamp_tpu_torch.trace import span, spanned
 
 GAMMA_MIN = 1e-11  # reference vamp.hpp:31
 GAMMA_MAX = 1e11   # reference vamp.hpp:32
@@ -91,6 +92,7 @@ def pip(r: torch.Tensor, gam1, prior: Prior) -> torch.Tensor:
     return 1.0 - c[:, 0] / c.sum(dim=1)
 
 
+@spanned("prior.update")
 def update_prior(r1: torch.Tensor, gam1, prior: Prior, m_mask: torch.Tensor,
                  mt, em_max_iter: int = 2, em_err_thr: float = 1e-2,
                  learn_vars: bool = True, merge_thr: float = 5e-1,
@@ -157,31 +159,33 @@ def update_prior(r1: torch.Tensor, gam1, prior: Prior, m_mask: torch.Tensor,
     go = (torch.ones(probs.shape[:-1], dtype=torch.bool, device=r1.device)
           if active is None else active)
     it = 0
-    while it < em_max_iter:
-        probs_new, vars_new, dist = em_body(probs, vars_)
-        probs = torch.where(go[..., None], probs_new, probs)
-        vars_ = torch.where(go[..., None], vars_new, vars_)
-        go = go & (dist >= em_err_thr)
-        it += 1
-        if it < em_max_iter and not host_bool(go.any()):
-            break
+    with span("prior.em"):
+        while it < em_max_iter:
+            probs_new, vars_new, dist = em_body(probs, vars_)
+            probs = torch.where(go[..., None], probs_new, probs)
+            vars_ = torch.where(go[..., None], vars_new, vars_)
+            go = go & (dist >= em_err_thr)
+            it += 1
+            if it < em_max_iter and not host_bool(go.any()):
+                break
 
     # merge close variances: merging k into j moves k's probability onto j
     # and duplicates j's variance into slot k (fixed-slot form)
-    probs, vars_ = probs.clone(), vars_.clone()
-    L = probs.shape[-1]
-    tiny = torch.as_tensor(1e-7, dtype=dt, device=vars_.device)
-    for j in range(L):
-        for k in range(j + 1, L):
-            pj0, pk0 = probs[..., j], probs[..., k]
-            vj, vk0 = vars_[..., j], vars_[..., k]
-            both_alive = (pj0 > 0) & (pk0 > 0)
-            denom = torch.where(vj != 0, torch.minimum(vj, vk0), tiny)
-            do = both_alive & (torch.abs(vj - vk0) / denom < merge_thr)
-            pj = torch.where(do, pj0 + pk0, pj0)
-            pk = torch.where(do, 0.0, pk0)
-            vk = torch.where(do, vj, vk0)
-            probs[..., j], probs[..., k], vars_[..., k] = pj, pk, vk
+    with span("prior.merge"):
+        probs, vars_ = probs.clone(), vars_.clone()
+        L = probs.shape[-1]
+        tiny = torch.as_tensor(1e-7, dtype=dt, device=vars_.device)
+        for j in range(L):
+            for k in range(j + 1, L):
+                pj0, pk0 = probs[..., j], probs[..., k]
+                vj, vk0 = vars_[..., j], vars_[..., k]
+                both_alive = (pj0 > 0) & (pk0 > 0)
+                denom = torch.where(vj != 0, torch.minimum(vj, vk0), tiny)
+                do = both_alive & (torch.abs(vj - vk0) / denom < merge_thr)
+                pj = torch.where(do, pj0 + pk0, pj0)
+                pk = torch.where(do, 0.0, pk0)
+                vk = torch.where(do, vj, vk0)
+                probs[..., j], probs[..., k], vars_[..., k] = pj, pk, vk
     return Prior(probs=probs, vars=vars_)
 
 

@@ -40,14 +40,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from gvamp_tpu_torch import cg, slq
+from gvamp_tpu_torch import cg, slq, trace
 from gvamp_tpu_torch.linear import (VampConfig, _check_resume_probe_cols,
                                     _clamp_gamma, make_bern_probe,
                                     make_phase_step, print_phase_ms,
                                     probe_cols, run_chunks, slq_on)
 from gvamp_tpu_torch.ops.special import normal_logcdf, phi_over_Phi
 from gvamp_tpu_torch.prior import GAMMA_MIN, Prior, g1, g1d, update_prior
-from gvamp_tpu_torch.sync import SYNCS, host_bool
+from gvamp_tpu_torch.sync import host_bool, host_values
 
 
 # --------------------------------------------------------------------------
@@ -175,8 +175,8 @@ def newton_cov(y, gg, Z, eta0, n_mask, probit_var=1.0, max_iter=500,
             norm_eta == 0, 1.0,
             torch.sqrt(torch.square(eta_new - eta).sum()) / norm_eta)
         f1 = mlogL_probit(y, gg, probit_var, Z, eta_new, n_mask)
-        SYNCS["count"] += 1
-        rel, bad = float(rel_t), bool(f1 > f0)
+        rel_h, bad_h = host_values([rel_t, f1 > f0])
+        rel, bad = float(rel_h), bool(bad_h)
         eta = eta_new
         it += 1
     return eta
@@ -542,14 +542,15 @@ def make_step(geno, cfg: ProbitConfig, n_cov: int = 0,
         timer_device)
 
 
+@trace.spanned("infer", engine="probit")
 def infer(geno, cfg: ProbitConfig, probs, vars_user, true_signal=None,
           verbose: bool = True, callbacks=None, phase_timers: bool = False,
           sync_every: int = 1, resume_state: ProbitState = None, bern=None,
           p1=None, defl_v0=None):
     """Run the probit VAMP loop; returns (x1_hat_stored /sqrt(N), state,
     history).  ``sync_every``, ``phase_timers`` and the history's
-    ``wall_ms`` and ``host_syncs`` are the linear engine's
-    (``linear.infer``).  ``bern``, ``p1`` and ``defl_v0`` replace the
+    ``host_syncs`` are the linear engine's (``linear.infer``).  ``bern``,
+    ``p1`` and ``defl_v0`` replace the
     drawn probe, initial p1 and deflation start block (parity tests pass
     JAX's)."""
     n_cov = geno.covs.shape[1] if geno.covs is not None else 0

@@ -39,7 +39,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from gvamp_tpu_torch import cg, slq
+from gvamp_tpu_torch import cg, slq, trace
 from gvamp_tpu_torch.linear import (VampConfig, _check_resume_probe_cols,
                                     _clamp_gamma, make_bern_probe,
                                     make_deflation, make_phase_step,
@@ -430,14 +430,14 @@ def make_step(geno, cfg: RobustConfig, with_truth: bool = False,
     return step
 
 
+@trace.spanned("infer", engine="robust")
 def infer(geno, cfg: RobustConfig, probs, vars_user, true_signal=None,
           verbose: bool = True, callbacks=None, phase_timers: bool = False,
           sync_every: int = 1, resume_state: RobustState = None, bern=None,
           defl_v0=None, mc_draws=None):
     """Run the Huber VAMP loop; returns (x1_hat_stored /sqrt(N), state,
     history).  ``sync_every``, ``phase_timers`` and the history's
-    ``wall_ms`` and ``host_syncs`` are the linear engine's
-    (``linear.infer``).  ``bern`` and ``defl_v0`` replace the drawn probe
+    ``host_syncs`` are the linear engine's (``linear.infer``).  ``bern`` and ``defl_v0`` replace the drawn probe
     and deflation start block, ``mc_draws`` (an iterable of per-iteration
     [mc, 4 Nb] arrays) the draws from the state's generator (parity tests
     pass JAX's)."""

@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from gvamp_tpu_torch.trace import spanned
+
 
 class SlqBasis(NamedTuple):
     """Gauss-quadrature view of C independent Krylov spaces."""
@@ -80,6 +82,7 @@ def nodes_weights(alphas, betas):
             torch.square(S[:, 0, :]).to(alphas.dtype))
 
 
+@spanned("slq.build")
 def build(mult, U: torch.Tensor, k: int) -> SlqBasis:
     """Lanczos pass + quadrature extraction (the one-time set-up)."""
     alphas, betas, unorm2 = lanczos_block(mult, U, k)
@@ -91,12 +94,14 @@ def _col(x, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(x, dtype=like.dtype, device=like.device).reshape(-1, 1)
 
 
+@spanned("slq.quad")
 def quad_inv(basis: SlqBasis, tau, gam2) -> torch.Tensor:
     """[C] estimates of u_j^T (tau G_j + gam2 I)^{-1} u_j."""
     tau, gam2 = _col(tau, basis.lam), _col(gam2, basis.lam)
     return basis.unorm2 * (basis.wts / (tau * basis.lam + gam2)).sum(dim=-1)
 
 
+@spanned("slq.quad")
 def quad_ratio(basis: SlqBasis, tau, gam2) -> torch.Tensor:
     """[C] estimates of u_j^T G_j (tau G_j + gam2 I)^{-1} u_j."""
     tau, gam2 = _col(tau, basis.lam), _col(gam2, basis.lam)

@@ -14,7 +14,10 @@ EM prior updates, em_deltaH's grid search on the device, and the rest
 (em_deltaH's draw on the CPU and its transfer among it, which are timed
 apart afterwards).  Each timed part is bracketed by a device
 synchronisation, so the parts add up to the iterations' wall time and
-that wall time is somewhat above an untimed run's.
+that wall time is somewhat above an untimed run's.  The iterations' time
+is that of the program's ``iteration`` and ``fetch`` spans
+(``gvamp_tpu_torch.trace``): the run goes under ``torch.profiler``,
+tracing the card's activity (the CPU's on the CPU).
 
 Then it measures the SLQ quadrature's nodes: 32 Lanczos steps of the
 Gram from the probe on the device, the tridiagonal's eigendecomposition
@@ -47,7 +50,9 @@ def _timed(acc, cnt, name, fn, sync):
 
 def split(geno, beta, vars_t, probs_t, n_it, deflate_k, sync) -> None:
     """One run of n_it Huber iterations with each part timed."""
-    from gvamp_tpu_torch import cg, robust
+    from torch.profiler import ProfilerActivity, profile
+
+    from gvamp_tpu_torch import cg, robust, trace
     acc, cnt = collections.defaultdict(float), collections.Counter()
     parts = {"update_prior": (robust, "EM prior update"),
              "g1": (robust, "g1"), "g1d": (robust, "g1d"),
@@ -57,14 +62,21 @@ def split(geno, beta, vars_t, probs_t, n_it, deflate_k, sync) -> None:
     saved = {n: getattr(mod, n) for n, (mod, _) in parts.items()}
     for n, (mod, label) in parts.items():
         setattr(mod, n, _timed(acc, cnt, label, saved[n], sync))
+    act = (ProfilerActivity.CUDA if geno.device.type == "cuda"
+           else ProfilerActivity.CPU)
+    trace.clear()
     try:
         cfg = robust.RobustConfig(max_iter=n_it, rho=0.15, stab_gamma=1.0,
                                   stop_criteria_thr=0.0, deflate_k=deflate_k)
-        _, _, hist = robust.infer(geno, cfg, probs_t, vars_t, verbose=False)
+        with profile(activities=[act]):
+            _, _, hist = robust.infer(geno, cfg, probs_t, vars_t,
+                                      verbose=False)
     finally:
         for n, (mod, _) in parts.items():
             setattr(mod, n, saved[n])
-    wall = sum(h["wall_ms"] for h in hist) / 1e3
+    wall = sum(s.end_ns - s.start_ns for s in trace.spans()
+               if s.name in ("iteration", "fetch")) / 1e9
+    trace.clear()
     print(f"deflate_k={deflate_k}: {len(hist)} iterations {wall:.3f} s, CG "
           f"{[h['cg_iters'] for h in hist]}, host syncs "
           f"{[h['host_syncs'] for h in hist]}", flush=True)

@@ -38,13 +38,12 @@ torch.set_num_threads(1)
 
 
 def _same_history(a, b):
-    """Two histories equal in every metric but the host clock and the sync
-    count."""
+    """Two histories equal in every metric but the sync count."""
     assert len(a) == len(b)
     for x, y in zip(a, b):
         assert set(x) == set(y)
         for k in x:
-            if k not in ("wall_ms", "host_syncs"):
+            if k != "host_syncs":
                 np.testing.assert_array_equal(np.asarray(x[k]),
                                               np.asarray(y[k]), err_msg=k)
 
@@ -135,7 +134,9 @@ def test_sync_every_equals_single_steps(engine):
     _same_history(h3, h1)
     assert (sum(h["host_syncs"] for h in h1)
             - sum(h["host_syncs"] for h in h3)) == 2
-    assert h3[0]["wall_ms"] == h3[1]["wall_ms"] == h3[2]["wall_ms"] > 0
+    # the chunk's one fetch is counted on its last step
+    assert [h["host_syncs"] for h in h3] == [
+        h["host_syncs"] - (i < 2) for i, h in enumerate(h1)]
 
 
 # (engine, extra cfg) of the timed runs, and JAX's phase names for each

@@ -165,7 +165,7 @@ def _check_six_iterations(problem, dt):
             np.testing.assert_allclose(float(h_t[-1][k]), float(h_j[-1][k]),
                                        rtol=2e-4, err_msg=k)
     assert np.corrcoef(x_t, beta)[0, 1] > 0.9
-    assert all(h["host_syncs"] > 0 and h["wall_ms"] > 0 for h in h_t)
+    assert all(h["host_syncs"] > 0 and "wall_ms" not in h for h in h_t)
     return t
 
 

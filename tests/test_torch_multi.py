@@ -201,7 +201,7 @@ def test_six_iteration_recipe_matches_jax(dt):
                                    rtol=rtol, err_msg=k)
     for tr in range(T):
         assert np.corrcoef(x_t[:, tr], betas[tr])[0, 1] > 0.5, tr
-    assert all(h["host_syncs"] > 0 and h["wall_ms"] > 0 for h in h_t)
+    assert all(h["host_syncs"] > 0 and "wall_ms" not in h for h in h_t)
 
 
 def test_deflation_with_jax_start_block():

@@ -202,7 +202,7 @@ def test_probit_recipe_matches_jax(dt, f32_probe):
                                rtol=rtol, atol=rtol)
     for tr, beta in enumerate(pp["betas"]):
         assert np.corrcoef(x_t[:, tr], beta)[0, 1] > 0.5, tr
-    assert all(h["host_syncs"] > 0 and h["wall_ms"] > 0 for h in h_t)
+    assert all(h["host_syncs"] > 0 and "wall_ms" not in h for h in h_t)
 
 
 def test_huber_one_step_from_converted_state(f32_probe):

@@ -327,7 +327,7 @@ def test_six_iteration_recipe_matches_jax(dt, miss, n_cov, route, f32_probe,
                                    np.asarray(h_j[-1]["cov_eff"]),
                                    rtol=rtol, atol=rtol)
     assert np.corrcoef(x_t, beta)[0, 1] > 0.5
-    assert all(h["host_syncs"] > 0 and h["wall_ms"] > 0 for h in h_t)
+    assert all(h["host_syncs"] > 0 and "wall_ms" not in h for h in h_t)
 
 
 def test_item_12_options_run():

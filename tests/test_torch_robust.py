@@ -279,7 +279,7 @@ def test_six_iteration_recipe_matches_jax(dt, miss, f32_probe):
                                    rtol=rtol, err_msg=k)
     assert np.isfinite(x_t).all()
     assert np.corrcoef(x_t, beta)[0, 1] > 0.6
-    assert all(h["host_syncs"] > 0 and h["wall_ms"] > 0 for h in h_t)
+    assert all(h["host_syncs"] > 0 and "wall_ms" not in h for h in h_t)
 
 
 def test_generator_draws_are_reproducible():
