@@ -15,8 +15,8 @@ Phases, each of which raises on failure (exit code != 0):
 1. environment: torch / CUDA / nvcc / triton versions and the card's name
    and power limit; TF32 off for every float32 product;
 2. build the CUDA kernels (gvamp_tpu_torch/csrc/matvec.cu, fragments.cu,
-   bf16_split.cu, gram_aat.cu, gram_prim.cu, study.cu and fused_ab.cu, one
-   nvcc each, started together); the ptxas
+   bf16_split.cu, gram_aat.cu, gram_prim.cu, study.cu, fused_ab.cu and
+   counts.cu, one nvcc each, started together); the ptxas
    report must show no spill store in any instantiation of any kernel;
 3. each kernel against its plain PyTorch version on the card, bit for bit,
    with CUDA-event times of both: (a) all twenty-five at small shapes (the
@@ -47,10 +47,13 @@ Phases, each of which raises on failure (exit code != 0):
    also on Gaussian inputs against their plain versions within
    BF16_PLAIN_TOL),
    and axm_i8a and atxm_i8a at B = 22 (LOCO's width on complete
-   genotypes, 11 digit groups),
+   genotypes, 11 digit groups), and the statistics pass's count kernel
+   (marker_counts, csrc/counts.cu) on the whole matrix over a random NA
+   support, its counts equal to marker_counts_ref's and timed for the
+   kernels line,
    (c) the general kernels, axm_i8s and the bf16-split products on the
    whole config-Bm matrix at B = 1 and 2, and axm_i8 and axm_i8s at
-   B = 22;
+   B = 22, and the count kernel there as in (b);
    in (b) and (c) each plain version runs once on the whole matrix, at
    B = 1 (its one call timed), and the launches on the whole matrix at
    B = 2 and 22 and on Gaussian inputs are held against it on a band,
@@ -95,7 +98,8 @@ Phases, each of which raises on failure (exit code != 0):
 4. the linear VAMP main path at config B of bench.py (N=327,680 x
    M=131,072, complete genotypes, 10.74 GB of packed words on the card):
    load, phenotype simulation and 10 iterations of linear.infer, with the
-   launch counters proving that the path ran through the a-only kernels;
+   launch counters proving that the path ran through the a-only kernels
+   and that its statistics passes ran through the count kernel;
    4f. the same problem with GVAMP_FUSED_GRAM=1: every CG product through
    gram_i8a and the explicit noise pass, against the two-pass run;
    4p. probit at config B: a binary phenotype (probit_var = 1 - h2 = 0.5),
@@ -307,6 +311,12 @@ KERNELS = tuple(REPLACES)
 STUDY = STUDY_KERNELS + tuple(STUDY_PRODUCTS)
 # the product kernels (gvamp_tpu_torch/ops/matvec.py)
 PRODUCT_KERNELS = tuple(n for n in KERNELS if n not in STUDY)
+# the statistics pass's count kernel, launched by every load and set_phen;
+# it replaces XLA code of the JAX package, not a Pallas kernel, so it has a
+# row on the kernels line but none in REPLACES
+COUNT_KERNEL = "marker_counts"
+COUNT_SOURCE = "gvamp_tpu_torch/csrc/counts.cu"
+COUNT_REPLACES = "gvamp_tpu/data.py:85"
 # each kernel's entries in the ptxas report: a pattern that the mangled
 # names of every instantiation match (default "<name>_kernel"); the
 # fragment products, the dual Grams (gram_aat.cu), the primal ones
@@ -1086,6 +1096,7 @@ def phase_kernels_config_b(words, gen):
                    names=bf16 + ("atx", "atx_a"), band=True)
     check_gaussian(words, 2, gen, label, "plain", BF16_PLAIN_TOL,
                    names=bf16, band=True)
+    full[1][COUNT_KERNEL] = check_counts(words, label)
     # a generator of its own, so that the draws of ``gen`` stay those the
     # engine phases' limits were set on
     wide_gen = torch.Generator(device="cuda")
@@ -1094,6 +1105,29 @@ def phase_kernels_config_b(words, gen):
                                     names=a_only, reps=3, band=True)
     torch.cuda.empty_cache()
     return full
+
+
+def check_counts(words, label):
+    """The count kernel (``matvec.marker_counts``) on the whole matrix
+    against its plain version (``marker_counts_ref``, the same integer
+    counts decoded in blocks of markers), equal exactly, over a random NA
+    support with 3% of the slots out; returns (max_abs_err, CUDA-event ms
+    of the wrapper, ms of the plain version) for the kernels line.  A
+    generator of its own, so that the draws of the phases' ``gen`` stay
+    those their limits were set on."""
+    from gvamp_tpu_torch.ops import matvec
+    nw, m = words.shape
+    na_gen = torch.Generator(device="cuda")
+    na_gen.manual_seed(4)
+    na = (torch.rand((4, 4 * nw), generator=na_gen, device="cuda")
+          < 0.97).to(torch.float32)
+    plain, want = timed_once(lambda: matvec.marker_counts_ref(words, na))
+    got = matvec.marker_counts(words, na)
+    err = compare(COUNT_KERNEL, label, (got,), (want,))
+    ms = cuda_ms(lambda: matvec.marker_counts(words, na), 5)
+    log(f"  {label} {COUNT_KERNEL}: S_a, S_b, S_aa equal to the plain "
+        f"version's; {ms:.3f} ms, plain {plain:.1f} ms")
+    return err, ms, plain
 
 
 def phase_kernels_config_bm(words, gen):
@@ -1114,6 +1148,7 @@ def phase_kernels_config_bm(words, gen):
     full[BM_CHROMS] = check_kernels(words, BM_CHROMS, gen, label,
                                     names=("axm_i8", "axm_i8s"), reps=3,
                                     band=True)
+    check_counts(words, label)
     torch.cuda.empty_cache()
     return full
 
@@ -1234,7 +1269,8 @@ def phase_main_path(words):
     geno, _, problem = run_linear(words, "config B", True, CORR_MIN,
                                   R2_RANGE)
     launches = dict(matvec.LAUNCHES)
-    check_launches("config B", launches, ("axm_i8a", "atxm_i8a", "atx"),
+    check_launches("config B", launches,
+                   ("axm_i8a", "atxm_i8a", "atx", COUNT_KERNEL),
                    ("axm_i8", "atxm_i8", "gram_i8a", "gram_i8"))
     return launches, geno, problem
 
@@ -4138,7 +4174,7 @@ def kernel_rows(numbers):
     none decodes them (v1_decode_a to v3_bitcast); torch.sum computes the
     plain sums of stream, stream_sum and v0_stream."""
     rows = []
-    for n in KERNELS:
+    for n in KERNELS + (COUNT_KERNEL,):
         err, ms, plain, launches, (nw, m, B), lib_ms = numbers[n]
         b_ms, b_by = bound(n, nw, m, B)
         log(f"  {n:12s} Nw={nw} Mpad={m} B={B}: {ms:9.3f} ms, bound "
@@ -4149,12 +4185,14 @@ def kernel_rows(numbers):
         rows.append({
             "name": n, "route": "cuda",
             "source": (FUSED_AB_SOURCE if n == "v6_fused_ab" else
+                       COUNT_SOURCE if n == COUNT_KERNEL else
                        STUDY_SOURCE if n in STUDY else FRAGMENT_SOURCE
                        if n in FRAGMENT_KERNELS else BF16_SOURCE
                        if n in BF16_KERNELS else GRAM_AAT_SOURCE
                        if n in GRAM_AAT_KERNELS else GRAM_PRIM_SOURCE
                        if n in GRAM_PRIM_KERNELS else SOURCE),
-            "replaces": REPLACES[n], "launches": launches,
+            "replaces": REPLACES.get(n, COUNT_REPLACES),
+            "launches": launches,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "shape": f"Nw={nw} Mpad={m} B={B}"})
@@ -4337,6 +4375,10 @@ def main(argv=None):
         err = max(r[n][0] for r in runs.values() if n in r)
         numbers[n] = (err, runs[1][n][1], runs[1][n][2], counts[n],
                       (nw, m, 1), None)
+    # the count kernel on the whole config-B matrix (phase 3b), launched by
+    # phase 4's load and set_phen
+    numbers[COUNT_KERNEL] = (*full[1][COUNT_KERNEL], launches[COUNT_KERNEL],
+                             (nw, m, 1), None)
     log("kernels against their bounds (NVIDIA H100 SXM peaks: 3.35 TB/s "
         "HBM, 1,979 TOP/s int8, 989 TFLOP/s bf16, 67 TFLOP/s f32):")
     kernels = kernel_rows(numbers)

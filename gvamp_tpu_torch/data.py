@@ -59,7 +59,7 @@ from gvamp_tpu_torch import native
 from gvamp_tpu_torch.io import plink
 from gvamp_tpu_torch.ops import matvec
 from gvamp_tpu_torch.ops.layout import PlanarLayout
-from gvamp_tpu_torch.trace import span, spanned
+from gvamp_tpu_torch.trace import span
 
 
 def _round_up(x: int, m: int) -> int:
@@ -137,61 +137,36 @@ class BedOp(NamedTuple):
     m_mask: torch.Tensor      # [Mpad]
 
 
-@spanned("marker_stats")
-def _marker_stats(words, na_planar, nonas, alpha_scale, block, dt):
-    """Blocked two-moment pass over the packed matrix -> (mave, msig).
+def _marker_stats(words, na_planar, nonas, alpha_scale, dt):
+    """One pass over the packed matrix -> (mave, msig).
 
-    Port of ``_marker_stats_kernel`` (``gvamp_tpu/data.py:84-151``): per
-    block of markers, the decoded sums S_a, S_b, S_aa over N-chunks combine
-    with compensated two-sum, then mave = S_a/S_b and
-    sumsqr = S_aa - mave*S_a with the lo corrections applied after the
-    cancelling hi subtraction.  Plain PyTorch: the JAX pass is XLA code, not
-    a Pallas kernel.  Under a profiler the pass is a ``marker_stats`` span,
-    each block a ``stats.decode`` (the decode and the three sums) and a
-    ``stats.chain`` (the compensated chain over the C chunks)."""
+    Port of ``_marker_stats_kernel`` (``gvamp_tpu/data.py:84-151``).  The
+    sums S_a, S_b, S_aa over the NA support are integer counts
+    (``matvec.marker_counts``: the count kernel on the card, its plain
+    version on the CPU and for float64), each split into hi = dt(S) and lo
+    = dt(S - hi), where JAX's compensated two-sum ends (lo is 0 while the
+    counts stay below 2**24).  Then mave = S_a/S_b and sumsqr = S_aa -
+    mave*S_a with the lo corrections applied after the cancelling hi
+    subtraction.  Under a profiler the pass is one ``marker_stats`` span
+    with its ``path`` (``count_kernel`` or ``plain``), ``markers`` and
+    ``word_rows``."""
     nw, m = words.shape
-    na = na_planar.to(dt)
-    nb = na.shape[1]
-    nc = matvec.nb_chunk(nb)
-    C = nb // nc
-    sums = torch.zeros((6, m), dtype=dt, device=words.device)
-    for j in range(0, m, block):
-        with span("stats.decode"):
-            a, b = matvec.decode_planar_dense(words[:, j:j + block], dt)
-            w = a.shape[2]
-            am = a * na[:, :, None]
-            pa = am.reshape(4, C, nc, w).sum(dim=(0, 2))
-            pb = (b * na[:, :, None]).reshape(4, C, nc, w).sum(dim=(0, 2))
-            pq = (a * am).reshape(4, C, nc, w).sum(dim=(0, 2))
-        with span("stats.chain", chunks=C):
-            z = torch.zeros((w,), dtype=dt, device=words.device)
-            ah = al = bh = bl = ch = cl = z
-            for c in range(C):
-                ah, al = matvec.two_sum(ah, al, pa[c])
-                bh, bl = matvec.two_sum(bh, bl, pb[c])
-                ch, cl = matvec.two_sum(ch, cl, pq[c])
-            sums[:, j:j + w] = torch.stack([ah, al, bh, bl, ch, cl])
-    sah, sal, sbh, sbl, qh, ql = sums
-    sa = sah + sal
-    sb = sbh + sbl
-    mave = torch.where(sb != 0, sa / torch.where(sb == 0, 1.0, sb), 0.0)
-    sumsqr = (qh - mave * sah) + (ql - mave * sal)
-    sd = torch.sqrt(sumsqr / (nonas - 1.0))
-    msig = torch.where(
-        sumsqr > 0,
-        1.0 / torch.pow(torch.where(sumsqr <= 0, 1.0, sd), alpha_scale), 1.0)
+    path = "count_kernel" if words.device.type == "cuda" else "plain"
+    with span("marker_stats", path=path, markers=m, word_rows=nw):
+        counts = matvec.marker_counts(words, na_planar)
+        hi = counts.to(dt)
+        lo = (counts - hi.to(torch.int64)).to(dt)
+        (sah, sbh, qh), (sal, sbl, ql) = hi, lo
+        sa = sah + sal
+        sb = sbh + sbl
+        mave = torch.where(sb != 0, sa / torch.where(sb == 0, 1.0, sb), 0.0)
+        sumsqr = (qh - mave * sah) + (ql - mave * sal)
+        sd = torch.sqrt(sumsqr / (nonas - 1.0))
+        msig = torch.where(
+            sumsqr > 0,
+            1.0 / torch.pow(torch.where(sumsqr <= 0, 1.0, sd), alpha_scale),
+            1.0)
     return mave, msig
-
-
-def _stats_block(nb: int, elt: int, width: int) -> int:
-    """Markers per block of the statistics pass: the decode temporaries
-    are 2 arrays x [4, Nb, block] floats, capped near 512 MB so that
-    biobank-scale N fits next to a >10 GB packed matrix."""
-    cap = max(64, int(2 ** 29 // max(1, 2 * 4 * nb * elt)))
-    block = min(512, width, ((cap + 63) // 64) * 64)
-    while width % block:
-        block //= 2
-    return block
 
 
 def _people_sumsq(words, mave, msig):
@@ -541,13 +516,9 @@ class GenoBed(_Planar):
     def marker_stats_for(self, na_planar, nonas):
         """(mave, msig) over a phenotype-NA support; under a mesh per slab,
         then all-gathered."""
-        nb = self.layout.n_bytes
-        elt = 8 if self.dtype == torch.float64 else 4
-
         def stats(words, na):
-            block = _stats_block(nb, elt, words.shape[1])
             return _marker_stats(words, na, float(nonas),
-                                 float(self.alpha_scale), block, self.dtype)
+                                 float(self.alpha_scale), self.dtype)
 
         mave, msig = self._sharded(stats, (None,), "m")(self.words, na_planar)
         real = torch.arange(self.Mpad, device=self.device) < self.M

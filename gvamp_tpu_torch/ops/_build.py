@@ -156,6 +156,8 @@ def library() -> ctypes.CDLL:
             lib.gvamp_gram_i8a.restype = ctypes.c_int
             lib.gvamp_gram_i8.argtypes = [vp] * 8 + [i64] * 4 + [vp]
             lib.gvamp_gram_i8.restype = ctypes.c_int
+            lib.gvamp_marker_counts.argtypes = [vp, vp, vp, i64, i64, vp]
+            lib.gvamp_marker_counts.restype = ctypes.c_int
             lib.gvamp_atx_a.argtypes = [vp, vp, vp, i64, i64, vp]
             lib.gvamp_atx_a.restype = ctypes.c_int
             lib.gvamp_axm_i8s.argtypes = [vp] * 4 + [i64] * 3 + [vp]

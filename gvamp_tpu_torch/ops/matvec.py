@@ -32,6 +32,10 @@ Ten kernels carry every packed-matrix read of the engines:
   block CG in one read of the words, opt-in (``GVAMP_FUSED_GRAM=1``;
   replace ``gram_i8a_pallas`` / ``gram_i8_pallas``)
 
+One more reads the words once per phenotype: ``marker_counts`` (the
+integer counts S_a, S_b, S_aa of the statistics pass over an NA support,
+``csrc/counts.cu``), which ``data.py`` turns into mave and msig.
+
 Four more serve the tools of ``gvamp_tpu_torch/tools/`` (the kernel check,
 the Gram study and the kernel profile), as their JAX counterparts serve
 ``tools/``:
@@ -133,7 +137,8 @@ GRAM_BLOCKS_H100 = 132
 LAUNCHES = {"axm_i8a": 0, "atxm_i8a": 0, "axm_i8": 0, "atxm_i8": 0,
             "atx": 0, "ax": 0, "gram_aat_i8a": 0, "gram_aat_i8": 0,
             "gram_i8a": 0, "gram_i8": 0, "axm_bf16": 0, "atxm_bf16": 0,
-            "axm_i8s": 0, "atx_a": 0, "stream": 0, "stream_sum": 0,
+            "axm_i8s": 0, "atx_a": 0, "marker_counts": 0, "stream": 0,
+            "stream_sum": 0,
             "v0_stream": 0, "v1_decode_a": 0, "v2_decode_ab": 0,
             "v3_bitcast": 0, "v5_dot1": 0, "v6_fused_ab": 0,
             "v7_i8decode": 0, "v8_atxm_vt": 0, "v7_i8decode_round2": 0}
@@ -269,6 +274,48 @@ def atx_a_ref(words, v_planar):
     """av[M] = A_a^T v: the plain version of the ``atx_a`` kernel, the
     a-side of ``atx_ref``."""
     return atx_ref(words, v_planar)[0]
+
+
+# --------------------------------------------------------------------------
+# the statistics pass's counts (plain version of csrc/counts.cu)
+# --------------------------------------------------------------------------
+
+# bytes of one decoded int32 [4, Nb, block] plane that the plain counts
+# allow: the block of markers shrinks with Nw, and the last block is ragged
+_COUNT_BYTES = 2 ** 28
+
+
+def na_mask_words(na_planar: torch.Tensor) -> torch.Tensor:
+    """int32[Nw]: one mask word per word row with bit 8j+2k set where
+    planar slot (k, 4i+j) of ``na_planar`` ([4, Nb]) is not 0, the low bit
+    of that slot's 2-bit field in the words' own order (``ops/layout.py``).
+    The callers' NA indicators are 0/1, so ``!= 0`` is the indicator."""
+    nw = na_planar.shape[1] // 4
+    na = (na_planar != 0).to(torch.int32).reshape(4, nw, 4)
+    pos = torch.arange(4, dtype=torch.int32, device=na_planar.device)
+    shift = 2 * pos[:, None, None] + 8 * pos[None, None, :]
+    # distinct bits below 2**31: their sum is their union
+    return (na << shift).sum(dim=(0, 2), dtype=torch.int32)
+
+
+def marker_counts_ref(words: torch.Tensor,
+                      na_planar: torch.Tensor) -> torch.Tensor:
+    """int64[3, M]: S_a = sum a na, S_b = sum b na and S_aa = sum a^2 na
+    per marker over the planar slots where ``na_planar`` is not 0, decoded
+    in blocks of markers (the last one ragged) and summed in int64.  The
+    plain version of ``marker_counts``: the CPU path, the float64 path and
+    the kernel's oracle."""
+    nw, m = words.shape
+    na = (na_planar != 0).to(torch.int32)[:, :, None]
+    out = torch.empty((3, m), dtype=torch.int64, device=words.device)
+    block = max(1, min(_REF_BLOCK, _COUNT_BYTES // (64 * max(nw, 1))))
+    for lo in range(0, m, block):
+        a, b = decode_planar_dense(words[:, lo:lo + block], torch.int32)
+        am = a * na
+        out[0, lo:lo + block] = am.sum(dim=(0, 1), dtype=torch.int64)
+        out[1, lo:lo + block] = (b * na).sum(dim=(0, 1), dtype=torch.int64)
+        out[2, lo:lo + block] = (a * am).sum(dim=(0, 1), dtype=torch.int64)
+    return out
 
 
 def axm_ref(words, W, U, dtype=torch.float32):
@@ -1083,6 +1130,31 @@ def atx_a(words: torch.Tensor, v_planar: torch.Tensor) -> torch.Tensor:
     fn, args, finish = atx_launch("atx_a", words, v_planar)
     _launch("atx_a", fn, words.device, *args)
     return finish()
+
+
+def marker_counts(words: torch.Tensor,
+                  na_planar: torch.Tensor) -> torch.Tensor:
+    """int64[3, M]: the integer counts (S_a, S_b, S_aa) of every marker
+    of ``words`` (int32[Nw, M]) over the slots where ``na_planar`` ([4,
+    Nb]) is not 0, in one read of the words (the ``marker_counts`` kernel
+    of ``csrc/counts.cu``); the plain version on the CPU.  No block or
+    chunk has to divide Nw or M."""
+    nw, m = words.shape
+    if tuple(na_planar.shape) != (4, 4 * nw):
+        raise ValueError(f"marker_counts: na must be [4, {4 * nw}], got "
+                         f"{list(na_planar.shape)}")
+    if words.device.type == "cpu":
+        return marker_counts_ref(words, na_planar)
+    mask = na_mask_words(na_planar)
+    _check_cuda("marker_counts", words, mask, torch.int32)
+    # S_aa <= 4 * 16 Nw: dosage 2 squared, 16 samples a word row
+    _check_bound("marker_counts", nw, per_term=64)
+    out = torch.zeros((3, m), dtype=torch.int32, device=words.device)
+    from gvamp_tpu_torch.ops import _build
+    _launch("marker_counts", _build.library().gvamp_marker_counts,
+            words.device, words.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            nw, m)
+    return out.to(torch.int64)
 
 
 @_product

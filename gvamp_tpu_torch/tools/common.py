@@ -173,7 +173,11 @@ def bound(name: str, nw: int, m: int, B: int):
     kernels of STUDY_KERNELS move the words and their int32 output (Nw x
     STREAM_TM for ``stream``, 4 Nw for ``v3_bitcast``, Nw for the other row
     sums) and are charged by bytes only; those of STUDY_PRODUCTS as the
-    library kernel of their contract."""
+    library kernel of their contract.  The statistics pass's count kernel
+    (``marker_counts``) moves the words, a mask word per row and its
+    int32[3, Mpad] counts, and is charged by bytes."""
+    if name == "marker_counts":
+        return 1e3 * (4 * nw * m + 4 * nw + 12 * m) / HBM_BYTES_PER_S, "bytes"
     if name in STUDY_KERNELS:
         out = 4 * nw * {"stream": STREAM_TM, "v3_bitcast": 4}.get(name, 1)
         return 1e3 * (4 * nw * m + out) / HBM_BYTES_PER_S, "bytes"

@@ -11,14 +11,17 @@ import torch
 from gvamp_tpu.data import GenoBed as JGenoBed
 from gvamp_tpu.io import plink
 from gvamp_tpu_torch import data as tdata
+from gvamp_tpu_torch import dist
+from gvamp_tpu_torch.ops import matvec as tmv
 from gvamp_tpu_torch.data import GenoBed as TGenoBed
 from helpers import DenseOracle, random_dataset
 from test_data_layer import make_bed
 
 torch.set_num_threads(1)
 
-# f32 statistics: both sides form the moments with compensated two-sum over
-# N chunks (1-ulp sums) and differ only in the order inside a chunk, so
+# f32 statistics: the port's sums are exact integer counts and JAX's
+# compensated two-sum over N chunks (1-ulp sums) ends on the same sums;
+# the two formulas then differ in the order of a few f32 operations, so
 # mave/msig agree to a few f32 ulps.  f64: 1e-10, as the JAX tests hold
 # JAX's own f64 statistics against the dense oracle.
 STATS_TOL = {torch.float32: 2e-6, torch.float64: 1e-10}
@@ -70,12 +73,36 @@ def test_words_byte_identical(tmp_path):
     np.testing.assert_allclose(tf.scale, j.scale, rtol=1e-12)
 
 
+# layouts of the statistics pass: two plain ones, then those where a pass
+# with divisor rules faltered (Nw = 224, Nw/32 = 7 a prime; Mpad = 512*5;
+# three mesh slabs of 512 markers) and a marker with no call beside a
+# person plane with no phenotype
+STATS_LAYOUTS = [pytest.param(61, 33, {}, id="61-33"),
+                 pytest.param(1000, 40, {}, id="1000-40"),
+                 pytest.param(3584, 40, {}, id="nw224"),
+                 pytest.param(200, 2560, {}, id="mpad2560"),
+                 pytest.param(300, 1100, {"shards": 3}, id="slabs3"),
+                 pytest.param(130, 40, {"holes": True}, id="holes")]
+
+
+def _stats_dataset(N, M, holes=False):
+    codes, y = random_dataset(np.random.default_rng(42), N, M)
+    if holes:
+        codes[3] = 1          # marker 3: every call missing
+        y[1::4] = np.nan      # planar plane k = 1: every phenotype NA
+    return codes, y
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.float64])
-@pytest.mark.parametrize("N,M", [(61, 33), (1000, 40)])
-def test_marker_stats_match_jax_and_oracle(N, M, dt):
-    rng = np.random.default_rng(42)
-    codes, y = random_dataset(rng, N, M)
-    j, t = _pair(codes, y, N, dt)
+@pytest.mark.parametrize("N,M,kw", STATS_LAYOUTS)
+def test_marker_stats_match_jax_and_oracle(N, M, kw, dt):
+    codes, y = _stats_dataset(N, M, kw.get("holes", False))
+    j = JGenoBed.from_arrays(make_bed(codes), y, N=N, dtype=JAX_DTYPE[dt],
+                             backend=JAX_BACKEND[dt])
+    mesh = dist.Mesh(kw["shards"], "cpu") if "shards" in kw else None
+    t = TGenoBed.from_arrays(make_bed(codes), y, N=N, dtype=dt, device="cpu",
+                             mesh=mesh)
+    assert t.Mpad == j.Mpad
     assert t.mave.dtype == dt
     _close(t.mave, j.mave, STATS_TOL[dt])
     _close(t.msig, j.msig, STATS_TOL[dt])
@@ -85,6 +112,81 @@ def test_marker_stats_match_jax_and_oracle(N, M, dt):
     np.testing.assert_allclose(t.msig.numpy()[:M], oracle.msig,
                                rtol=STATS_TOL[dt])
     assert np.all(t.mave.numpy()[M:] == 0) and np.all(t.msig.numpy()[M:] == 0)
+
+
+# set bits of each byte value
+_BYTE_POPC = np.array([bin(v).count("1") for v in range(256)], np.int64)
+
+
+def _popc(x: np.ndarray) -> np.ndarray:
+    """Set bits of each uint32 of ``x``, summed over its four bytes."""
+    x = np.ascontiguousarray(x, dtype=np.uint32)
+    return _BYTE_POPC[x.view(np.uint8)].reshape(*x.shape, 4).sum(-1)
+
+
+def _kernel_counts(words: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """What ``csrc/counts.cu`` computes, in numpy: per word and mask word
+    n2, n1, nb by its three bit identities, then (S_a, S_b, S_aa)."""
+    w = words.astype(np.uint32)
+    m = (mask.astype(np.uint32) & np.uint32(0x55555555))[:, None]
+    hi = w >> np.uint32(1)
+    n2 = _popc(m & ~w & ~hi).sum(0)
+    n1 = _popc(m & ~w & hi).sum(0)
+    nb = _popc(m & (~w | hi)).sum(0)
+    return np.stack([2 * n2 + n1, nb, 4 * n2 + n1])
+
+
+def test_count_identities_match_the_decode_tables():
+    """The count kernel's three bit identities give ``matvec._swar``'s
+    dosage a, a**2 and indicator b for every byte value, at every bit pair
+    and byte of a word, under a mask of that one field."""
+    x = torch.arange(256, dtype=torch.int32)
+    for j in range(4):
+        w = x << (8 * j)
+        for k in range(4):
+            a, b = tmv._swar(w, k)
+            a = ((a >> (8 * j)) & 0xFF).numpy()
+            b = ((b >> (8 * j)) & 0xFF).numpy()
+            mask = np.full(1, 1 << (8 * j + 2 * k))
+            got = _kernel_counts(w.numpy()[None, :], mask)
+            np.testing.assert_array_equal(got, np.stack([a, b, a * a]))
+
+
+# (N, first marker, last marker) of the words the counts read: Nw/32 = 7
+# (a prime), a width of 512*5, a ragged width at an odd offset, the second
+# slab of a two-slab mesh, and the marker with no call beside the plane
+# with no phenotype
+COUNT_LAYOUTS = [pytest.param(3584, 0, 40, False, id="nw224"),
+                 pytest.param(200, 0, 2560, False, id="mpad2560"),
+                 pytest.param(131, 3, 2560 - 3, False, id="ragged"),
+                 pytest.param(300, 512, 1024, False, id="slab"),
+                 pytest.param(130, 0, 40, True, id="holes")]
+
+
+@pytest.mark.parametrize("N,lo,hi,holes", COUNT_LAYOUTS)
+def test_marker_counts_are_exact(N, lo, hi, holes):
+    """The statistics pass's counts S_a, S_b, S_aa (the plain version,
+    ``marker_counts`` on the CPU) equal numpy's integer sums over the codes
+    and the NA mask, at widths and row counts no block divides; the count
+    kernel's bit identities over ``na_mask_words`` give the same counts."""
+    M = min(hi, 2500)
+    codes, y = _stats_dataset(N, M, holes)
+    t = TGenoBed.from_arrays(make_bed(codes), y, N=N, dtype=torch.float64,
+                             device="cpu")
+    oracle = DenseOracle(codes, y)
+    na = oracle.na.astype(np.int64)[None, :]
+    a, b = oracle.a.astype(np.int64), oracle.b.astype(np.int64)
+    want = np.zeros((3, t.Mpad), np.int64)
+    want[:, :M] = [(a * na).sum(1), (b * na).sum(1), (a * a * na).sum(1)]
+    want = want[:, lo:hi]
+    words = t.words[:, lo:hi]
+    got = tmv.marker_counts(words, t.na_planar)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
+    mask = tmv.na_mask_words(t.na_planar).numpy()
+    np.testing.assert_array_equal(_kernel_counts(words.numpy(), mask), want)
+    if holes:
+        assert want[:, 3].tolist() == [0, 0, 0]
 
 
 @pytest.mark.parametrize("miss", [0.0, 0.05])

@@ -446,7 +446,8 @@ def test_cpu_wrappers_launch_nothing_and_non_cpu_raises():
     assert set(tmv.LAUNCHES) == {"axm_i8a", "atxm_i8a", "axm_i8", "atxm_i8",
                                  "atx", "ax", "gram_aat_i8a", "gram_aat_i8",
                                  "gram_i8a", "gram_i8", "axm_bf16",
-                                 "atxm_bf16", "axm_i8s", "atx_a", "stream",
+                                 "atxm_bf16", "axm_i8s", "atx_a",
+                                 "marker_counts", "stream",
                                  "stream_sum", "v0_stream", "v1_decode_a",
                                  "v2_decode_ab", "v3_bitcast", "v5_dot1",
                                  "v6_fused_ab", "v7_i8decode", "v8_atxm_vt",
@@ -463,6 +464,7 @@ def test_cpu_wrappers_launch_nothing_and_non_cpu_raises():
                  torch.zeros(1))
     tmv.gram_i8(words, torch.ones((512, 1)), torch.ones((512, 1)),
                 torch.ones((4, 128)))
+    tmv.marker_counts(words, torch.ones((4, 128)))
     assert set(tmv.LAUNCHES.values()) == {0}
     meta = words.to("meta")
     with pytest.raises(ValueError, match="CUDA tensors only"):
@@ -483,6 +485,8 @@ def test_cpu_wrappers_launch_nothing_and_non_cpu_raises():
         with pytest.raises(ValueError, match="CUDA tensors only"):
             fn(meta, torch.ones((4, 128, 1), device="meta"),
                torch.ones(512, device="meta"), torch.ones(512, device="meta"))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        tmv.marker_counts(meta, torch.ones((4, 128), device="meta"))
     # 2**24 samples: the f32 non-missing counts would no longer be exact
     huge = torch.empty((2**20, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="below 2"):

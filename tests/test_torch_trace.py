@@ -34,7 +34,7 @@ PHASES = {"linear": ["denoise", "z1_project", "lmmse_cg", "noise_em",
           "robust": ["denoise_x", "denoise_z", "lmmse_cg", "lmmse_z_finish"]}
 # the sites one linear trait reaches: the statistics pass, the engine, the
 # solver, the products and the p-values
-TRAIT_SITES = {"marker_stats", "stats.decode", "stats.chain", "infer",
+TRAIT_SITES = {"marker_stats", "infer",
                "iteration", "fetch", "host_bool", "host_values",
                "prior.update", "prior.em", "prior.merge", "cg.warm_start",
                "cg.solve", "slq.build", "slq.quad", "product", "pvals.loco",
@@ -119,7 +119,8 @@ def test_every_site_records_nested(traced):
     """Every site one trait reaches records, each closed span inside its
     parent and in its parent's sequence; the top-level spans (the
     statistics pass, the fit, the two p-value calls) each take their own
-    sequence number."""
+    sequence number.  The statistics pass is one span with its path and
+    the words' shape, and no span inside."""
     records, _, _ = traced
     assert {s.name for s in records} == TRAIT_SITES
     for s in records:
@@ -132,9 +133,9 @@ def test_every_site_records_nested(traced):
     assert [s.name for s in tops] == ["marker_stats", "infer", "pvals.loco",
                                       "pvals.loo"]
     assert len({s.seq for s in tops}) == 4
-    stats = [s.name for s in _children(records, tops[0].index)]
-    assert stats and stats == ["stats.decode", "stats.chain"] * (
-        len(stats) // 2)
+    assert tops[0].attrs == {"path": "plain", "markers": 512,
+                             "word_rows": 32}
+    assert _children(records, tops[0].index) == []
     assert [s.name for s in _children(records, tops[2].index)] == [
         "pvals.predictor", "pvals.moments", "pvals.tests"]
 
